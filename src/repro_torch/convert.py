@@ -1,0 +1,92 @@
+"""Convert a JAX ``repro`` parameter tree into the port's modules.
+
+The tree is given as nested dicts and lists of numpy arrays (for
+example ``jax.tree_util.tree_map(np.asarray, params)``), so this module
+needs no JAX. It handles:
+
+  * ``embed``, ``final_norm`` and an optional ``lm_head`` (absent: tied
+    to the embedding);
+  * the ``prefix`` and ``suffix`` block lists and the scan-stacked
+    ``groups`` dict, whose leaves carry a leading group axis
+    (``repro/models/transformer.py:270-281``) — unstacked into one block
+    per layer, in depth order;
+  * the three linear schemas: fp ``{"w"[, "b"]}``, quant ``{"codes",
+    "scale", "l", "r"[, "gscale", "b"]}`` and packed4 ``{"packed", ...}``,
+    keeping MXINT padding rows (``codes`` may have more rows than ``l``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import Attention
+from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.models.linear import FpLinear, QLinear
+from repro_torch.models.transformer import LM, Block
+
+_DTYPES = {np.dtype(np.float32), np.dtype(np.int8), np.dtype(np.uint8)}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(a)
+    if arr.dtype not in _DTYPES:
+        raise TypeError(f"unsupported parameter dtype {arr.dtype}")
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _linear(d: Dict[str, Any], device):
+    b = _tensor(d["b"], device) if "b" in d else None
+    if "w" in d:
+        return FpLinear(_tensor(d["w"], device), b)
+    store = {"codes": _tensor(d["codes"], device)} if "codes" in d \
+        else {"packed": _tensor(d["packed"], device)}
+    gscale = _tensor(d["gscale"], device) if "gscale" in d else None
+    return QLinear(_tensor(d["scale"], device), _tensor(d["l"], device),
+                   _tensor(d["r"], device), gscale=gscale, b=b, **store)
+
+
+def _block(d: Dict[str, Any], device) -> Block:
+    mx, ml = d["mixer"], d["mlp"]
+    return Block(
+        RMSNorm(_tensor(d["norm1"]["g"], device)),
+        Attention(*(_linear(mx[n], device) for n in ("wq", "wk", "wv", "wo"))),
+        RMSNorm(_tensor(d["norm2"]["g"], device)),
+        MLP(*(_linear(ml[n], device) for n in ("up", "gate", "down"))))
+
+
+def _unstack(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _first_leaf(tree: Any):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree)
+
+
+def convert_params(tree: Dict[str, Any], cfg: ModelConfig, *,
+                   device="cuda") -> LM:
+    """Build the port's :class:`~repro_torch.models.transformer.LM` from a
+    JAX parameter tree (numpy leaves), on ``device``."""
+    dev = resolve_device(device)
+    blocks: List[Block] = [_block(d, dev) for d in tree.get("prefix", [])]
+    groups = tree.get("groups") or {}
+    period = len(cfg.block_pattern)
+    if groups:
+        n_groups = _first_leaf(groups["p0"]).shape[0]
+        for g in range(n_groups):
+            for pos in range(period):
+                blocks.append(_block(_unstack(groups[f"p{pos}"], g), dev))
+    blocks += [_block(d, dev) for d in tree.get("suffix", [])]
+    if len(blocks) != cfg.n_layers:
+        raise ValueError(f"tree holds {len(blocks)} blocks, config "
+                         f"{cfg.name} has {cfg.n_layers} layers")
+    head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
+    return LM(cfg, _tensor(tree["embed"]["w"], dev), blocks,
+              RMSNorm(_tensor(tree["final_norm"]["g"], dev)), head)

@@ -1,0 +1,102 @@
+"""Serving CLI: ``python -m repro_torch.launch.serve [--full] [...]``.
+
+Init a model from a seed → SRR-quantize it (identity scaling: the port
+has no calibration yet) into the Q + LR container → serve requests
+through the continuous-batching engine, on the card by default
+(``--device cuda``; ``--device cpu`` runs the kernels' plain versions).
+``--full`` serves the architecture at its published size instead of its
+``.reduced()`` smoke-test size.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.api import PTQConfig
+from repro_torch.models.transformer import LM, init_lm
+from repro_torch.models.quantize import quantize_model_params
+from repro_torch.serve import Engine, Request, ServeConfig
+
+
+def build_model(args) -> tuple[LM, ModelConfig]:
+    """Init the model per the model flags and quantize it unless
+    ``--method none``; returns ``(model, cfg)``."""
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    model = init_lm(cfg, args.seed, device=args.device)
+    if args.method != "none":
+        ptq = PTQConfig(method=args.method, rank=args.rank, bits=args.bits,
+                        seed=args.seed)
+        t0 = time.perf_counter()
+        model, reports = quantize_model_params(model, ptq,
+                                               device=args.device)
+        print(f"[serve] {args.method} quantized {len(reports)} matrices in "
+              f"{time.perf_counter() - t0:.1f}s")
+    return model, cfg
+
+
+def make_requests(cfg: ModelConfig, n: int, seed: int,
+                  lengths: Optional[Sequence[int]] = None) -> List[Request]:
+    """``n`` requests with random prompts; lengths default to the JAX
+    CLI's ``8 + 4·(i % 3)``."""
+    rng = np.random.default_rng(seed)
+    if lengths is None:
+        lengths = [8 + 4 * (i % 3) for i in range(n)]
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=lengths[i])
+                    .astype(np.int32)) for i in range(n)]
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--arch", default="phi3-mini-3.8b")
+    p.add_argument("--method", default="srr", choices=["srr", "none"])
+    p.add_argument("--rank", type=int, default=16)
+    p.add_argument("--bits", type=int, default=3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--kv", default="f32", choices=["f32", "bf16", "int8", "int4"])
+    p.add_argument("--requests", type=int, default=8)
+    p.add_argument("--new-tokens", type=int, default=16)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--prefill-len", type=int, default=32,
+                   help="prompt pad width")
+    p.add_argument("--fused", default="auto", choices=["auto", "on", "off"],
+                   help="auto/on: the CUDA kernels on the card, their plain "
+                        "versions on the CPU; off: dequantize-then-matmul "
+                        "and dequantize-the-cache baselines")
+    p.add_argument("--compute-dtype", default="f32", choices=["f32", "bf16"])
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--full", action="store_true",
+                   help="published size instead of .reduced()")
+    return p
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
+    model, cfg = build_model(args)
+    max_len = max(128, args.prefill_len + args.new_tokens)
+    eng = Engine(model, cfg, ServeConfig(
+        max_len=max_len, decode_batch=args.batch,
+        max_new_tokens=args.new_tokens, kv_dtype=args.kv,
+        prefill_len=args.prefill_len, fused=args.fused,
+        compute_dtype=args.compute_dtype), device=args.device)
+    reqs = make_requests(cfg, args.requests, args.seed)
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.tokens) for r in results)
+    print(f"[serve] {len(results)} requests, {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s, device={args.device})")
+    for r in results[:3]:
+        print(f"  req {r.uid} [{r.finish_reason}]: {r.tokens[:10].tolist()}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,65 @@
+"""Shared building blocks: RMSNorm, full RoPE, the SwiGLU MLP, the
+embedding (port of ``repro/models/layers.py``, the parts the dense
+decoder uses)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.linear import Ctx, FpLinear, linear
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, g: torch.Tensor):
+        super().__init__()
+        self.register_buffer("g", g)
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (y * p.g.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Full rotary embedding of all head dims, interleaved pairs.
+    x: (B, S, H, D); positions: (B, S) or (S,)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs           # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr = x.float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    rotated = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rotated.reshape(xr.shape).to(x.dtype)
+
+
+class MLP(nn.Module):
+    """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
+
+    def __init__(self, up: nn.Module, gate: nn.Module, down: nn.Module):
+        super().__init__()
+        self.up, self.gate, self.down = up, gate, down
+
+
+def mlp(ctx: Ctx, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    up = linear(ctx, p.up, x)
+    h = torch.nn.functional.silu(linear(ctx, p.gate, x)) * up
+    return linear(ctx, p.down, h)
+
+
+def init_linear(gen: torch.Generator, m: int, n: int, std: float,
+                device) -> FpLinear:
+    return FpLinear(torch.randn((m, n), generator=gen, device=device) * std)
+
+
+def embed(w: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return w[tokens].to(dtype)

@@ -1,0 +1,115 @@
+"""Linear layers of the port: every projection routes through :func:`linear`.
+
+The layer's module type is its execution mode, as the params-dict schema
+is in ``repro/models/linear.py``:
+
+  FpLinear : ``w`` (m, n) [, ``b`` (n,)]                  — full precision
+  QLinear  : ``codes`` int8 (m_pad, n) or ``packed`` uint8 (m_pad/2, n),
+             ``scale`` (m_pad/32, n), ``l`` (m, r), ``r`` (r, n),
+             ``gscale`` (r,) [, ``b``]                      — Q + LR serving
+
+``m_pad`` rounds the input dim up to the MXINT block; ``l`` keeps the
+true row count, and the padding rows are zero-padded on the fly.
+
+``Ctx.fused`` picks the Q + LR path: ``"auto"`` and ``"on"`` both go
+through :func:`repro_torch.kernels.mxint_matmul.qlr_matmul`, which
+launches K1/K2 on a CUDA tensor and runs their plain version on a CPU
+tensor; ``"off"`` keeps the dequantize-then-matmul baseline.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.mxint_matmul import dequant_blockwise, qlr_matmul
+from repro_torch.quant.mxint import unpack_codes_4bit
+
+
+@dataclasses.dataclass
+class Ctx:
+    """Per-call model context."""
+
+    compute_dtype: torch.dtype = torch.float32
+    fused: str = "auto"                           # Q+LR matmul: auto|on|off
+
+
+class FpLinear(nn.Module):
+    """Full-precision projection ``y = x @ w (+ b)``."""
+
+    def __init__(self, w: torch.Tensor, b: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("w", w)
+        self.register_buffer("b", b)
+
+
+class QLinear(nn.Module):
+    """Q + LR projection: MXINT codes (int8 or packed4) with per-block
+    power-of-two scales, plus the rank-r correction ``l @ r``."""
+
+    def __init__(self, scale: torch.Tensor, l: torch.Tensor, r: torch.Tensor,
+                 *, codes: Optional[torch.Tensor] = None,
+                 packed: Optional[torch.Tensor] = None,
+                 gscale: Optional[torch.Tensor] = None,
+                 b: Optional[torch.Tensor] = None):
+        super().__init__()
+        if (codes is None) == (packed is None):
+            raise ValueError("QLinear takes exactly one of codes / packed")
+        self.register_buffer("codes", codes)
+        self.register_buffer("packed", packed)
+        self.register_buffer("scale", scale)
+        self.register_buffer("l", l)
+        self.register_buffer("r", r)
+        self.register_buffer("gscale", gscale)
+        self.register_buffer("b", b)
+
+
+def fused_mode(ctx: Ctx) -> str:
+    """Resolve ``ctx.fused``: ``"kernel"`` (the kernel wrappers — K1/K2 on
+    CUDA tensors, their plain version on CPU tensors) or ``"off"``."""
+    if ctx.fused == "off":
+        return "off"
+    if ctx.fused not in ("auto", "on"):
+        raise ValueError(f"ctx.fused must be auto|on|off, got {ctx.fused!r}")
+    return "kernel"
+
+
+def dequant_weight(p: QLinear, dtype) -> torch.Tensor:
+    """Materialize the quantized backbone (the ``fused="off"`` path),
+    sliced back to the true input dim."""
+    codes = unpack_codes_4bit(p.packed) if p.packed is not None else p.codes
+    w = dequant_blockwise(codes, p.scale, dtype)
+    return w[: p.l.shape[0]]
+
+
+def _fused_qlr(p: QLinear, x: torch.Tensor) -> torch.Tensor:
+    """One quantized projection through the Q + LR matmul, padding x and
+    l with zeros up to the MXINT-padded code rows."""
+    if p.packed is not None:
+        codes, rows = p.packed, p.packed.shape[0] * 2
+    else:
+        codes, rows = p.codes, p.codes.shape[0]
+    l = p.l
+    pad = rows - x.shape[-1]
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+        l = torch.nn.functional.pad(l, (0, 0, 0, pad))
+    return qlr_matmul(x, codes, p.scale, l, p.r)
+
+
+def linear(ctx: Ctx, p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``y = x @ W (+ b)``, dispatching on the layer type."""
+    dt = ctx.compute_dtype
+    if isinstance(p, FpLinear):
+        y = x.to(dt) @ p.w.to(dt)
+    elif fused_mode(ctx) != "off":
+        y = _fused_qlr(p, x.to(dt))
+    else:
+        y = x.to(dt) @ dequant_weight(p, dt)
+        if p.l.shape[1] > 0:
+            y = y + (x.to(dt) @ p.l.to(dt)) @ p.r.to(dt)
+    if p.b is not None:
+        y = y + p.b.to(dt)
+    return y

@@ -1,0 +1,154 @@
+"""Dense decoder: config → init / forward / prefill / decode (port of the
+dense-attention parts of ``repro/models/transformer.py``).
+
+The JAX package folds depth into a ``lax.scan`` over stacked params; here
+the layers are an ``nn.ModuleList`` walked by a Python loop, and the
+cache is a list with one dict per layer (see ``models.attention``).
+Embeddings and the LM head stay full precision by PTQ policy.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (MLP, RMSNorm, embed, init_linear, mlp,
+                                       rmsnorm)
+from repro_torch.models.linear import Ctx, FpLinear, linear
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """This slice serves dense full-attention RoPE/SwiGLU/RMSNorm
+    decoders; raise for anything else rather than run it wrongly."""
+    dense = (set(cfg.block_pattern) == {"attn"} and cfg.attn_kind == "gqa"
+             and not cfg.moe and not cfg.first_dense
+             and not cfg.is_encoder_decoder and not cfg.n_vision_tokens
+             and cfg.rope_kind == "full" and cfg.act == "swiglu"
+             and cfg.norm == "rmsnorm" and cfg.d_ff > 0)
+    if not dense:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense GQA decoders with full RoPE, "
+            f"SwiGLU and RMSNorm only (block_pattern={cfg.block_pattern}, "
+            f"attn_kind={cfg.attn_kind!r}, moe={cfg.moe})")
+
+
+class Block(nn.Module):
+    def __init__(self, norm1: RMSNorm, mixer: attn.Attention, norm2: RMSNorm,
+                 mlp_: MLP):
+        super().__init__()
+        self.norm1, self.mixer, self.norm2, self.mlp = norm1, mixer, norm2, mlp_
+
+
+class LM(nn.Module):
+    """Embedding, blocks, final norm, LM head (``None``: tied to the
+    embedding)."""
+
+    def __init__(self, cfg: ModelConfig, embed_w: torch.Tensor,
+                 blocks: List[Block], final_norm: RMSNorm,
+                 lm_head: Optional[FpLinear]):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.register_buffer("embed", embed_w)
+        self.blocks = nn.ModuleList(blocks)
+        self.final_norm = final_norm
+        self.lm_head = lm_head
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
+    """Random f32 model from ``seed`` with the JAX package's init scales
+    (``transformer.init_lm``); the numbers differ from JAX's, since the
+    generators differ."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, hd, ff = cfg.d_model, cfg.head_dim_, cfg.d_ff
+    qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    ones = lambda: torch.ones((d,), device=dev)  # noqa: E731
+    blocks = []
+    for _ in range(cfg.n_layers):
+        mixer = attn.Attention(
+            init_linear(gen, d, qd, d ** -0.5, dev),
+            init_linear(gen, d, kvd, d ** -0.5, dev),
+            init_linear(gen, d, kvd, d ** -0.5, dev),
+            init_linear(gen, qd, d, 1.0 / (qd ** 0.5 * (2 * cfg.n_layers) ** 0.5),
+                        dev))
+        mlp_ = MLP(init_linear(gen, d, ff, d ** -0.5, dev),
+                   init_linear(gen, d, ff, d ** -0.5, dev),
+                   init_linear(gen, ff, d, ff ** -0.5, dev))
+        blocks.append(Block(RMSNorm(ones()), mixer, RMSNorm(ones()), mlp_))
+    embed_w = torch.randn((cfg.vocab, d), generator=gen, device=dev) * 0.02
+    head = None if cfg.tie_embeddings else init_linear(gen, d, cfg.vocab,
+                                                        d ** -0.5, dev)
+    return LM(cfg, embed_w, blocks, RMSNorm(ones()), head)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device) -> List[Dict[str, torch.Tensor]]:
+    """One zeroed slot-cache dict per layer (``dtype``: a float dtype,
+    ``torch.int8``, or ``"int4"``)."""
+    return [attn.init_attn_cache(cfg, batch, max_len, dtype, device)
+            for _ in range(cfg.n_layers)]
+
+
+def _head(ctx: Ctx, model: LM, x: torch.Tensor) -> torch.Tensor:
+    if model.lm_head is None:
+        return x.to(ctx.compute_dtype) @ model.embed.T.to(ctx.compute_dtype)
+    return linear(ctx, model.lm_head, x)
+
+
+def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
+            cache: Optional[List[Dict]] = None,
+            lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
+    """Prefill/scoring pass over (B, S) tokens; returns the final-normed
+    hidden states (B, S, D) and, with ``cache``, the populated cache."""
+    cfg = model.cfg
+    x = embed(model.embed, tokens, ctx.compute_dtype)
+    new_cache = [] if cache is not None else None
+    for i, blk in enumerate(model.blocks):
+        y, c = attn.attention_seq(ctx, blk.mixer, rmsnorm(blk.norm1, x), cfg,
+                                  cache=cache[i] if cache is not None else None,
+                                  lengths=lengths)
+        x = x + y
+        x = x + mlp(ctx, blk.mlp, rmsnorm(blk.norm2, x))
+        if new_cache is not None:
+            new_cache.append(c)
+    return rmsnorm(model.final_norm, x), new_cache
+
+
+def prefill(ctx: Ctx, model: LM, tokens: torch.Tensor, cache: List[Dict],
+            lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, List[Dict]]:
+    """Process right-padded prompts; returns (logits (B, 1, V) at each
+    row's last valid position, populated cache)."""
+    hidden, cache = forward(ctx, model, tokens, cache=cache, lengths=lengths)
+    if lengths is None:
+        last = hidden[:, -1:, :]
+    else:
+        ix = (lengths.to(torch.int64) - 1)[:, None, None]
+        last = torch.take_along_dim(hidden, ix, dim=1)
+    return _head(ctx, model, last), cache
+
+
+def decode_step(ctx: Ctx, model: LM, token: torch.Tensor,
+                cache: List[Dict]) -> Tuple[torch.Tensor, List[Dict]]:
+    """One token for every row; token (B, 1). The cache is updated in
+    place and returned."""
+    cfg = model.cfg
+    x = embed(model.embed, token, ctx.compute_dtype)
+    for blk, c in zip(model.blocks, cache):
+        y, _ = attn.attention_step(ctx, blk.mixer, rmsnorm(blk.norm1, x), c,
+                                   cfg)
+        x = x + y
+        x = x + mlp(ctx, blk.mlp, rmsnorm(blk.norm2, x))
+    x = rmsnorm(model.final_norm, x)
+    return _head(ctx, model, x), cache

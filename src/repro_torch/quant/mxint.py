@@ -1,0 +1,99 @@
+"""MXINT block quantizer — the port of ``repro.quant.mxint``.
+
+A block of ``block_size`` consecutive weights along the *reduction* axis
+(axis 0 of an ``(m, n)`` weight used as ``y = x @ W``) shares one 8-bit
+power-of-two exponent; each element stores a signed ``bits``-bit integer
+mantissa. Codes and exponents match the JAX quantizer bit for bit: the
+exponent is ``ceil(log2(amax / qmax))`` and rounding is half-to-even
+(``torch.round``, like ``jnp.round``).
+
+``pack_codes_4bit`` / ``unpack_codes_4bit`` are the deployment container
+for ``bits <= 4``: two codes per uint8 byte, even rows in the low nibble.
+The CUDA matmul and decode-attention kernels read it as is.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+
+class MXIntPacked(NamedTuple):
+    """Quantized weight: int8 codes + per-block int8 exponents.
+
+    ``codes``     int8  (m_pad, n)       mantissas in [-qmax-1, qmax]
+    ``exponents`` int8  (m_pad//block, n) shared power-of-2 exponent
+    """
+
+    codes: torch.Tensor
+    exponents: torch.Tensor
+    block_size: int
+    bits: int
+    orig_rows: int  # m before padding
+
+
+def _qmax(bits: int) -> int:
+    return 2 ** (bits - 1) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MXIntQuantizer:
+    """Symmetric MXINT quantizer with shared power-of-2 block exponents."""
+
+    bits: int = 3
+    block_size: int = 32
+
+    def quantize(self, w: torch.Tensor) -> MXIntPacked:
+        if w.ndim != 2:
+            raise ValueError(f"MXInt expects 2-D weights, got {tuple(w.shape)}")
+        m, n = w.shape
+        b = self.block_size
+        qmax = _qmax(self.bits)
+        wp = torch.nn.functional.pad(w.float(), (0, 0, 0, (-m) % b))
+        blocks = wp.reshape(-1, b, n)                       # (nb, b, n)
+        amax = blocks.abs().amax(dim=1)                     # (nb, n)
+        safe = torch.where(amax > 0, amax, torch.ones_like(amax))
+        exp = torch.ceil(torch.log2(safe / qmax)).clamp(-127, 127)
+        scale = torch.exp2(exp)[:, None, :]
+        codes = torch.clamp(torch.round(blocks / scale), -qmax - 1, qmax)
+        codes = torch.where(amax[:, None, :] > 0, codes, torch.zeros_like(codes))
+        return MXIntPacked(codes=codes.reshape(wp.shape).to(torch.int8),
+                           exponents=exp.to(torch.int8), block_size=b,
+                           bits=self.bits, orig_rows=m)
+
+    def dequantize(self, packed: MXIntPacked) -> torch.Tensor:
+        b = packed.block_size
+        codes = packed.codes.float()
+        nb, n = codes.shape[0] // b, codes.shape[1]
+        scale = torch.exp2(packed.exponents.float())
+        out = (codes.reshape(nb, b, n) * scale[:, None, :]).reshape(codes.shape)
+        return out[: packed.orig_rows]
+
+    def fake_quant(self, w: torch.Tensor) -> torch.Tensor:
+        return self.dequantize(self.quantize(w)).to(w.dtype)
+
+
+def pack_codes_4bit(codes: torch.Tensor) -> torch.Tensor:
+    """Pack int8 codes in [-8, 7] two per byte (even rows = low nibble).
+
+    Rows live on axis -2; leading dims (the (B, KV) dims of a head-major
+    KV cache) pass through. (..., m, n) int8 with m even → (..., m//2, n)
+    uint8."""
+    if codes.shape[-2] % 2:
+        raise ValueError("row count must be even to pack 4-bit pairs")
+    u = codes.to(torch.int32) & 0xF
+    lo, hi = u[..., 0::2, :], u[..., 1::2, :]
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def unpack_codes_4bit(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_codes_4bit` → int8 codes in [-8, 7], with
+    the shift-based sign extension the kernels use: ``(b << 28) >> 28``
+    for the low nibble and ``(b << 24) >> 28`` for the high one, in
+    int32."""
+    u = packed.to(torch.int32)
+    lo = ((u << 28) >> 28).to(torch.int8)
+    hi = ((u << 24) >> 28).to(torch.int8)
+    lead, (m2, n) = packed.shape[:-2], packed.shape[-2:]
+    return torch.stack([lo, hi], dim=-2).reshape(*lead, m2 * 2, n)

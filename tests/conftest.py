@@ -11,6 +11,12 @@ import pytest
 jax.config.update("jax_enable_x64", False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernel tests); "
+                   "skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
