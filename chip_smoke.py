@@ -8,21 +8,31 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. the device: ``torch.cuda.get_device_name`` and nvidia-smi's name and
    power limit;
 2. the kernel build: one ``nvcc`` per CUDA source, all started together;
-3. every kernel of the path (K1, K2, K3, K4) against its plain PyTorch
-   version at phi3-mini-3.8b's full-width shapes: max error against a
-   stated tolerance, kernel / plain / library-yardstick times (CUDA
-   events, inputs rotated through more than the 50 MB L2 cache, as a
-   decode step over 32 layers finds them cold) and the bound;
-4. the main path at full width, through the entry points a user calls:
-   ``init_lm`` (seed 0) → SRR ``quantize_model_params`` (rank 16, 3-bit
-   MXINT, int8 container) → ``Engine`` (8 lanes, bf16 KV, fused auto)
-   answering 8 requests of 32 new tokens with 150–250-token prompts,
-   with every kernel's launch count read around that run; then the same
-   model's prefill logits through the kernels against the
+3. every kernel of the paths (K1, K2, K3, K4, K5) against its plain
+   PyTorch version at phi3-mini-3.8b's full-width shapes (K4 also at the
+   chunked-prefill shape, K5 on a shuffled block table): max error
+   against a stated tolerance, kernel / plain / library-yardstick times
+   (CUDA events, inputs rotated through more than the 50 MB L2 cache, as
+   a decode step over 32 layers finds them cold) and the bound;
+4. the unpaged main path at full width, through the entry points a user
+   calls: ``init_lm`` (seed 0) → SRR ``quantize_model_params`` (rank 16,
+   3-bit MXINT, int8 container) → ``Engine`` (8 lanes, bf16 KV, fused
+   auto) answering 8 requests of 32 new tokens with 150–250-token
+   prompts, with every kernel's launch count read around that run; then
+   the same model's prefill logits through the kernels against the
    dequantize-then-matmul baseline;
+4b. the paged main path with the same quantized model:
+   ``ServeConfig(paged=True)`` (pages of 16, chunks of 256, a 520-token
+   step budget) answering 16 requests that share a 256-token prefix,
+   with the launch counts read around that run (K3 must stay at 0: paged
+   decode goes through K5); then a 300-token prompt's logits through two
+   paged chunks against the unpaged one-shot prefill and against
+   ``fused="off"``;
 5. a reduced-depth (2-layer, full-width) model in the packed4 container
-   served with int4 and int8 KV, and its prefill logits on the card
-   (kernels) against the CPU (plain versions).
+   served with int4 and int8 KV, unpaged and paged (chunks of 64, so the
+   packed4 chunk writes and nibble read-modify-writes run on the card),
+   and its prefill logits on the card (kernels) against the CPU (plain
+   versions).
 
 The last lines are the nvidia-smi line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -242,6 +252,137 @@ def check_flash(dev, h=32, s=256, hd=96) -> dict:
                 bound_by=b_by)
 
 
+def check_paged(dev, kind: str, b=8, kvh=32, hd=96, ps=16, nb=32,
+                pages=296) -> dict:
+    """K5 on the paged serving shape: a pool of ``pages`` pages, each row
+    a shuffled table of ``nb`` distinct pages, ragged positions."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.quant.mxint import pack_codes_4bit, unpack_codes_4bit
+
+    gen = torch.Generator(device=dev).manual_seed(pages)
+    q = torch.randn((b, kvh, 1, hd), generator=gen, device=dev)
+    kf = torch.randn((pages, kvh, ps, hd), generator=gen, device=dev)
+    vf = torch.randn((pages, kvh, ps, hd), generator=gen, device=dev)
+    ks = vs = None
+    if kind == "bf16":
+        k, v = kf.bfloat16(), vf.bfloat16()
+    else:
+        qmax = 127 if kind == "int8" else 7
+        ks = kf.abs().amax(-1).clamp_min(1e-8) / qmax
+        vs = vf.abs().amax(-1).clamp_min(1e-8) / qmax
+        k = torch.round(kf / ks[..., None]).clamp(-qmax, qmax).to(torch.int8)
+        v = torch.round(vf / vs[..., None]).clamp(-qmax, qmax).to(torch.int8)
+        if kind == "int4":
+            k, v = pack_codes_4bit(k), pack_codes_4bit(v)
+    cpu = torch.Generator().manual_seed(1)
+    bt = torch.randperm(pages, generator=cpu)[:b * nb].reshape(b, nb) \
+        .to(torch.int32).to(dev)
+    q_pos = torch.randint(150, 501, (b,), generator=cpu, dtype=torch.int32) \
+        .to(dev)
+    k_pos = torch.arange(nb * ps, dtype=torch.int32, device=dev).repeat(b, 1)
+
+    def kernel(q_, k_, v_, ks_, vs_):
+        return dk.flash_decode_paged(q_, k_, v_, q_pos, k_pos, bt, ks_, vs_)
+
+    def plain(q_, k_, v_, ks_, vs_):
+        return dk.decode_attention_paged_plain(q_, k_, v_, q_pos, k_pos, bt,
+                                               ks_, vs_)
+
+    def gather_sdpa(q_, k_, v_, ks_, vs_):
+        kd, vd = dk.gather_pages(k_, bt), dk.gather_pages(v_, bt)
+        if ks_ is not None:
+            if kd.dtype == torch.uint8:
+                kd, vd = unpack_codes_4bit(kd), unpack_codes_4bit(vd)
+            kd = kd.float() * dk.gather_pages(ks_, bt)[..., None]
+            vd = vd.float() * dk.gather_pages(vs_, bt)[..., None]
+        mask = (k_pos <= q_pos[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q_.to(kd.dtype), kd, vd,
+                                              attn_mask=mask)
+
+    got, want = kernel(q, k, v, ks, vs), plain(q, k, v, ks, vs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    per_copy = tensor_bytes(k, v, ks, vs)
+    sets = [(q, k.clone(), v.clone(), None if ks is None else ks.clone(),
+             None if vs is None else vs.clone())
+            for _ in range(copies_for(per_copy))]
+    t_kernel, host = time_ms(kernel, sets)
+    t_plain, _ = time_ms(plain, sets)
+    t_note, _ = time_ms(gather_sdpa, sets)
+    # the bytes the function needs: the K/V rows (and scales) of every
+    # row's valid slots 0..q_pos, its table, positions, q and the output
+    valid = int((q_pos + 1).sum())
+    slot_bytes = 2 * kvh * hd * k.element_size() / (2 if kind == "int4" else 1)
+    if ks is not None:
+        slot_bytes += 2 * kvh * 4
+    nbytes = valid * slot_bytes + tensor_bytes(q, bt, q_pos, k_pos) \
+        + q.numel() * 4
+    walked = b * nb * ps * slot_bytes
+    ops = 2 * 2 * valid * kvh * hd
+    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    return dict(name="K5 flash_decode_paged",
+                shape=f"B={b} KV={kvh} G=1 hd={hd} ps={ps} nb={nb} "
+                      f"P={pages} {kind}",
+                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
+                plain_ms=t_plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, walked_bound_ms=walked / HBM_BYTES_PER_S * 1e3,
+                note=f"gather_pages + SDPA on the gathered cache "
+                     f"{t_note:.4f} ms")
+
+
+def check_flash_chunk(dev, h=32, sq=256, ctx=512, start=200, hd=96) -> dict:
+    """K4 at the chunked-prefill shape: ``sq`` queries at positions
+    [start, start+sq) over [``ctx`` stored slots ‖ the chunk], the
+    stored slots at and above ``start`` masked by k_pos = -1."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+
+    gen = torch.Generator(device=dev).manual_seed(start)
+    q = torch.randn((1, sq, h, 1, hd), generator=gen, device=dev)
+    k = torch.randn((1, ctx + sq, h, hd), generator=gen, device=dev)
+    v = torch.randn((1, ctx + sq, h, hd), generator=gen, device=dev)
+    q_pos = torch.arange(start, start + sq, dtype=torch.int32, device=dev)
+    slots = torch.arange(ctx, dtype=torch.int32, device=dev)
+    k_pos = torch.cat([torch.where(slots < start, slots, -1), q_pos])
+    mask = (k_pos[None, :] >= 0) & (q_pos[:, None] >= k_pos[None, :])
+
+    def kernel(q_, k_, v_):
+        return fk.flash_attention_cuda(q_, k_, v_, q_pos, k_pos)
+
+    def plain(q_, k_, v_):
+        return fk.flash_attention_plain(q_, k_, v_, q_pos, k_pos)
+
+    got, want = kernel(q, k, v), plain(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    n_copies = copies_for(tensor_bytes(q, k, v))
+    sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n_copies)]
+    heads = [(a.reshape(1, sq, h, hd).transpose(1, 2).contiguous(),
+              b_.transpose(1, 2).contiguous(), c.transpose(1, 2).contiguous())
+             for a, b_, c in sets]
+    t_kernel, host = time_ms(kernel, sets)
+    t_plain, _ = time_ms(plain, sets)
+    t_lib, _ = time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, attn_mask=mask), heads)
+    # bytes: q, out and the K/V rows of the valid keys; ops: the valid
+    # (query, key) pairs — start stored keys and the causal chunk
+    pairs = sq * start + sq * (sq + 1) // 2
+    nbytes = 2 * tensor_bytes(q) + 2 * (start + sq) * h * hd * 4 \
+        + tensor_bytes(q_pos, k_pos)
+    ops = 2 * 2 * h * pairs * hd
+    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    return dict(name="K4 flash_attention", shape=f"H={h} Sq={sq} "
+                f"Sk={ctx + sq} start={start} hd={hd} chunk f32",
+                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
+                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
 def phase_kernels(dev) -> list:
     rows = []
     for m in (8, 256):                         # decode lanes → K1; prefill → K2
@@ -252,12 +393,19 @@ def phase_kernels(dev) -> list:
     for kind in ("bf16", "int8", "int4"):
         rows.append(check_decode(dev, kind))
     rows.append(check_flash(dev))
+    rows.append(check_flash_chunk(dev))
+    for kind in ("bf16", "int8", "int4"):
+        rows.append(check_paged(dev, kind))
     for r in rows:
+        lib = (f"library {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else f"[{r['note']}]")
         log("kernels", f"{r['name']:22s} {r['shape']:34s} err {r['max_abs_err']:.3e} "
             f"(tol {r['tol']:.1e}) kernel {r['ms']:.4f} ms (host "
             f"{r['host_ms']:.4f} ms/call) plain "
-            f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['plain_ms']:.4f} ms {lib} bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f", pages walked {r['walked_bound_ms']:.4f} ms"
+               if "walked_bound_ms" in r else ""))
     bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
     require(not bad, f"kernels disagree with their plain versions: {bad}")
     return rows
@@ -272,7 +420,8 @@ def launch_counts() -> dict:
     return {"K1": mxint_matmul.LAUNCHES["qlr_fused"],
             "K2": mxint_matmul.LAUNCHES["qlr"],
             "K3": decode_attention.LAUNCHES["flash_decode"],
-            "K4": flash_attention.LAUNCHES["flash_attention"]}
+            "K4": flash_attention.LAUNCHES["flash_attention"],
+            "K5": decode_attention.LAUNCHES["flash_decode_paged"]}
 
 
 def reset_counts() -> None:
@@ -281,6 +430,13 @@ def reset_counts() -> None:
     for mod in (mxint_matmul, decode_attention, flash_attention):
         for key in mod.LAUNCHES:
             mod.LAUNCHES[key] = 0
+
+
+def prefill_work(eng) -> tuple:
+    """(admissions, prefill chunks) so far: a step that changes neither
+    only decoded."""
+    st = eng.stats()
+    return st["admitted"], st.get("prefill_chunks", 0)
 
 
 def serve(eng, reqs) -> tuple[list, list, float]:
@@ -292,11 +448,12 @@ def serve(eng, reqs) -> tuple[list, list, float]:
         eng.submit(r)
     results, decode_steps = [], []
     while eng.sched.has_work:
-        admitted = eng.sched.stats.admitted
+        before = prefill_work(eng)
         ts = time.perf_counter()
         results.extend(eng.step())          # ends in a device → host copy
-        if eng.sched.stats.admitted == admitted:
-            decode_steps.append(time.perf_counter() - ts)
+        took = time.perf_counter() - ts
+        if prefill_work(eng) == before:
+            decode_steps.append(took)
     return sorted(results, key=lambda r: r.uid), decode_steps, \
         time.perf_counter() - t0
 
@@ -335,13 +492,13 @@ def profile_decode(eng, cfg, reqs, n_steps: int = 4) -> None:
         log("profile", f"  {us / n_steps / 1e3:8.3f} ms/step  {key[:90]}")
 
 
-def phase_main_path(dev, cfg) -> dict:
+def quantized_model(dev, cfg):
+    """``init_lm`` (seed 0) → SRR PTQ (rank 16, 3-bit MXINT, int8
+    container): the model phases 4 and 4b share."""
     import torch
     from repro_torch.core.api import PTQConfig
-    from repro_torch.launch.serve import make_requests
-    from repro_torch.models import Ctx, init_cache, init_lm, prefill
+    from repro_torch.models import init_lm
     from repro_torch.models.quantize import quantize_model_params
-    from repro_torch.serve import Engine, ServeConfig
 
     t0 = time.perf_counter()
     model = init_lm(cfg, 0, device=dev)
@@ -358,6 +515,14 @@ def phase_main_path(dev, cfg) -> dict:
     mean_k = sum(r.k_star for r in reports) / len(reports)
     log("main", f"SRR quantized {len(reports)} matrices in {t_quant:.2f} s "
         f"(rank 16, 3-bit MXINT b32, mean k* {mean_k:.2f})")
+    return model, t_quant
+
+
+def phase_main_path(dev, cfg, model) -> dict:
+    import torch
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, init_cache, prefill
+    from repro_torch.serve import Engine, ServeConfig
 
     sc = ServeConfig(max_len=512, decode_batch=8, prefill_len=256,
                      kv_dtype="bf16", fused="auto", max_new_tokens=32)
@@ -384,7 +549,7 @@ def phase_main_path(dev, cfg) -> dict:
             f"{[len(r.tokens) for r in results]}")
     require(all(0 <= t < cfg.vocab for r in results for t in r.tokens),
             "a token outside the vocabulary")
-    require(all(c > 0 for c in counts.values()),
+    require(all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4")),
             f"a kernel of the path never launched: {counts}")
 
     profile_decode(eng, cfg, make_requests(cfg, 8, seed=4, lengths=lengths))
@@ -405,10 +570,117 @@ def phase_main_path(dev, cfg) -> dict:
         f"{1e-3 * scale:.3e})")
     require(err <= 1e-3 * max(1.0, scale), "kernel path disagrees with the "
             "dequantize-then-matmul baseline")
-    del eng, model
+    del eng
     torch.cuda.empty_cache()
-    return dict(counts=counts, quantize_s=t_quant, tok_s=n_tok / wall,
-                step_ms=step_ms, ttft_ms=[1e3 * t for t in ttft])
+    return dict(counts=counts, tok_s=n_tok / wall, step_ms=step_ms,
+                ttft_ms=[1e3 * t for t in ttft])
+
+
+def shared_prefix_requests(cfg, n: int, seed: int) -> list:
+    """``n`` prompts: one shared 256-token prefix (seed 5) and a tail of
+    40–150 tokens of their own (``seed``), so 296–406 tokens each."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    head = np.random.default_rng(5).integers(0, cfg.vocab, 256)
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=np.concatenate(
+        [head, rng.integers(0, cfg.vocab, int(rng.integers(40, 151)))])
+        .astype(np.int32)) for i in range(n)]
+
+
+def phase_paged(dev, cfg, model, unpaged_step_ms: float) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.models import Ctx, init_cache, prefill, prefill_chunk
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.pages import set_block_table_row
+
+    sc = ServeConfig(paged=True, page_size=16, max_len=512, decode_batch=8,
+                     prefill_len=256, kv_dtype="bf16", max_new_tokens=32,
+                     max_step_tokens=520, fused="auto")
+    serve(Engine(model, cfg, sc, device=dev),
+          shared_prefix_requests(cfg, 2, seed=7))            # warm-up
+    eng = Engine(model, cfg, sc, device=dev)
+    reqs = shared_prefix_requests(cfg, 16, seed=6)
+    reset_counts()
+    results, steps, wall = serve(eng, reqs)
+    counts = launch_counts()
+    st = eng.stats()
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_s for r in results]
+    step_ms = 1e3 * sum(steps) / len(steps)
+    log("paged", f"served {len(results)} requests (prompts "
+        f"{min(len(r.prompt) for r in reqs)}–{max(len(r.prompt) for r in reqs)}"
+        f" tokens, shared 256-token prefix), {n_tok} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tok/s; TTFT first {1e3 * min(ttft):.1f} ms mean "
+        f"{1e3 * sum(ttft) / len(ttft):.1f} ms max {1e3 * max(ttft):.1f} ms; "
+        f"decode step {step_ms:.2f} ms over {len(steps)} decode-only steps "
+        f"(unpaged phase 4: {unpaged_step_ms:.2f} ms)")
+    log("paged", f"{st['prefill_chunks']} chunks, "
+        f"{st['prefill_tokens_computed']}/{st['prompt_tokens_total']} prompt "
+        f"tokens computed, prefix hit tokens {st['prefix_hit_tokens']} (hit "
+        f"rate {st['prefix_hit_rate']:.4f}), budget-capped chunks "
+        f"{st['budget_capped_chunks']}, deferred admissions "
+        f"{st['budget_deferred_admissions']}, pages hot/total "
+        f"{st['pages_hot']}/{st['pages_total']}")
+    log("paged", f"kernel launches in the run: {counts}")
+    require(len(results) == 16 and all(len(r.tokens) == 32 for r in results),
+            f"expected 16 requests × 32 tokens, got "
+            f"{[len(r.tokens) for r in results]}")
+    require(all(0 <= t < cfg.vocab for r in results for t in r.tokens),
+            "a token outside the vocabulary")
+    require(all(counts[k] > 0 for k in ("K1", "K2", "K4", "K5")),
+            f"a kernel of the paged path never launched: {counts}")
+    require(counts["K3"] == 0, f"paged decode went through K3: {counts}")
+    require(st["prefix_hit_tokens"] > 0
+            and st["prefill_tokens_computed"] < st["prompt_tokens_total"],
+            "the prefix cache served no prompt token")
+    require(st["pages_hot"] == sc.decode_batch,
+            f"{st['pages_hot']} pages hot after draining, expected only the "
+            f"{sc.decode_batch} parked pages")
+    del eng
+
+    # a 300-token prompt in two chunks (256 + 44) over a paged f32 cache
+    # against the unpaged one-shot prefill, and against fused="off"
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab, 300)
+    tokens = torch.from_numpy(prompt).long()[None].to(dev)
+    n = torch.tensor([300], dtype=torch.int32, device=dev)
+    logit = {"unpaged": prefill(Ctx(), model, tokens,
+                                init_cache(cfg, 1, 512, torch.float32, dev),
+                                lengths=n)[0].float()}
+    for fused in ("auto", "off"):
+        cache = init_cache(cfg, 1, 512, torch.float32, dev, pages=32,
+                           page_size=16)
+        set_block_table_row(cache, 0, torch.arange(32, dtype=torch.int32,
+                                                   device=dev), 0)
+        for start, length in ((0, 256), (256, 44)):
+            chunk = torch.zeros((1, 256), dtype=torch.int64, device=dev)
+            chunk[0, :length] = tokens[0, start:start + length]
+            lg, cache = prefill_chunk(Ctx(fused=fused), model, chunk, cache,
+                                      0, start, length)
+        logit[fused] = lg.float()
+        del cache
+    scale = float(logit["unpaged"].abs().max())
+    err_unpaged = float((logit["auto"] - logit["unpaged"]).abs().max())
+    err_off = float((logit["auto"] - logit["off"]).abs().max())
+    require(bool(torch.isfinite(logit["auto"]).all()), "non-finite logits")
+    log("paged", f"300-token prompt, paged chunks 256 + 44 (kernels) vs "
+        f"unpaged one-shot prefill: max |Δ| {err_unpaged:.3e}; vs fused=off: "
+        f"max |Δ| {err_off:.3e} (max |logit| {scale:.3f}, tol "
+        f"{1e-3 * scale:.3e})")
+    require(err_unpaged <= 1e-3 * max(1.0, scale),
+            "paged chunks disagree with the unpaged prefill")
+    require(err_off <= 1e-3 * max(1.0, scale),
+            "paged chunks through the kernels disagree with fused=off")
+    torch.cuda.empty_cache()
+    return dict(counts=counts, tok_s=n_tok / wall, step_ms=step_ms,
+                ttft_ms=[1e3 * t for t in ttft],
+                prefix_hit_rate=st["prefix_hit_rate"],
+                prefill_chunks=st["prefill_chunks"],
+                prefill_tokens_computed=st["prefill_tokens_computed"],
+                prompt_tokens_total=st["prompt_tokens_total"],
+                logit_err_unpaged=err_unpaged, logit_err_off=err_off)
 
 
 def phase_reduced(dev, cfg) -> None:
@@ -423,21 +695,29 @@ def phase_reduced(dev, cfg) -> None:
                                      PTQConfig(rank=16, bits=3, seed=1),
                                      container="packed4", device=dev)
     for kv in ("int4", "int8"):
-        eng = Engine(model, cfg, ServeConfig(
-            max_len=320, decode_batch=4, prefill_len=256, kv_dtype=kv,
-            max_new_tokens=8), device=dev)
-        reset_counts()
-        results, _, wall = serve(eng, make_requests(cfg, 6, seed=2,
-                                                    lengths=[40, 90, 200, 17,
-                                                             255, 128]))
-        counts = launch_counts()
-        log("reduced", f"packed4 weights, kv {kv}: {len(results)} requests "
-            f"in {wall:.3f} s, launches {counts}")
-        require(len(results) == 6 and all(len(r.tokens) == 8
-                                          for r in results),
-                "reduced run did not finish its requests")
-        require(all(c > 0 for c in counts.values()),
-                f"a kernel never launched with kv {kv}: {counts}")
+        for paged in (False, True):
+            # paged: 64-wide chunks, so prompts of up to 255 tokens take
+            # up to four chunks, at odd lengths
+            extra = dict(paged=True, prefill_len=64) if paged else {}
+            eng = Engine(model, cfg, ServeConfig(**{
+                **dict(max_len=320, decode_batch=4, prefill_len=256,
+                       kv_dtype=kv, max_new_tokens=8), **extra}), device=dev)
+            reset_counts()
+            results, _, wall = serve(eng, make_requests(
+                cfg, 6, seed=2, lengths=[40, 90, 200, 17, 255, 129]))
+            counts = launch_counts()
+            log("reduced", f"packed4 weights, kv {kv}, "
+                f"{'paged' if paged else 'unpaged'}: {len(results)} requests "
+                f"in {wall:.3f} s, launches {counts}")
+            require(len(results) == 6 and all(len(r.tokens) == 8
+                                              for r in results),
+                    "reduced run did not finish its requests")
+            # paged, every 64-row chunk projects through K1 (rows <= 128)
+            path = ("K1", "K4", "K5") if paged else ("K1", "K2", "K4", "K3")
+            require(all(counts[k] > 0 for k in path),
+                    f"a kernel never launched with kv {kv}: {counts}")
+            require(counts["K3" if paged else "K5"] == 0,
+                    f"the other decode kernel launched: {counts}")
 
     prompt = make_requests(cfg, 1, seed=3, lengths=[200])[0].prompt
     cpu_model = copy.deepcopy(model).to("cpu")
@@ -489,8 +769,15 @@ def main() -> int:
     from repro_torch.configs import get_config
     cfg = get_config("phi3-mini-3.8b")
     t0 = time.perf_counter()
-    main_run = phase_main_path(dev, cfg)
+    model, t_quant = quantized_model(dev, cfg)
+    main_run = phase_main_path(dev, cfg, model)
+    main_run["quantize_s"] = t_quant
     log("main", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paged_run = phase_paged(dev, cfg, model, main_run["step_ms"])
+    log("paged", f"phase took {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_reduced(dev, dataclasses.replace(cfg, n_layers=2))
     log("reduced", f"phase took {time.perf_counter() - t0:.1f} s")
@@ -498,7 +785,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "cases": rows,
-                   "main_path": main_run}, fh, indent=1)
+                   "main_path": main_run, "paged_path": paged_run}, fh,
+                  indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",
@@ -511,19 +799,28 @@ def main() -> int:
                     "src/repro/kernels/decode_attention.py:121"),
              "K4": ("K4 flash_attention", "H=32 S=256 hd=96 causal f32",
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
-                    "src/repro/kernels/flash_attention.py:78")}
+                    "src/repro/kernels/flash_attention.py:78"),
+             "K5": ("K5 flash_decode_paged",
+                    "B=8 KV=32 G=1 hd=96 ps=16 nb=32 P=296 bf16",
+                    "src/repro_torch/kernels/csrc/decode_attention.cu",
+                    "src/repro/kernels/decode_attention.py:201")}
     kernels = []
     for key, (kname, shape, source, replaces) in picks.items():
         row = next(r for r in rows if r["name"] == kname
                    and r["shape"] == shape)
-        kernels.append({"name": f"{kname} ({shape})", "route": "cuda",
-                        "source": source, "replaces": replaces,
-                        "launches": main_run["counts"][key],
-                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                        "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+        # launches: K1–K4 from the unpaged main path (phase 4), K5 from
+        # the paged one (phase 4b), each read around its own run
+        run = paged_run if key == "K5" else main_run
+        entry = {"name": f"{kname} ({shape})", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": run["counts"][key],
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"]}
+        if "note" in row:
+            entry["note"] = row["note"]
+        kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

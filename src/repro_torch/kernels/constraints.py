@@ -3,6 +3,11 @@
 The wrappers check every limit here before a launch and raise on an
 input the kernel does not take; the CUDA sources carry the same numbers
 as ``constexpr`` values, with a comment pointing back here.
+
+The TPU's Mosaic floors of the JAX package (a page of at least 32
+logical slots, 64 for packed4: ``repro/kernels/constraints.py``) do not
+apply on Hopper: K5 resolves the page of every slot inside its tile, so
+any even page size runs.
 """
 from __future__ import annotations
 
@@ -32,6 +37,27 @@ ATTN_MAX_HEAD_DIM = 128
 ATTN_HEAD_DIM_ALIGN = 8
 # K3 keeps one accumulator per query head of a KV group in registers.
 DECODE_MAX_GROUP = 8
+# K3/K5 load K/V rows as 16-byte (f32/bf16) or 8-byte (int8/packed4)
+# vectors: the pools' base address must be 16-byte aligned (a fresh
+# allocation is; a view at an odd offset may not be).
+KV_PTR_ALIGN = 16
+
+# --- K5 (kernels/csrc/decode_attention.cu, paged) --------------------------
+# K5 walks a row's logical slots in K3's tiles and looks up the page of
+# each slot, so a page may be smaller or larger than a tile; the only
+# limit is the packed4 one: a page holds whole byte pairs.
+PAGE_ALIGN = PACKED4_ALIGN
+
+
+def validate_page_size(page_size: int, what: str = "page_size") -> None:
+    """Raise ``ValueError`` unless ``page_size`` logical slots can back a
+    page of the paged KV cache: positive and even (an int4 nibble pair
+    must not straddle two pages)."""
+    if page_size < PAGE_ALIGN or page_size % PAGE_ALIGN:
+        raise ValueError(
+            f"{what}={page_size} must be a positive multiple of "
+            f"{PAGE_ALIGN}: int4 packs two slots per byte and a nibble pair "
+            f"must not straddle a page")
 
 
 def check_head_dim(hd: int) -> None:

@@ -1,7 +1,9 @@
-// K3: single-query flash-decode attention over the head-major slot cache.
+// K3: single-query flash-decode attention over the head-major slot cache,
+// and K5: the same attention over the paged cache, through a block table.
 //
-// Replaces the Pallas TPU kernel flash_decode_bkgd (body _decode_kernel) in
-// src/repro/kernels/decode_attention.py.
+// K3 replaces the Pallas TPU kernel flash_decode_bkgd (body _decode_kernel)
+// in src/repro/kernels/decode_attention.py; K5 replaces flash_decode_paged
+// (body _paged_decode_kernel, which wraps the same _decode_kernel) there.
 //
 // Computes, for every batch row b and KV head h, the G query heads of the
 // group against the row's cache pages (B, KV, S, hd):
@@ -19,7 +21,8 @@
 // Design: one 128-thread block per (row, KV head) — 256 blocks at the
 // serving shape, about two per SM — walks the slot axis in 64-slot tiles;
 // the sequential TPU grid axis becomes this loop. Each tile is loaded
-// coalesced into shared memory as f32 (bf16 widened, int8 codes converted,
+// coalesced into shared memory as f32, in 8- or 16-byte vectors with
+// several loads in flight per thread (bf16 widened, int8 codes converted,
 // packed4 bytes split into their two slots with the shift-based sign
 // extension of unpack_codes_4bit), scores one thread per (head, slot),
 // the running max/sum per head by one warp, and P·V one thread per
@@ -66,46 +69,105 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Load slots [s0, s0+ts) of one (row, head) page into tile[j][d] as f32.
+// One vector load of the tile: 16 bytes of f32/bf16, 8 bytes of int8 codes
+// or packed4 bytes, i.e. VecLoad<KV>::kElems head-dim columns of one
+// stored row.
+// hd is a multiple of 8 (constraints.ATTN_HEAD_DIM_ALIGN), so a row splits
+// into whole vectors and every vector is aligned once the pool's base is
+// (constraints.KV_PTR_ALIGN, checked by the wrapper).
+template <int KV> struct VecLoad;
+template <> struct VecLoad<kF32> { using T = uint4; static constexpr int kElems = 4; };
+template <> struct VecLoad<kBF16> { using T = uint4; static constexpr int kElems = 8; };
+template <> struct VecLoad<kInt8> { using T = uint2; static constexpr int kElems = 8; };
+template <> struct VecLoad<kPacked4> { using T = uint2; static constexpr int kElems = 8; };
+constexpr int kLoadsInFlight = 8;   // vector loads a thread starts before storing
+
+// Widen one loaded vector into tile row r (packed4: rows 2r, 2r+1), columns
+// d0.. of the vector.
 template <int KV>
-__device__ __forceinline__ void load_tile(float (*tile)[kMaxHd + 1],
-                                          const void* src, size_t bh, int S,
-                                          int s0, int ts, int hd) {
-  if (KV == kPacked4) {
-    const uint8_t* p = static_cast<const uint8_t*>(src)
-        + (bh * (S / 2) + s0 / 2) * hd;
-    for (int i = threadIdx.x; i < (ts / 2) * hd; i += kThreads) {
-      const int jp = i / hd, d = i % hd;
-      const int b = static_cast<int>(p[i]);
-      tile[2 * jp][d] = static_cast<float>((b << 28) >> 28);
-      tile[2 * jp + 1][d] = static_cast<float>((b << 24) >> 28);
-    }
+__device__ __forceinline__ void store_vec(float (*tile)[kMaxHd + 1], int r,
+                                          int d0,
+                                          const typename VecLoad<KV>::T& x) {
+  constexpr int n = VecLoad<KV>::kElems;
+  if (KV == kF32) {
+    const float* e = reinterpret_cast<const float*>(&x);
+#pragma unroll
+    for (int i = 0; i < n; ++i) tile[r][d0 + i] = e[i];
+  } else if (KV == kBF16) {
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
+#pragma unroll
+    for (int i = 0; i < n; ++i) tile[r][d0 + i] = to_f32(e[i]);
+  } else if (KV == kInt8) {
+    const int8_t* e = reinterpret_cast<const int8_t*>(&x);
+#pragma unroll
+    for (int i = 0; i < n; ++i) tile[r][d0 + i] = static_cast<float>(e[i]);
   } else {
-    for (int i = threadIdx.x; i < ts * hd; i += kThreads) {
-      const size_t off = (bh * S + s0) * hd + i;
-      float v;
-      if (KV == kF32) v = static_cast<const float*>(src)[off];
-      else if (KV == kBF16) v = to_f32(static_cast<const __nv_bfloat16*>(src)[off]);
-      else v = static_cast<float>(static_cast<const int8_t*>(src)[off]);
-      tile[i / hd][i % hd] = v;
+    const uint8_t* e = reinterpret_cast<const uint8_t*>(&x);
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const int b = static_cast<int>(e[i]);
+      tile[2 * r][d0 + i] = static_cast<float>((b << 28) >> 28);
+      tile[2 * r + 1][d0 + i] = static_cast<float>((b << 24) >> 28);
     }
   }
 }
 
-template <typename QT, int KV>
+// Load the tile's ts slots into tile[j][d] as f32. slot_s[j] is slot j's
+// flat index in the (rows or pages) x KV x slots layout; a packed4 pair's
+// byte row is slot_s[2jp] / 2 (pairs never straddle a row or a page). Each
+// thread starts kLoadsInFlight independent vector loads before it stores
+// any, so the loads overlap instead of waiting on each other's latency.
+template <int KV>
+__device__ __forceinline__ void load_tile(float (*tile)[kMaxHd + 1],
+                                          const void* src,
+                                          const long long* slot_s, int ts,
+                                          int hd) {
+  using T = typename VecLoad<KV>::T;
+  constexpr int kE = VecLoad<KV>::kElems;
+  constexpr int kEltBytes = KV == kF32 ? 4 : (KV == kBF16 ? 2 : 1);
+  const char* base = static_cast<const char*>(src);
+  const int per_row = hd / kE;
+  const int n = (KV == kPacked4 ? ts / 2 : ts) * per_row;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kLoadsInFlight) {
+    T buf[kLoadsInFlight];
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n) {
+        const int r = i / per_row, c = i % per_row;
+        const long long row = KV == kPacked4 ? slot_s[2 * r] / 2 : slot_s[r];
+        buf[u] = *reinterpret_cast<const T*>(
+            base + (static_cast<size_t>(row) * hd + c * kE) * kEltBytes);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n) store_vec<KV>(tile, i / per_row, (i % per_row) * kE, buf[u]);
+    }
+  }
+}
+
+// S counts a row's logical slots (nb * page when PAGED). Unpaged, slot j of
+// (b, h) is flat slot bh * S + j; paged, it is (pg * KVH + h) * page +
+// j % page with pg = block_table[b * nb + j / page].
+template <typename QT, int KV, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
                     const void* __restrict__ v,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ q_pos,
-                    const int* __restrict__ k_pos, QT* __restrict__ out,
-                    int KVH, int G, int S, int hd, int window, float scale) {
+                    const int* __restrict__ k_pos,
+                    const int* __restrict__ block_table, QT* __restrict__ out,
+                    int KVH, int G, int S, int nb, int page, int hd,
+                    int window, float scale) {
   __shared__ float qs[kMaxG][kMaxHd];
   __shared__ float tile[kTileS][kMaxHd + 1];   // K tile, then V tile
   __shared__ float ps[kMaxG][kTileS];          // scores, then probabilities
   __shared__ float m_s[kMaxG], l_s[kMaxG], corr_s[kMaxG];
   __shared__ int ok_s[kTileS];
+  __shared__ long long slot_s[kTileS];         // flat slot index in k/v
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -131,8 +193,19 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
       const int j = threadIdx.x;
       const int kp = j < ts ? k_pos[static_cast<size_t>(b) * S + s0 + j] : -1;
       ok_s[j] = kp >= 0 && kp <= qp && (window <= 0 || qp - kp < window);
+      if (j < ts) {
+        if (PAGED) {
+          const int pg = block_table[static_cast<size_t>(b) * nb
+                                     + (s0 + j) / page];
+          slot_s[j] = (static_cast<long long>(pg) * KVH + h) * page
+              + (s0 + j) % page;
+        } else {
+          slot_s[j] = static_cast<long long>(bh) * S + s0 + j;
+        }
+      }
     }
-    load_tile<KV>(tile, k, bh, S, s0, ts, hd);
+    __syncthreads();
+    load_tile<KV>(tile, k, slot_s, ts, hd);
     __syncthreads();
 
     for (int p = threadIdx.x; p < G * kTileS; p += kThreads) {
@@ -141,7 +214,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
       if (ok_s[j]) {
         float dot = 0.f;
         for (int d = 0; d < hd; ++d) dot = fmaf(qs[g][d], tile[j][d], dot);
-        if (quantized) dot *= k_scale[bh * S + s0 + j];
+        if (quantized) dot *= k_scale[slot_s[j]];
         s = dot * scale;
       }
       ps[g][j] = s;
@@ -158,8 +231,8 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
       const float sum = warp_sum(pa + pc);
       const float corr = expf(m_prev - m_new);
       if (quantized) {
-        if (lane < ts) pa *= v_scale[bh * S + s0 + lane];
-        if (lane + 32 < ts) pc *= v_scale[bh * S + s0 + lane + 32];
+        if (lane < ts) pa *= v_scale[slot_s[lane]];
+        if (lane + 32 < ts) pc *= v_scale[slot_s[lane + 32]];
       }
       ps[g][lane] = pa;
       ps[g][lane + 32] = pc;
@@ -172,7 +245,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
     }
     __syncthreads();
 
-    load_tile<KV>(tile, v, bh, S, s0, ts, hd);
+    load_tile<KV>(tile, v, slot_s, ts, hd);
     __syncthreads();
 
     if (threadIdx.x < hd) {
@@ -199,11 +272,12 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   }
 }
 
-template <typename QT>
+template <typename QT, bool PAGED>
 int launch_q(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* q_pos, const void* k_pos, void* out,
-             int B, int KVH, int G, int S, int hd, int window, float scale,
-             int kv_kind, cudaStream_t stream) {
+             const void* vs, const void* q_pos, const void* k_pos,
+             const void* block_table, void* out, int B, int KVH, int G, int S,
+             int nb, int ps, int hd, int window, float scale, int kv_kind,
+             cudaStream_t stream) {
   const dim3 grid(KVH, B);
   const QT* qq = static_cast<const QT*>(q);
   QT* oo = static_cast<QT*>(out);
@@ -211,22 +285,27 @@ int launch_q(const void* q, const void* k, const void* v, const void* ks,
   const float* vss = static_cast<const float*>(vs);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(k_pos);
+  const int* bt = static_cast<const int*>(block_table);
   switch (kv_kind) {
     case kF32:
-      flash_decode_kernel<QT, kF32><<<grid, kThreads, 0, stream>>>(
-          qq, k, v, kss, vss, qp, kp, oo, KVH, G, S, hd, window, scale);
+      flash_decode_kernel<QT, kF32, PAGED><<<grid, kThreads, 0, stream>>>(
+          qq, k, v, kss, vss, qp, kp, bt, oo, KVH, G, S, nb, ps, hd, window,
+          scale);
       break;
     case kBF16:
-      flash_decode_kernel<QT, kBF16><<<grid, kThreads, 0, stream>>>(
-          qq, k, v, kss, vss, qp, kp, oo, KVH, G, S, hd, window, scale);
+      flash_decode_kernel<QT, kBF16, PAGED><<<grid, kThreads, 0, stream>>>(
+          qq, k, v, kss, vss, qp, kp, bt, oo, KVH, G, S, nb, ps, hd, window,
+          scale);
       break;
     case kInt8:
-      flash_decode_kernel<QT, kInt8><<<grid, kThreads, 0, stream>>>(
-          qq, k, v, kss, vss, qp, kp, oo, KVH, G, S, hd, window, scale);
+      flash_decode_kernel<QT, kInt8, PAGED><<<grid, kThreads, 0, stream>>>(
+          qq, k, v, kss, vss, qp, kp, bt, oo, KVH, G, S, nb, ps, hd, window,
+          scale);
       break;
     case kPacked4:
-      flash_decode_kernel<QT, kPacked4><<<grid, kThreads, 0, stream>>>(
-          qq, k, v, kss, vss, qp, kp, oo, KVH, G, S, hd, window, scale);
+      flash_decode_kernel<QT, kPacked4, PAGED><<<grid, kThreads, 0, stream>>>(
+          qq, k, v, kss, vss, qp, kp, bt, oo, KVH, G, S, nb, ps, hd, window,
+          scale);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -247,8 +326,29 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return q_bf16
-      ? launch_q<__nv_bfloat16>(q, k, v, k_scale, v_scale, q_pos, k_pos, out, B,
-                                KVH, G, S, hd, window, scale, kv_kind, s)
-      : launch_q<float>(q, k, v, k_scale, v_scale, q_pos, k_pos, out, B, KVH,
-                        G, S, hd, window, scale, kv_kind, s);
+      ? launch_q<__nv_bfloat16, false>(q, k, v, k_scale, v_scale, q_pos, k_pos,
+                                       nullptr, out, B, KVH, G, S, 0, 1, hd,
+                                       window, scale, kv_kind, s)
+      : launch_q<float, false>(q, k, v, k_scale, v_scale, q_pos, k_pos,
+                               nullptr, out, B, KVH, G, S, 0, 1, hd, window,
+                               scale, kv_kind, s);
+}
+
+// K5. q, out as above; k, v the page pools (P, KVH, ps, hd) per kv_kind
+// (packed4: (P, KVH, ps/2, hd) uint8); k_scale, v_scale (P, KVH, ps) f32 or
+// null; block_table (B, nb) int32, every entry a valid page; q_pos (B,) and
+// k_pos (B, nb * ps) int32. ps is even.
+extern "C" int flash_decode_paged_launch(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* q_pos, const void* k_pos,
+    const void* block_table, void* out, int B, int KVH, int G, int nb, int ps,
+    int hd, int window, int kv_kind, int q_bf16, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return q_bf16
+      ? launch_q<__nv_bfloat16, true>(q, k, v, k_scale, v_scale, q_pos, k_pos,
+                                      block_table, out, B, KVH, G, nb * ps, nb,
+                                      ps, hd, window, scale, kv_kind, s)
+      : launch_q<float, true>(q, k, v, k_scale, v_scale, q_pos, k_pos,
+                              block_table, out, B, KVH, G, nb * ps, nb, ps, hd,
+                              window, scale, kv_kind, s);
 }

@@ -1,9 +1,11 @@
-"""K3: single-query flash-decode attention over the head-major slot cache.
+"""K3 and K5: single-query flash-decode attention over the head-major
+slot cache (K3) and over the paged cache through a block table (K5).
 
-Port of ``repro/kernels/decode_attention.py::flash_decode_bkgd`` and of
-the unpaged branch of ``repro/kernels/ops.py::decode_attention_op``. The
-CUDA source is ``csrc/decode_attention.cu``; its header says what bounds
-it and how.
+Port of ``repro/kernels/decode_attention.py::flash_decode_bkgd`` and
+``::flash_decode_paged``, of ``repro/kernels/ops.py::gather_pages`` and
+of both branches of ``ops.decode_attention_op``. The CUDA source of both
+kernels is ``csrc/decode_attention.cu``; its header says what bounds
+them and how.
 
 The cache is ``(B, KV, S, hd)`` in f32 or bf16, int8 codes with
 ``(B, KV, S)`` f32 scales, or the packed4 container ``(B, KV, S/2, hd)``
@@ -12,6 +14,11 @@ Scales fold into the score and probability columns; a row with no valid
 slot outputs zeros. The kernel masks the ragged tail of the slot axis
 itself, so the wrapper pads nothing (the TPU wrapper padded S to its
 block size).
+
+Paged (``block_table`` given): k/v are page pools ``(P, KV, ps, hd)``
+(packed4 ``(P, KV, ps/2, hd)`` uint8), the scales ``(P, KV, ps)``, and
+row b's logical slot j lives in page ``block_table[b, j // ps]``, row
+``j % ps``; ``k_pos`` covers the ``nb·ps`` logical slots.
 """
 from __future__ import annotations
 
@@ -20,14 +27,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.constraints import (DECODE_MAX_GROUP, PACKED4_ALIGN,
-                                             check_head_dim)
+from repro_torch.kernels.constraints import (DECODE_MAX_GROUP, KV_PTR_ALIGN,
+                                             PACKED4_ALIGN, check_head_dim,
+                                             validate_page_size)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # launches of the kernel since the last reset; a plain count per wrapper
-LAUNCHES = {"flash_decode": 0}
+LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0}
 
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
             torch.uint8: 3}
@@ -60,50 +68,65 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgs,bksd->bkgd", p, v.float()).to(q.dtype)
 
 
+def _check_decode_args(q, k, v, k_scale, v_scale, rows: int,
+                       slots: int) -> bool:
+    """The checks K3 and K5 share; ``rows`` × ``slots`` is the leading
+    shape of k/v (B × S for K3, P × ps for K5). Returns ``quantized``."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype not in _KV_KIND or v.dtype != k.dtype:
+        raise TypeError(f"k/v must share one of {list(_KV_KIND)}, got "
+                        f"{k.dtype}/{v.dtype}")
+    _, kvh, g, hd = q.shape
+    packed = k.dtype == torch.uint8
+    quantized = k.dtype in (torch.int8, torch.uint8)
+    check_head_dim(hd)
+    if g > DECODE_MAX_GROUP:
+        raise ValueError(f"G={g} query heads per KV head exceeds "
+                         f"{DECODE_MAX_GROUP}")
+    if packed and slots % PACKED4_ALIGN:
+        raise ValueError("packed4 pages need an even slot count")
+    page = (rows, kvh, slots // (2 if packed else 1), hd)
+    if k.shape != page or v.shape != page:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if k.data_ptr() % KV_PTR_ALIGN or v.data_ptr() % KV_PTR_ALIGN:
+        raise ValueError(f"k/v must start {KV_PTR_ALIGN}-byte aligned (the "
+                         f"kernel loads rows as vectors)")
+    if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("k/v scales go with int8/packed4 pages, and only "
+                         "with them")
+    if quantized:
+        for t in (k_scale, v_scale):
+            if t.dtype != torch.float32 or t.shape != (rows, kvh, slots):
+                raise ValueError(f"scales must be float32 {(rows, kvh, slots)}"
+                                 f", got {t.dtype} {tuple(t.shape)}")
+    return quantized
+
+
+def _check_on_one_device(what: str, q, *tensors) -> None:
+    for t in tensors:
+        if t is not None and (t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{what} needs contiguous tensors on one device")
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, k_pos: torch.Tensor,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None, window: int = 0,
                  scale: Optional[float] = None) -> torch.Tensor:
     """Launch K3; raises on anything the kernel does not take."""
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k.dtype not in _KV_KIND or v.dtype != k.dtype:
-        raise TypeError(f"k/v must share one of {list(_KV_KIND)}, got "
-                        f"{k.dtype}/{v.dtype}")
     b, kvh, g, hd = q.shape
     packed = k.dtype == torch.uint8
-    quantized = k.dtype in (torch.int8, torch.uint8)
     s_len = k.shape[2] * (2 if packed else 1)
-    check_head_dim(hd)
-    if g > DECODE_MAX_GROUP:
-        raise ValueError(f"G={g} query heads per KV head exceeds "
-                         f"{DECODE_MAX_GROUP}")
-    page = (b, kvh, s_len // (2 if packed else 1), hd)
-    if k.shape != page or v.shape != page:
-        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
-    if packed and s_len % PACKED4_ALIGN:
-        raise ValueError("packed4 pages need an even slot count")
-    if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
-        raise ValueError("k/v scales go with int8/packed4 pages, and only "
-                         "with them")
+    quantized = _check_decode_args(q, k, v, k_scale, v_scale, b, s_len)
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
-    tensors = [q, k, v, q_pos, k_pos]
-    if quantized:
-        for t in (k_scale, v_scale):
-            if t.dtype != torch.float32 or t.shape != (b, kvh, s_len):
-                raise ValueError(f"scales must be float32 {(b, kvh, s_len)}, "
-                                 f"got {t.dtype} {tuple(t.shape)}")
-        tensors += [k_scale, v_scale]
     if q_pos.shape != (b,) or k_pos.shape != (b, s_len):
         raise ValueError(f"q_pos {tuple(q_pos.shape)} / k_pos "
                          f"{tuple(k_pos.shape)} must be ({b},) / ({b}, {s_len})")
-    for t in tensors:
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("flash_decode needs contiguous tensors on one "
-                             "device")
+    _check_on_one_device("flash_decode", q, k, v, q_pos, k_pos, k_scale,
+                         v_scale)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     out = torch.empty_like(q)
@@ -120,14 +143,102 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def gather_pages(pool: torch.Tensor, block_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """The logical head-major view of a paged pool: pool ``(P, KV, ps,
+    ...)`` + table ``(B, nb)`` → ``(B, KV, nb·ps, ...)``. Works for K/V
+    pools (trailing hd axis; packed4 byte rows concatenate along the
+    packed slot axis, since pages hold whole pairs) and for the
+    ``(P, KV, ps)`` scale pools. A copy: the plain version's one gather
+    per step; K5 never builds it."""
+    g = pool[block_table.long()]               # (B, nb, KV, ps, ...)
+    g = g.movedim(2, 1)                        # (B, KV, nb, ps, ...)
+    return g.reshape(g.shape[:2] + (g.shape[2] * g.shape[3],) + g.shape[4:])
+
+
+def decode_attention_paged_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, q_pos: torch.Tensor,
+                                 k_pos: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None,
+                                 window: int = 0,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Plain version of K5: :func:`gather_pages`, then K3's plain
+    version on the logical view."""
+    if k_scale is not None:
+        k_scale = gather_pages(k_scale, block_table)
+        v_scale = gather_pages(v_scale, block_table)
+    return decode_attention_plain(q, gather_pages(k, block_table),
+                                  gather_pages(v, block_table), q_pos, k_pos,
+                                  k_scale, v_scale, window, scale)
+
+
+def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_pos: torch.Tensor, k_pos: torch.Tensor,
+                       block_table: torch.Tensor,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None,
+                       window: int = 0,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Launch K5; raises on anything the kernel does not take. Every
+    table entry must be a page id of the pool (the serving layer parks
+    unused entries on a private page); the kernel does not check."""
+    b, kvh, g, hd = q.shape
+    packed = k.dtype == torch.uint8
+    n_pages = k.shape[0]
+    ps = k.shape[2] * (2 if packed else 1)
+    validate_page_size(ps)
+    quantized = _check_decode_args(q, k, v, k_scale, v_scale, n_pages, ps)
+    block_table = block_table.to(torch.int32).contiguous()
+    if block_table.ndim != 2 or block_table.shape[0] != b:
+        raise ValueError(f"block_table {tuple(block_table.shape)} must be "
+                         f"({b}, nb)")
+    nb = block_table.shape[1]
+    q_pos = q_pos.to(torch.int32).contiguous()
+    k_pos = k_pos.to(torch.int32).contiguous()
+    if q_pos.shape != (b,) or k_pos.shape != (b, nb * ps):
+        raise ValueError(f"q_pos {tuple(q_pos.shape)} / k_pos "
+                         f"{tuple(k_pos.shape)} must be ({b},) / "
+                         f"({b}, {nb * ps})")
+    _check_on_one_device("flash_decode_paged", q, k, v, q_pos, k_pos,
+                         block_table, k_scale, v_scale)
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attention", "flash_decode_paged_launch", 9,
+                         9, 1)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             k_scale.data_ptr() if quantized else None,
+             v_scale.data_ptr() if quantized else None,
+             q_pos.data_ptr(), k_pos.data_ptr(), block_table.data_ptr(),
+             out.data_ptr(), b, kvh, g, nb, ps, hd, window,
+             _KV_KIND[k.dtype], int(q.dtype == torch.bfloat16), float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_decode_paged_launch (K5)")
+    LAUNCHES["flash_decode_paged"] += 1
+    return out
+
+
 def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                         k_scale: Optional[torch.Tensor] = None,
                         v_scale: Optional[torch.Tensor] = None,
                         window: int = 0,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """Single-query attention over the slot cache: the plain version for
-    CPU tensors, K3 for CUDA tensors. ``scale`` overrides 1/√hd."""
+                        scale: Optional[float] = None,
+                        block_table: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Single-query attention over the slot cache, or over the page pools
+    through ``block_table``: the plain version for CPU tensors, K3 (K5
+    when paged) for CUDA tensors. ``scale`` overrides 1/√hd."""
+    if block_table is not None:
+        if q.device.type == "cpu":
+            return decode_attention_paged_plain(q, k, v, q_pos, k_pos,
+                                                block_table, k_scale, v_scale,
+                                                window, scale)
+        return flash_decode_paged(q, k, v, q_pos, k_pos, block_table, k_scale,
+                                  v_scale, window, scale)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, q_pos, k_pos, k_scale,
                                       v_scale, window, scale)

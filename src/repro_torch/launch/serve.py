@@ -5,7 +5,8 @@ has no calibration yet) into the Q + LR container → serve requests
 through the continuous-batching engine, on the card by default
 (``--device cuda``; ``--device cpu`` runs the kernels' plain versions).
 ``--full`` serves the architecture at its published size instead of its
-``.reduced()`` smoke-test size.
+``.reduced()`` smoke-test size. ``--paged`` serves from the paged KV
+cache with prefix reuse and chunked prefill.
 """
 from __future__ import annotations
 
@@ -64,7 +65,22 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--new-tokens", type=int, default=16)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prefill-len", type=int, default=32,
-                   help="prompt pad width")
+                   help="prompt pad width (with --paged: the chunk width)")
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV cache: block-granular page pool + per-slot "
+                        "block tables, radix-tree prefix reuse and chunked "
+                        "prefill (prompts longer than --prefill-len stream "
+                        "in chunks interleaved with decode)")
+    p.add_argument("--page-size", type=int, default=16,
+                   help="logical KV slots per page (even; paged only)")
+    p.add_argument("--n-pages", type=int, default=None,
+                   help="physical page-pool size (paged only; default: every "
+                        "slot can hold a full row, plus prefix headroom)")
+    p.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable radix-tree prefix reuse (paged only)")
+    p.add_argument("--max-step-tokens", type=int, default=None,
+                   help="token-budget step scheduler: per-step cap on "
+                        "prefill dispatch width + decode lanes")
     p.add_argument("--fused", default="auto", choices=["auto", "on", "off"],
                    help="auto/on: the CUDA kernels on the card, their plain "
                         "versions on the CPU; off: dequantize-then-matmul "
@@ -85,7 +101,10 @@ def main(argv=None) -> int:
         max_len=max_len, decode_batch=args.batch,
         max_new_tokens=args.new_tokens, kv_dtype=args.kv,
         prefill_len=args.prefill_len, fused=args.fused,
-        compute_dtype=args.compute_dtype), device=args.device)
+        compute_dtype=args.compute_dtype, paged=args.paged,
+        page_size=args.page_size, n_pages=args.n_pages,
+        prefix_cache=not args.no_prefix_cache,
+        max_step_tokens=args.max_step_tokens), device=args.device)
     reqs = make_requests(cfg, args.requests, args.seed)
     t0 = time.perf_counter()
     results = eng.generate(reqs)
@@ -93,6 +112,13 @@ def main(argv=None) -> int:
     toks = sum(len(r.tokens) for r in results)
     print(f"[serve] {len(results)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s, device={args.device})")
+    if args.paged:
+        st = eng.stats()
+        print(f"[serve] paged: {st['prefill_chunks']} prefill chunks, "
+              f"{st['prefill_tokens_computed']}/{st['prompt_tokens_total']} "
+              f"prompt tokens computed (prefix hit rate "
+              f"{st['prefix_hit_rate']:.2f}), {st['evictions']} evictions, "
+              f"{st['pages_hot']}/{st['pages_total']} pages hot")
     for r in results[:3]:
         print(f"  req {r.uid} [{r.finish_reason}]: {r.tokens[:10].tolist()}")
     return 0

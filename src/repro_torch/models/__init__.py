@@ -1,7 +1,8 @@
 """Model zoo of the port: the dense decoder and its Q + LR layers."""
 from repro_torch.models.linear import Ctx, FpLinear, QLinear, linear
 from repro_torch.models.transformer import (LM, decode_step, forward,
-                                            init_cache, init_lm, prefill)
+                                            init_cache, init_lm, prefill,
+                                            prefill_chunk)
 
 __all__ = ["Ctx", "FpLinear", "QLinear", "linear", "LM", "decode_step",
-           "forward", "init_cache", "init_lm", "prefill"]
+           "forward", "init_cache", "init_lm", "prefill", "prefill_chunk"]

@@ -9,11 +9,20 @@ Cache per layer (unpaged, full attention):
   ``slot_pos`` (B, S) int32 — the position each slot holds, -1 empty;
   ``pos``      (B,) int32 — the row's next write position.
 
+Cache per layer (paged, ``init_attn_cache(pages=, page_size=)``):
+  ``k``/``v``  page pools (P, KV, ps, hd), packed4 (P, KV, ps/2, hd) uint8,
+               shared by every batch row;
+  ``k_scale``/``v_scale`` (P, KV, ps) f32 for int8/int4;
+  ``block_table`` (B, nb) int32 — row b's logical slot j lives in page
+               ``block_table[b, j // ps]``, row ``j % ps``;
+  ``pos``      (B,) int32.
+There is no slot map: logical slot j of a row holds position j.
+
 Rows decode independently: each writes at its own slot and masks against
 its own slot map. Unlike the JAX package, whose caches are immutable
-pytrees, a decode step writes its token into the cache tensors in place
-(one K/V row per batch row instead of a copy of the whole cache);
-prefill builds fresh tensors.
+pytrees, a decode step and a prefill chunk write their K/V into the
+cache tensors in place (one K/V row per batch row, or the chunk's rows,
+instead of a copy of the whole cache); prefill builds fresh tensors.
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention import NEG_INF, decode_attention_op
+from repro_torch.kernels.constraints import validate_page_size
+from repro_torch.kernels.decode_attention import (NEG_INF, decode_attention_op,
+                                                  gather_pages)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.models.layers import apply_rope
@@ -41,13 +52,40 @@ class Attention(nn.Module):
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                    device) -> Dict[str, torch.Tensor]:
+                    device, pages: Optional[int] = None,
+                    page_size: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Zeroed head-major pages for ``batch`` rows of ``max_len`` slots.
     ``dtype=torch.int8`` is the int8 cache (codes + scales), ``"int4"``
     the packed4 one, whose slot count rounds up to even so byte pairs
-    never straddle the end."""
+    never straddle the end.
+
+    ``pages``/``page_size`` select the paged layout (module docstring):
+    ``pages`` physical pages of ``page_size`` (even) slots shared by the
+    rows, and a ``block_table`` of ``ceil(max_len / page_size)`` entries
+    per row, which the serving layer fills with valid page ids."""
     packed4 = dtype == INT4
     kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    if pages is not None:
+        validate_page_size(page_size)
+        n_blocks = -(-max_len // page_size)
+        if packed4:
+            pshape, pdtype = (pages, kv, page_size // 2, hd), torch.uint8
+        else:
+            pshape, pdtype = (pages, kv, page_size, hd), dtype
+        cache = {
+            "k": torch.zeros(pshape, dtype=pdtype, device=device),
+            "v": torch.zeros(pshape, dtype=pdtype, device=device),
+            "block_table": torch.zeros((batch, n_blocks), dtype=torch.int32,
+                                       device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        }
+        if dtype == torch.int8 or packed4:
+            cache["k_scale"] = torch.zeros((pages, kv, page_size),
+                                           device=device)
+            cache["v_scale"] = torch.zeros((pages, kv, page_size),
+                                           device=device)
+        return cache
     slots = max_len + (max_len % 2 if packed4 else 0)
     if packed4:
         pshape, pdtype = (batch, kv, slots // 2, hd), torch.uint8
@@ -196,40 +234,171 @@ def _write_nibble(pages: torch.Tensor, codes: torch.Tensor,
                                             (byte & 0x0F) | (u << 4))
 
 
+def _paged_page_size(cache: Dict) -> int:
+    """Logical slots per physical page (uint8 pool rows hold two)."""
+    rows = cache["k"].shape[2]
+    return rows * 2 if cache["k"].dtype == torch.uint8 else rows
+
+
 def attention_step(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
                    cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step, x: (B, 1, D). Writes each row's token into its
-    slot in place, then attends over the updated cache."""
+    slot in place, then attends over the updated cache. A paged cache
+    (``block_table`` present) writes at ``(block_table[row, pos // ps],
+    pos % ps)`` and attends through the table; every table entry is a
+    valid page (a retired row points at its private parked page), so a
+    dead row's write never lands in a page another request owns."""
     b = x.shape[0]
     hd = cfg.head_dim_
     pos = cache["pos"]                                        # (B,) int32
     q, k, v = _qkv(ctx, p, x, cfg, pos[:, None])
     rows = torch.arange(b, device=x.device)
-    slots = cache["slot_pos"].shape[1]
-    slot = torch.clamp(pos, max=slots - 1).to(torch.int64)
+    paged = "block_table" in cache
+    if paged:
+        bt = cache["block_table"]                             # (B, nb)
+        ps = _paged_page_size(cache)
+        nslots = bt.shape[1] * ps
+        slot = torch.clamp(pos, max=nslots - 1).to(torch.int64)
+        wrow = bt[rows, slot // ps].to(torch.int64)           # physical page
+        wslot = slot % ps
+    else:
+        slots = cache["slot_pos"].shape[1]
+        slot = torch.clamp(pos, max=slots - 1).to(torch.int64)
+        wrow, wslot = rows, slot
     packed4 = cache["k"].dtype == torch.uint8
     if "k_scale" in cache:
         qmax = 7 if packed4 else 127
         k, ksc = kv_quantize(k, qmax)
         v, vsc = kv_quantize(v, qmax)
-        cache["k_scale"][rows, :, slot] = ksc[:, 0]
-        cache["v_scale"][rows, :, slot] = vsc[:, 0]
+        cache["k_scale"][wrow, :, wslot] = ksc[:, 0]
+        cache["v_scale"][wrow, :, wslot] = vsc[:, 0]
     if packed4:
-        _write_nibble(cache["k"], k[:, 0], rows, slot)
-        _write_nibble(cache["v"], v[:, 0], rows, slot)
+        _write_nibble(cache["k"], k[:, 0], wrow, wslot)
+        _write_nibble(cache["v"], v[:, 0], wrow, wslot)
     else:
-        cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, :, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["slot_pos"][rows, slot] = pos
+        cache["k"][wrow, :, wslot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][wrow, :, wslot] = v[:, 0].to(cache["v"].dtype)
+    if paged:
+        spos = torch.arange(nslots, dtype=torch.int32,
+                            device=x.device).expand(b, nslots)
+        block_table = bt
+    else:
+        cache["slot_pos"][rows, slot] = pos
+        spos = cache["slot_pos"]
+        block_table = None
     cache["pos"] = pos + 1
 
     if fused_mode(ctx) == "off":
-        kd, vd = _cache_kv(cache, x.dtype)
-        out = decode_attention(q, kd, vd, pos, cache["slot_pos"])
+        if paged:
+            flat = {key: gather_pages(cache[key], bt)
+                    for key in ("k", "v", "k_scale", "v_scale") if key in cache}
+            kd, vd = _cache_kv(flat, x.dtype)
+        else:
+            kd, vd = _cache_kv(cache, x.dtype)
+        out = decode_attention(q, kd, vd, pos, spos)
     else:
         out = decode_attention_op(
-            q[:, 0], cache["k"], cache["v"], pos, cache["slot_pos"],
-            k_scale=cache.get("k_scale"),
-            v_scale=cache.get("v_scale"))[:, None].to(x.dtype)
+            q[:, 0], cache["k"], cache["v"], pos, spos.contiguous(),
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            block_table=block_table)[:, None].to(x.dtype)
     y = linear(ctx, p.wo, out.reshape(b, 1, cfg.n_heads * hd))
+    return y, cache
+
+
+def _chunk_nibble_rmw(plane: torch.Tensor, bt_row: torch.Tensor, ps: int,
+                      codes: torch.Tensor, start: int, length: int) -> None:
+    """Merge a chunk's int4 codes (C, KV, hd) for positions ``[start,
+    start+length)`` into one row's packed4 pages ``plane`` (P, KV, ps/2,
+    hd) uint8 through its block table ``bt_row``, in place, by a per-byte
+    read-modify-write at any ``start`` parity and ``length``. Only the
+    bytes the chunk touches are visited (``length`` is known on the
+    host), and a boundary byte keeps its out-of-chunk partner nibble."""
+    byte_idx = torch.arange(start // 2, (start + length - 1) // 2 + 1,
+                            device=codes.device)
+    page = bt_row[(2 * byte_idx) // ps].to(torch.int64)
+    off = (2 * byte_idx % ps) // 2              # byte row inside the page
+    ol = 2 * byte_idx - start                   # chunk offset of the low slot
+    oh = ol + 1
+    lo_in = ((ol >= 0) & (ol < length))[:, None, None]
+    hi_in = ((oh >= 0) & (oh < length))[:, None, None]
+    old = plane[page, :, off]                   # (NB, KV, hd) uint8
+    cl = codes[ol.clamp(0, length - 1)].to(torch.int32)
+    ch = codes[oh.clamp(0, length - 1)].to(torch.int32)
+    lo_u = (cl & 0xF).to(torch.uint8)
+    hi_u = ((ch & 0xF) << 4).to(torch.uint8)
+    plane[page, :, off] = (torch.where(lo_in, lo_u, old & 0x0F)
+                           | torch.where(hi_in, hi_u, old & 0xF0))
+
+
+def attention_chunk(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
+                    cfg: ModelConfig, row: int, start: int, length: int
+                    ) -> Tuple[torch.Tensor, Dict]:
+    """Chunked-prefill attention for one row of a paged cache: ``length``
+    tokens at positions ``[start, start+length)`` of slot ``row``, x
+    (1, C, D) right-padded to the chunk width C. The chunk attends to
+    the row's stored context below ``start`` (earlier chunks, prefix-
+    cache pages) and to itself, causally: K4 over [stored context ‖
+    fresh chunk], the context masked by ``k_pos = -1`` at and above
+    ``start``. The chunk reads its own K/V fresh (compute dtype) and the
+    context from storage, as the JAX ``attention_chunk`` does with
+    ``chunk_store=True, step_parity=False``.
+
+    The chunk's ``length`` valid tokens are written into the row's pages
+    in the storage container, in place, with ``pos[row] = start +
+    length``; pad lanes write nothing (``length`` is a host int, so the
+    write is sliced to it instead of steering pad lanes out of bounds as
+    the JAX scatter does)."""
+    _, c, _ = x.shape
+    hd = cfg.head_dim_
+    positions = torch.arange(start, start + c, dtype=torch.int32,
+                             device=x.device)
+    q, k, v = _qkv(ctx, p, x, cfg, positions)
+    bt_row = cache["block_table"][row]                       # (nb,)
+    ps = _paged_page_size(cache)
+    nslots = bt_row.shape[0] * ps
+    packed4 = cache["k"].dtype == torch.uint8
+    quant = "k_scale" in cache
+
+    # ---- context: the row's pages as they stand before the chunk ------
+    ctxk = gather_pages(cache["k"], bt_row[None])           # (1, KV, S', hd)
+    ctxv = gather_pages(cache["v"], bt_row[None])
+    if packed4:
+        ctxk, ctxv = unpack_codes_4bit(ctxk), unpack_codes_4bit(ctxv)
+    if quant:
+        ctxk = kv_dequantize(ctxk, gather_pages(cache["k_scale"], bt_row[None]),
+                             torch.float32)
+        ctxv = kv_dequantize(ctxv, gather_pages(cache["v_scale"], bt_row[None]),
+                             torch.float32)
+    ctxk = ctxk.to(k.dtype).transpose(1, 2)                  # (1, S, KV, hd)
+    ctxv = ctxv.to(v.dtype).transpose(1, 2)
+
+    # ---- write the chunk's valid tokens into the row's pages ----------
+    sl = torch.arange(start, start + length, device=x.device)
+    wpage = bt_row[sl // ps].to(torch.int64)
+    woff = sl % ps
+    kw, vw = k[0, :length], v[0, :length]                    # (L, KV, hd)
+    if quant:
+        qmax = 7 if packed4 else 127
+        kw, ksc = kv_quantize(kw, qmax)
+        vw, vsc = kv_quantize(vw, qmax)
+        cache["k_scale"][wpage, :, woff] = ksc
+        cache["v_scale"][wpage, :, woff] = vsc
+    if packed4:
+        _chunk_nibble_rmw(cache["k"], bt_row, ps, kw, start, length)
+        _chunk_nibble_rmw(cache["v"], bt_row, ps, vw, start, length)
+    else:
+        cache["k"][wpage, :, woff] = kw.to(cache["k"].dtype)
+        cache["v"][wpage, :, woff] = vw.to(cache["v"].dtype)
+    cache["pos"][row] = start + length
+
+    # ---- attention: [stored context ‖ fresh chunk], causal ------------
+    sctx = torch.arange(nslots, dtype=torch.int32, device=x.device)
+    k_pos = torch.cat([torch.where(sctx < start, sctx, -1), positions])
+    kk = torch.cat([ctxk, k], dim=1)
+    vv = torch.cat([ctxv, v], dim=1)
+    if fused_mode(ctx) == "off":
+        out = flash_attention_plain(q, kk, vv, positions, k_pos)
+    else:
+        out = flash_attention(q, kk, vv, positions, k_pos)
+    y = linear(ctx, p.wo, out.reshape(1, c, cfg.n_heads * hd))
     return y, cache

@@ -92,10 +92,16 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-               device) -> List[Dict[str, torch.Tensor]]:
+               device, pages: Optional[int] = None,
+               page_size: Optional[int] = None
+               ) -> List[Dict[str, torch.Tensor]]:
     """One zeroed slot-cache dict per layer (``dtype``: a float dtype,
-    ``torch.int8``, or ``"int4"``)."""
-    return [attn.init_attn_cache(cfg, batch, max_len, dtype, device)
+    ``torch.int8``, or ``"int4"``). ``pages``/``page_size`` switch every
+    layer to the paged layout: its own page pools and its own copy of
+    the block table and positions (``serve.pages`` keeps the copies
+    equal)."""
+    return [attn.init_attn_cache(cfg, batch, max_len, dtype, device,
+                                 pages=pages, page_size=page_size)
             for _ in range(cfg.n_layers)]
 
 
@@ -137,6 +143,34 @@ def prefill(ctx: Ctx, model: LM, tokens: torch.Tensor, cache: List[Dict],
         ix = (lengths.to(torch.int64) - 1)[:, None, None]
         last = torch.take_along_dim(hidden, ix, dim=1)
     return _head(ctx, model, last), cache
+
+
+def _chunk_stack(ctx: Ctx, model: LM, tokens: torch.Tensor,
+                 cache: List[Dict], row: int, start: int, length: int
+                 ) -> torch.Tensor:
+    """Run a (1, C) chunk through every layer in chunk mode (append its
+    K/V to row ``row``'s pages, attend over [stored context ‖ chunk]);
+    returns the final-normed hidden states (1, C, D)."""
+    cfg = model.cfg
+    x = embed(model.embed, tokens, ctx.compute_dtype)
+    for blk, c in zip(model.blocks, cache):
+        y, _ = attn.attention_chunk(ctx, blk.mixer, rmsnorm(blk.norm1, x), c,
+                                    cfg, row, start, length)
+        x = x + y
+        x = x + mlp(ctx, blk.mlp, rmsnorm(blk.norm2, x))
+    return rmsnorm(model.final_norm, x)
+
+
+def prefill_chunk(ctx: Ctx, model: LM, tokens: torch.Tensor,
+                  cache: List[Dict], row: int, start: int, length: int
+                  ) -> Tuple[torch.Tensor, List[Dict]]:
+    """One chunk of a chunked prefill into a paged cache: ``tokens``
+    (1, C) hold positions ``[start, start+length)`` of slot ``row``,
+    right-padded to the chunk width C. Returns (logits (1, 1, V) at chunk
+    position ``length - 1``, the cache updated in place): the logits
+    matter on a prompt's final chunk, where they give the first token."""
+    x = _chunk_stack(ctx, model, tokens, cache, row, start, length)
+    return _head(ctx, model, x[:, length - 1:length]), cache
 
 
 def decode_step(ctx: Ctx, model: LM, token: torch.Tensor,

@@ -1,11 +1,19 @@
-"""FIFO continuous-batching scheduler (port of the unbudgeted path of
-``repro/serve/scheduler.py``).
+"""FIFO continuous-batching scheduler with an optional token budget (port
+of ``repro/serve/scheduler.py``).
 
 Whenever a slot is free and the queue is not empty, the next request is
-prefilled at once (prefill-on-admit) and decodes from the next step on.
-Every step decodes all slots in lockstep; a request retires the moment
-it reaches its own ``max_new_tokens`` or emits its stop token, and the
-next queued request takes the lane on the same engine step.
+admitted (prefilled at once, or chunk by chunk under the paged cache)
+and decodes from then on. Every step decodes all slots in lockstep; a
+request retires the moment it reaches its own ``max_new_tokens`` or
+emits its stop token, and the next queued request takes the lane on the
+same engine step.
+
+Token budget (``max_step_tokens``, optional): each step opens a
+:class:`StepBudget` ledger charged with the decode lanes already running;
+admissions and prefill-chunk dispatches then draw from the remainder, so
+``prefill tokens + decode lanes <= max_step_tokens`` every step and a
+burst of long prompts cannot stall live decode lanes. ``None`` keeps the
+unbudgeted admit-everything behaviour.
 """
 from __future__ import annotations
 
@@ -25,6 +33,10 @@ class SchedulerStats:
     eos_retired: int = 0            # retired early by EOS
     decode_steps: int = 0
     decode_slot_steps: int = 0      # steps × active slots (useful work)
+    budget_deferred_admissions: int = 0  # admissions pushed to a later
+    # step because the token budget could not cover their prefill
+    budget_capped_chunks: int = 0   # prefill-chunk dispatches skipped
+    # this step by the token budget (the job resumes next step)
 
     @property
     def occupancy(self) -> float:
@@ -34,13 +46,39 @@ class SchedulerStats:
         return self.decode_slot_steps / (self.decode_steps * self.n_slots)
 
 
+class StepBudget:
+    """One engine step's token ledger. ``limit=None`` is unbounded (every
+    check passes). Decode lanes are charged unconditionally via
+    :meth:`take` — a lockstep decode dispatch cannot be split — while
+    admissions and chunk dispatches ask first via :meth:`can` /
+    :meth:`try_take` and wait for a later step when refused."""
+
+    def __init__(self, limit: Optional[int]):
+        self.limit = limit
+        self.used = 0
+
+    def can(self, n: int) -> bool:
+        return self.limit is None or self.used + n <= self.limit
+
+    def take(self, n: int) -> None:
+        self.used += n
+
+    def try_take(self, n: int) -> bool:
+        if not self.can(n):
+            return False
+        self.used += n
+        return True
+
+
 class ContinuousScheduler:
     """FIFO queue + slot table + retirement policy."""
 
-    def __init__(self, n_slots: int, eos_id: int, default_budget: int):
+    def __init__(self, n_slots: int, eos_id: int, default_budget: int,
+                 max_step_tokens: Optional[int] = None):
         self.table = SlotTable(n_slots)
         self.eos_id = eos_id
         self.default_budget = default_budget
+        self.max_step_tokens = max_step_tokens
         self.queue: Deque = collections.deque()
         self.stats = SchedulerStats(n_slots=n_slots)
 
@@ -50,6 +88,13 @@ class ContinuousScheduler:
     @property
     def has_work(self) -> bool:
         return bool(self.queue) or self.table.n_active > 0
+
+    def begin_step(self, n_decode: int) -> StepBudget:
+        """Open this step's token ledger, pre-charged with the decode
+        lanes that will run regardless (they are already mid-flight)."""
+        budget = StepBudget(self.max_step_tokens)
+        budget.take(n_decode)
+        return budget
 
     def next_admission(self) -> Optional[Tuple[object, SlotState]]:
         """Pop the next request if a slot is free: (request, fresh
@@ -88,6 +133,9 @@ class ContinuousScheduler:
         self.stats.retired += 1
         return self.table.free(slot)
 
-    def note_decode_step(self) -> None:
+    def note_decode_step(self, n_useful: int) -> None:
+        """``n_useful``: the lanes that decoded this step (the paged
+        engine's slots still mid-chunked-prefill ride the dispatch but
+        do not count)."""
         self.stats.decode_steps += 1
-        self.stats.decode_slot_steps += self.table.n_active
+        self.stats.decode_slot_steps += n_useful

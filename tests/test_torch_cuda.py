@@ -1,6 +1,7 @@
 """Card-only checks of the CUDA kernels (skip without a card): each
-kernel against its plain version on the card, and each wrapper raising
-on input the kernel does not take.
+kernel against its plain version on the card (K5 on a shuffled block
+table, K4 also at the chunk shape), and each wrapper raising on input
+the kernel does not take.
 
 Run on a machine with an H100: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``. Tolerances: the kernels sum in another
@@ -99,6 +100,62 @@ def test_flash_decode_matches_plain(dev, kind, window):
                                  v_scale=vs, window=window)
     _close(got, want, 1e-4)
     assert torch.all(got[2] == 0)
+
+
+def _paged(dev, kind, b=4, kvh=4, g=2, hd=96, ps=16, nb=8, pages=40, seed=0):
+    """Page pools with a shuffled block table and ragged positions."""
+    q, k, v, _, _, ks, vs = _cache(dev, kind, b=pages, kvh=kvh, g=g, s=ps,
+                                   hd=hd, seed=seed)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    bt = torch.randperm(pages, generator=gen)[:b * nb].reshape(b, nb)
+    q_pos = torch.tensor([5, 40, 77, ps * nb - 1][:b], dtype=torch.int32)
+    k_pos = torch.arange(nb * ps, dtype=torch.int32).repeat(b, 1)
+    return (q[:b], k, v, q_pos.to(dev), k_pos.to(dev),
+            bt.to(torch.int32).to(dev), ks, vs)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("g,window", [(1, 0), (2, 0), (2, 30)])
+def test_flash_decode_paged_matches_plain(dev, kind, g, window):
+    q, k, v, q_pos, k_pos, bt, ks, vs = _paged(dev, kind, g=g)
+    want = dk.decode_attention_paged_plain(q, k, v, q_pos, k_pos, bt, ks, vs,
+                                           window)
+    before = dk.LAUNCHES["flash_decode_paged"]
+    got = dk.decode_attention_op(q, k, v, q_pos, k_pos, k_scale=ks,
+                                 v_scale=vs, window=window, block_table=bt)
+    assert dk.LAUNCHES["flash_decode_paged"] == before + 1
+    _close(got, want, 1e-4)
+
+
+def test_flash_decode_paged_wrapper_raises(dev):
+    q, k, v, q_pos, k_pos, bt, ks, vs = _paged(dev, "int8")
+    with pytest.raises(ValueError):
+        dk.flash_decode_paged(q, k, v, q_pos, k_pos, bt)      # scales missing
+    with pytest.raises(ValueError):
+        dk.flash_decode_paged(q, k, v, q_pos, k_pos[:, :-16], bt, ks, vs)
+    with pytest.raises(ValueError):
+        dk.flash_decode_paged(q, k[:, :, :15], v[:, :, :15], q_pos,
+                              k_pos[:, :120], bt, ks[..., :15], vs[..., :15])
+    odd = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)[1:]
+    with pytest.raises(ValueError):                     # misaligned pool
+        dk.flash_decode_paged(q, odd.view(k.shape), v, q_pos, k_pos, bt, ks,
+                              vs)
+
+
+def test_flash_attention_chunk_shape(dev):
+    """K4 in chunk mode: a chunk of Sq queries at positions [start,
+    start+Sq) over [stored context ‖ chunk], the context slots at and
+    above start masked by k_pos = -1."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sq, ctx, start, h, hd = 64, 128, 80, 4, 96
+    q = torch.randn((1, sq, h, 1, hd), generator=gen, device=dev)
+    k = torch.randn((1, ctx + sq, h, hd), generator=gen, device=dev)
+    v = torch.randn((1, ctx + sq, h, hd), generator=gen, device=dev)
+    q_pos = torch.arange(start, start + sq, dtype=torch.int32, device=dev)
+    slots = torch.arange(ctx, dtype=torch.int32, device=dev)
+    k_pos = torch.cat([torch.where(slots < start, slots, -1), q_pos])
+    want = fk.flash_attention_plain(q, k, v, q_pos, k_pos)
+    _close(fk.flash_attention(q, k, v, q_pos, k_pos), want, 1e-4)
 
 
 def test_flash_decode_wrapper_raises(dev):
