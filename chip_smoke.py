@@ -8,12 +8,15 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. the device: ``torch.cuda.get_device_name`` and nvidia-smi's name and
    power limit;
 2. the kernel build: one ``nvcc`` per CUDA source, all started together;
-3. every kernel of the paths (K1, K2, K3, K4, K5) against its plain
-   PyTorch version at phi3-mini-3.8b's full-width shapes (K4 also at the
-   chunked-prefill shape, K5 on a shuffled block table): max error
-   against a stated tolerance, kernel / plain / library-yardstick times
-   (CUDA events, inputs rotated through more than the 50 MB L2 cache, as
-   a decode step over 32 layers finds them cold) and the bound;
+3. every kernel of the paths (K1–K7) against its plain PyTorch version
+   at the full-width shapes of phi3-mini-3.8b and deepseek-moe-16b (K4
+   also at the chunked-prefill shape, K5 on a shuffled block table; K1 at
+   the MoE router's 64 columns and the dense lead-in layer's 10944; K3
+   and K4 at head_dim 128; K6 over the 64-expert stacks at decode and
+   prefill rows; K7 bit for bit): max error against a stated tolerance,
+   kernel / plain / library-yardstick times (CUDA events, inputs rotated
+   through more than the 50 MB L2 cache, as a decode step over all the
+   layers finds them cold) and the bound;
 4. the unpaged main path at full width, through the entry points a user
    calls: ``init_lm`` (seed 0) → SRR ``quantize_model_params`` (rank 16,
    3-bit MXINT, int8 container) → ``Engine`` (8 lanes, bf16 KV, fused
@@ -32,7 +35,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    served with int4 and int8 KV, unpaged and paged (chunks of 64, so the
    packed4 chunk writes and nibble read-modify-writes run on the card),
    and its prefill logits on the card (kernels) against the CPU (plain
-   versions).
+   versions);
+6. the MoE main path at full width: ``init_lm`` of deepseek-moe-16b (all
+   28 layers, seed 0) → SRR ``quantize_model_params`` (rank 16, 3-bit
+   MXINT, int8 container; K7 quantizes every matrix, its launches read
+   around the pass, with the pass's seconds and peak memory) → ``Engine``
+   (8 lanes, bf16 KV, fused auto) answering 8 requests of 32 new tokens
+   with 150–250-token prompts, with every launch count read around that
+   run and one profiled decode step; then a prompt's prefill logits
+   through the kernels against ``fused="off"``, with the tokens and
+   layers whose top-k expert sets differ between the two runs counted
+   (a routing flip), and the logits held to the tolerance under one
+   routing (the ``fused="off"`` run replays the kernel run's choices when
+   any flipped).
 
 The last lines are the nvidia-smi line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -383,6 +398,74 @@ def check_flash_chunk(dev, h=32, sq=256, ctx=512, start=200, hd=96) -> dict:
                 bound_by=b_by)
 
 
+def check_qlr_batched(dev, e: int, m: int, k: int, n: int, rank: int) -> dict:
+    """K6 over an ``e``-expert int8 stack with ``m`` rows each."""
+    import torch
+    from repro_torch.kernels import mxint_matmul as mk
+    from repro_torch.quant.mxint import MXIntQuantizer
+
+    gen = torch.Generator(device=dev).manual_seed(e + m + k + n)
+    x = torch.randn((e, m, k), generator=gen, device=dev)
+    qz = MXIntQuantizer(bits=3).quantize(
+        torch.randn((e * k, n), generator=gen, device=dev) * k ** -0.5)
+    codes = qz.codes.reshape(e, k, n)
+    scale = torch.exp2(qz.exponents.float()).reshape(e, k // 32, n)
+    l = torch.randn((e, k, rank), generator=gen, device=dev) * 0.05
+    r = torch.randn((e, rank, n), generator=gen, device=dev) * 0.05
+    xl = torch.bmm(x, l)
+    got = mk.qlr_batched_matmul_cuda(x, codes, scale, xl, r)
+    want = mk.qlr_matmul_batched_plain(x, codes, scale, l, r)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    w_dense = mk.dequant_blockwise(codes, scale, torch.float32) \
+        + torch.bmm(l, r)
+    sets = [(x, codes.clone(), scale.clone(), xl, r.clone())
+            for _ in range(copies_for(tensor_bytes(codes, scale, r)))]
+    dense = [(x, w_dense.clone())
+             for _ in range(copies_for(tensor_bytes(w_dense)))]
+    t_kernel, host = time_ms(mk.qlr_batched_matmul_cuda, sets)
+    t_plain, _ = time_ms(lambda x_, c_, s_, xl_, r_:
+                         mk.qlr_matmul_batched_plain(x_, c_, s_, l, r_), sets)
+    t_lib, _ = time_ms(torch.bmm, dense)
+    nbytes = tensor_bytes(x, codes, scale, xl, r) + e * m * n * 4
+    ops = 2 * e * m * n * (k + rank)
+    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    return dict(name="K6 qlr_batched_matmul",
+                shape=f"E={e} M={m} K={k} N={n} r={rank} int8",
+                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
+                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_quantize(dev, m: int, n: int, bits: int = 3) -> dict:
+    """K7 against its plain version, bit for bit (tolerance 0): max_abs_err
+    is the largest code or exponent difference."""
+    import torch
+    from repro_torch.kernels import mxint_quantize as kq
+
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    w = torch.randn((m, n), generator=gen, device=dev) * m ** -0.5
+    w[:32, :16] = 0.0                          # all-zero blocks
+    codes, exps = kq.mxint_quantize_cuda(w, bits)
+    want_c, want_e = kq.mxint_quantize_plain(w, bits)
+    torch.cuda.synchronize()
+    err = max(float((codes.int() - want_c.int()).abs().max()),
+              float((exps.int() - want_e.int()).abs().max()))
+    sets = [(w.clone(), bits) for _ in range(copies_for(tensor_bytes(w)))]
+    t_kernel, host = time_ms(kq.mxint_quantize_cuda, sets)
+    t_plain, _ = time_ms(kq.mxint_quantize_plain, sets)
+    # one read of w, one write of the codes and of the exponents; per
+    # weight an abs, a max, a scaling, a rounding and two clamps
+    nbytes = tensor_bytes(w, codes, exps)
+    b_ms, b_by = bound_ms(nbytes, 6 * m * n, "float32")
+    return dict(name="K7 mxint_quantize", shape=f"M={m} N={n} bits={bits}",
+                max_abs_err=err, tol=0.0, ms=t_kernel, host_ms=host,
+                plain_ms=t_plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by,
+                note="no single PyTorch call computes MXINT quantization")
+
+
 def phase_kernels(dev) -> list:
     rows = []
     for m in (8, 256):                         # decode lanes → K1; prefill → K2
@@ -390,12 +473,26 @@ def phase_kernels(dev) -> list:
             for packed in (False, True):
                 for rank in (16, 0):
                     rows.append(check_qlr(dev, m, k, n, rank, packed))
+    # deepseek-moe-16b: the router (N = 64, half of K1's column tile), the
+    # dense lead-in layer (N = 10944; K = 10944 for its down projection)
+    for m, k, n in ((8, 2048, 64), (256, 2048, 64), (8, 2048, 10944),
+                    (8, 10944, 2048)):
+        rows.append(check_qlr(dev, m, k, n, 16, False))
     for kind in ("bf16", "int8", "int4"):
         rows.append(check_decode(dev, kind))
+    rows.append(check_decode(dev, "bf16", kvh=16, hd=128))
     rows.append(check_flash(dev))
+    rows.append(check_flash(dev, h=16, hd=128))
     rows.append(check_flash_chunk(dev))
     for kind in ("bf16", "int8", "int4"):
         rows.append(check_paged(dev, kind))
+    # K6 at the expert stacks: gate/up (K = 2048) and down (K = 1408: three
+    # split-K slices, the last of 384 rows), decode (8) and prefill (30) rows
+    for m in (8, 30):
+        for k, n in ((2048, 1408), (1408, 2048)):
+            rows.append(check_qlr_batched(dev, 64, m, k, n, 16))
+    for m, n in ((2048, 1408), (3072, 8192)):
+        rows.append(check_quantize(dev, m, n))
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else f"[{r['note']}]")
@@ -416,18 +513,21 @@ def phase_kernels(dev) -> list:
 # ---------------------------------------------------------------------------
 def launch_counts() -> dict:
     from repro_torch.kernels import decode_attention, flash_attention, \
-        mxint_matmul
+        mxint_matmul, mxint_quantize
     return {"K1": mxint_matmul.LAUNCHES["qlr_fused"],
             "K2": mxint_matmul.LAUNCHES["qlr"],
             "K3": decode_attention.LAUNCHES["flash_decode"],
             "K4": flash_attention.LAUNCHES["flash_attention"],
-            "K5": decode_attention.LAUNCHES["flash_decode_paged"]}
+            "K5": decode_attention.LAUNCHES["flash_decode_paged"],
+            "K6": mxint_matmul.LAUNCHES["qlr_batched"],
+            "K7": mxint_quantize.LAUNCHES["mxint_quantize"]}
 
 
 def reset_counts() -> None:
     from repro_torch.kernels import decode_attention, flash_attention, \
-        mxint_matmul
-    for mod in (mxint_matmul, decode_attention, flash_attention):
+        mxint_matmul, mxint_quantize
+    for mod in (mxint_matmul, decode_attention, flash_attention,
+                mxint_quantize):
         for key in mod.LAUNCHES:
             mod.LAUNCHES[key] = 0
 
@@ -458,7 +558,8 @@ def serve(eng, reqs) -> tuple[list, list, float]:
         time.perf_counter() - t0
 
 
-def profile_decode(eng, cfg, reqs, n_steps: int = 4) -> None:
+def profile_decode(eng, cfg, reqs, n_steps: int = 4,
+                   tag: str = "profile") -> dict:
     """torch.profiler over decode-only engine steps: wall per step, the
     device's busy share, and the kernels that take the device time."""
     import torch
@@ -484,12 +585,16 @@ def profile_decode(eng, cfg, reqs, n_steps: int = 4) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0}
     busy = sum(dev_us.values()) / (wall * 1e6)
-    log("profile", f"{n_steps} decode steps under torch.profiler: "
+    log(tag, f"{n_steps} decode steps under torch.profiler: "
         f"{1e3 * wall / n_steps:.2f} ms/step wall, device busy "
         f"{sum(dev_us.values()) / n_steps / 1e3:.2f} ms/step "
         f"({100 * busy:.1f}% busy, {100 * (1 - busy):.1f}% idle)")
-    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
-        log("profile", f"  {us / n_steps / 1e3:8.3f} ms/step  {key[:90]}")
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    for key, us in top:
+        log(tag, f"  {us / n_steps / 1e3:8.3f} ms/step  {key[:90]}")
+    return dict(wall_ms=1e3 * wall / n_steps, busy=busy,
+                device_ms=sum(dev_us.values()) / n_steps / 1e3,
+                top=[(key, us / n_steps / 1e3) for key, us in top])
 
 
 def quantized_model(dev, cfg):
@@ -738,6 +843,130 @@ def phase_reduced(dev, cfg) -> None:
     require(err <= 1e-3 * max(1.0, scale), "card and CPU logits disagree")
 
 
+def routing_flips(log_a: list, log_b: list) -> int:
+    """(token, layer) pairs whose top-k expert sets differ between two
+    runs' routing logs."""
+    flips = 0
+    for a, b in zip(log_a, log_b):
+        flips += int((a.sort(dim=-1).values != b.sort(dim=-1).values)
+                     .any(dim=-1).sum())
+    return flips
+
+
+def phase_moe(dev) -> dict:
+    """Phase 6: deepseek-moe-16b at full width, init → SRR (K7) → serve."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import PTQConfig
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, init_cache, init_lm, prefill
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config("deepseek-moe-16b")
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    log("moe", f"init_lm {cfg.name}: {cfg.n_layers} layers ({cfg.first_dense}"
+        f" dense, d_ff {cfg.d_ff}) d_model {cfg.d_model} heads {cfg.n_heads} "
+        f"head_dim {cfg.head_dim_} experts {cfg.n_routed} routed + "
+        f"{cfg.n_shared} shared top-{cfg.top_k} d_expert {cfg.d_expert} vocab "
+        f"{cfg.vocab} in {time.perf_counter() - t0:.2f} s; f32 "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB")
+    reset_counts()
+    t0 = time.perf_counter()
+    model, reports = quantize_model_params(
+        model, PTQConfig(method="srr", rank=16, bits=3, seed=0),
+        container="int8", device=dev)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    ptq_counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / gib
+    mean_k = sum(r.k_star for r in reports) / len(reports)
+    log("moe", f"SRR quantized {len(reports)} matrices in {t_quant:.2f} s "
+        f"(rank 16, 3-bit MXINT b32, mean k* {mean_k:.2f}); K7 launches "
+        f"{ptq_counts['K7']}; peak memory of init + PTQ {peak:.2f} GiB; "
+        f"int8 model {torch.cuda.memory_allocated() / gib:.2f} GiB")
+    require(ptq_counts["K7"] >= 2 * len(reports),
+            f"the PTQ pass did not quantize through K7: {ptq_counts}")
+
+    sc = ServeConfig(max_len=512, decode_batch=8, prefill_len=256,
+                     kv_dtype="bf16", fused="auto", max_new_tokens=32)
+    lengths = [150 + (100 * i) // 7 for i in range(8)]
+    serve(Engine(model, cfg, sc, device=dev),
+          make_requests(cfg, 2, seed=1, lengths=[40, 60]))     # warm-up
+    eng = Engine(model, cfg, sc, device=dev)
+    reqs = make_requests(cfg, 8, seed=0, lengths=lengths)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results, steps, wall = serve(eng, reqs)
+    counts = launch_counts()
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_s for r in results]
+    step_ms = 1e3 * sum(steps) / len(steps)
+    log("moe", f"served {len(results)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s: {n_tok / wall:.1f} tok/s; TTFT first "
+        f"{1e3 * min(ttft):.1f} ms mean {1e3 * sum(ttft) / len(ttft):.1f} ms "
+        f"max {1e3 * max(ttft):.1f} ms; decode step {step_ms:.2f} ms over "
+        f"{len(steps)} decode-only steps ({8 / step_ms * 1e3:.1f} tok/s at 8 "
+        f"lanes); peak memory while serving "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    log("moe", f"kernel launches in the run: {counts}")
+    require(len(results) == 8 and all(len(r.tokens) == 32 for r in results),
+            f"expected 8 requests × 32 tokens, got "
+            f"{[len(r.tokens) for r in results]}")
+    require(all(0 <= t < cfg.vocab for r in results for t in r.tokens),
+            "a token outside the vocabulary")
+    require(all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K6")),
+            f"a kernel of the MoE path never launched: {counts}")
+    prof = profile_decode(eng, cfg, make_requests(cfg, 8, seed=4,
+                                                  lengths=lengths), tag="moe")
+    del eng
+
+    # kernels vs fused="off" on one prompt (150 tokens: capacity 17, so
+    # the dispatch drops assignments), under one routing
+    tokens = torch.from_numpy(reqs[0].prompt).long()[None].to(dev)
+    n = torch.tensor([tokens.shape[1]], dtype=torch.int32, device=dev)
+    logit, routes = {}, {}
+    for fused in ("auto", "off"):
+        routes[fused] = []
+        ctx = Ctx(fused=fused, route_log=routes[fused])
+        logit[fused] = prefill(ctx, model, tokens,
+                               init_cache(cfg, 1, 512, torch.bfloat16, dev),
+                               lengths=n)[0].float()
+    flips = routing_flips(routes["auto"], routes["off"])
+    scale = float(logit["off"].abs().max())
+    err = float((logit["auto"] - logit["off"]).abs().max())
+    held = "fused=off"
+    if flips:
+        ctx = Ctx(fused="off", route_replay=iter(routes["auto"]))
+        replayed = prefill(ctx, model, tokens,
+                           init_cache(cfg, 1, 512, torch.bfloat16, dev),
+                           lengths=n)[0].float()
+        scale = float(replayed.abs().max())
+        log("moe", f"{flips} (token, layer) routing flips between the kernel "
+            f"run and fused=off (max |Δ| {err:.3e} there); fused=off replays "
+            f"the kernel run's expert choices")
+        err = float((logit["auto"] - replayed).abs().max())
+        held = "fused=off under the kernel run's routing"
+    require(bool(torch.isfinite(logit["auto"]).all()), "non-finite logits")
+    log("moe", f"prefill logits ({tokens.shape[1]} tokens, "
+        f"{len(routes['auto'])} MoE layers), kernels vs {held}: routing flips "
+        f"{flips}, max |Δ| {err:.3e} (max |logit| {scale:.3f}, tol "
+        f"{1e-3 * max(1.0, scale):.3e})")
+    require(err <= 1e-3 * max(1.0, scale), "the MoE kernel path disagrees "
+            "with the dequantize-then-matmul baseline")
+    del model
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ptq_counts=ptq_counts, tok_s=n_tok / wall,
+                step_ms=step_ms, ttft_ms=[1e3 * t for t in ttft],
+                quantize_s=t_quant, matrices=len(reports),
+                peak_gib_ptq=peak, profile=prof, routing_flips=flips,
+                logit_err=err)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -781,12 +1010,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_reduced(dev, dataclasses.replace(cfg, n_layers=2))
     log("reduced", f"phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_run = phase_moe(dev)
+    log("moe", f"phase took {time.perf_counter() - t0:.1f} s")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "cases": rows,
-                   "main_path": main_run, "paged_path": paged_run}, fh,
-                  indent=1)
+                   "main_path": main_run, "paged_path": paged_run,
+                   "moe_path": moe_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",
@@ -803,17 +1036,25 @@ def main() -> int:
              "K5": ("K5 flash_decode_paged",
                     "B=8 KV=32 G=1 hd=96 ps=16 nb=32 P=296 bf16",
                     "src/repro_torch/kernels/csrc/decode_attention.cu",
-                    "src/repro/kernels/decode_attention.py:201")}
+                    "src/repro/kernels/decode_attention.py:201"),
+             "K6": ("K6 qlr_batched_matmul", "E=64 M=8 K=2048 N=1408 r=16 int8",
+                    "src/repro_torch/kernels/csrc/mxint_matmul.cu",
+                    "src/repro/kernels/mxint_matmul.py:266"),
+             "K7": ("K7 mxint_quantize", "M=2048 N=1408 bits=3",
+                    "src/repro_torch/kernels/csrc/mxint_quantize.cu",
+                    "src/repro/kernels/mxint_quantize.py:38")}
     kernels = []
     for key, (kname, shape, source, replaces) in picks.items():
         row = next(r for r in rows if r["name"] == kname
                    and r["shape"] == shape)
         # launches: K1–K4 from the unpaged main path (phase 4), K5 from
-        # the paged one (phase 4b), each read around its own run
-        run = paged_run if key == "K5" else main_run
+        # the paged one (phase 4b), K6 from the MoE one (phase 6) and K7
+        # from its PTQ pass, each read around its own run
+        counts = {"K5": paged_run["counts"], "K6": moe_run["counts"],
+                  "K7": moe_run["ptq_counts"]}.get(key, main_run["counts"])
         entry = {"name": f"{kname} ({shape})", "route": "cuda",
                  "source": source, "replaces": replaces,
-                 "launches": run["counts"][key],
+                 "launches": counts[key],
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],

@@ -12,7 +12,12 @@ needs no JAX. It handles:
     per layer, in depth order;
   * the three linear schemas: fp ``{"w"[, "b"]}``, quant ``{"codes",
     "scale", "l", "r"[, "gscale", "b"]}`` and packed4 ``{"packed", ...}``,
-    keeping MXINT padding rows (``codes`` may have more rows than ``l``).
+    keeping MXINT padding rows (``codes`` may have more rows than ``l``);
+  * a block's FFN: ``mlp`` (SwiGLU; the dense ``prefix`` lead-in layers
+    of an MoE config carry it too) or ``moe`` — ``router``, ``experts``
+    (the three schemas with a leading expert axis: in ``groups`` a leaf
+    is ``(G, E, ...)``, G is unstacked and E kept) and optional
+    ``shared``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, RMSNorm
 from repro_torch.models.linear import FpLinear, QLinear
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import LM, Block
 
 _DTYPES = {np.dtype(np.float32), np.dtype(np.int8), np.dtype(np.uint8)}
@@ -49,13 +55,25 @@ def _linear(d: Dict[str, Any], device):
                    _tensor(d["r"], device), gscale=gscale, b=b, **store)
 
 
+def _mlp(d: Dict[str, Any], device) -> MLP:
+    return MLP(*(_linear(d[n], device) for n in ("up", "gate", "down")))
+
+
+def _ffn(d: Dict[str, Any], device):
+    if "moe" not in d:
+        return _mlp(d["mlp"], device)
+    m = d["moe"]
+    return MoE(_linear(m["router"], device), _mlp(m["experts"], device),
+               _mlp(m["shared"], device) if "shared" in m else None)
+
+
 def _block(d: Dict[str, Any], device) -> Block:
-    mx, ml = d["mixer"], d["mlp"]
+    mx = d["mixer"]
     return Block(
         RMSNorm(_tensor(d["norm1"]["g"], device)),
         Attention(*(_linear(mx[n], device) for n in ("wq", "wk", "wv", "wo"))),
         RMSNorm(_tensor(d["norm2"]["g"], device)),
-        MLP(*(_linear(ml[n], device) for n in ("up", "gate", "down"))))
+        _ffn(d, device))
 
 
 def _unstack(tree: Any, i: int) -> Any:

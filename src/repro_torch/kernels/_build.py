@@ -26,7 +26,8 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/_build.py → the repository root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mxint_matmul", "decode_attention", "flash_attention")
+SOURCES = ("mxint_matmul", "decode_attention", "flash_attention",
+           "mxint_quantize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

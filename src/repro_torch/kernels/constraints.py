@@ -48,6 +48,22 @@ KV_PTR_ALIGN = 16
 # limit is the packed4 one: a page holds whole byte pairs.
 PAGE_ALIGN = PACKED4_ALIGN
 
+# CUDA's limit on a grid's y and z extents.
+CUDA_MAX_GRID_YZ = 65535
+
+# --- K6 (kernels/csrc/mxint_matmul.cu, batched) ----------------------------
+# K6 puts (stack entry, row tile) on the grid's z axis: E · ceil(M / row
+# tile) must stay within CUDA_MAX_GRID_YZ. Its row tiles are 8 rows (the
+# decode lanes) up to this many rows, 16 above.
+QLR_BATCHED_SMALL_ROWS = 8
+
+# --- K7 (kernels/csrc/mxint_quantize.cu) -----------------------------------
+# K7 puts the 32-row blocks on the grid's y axis (M / 32 within
+# CUDA_MAX_GRID_YZ). Code widths it takes: int8 holds codes in
+# [-qmax-1, qmax] for bits <= 8, and 1 bit has no magnitude (qmax = 0).
+MXINT_MIN_BITS = 2
+MXINT_MAX_BITS = 8
+
 
 def validate_page_size(page_size: int, what: str = "page_size") -> None:
     """Raise ``ValueError`` unless ``page_size`` logical slots can back a

@@ -1,10 +1,14 @@
-// K1 and K2: the fused MXINT Q + LR matmul, y = x·dequant(codes, scale) + (x·L)·R.
+// K1, K2 and K6: the fused MXINT Q + LR matmul,
+// y = x·dequant(codes, scale) + (x·L)·R.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/mxint_matmul.py:
 //   K1  mxint_lowrank_matmul_fused_2d (body _fused_kernel): x·L accumulated
 //       in the same pass over K — the decode regime (rows <= 128);
 //   K2  mxint_lowrank_matmul_2d (body _kernel): xl = x·L precomputed by the
-//       caller and added at the end — the prefill regime (rows > 128).
+//       caller and added at the end — the prefill regime (rows > 128);
+//   K6  mxint_lowrank_matmul_batched_2d (body _batched_kernel): K2 over a
+//       leading stack of E independent int8 weights — every MoE expert
+//       projection, on the (E, capacity, K) dispatch buffer.
 //
 // What bounds it on an H100: at decode (M = 8 lanes) the codes dominate
 // the bytes — a 3072×8192 int8 projection is 25 MB against 0.2 MB of
@@ -32,7 +36,15 @@
 //   * K1 computes x·L only in the blocks of the first column tile (the
 //     sliver does not depend on N), where the TPU kernel recomputes it per
 //     N block; K2 reads the precomputed sliver in the finishing kernel.
-//   * rank 0 needs no zero sliver: the low-rank loops simply run empty.
+//   * rank 0 needs no zero sliver: the low-rank loops simply run empty;
+//   * K6 is K2's body instantiated with STACKED: the stack entry is folded
+//     into grid.z next to the row tile (z = entry · row_tiles + tile),
+//     every block offsets its pointers by its entry's strides, and the
+//     finishing kernel takes the entry from its own grid.z. K1 and K2
+//     compile without that arithmetic, which slowed K1 on the card
+//     (PERF.md). At decode (M = 8 lanes, E = 64 experts, K = 2048,
+//     N = 1408) one gate/up call streams 185 MB of codes from 64 · 4 · 11
+//     = 2816 blocks; the tile is 8 rows up to 8 rows, 16 above.
 //
 // The limits below repeat src/repro_torch/kernels/constraints.py, whose
 // wrapper checks raise before a launch the kernel cannot take.
@@ -79,19 +91,29 @@ __device__ __forceinline__ int nib_hi(uint32_t word, int c) {
 //   l       (K, rank) f32                     FUSED only
 //   part    (splits, M, N) f32   partial x·dequant(codes) per K split
 //   xl_part (splits, M, rank) f32 partial x·L per K split   FUSED only
-template <int MT, bool PACKED, bool FUSED, typename XT>
+// STACKED (K6): x, codes, scale and part carry a leading entry axis and
+// grid.z = entries · row_tiles.
+template <int MT, bool PACKED, bool FUSED, bool STACKED, typename XT>
 __global__ void __launch_bounds__(kThreads)
 qlr_partial_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
                    const float* __restrict__ scale, const float* __restrict__ l,
                    float* __restrict__ part, float* __restrict__ xl_part,
-                   int M, int K, int N, int rank) {
+                   int M, int K, int N, int rank, int row_tiles) {
   __shared__ float xs[kSplitRows][MT];              // x tile, transposed
   __shared__ float red[MT][kTileN];                 // cross-warp reduction
   __shared__ float xlr[FUSED ? MT : 1][kMaxRank];   // x·L reduction
 
   const int n0 = blockIdx.x * kTileN;
   const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MT;
+  int m0 = blockIdx.z * MT;
+  if (STACKED) {
+    const size_t entry = blockIdx.z / row_tiles;
+    m0 = (blockIdx.z % row_tiles) * MT;
+    x += entry * M * K;
+    codes += entry * (PACKED ? K / 2 : K) * N;
+    scale += entry * (K / kMxBlock) * N;
+    part += entry * gridDim.y * M * N;
+  }
   const int k_begin = split * kSplitRows;
   const int rows = min(K - k_begin, kSplitRows);    // a multiple of 32
   const int warp = threadIdx.x / 32;
@@ -213,13 +235,21 @@ qlr_partial_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
 }
 
 // y[m, n] = Σ_split part[split, m, n] + Σ_r xl[m, r]·R[r, n], where xl is
-// Σ_split xl_part (K1) or the caller's precomputed sliver (K2).
-template <bool FUSED>
+// Σ_split xl_part (K1) or the caller's precomputed sliver (K2, K6).
+// STACKED (K6): part, xl, r and y carry a leading entry axis: grid.z.
+template <bool FUSED, bool STACKED>
 __global__ void __launch_bounds__(kFinishThreads)
 qlr_finish_kernel(const float* __restrict__ part, int splits,
                   const float* __restrict__ xl, const float* __restrict__ r,
                   float* __restrict__ y, int M, int N, int rank) {
   __shared__ float xl_s[kMaxRank];
+  if (STACKED) {
+    const size_t entry = blockIdx.z;
+    part += entry * splits * M * N;
+    xl += entry * M * rank;
+    r += entry * rank * N;
+    y += entry * M * N;
+  }
   const int m = blockIdx.y;
   const int n = blockIdx.x * kFinishThreads + threadIdx.x;
   if (threadIdx.x < rank) {
@@ -242,20 +272,23 @@ qlr_finish_kernel(const float* __restrict__ part, int splits,
   y[static_cast<size_t>(m) * N + n] = acc;
 }
 
-template <int MT, bool PACKED, bool FUSED, typename XT>
+template <int MT, bool PACKED, bool FUSED, bool STACKED, typename XT>
 int launch(const void* x, const void* codes, const void* scale, const void* l,
            const void* xl, const void* r, void* y, void* part, void* xl_part,
-           int M, int K, int N, int rank, cudaStream_t stream) {
+           int E, int M, int K, int N, int rank, cudaStream_t stream) {
   const int splits = (K + kSplitRows - 1) / kSplitRows;
-  const dim3 grid((N + kTileN - 1) / kTileN, splits, (M + MT - 1) / MT);
-  qlr_partial_kernel<MT, PACKED, FUSED, XT><<<grid, kThreads, 0, stream>>>(
+  const int row_tiles = (M + MT - 1) / MT;
+  const dim3 grid((N + kTileN - 1) / kTileN, splits, E * row_tiles);
+  qlr_partial_kernel<MT, PACKED, FUSED, STACKED, XT>
+      <<<grid, kThreads, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const uint8_t*>(codes),
       static_cast<const float*>(scale), static_cast<const float*>(l),
-      static_cast<float*>(part), static_cast<float*>(xl_part), M, K, N, rank);
+      static_cast<float*>(part), static_cast<float*>(xl_part), M, K, N, rank,
+      row_tiles);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 fgrid((N + kFinishThreads - 1) / kFinishThreads, M);
-  qlr_finish_kernel<FUSED><<<fgrid, kFinishThreads, 0, stream>>>(
+  const dim3 fgrid((N + kFinishThreads - 1) / kFinishThreads, M, E);
+  qlr_finish_kernel<FUSED, STACKED><<<fgrid, kFinishThreads, 0, stream>>>(
       static_cast<const float*>(part), splits,
       static_cast<const float*>(FUSED ? xl_part : xl),
       static_cast<const float*>(r), static_cast<float*>(y), M, N, rank);
@@ -270,16 +303,33 @@ int dispatch(const void* x, const void* codes, const void* scale, const void* l,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
     return packed
-        ? launch<MT, true, FUSED, __nv_bfloat16>(x, codes, scale, l, xl, r, y,
-                                                 part, xl_part, M, K, N, rank, s)
-        : launch<MT, false, FUSED, __nv_bfloat16>(x, codes, scale, l, xl, r, y,
-                                                  part, xl_part, M, K, N, rank, s);
+        ? launch<MT, true, FUSED, false, __nv_bfloat16>(
+              x, codes, scale, l, xl, r, y, part, xl_part, 1, M, K, N, rank, s)
+        : launch<MT, false, FUSED, false, __nv_bfloat16>(
+              x, codes, scale, l, xl, r, y, part, xl_part, 1, M, K, N, rank, s);
   }
   return packed
-      ? launch<MT, true, FUSED, float>(x, codes, scale, l, xl, r, y, part,
-                                       xl_part, M, K, N, rank, s)
-      : launch<MT, false, FUSED, float>(x, codes, scale, l, xl, r, y, part,
-                                        xl_part, M, K, N, rank, s);
+      ? launch<MT, true, FUSED, false, float>(x, codes, scale, l, xl, r, y,
+                                              part, xl_part, 1, M, K, N, rank,
+                                              s)
+      : launch<MT, false, FUSED, false, float>(x, codes, scale, l, xl, r, y,
+                                               part, xl_part, 1, M, K, N, rank,
+                                               s);
+}
+
+// K6: int8 codes only, like the TPU kernel.
+template <int MT>
+int dispatch_stacked(const void* x, const void* codes, const void* scale,
+                     const void* xl, const void* r, void* y, void* part, int E,
+                     int M, int K, int N, int rank, int x_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return x_bf16
+      ? launch<MT, false, false, true, __nv_bfloat16>(
+            x, codes, scale, nullptr, xl, r, y, part, nullptr, E, M, K, N,
+            rank, s)
+      : launch<MT, false, false, true, float>(
+            x, codes, scale, nullptr, xl, r, y, part, nullptr, E, M, K, N,
+            rank, s);
 }
 
 }  // namespace
@@ -302,4 +352,20 @@ extern "C" int qlr_launch(const void* x, const void* codes, const void* scale,
                           void* stream) {
   return dispatch<16, false>(x, codes, scale, nullptr, xl, r, y, part, nullptr,
                              M, K, N, rank, x_bf16, packed, stream);
+}
+
+// K6: y (E, M, N) f32, y[e] = x[e]·dequant(codes[e], scale[e]) + xl[e]·R[e]
+// over a stack of E int8 weights; x (E, M, K) f32/bf16, codes (E, K, N)
+// int8, scale (E, K/32, N), xl = x·L (E, M, rank) f32 precomputed by the
+// caller, r (E, rank, N). Workspace: part (E, splits, M, N) f32.
+extern "C" int qlr_batched_launch(const void* x, const void* codes,
+                                  const void* scale, const void* xl,
+                                  const void* r, void* y, void* part, int E,
+                                  int M, int K, int N, int rank, int x_bf16,
+                                  void* stream) {
+  if (M <= 8)   // constraints.QLR_BATCHED_SMALL_ROWS: the decode lanes
+    return dispatch_stacked<8>(x, codes, scale, xl, r, y, part, E, M, K, N,
+                               rank, x_bf16, stream);
+  return dispatch_stacked<16>(x, codes, scale, xl, r, y, part, E, M, K, N,
+                              rank, x_bf16, stream);
 }

@@ -1,9 +1,12 @@
-"""K1 and K2: the fused MXINT Q + LR matmul, ``y = x·dequant(Q) + (x·L)·R``.
+"""K1, K2 and K6: the fused MXINT Q + LR matmul,
+``y = x·dequant(Q) + (x·L)·R``.
 
 Port of ``repro/kernels/mxint_matmul.py`` (the Pallas kernels
-``mxint_lowrank_matmul_fused_2d`` and ``mxint_lowrank_matmul_2d``) and of
-the ``qlr_matmul`` dispatch in ``repro/kernels/ops.py``. The CUDA source
-is ``csrc/mxint_matmul.cu``; its header says what bounds it and how.
+``mxint_lowrank_matmul_fused_2d``, ``mxint_lowrank_matmul_2d`` and
+``mxint_lowrank_matmul_batched_2d``) and of the ``qlr_matmul`` /
+``qlr_matmul_batched`` dispatch in ``repro/kernels/ops.py``. The CUDA
+source is ``csrc/mxint_matmul.cu``; its header says what bounds it and
+how.
 
 :func:`qlr_matmul` is the entry point. For a CPU tensor it runs
 :func:`qlr_matmul_plain`; for a CUDA tensor it launches K1 (x·L
@@ -12,29 +15,36 @@ accumulated in the kernel) when there are at most
 ``torch.matmul``) otherwise, or raises on an input the kernels do not
 take. ``codes`` is the int8 container ``(K, N)`` or the packed4 uint8
 container ``(K/2, N)``, which the kernels unpack in registers.
+
+:func:`qlr_matmul_batched` is the stacked entry (MoE experts): ``x (E, M,
+K)`` against ``E`` int8 weights, ``xl = x·L`` computed outside the kernel
+by one ``torch.bmm`` (as the JAX dispatch computes it outside Pallas),
+then K6 on a CUDA tensor, :func:`qlr_matmul_batched_plain` on a CPU one.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.constraints import (MXINT_BLOCK, QLR_COL_VEC,
-                                             QLR_FUSED_MAX_ROWS, QLR_MAX_RANK,
-                                             QLR_SPLIT_ROWS)
+from repro_torch.kernels.constraints import (CUDA_MAX_GRID_YZ, MXINT_BLOCK,
+                                             QLR_BATCHED_SMALL_ROWS,
+                                             QLR_COL_VEC, QLR_FUSED_MAX_ROWS,
+                                             QLR_MAX_RANK, QLR_SPLIT_ROWS)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
 # launches of each kernel since the last reset; a plain count per wrapper
-LAUNCHES = {"qlr_fused": 0, "qlr": 0}
+LAUNCHES = {"qlr_fused": 0, "qlr": 0, "qlr_batched": 0}
 
 
 def dequant_blockwise(codes: torch.Tensor, scale: torch.Tensor,
                       dtype) -> torch.Tensor:
-    """``(K, N)`` codes × per-block ``(K/B, N)`` scale → dense weight,
-    by reshape-multiply (no repeated scale plane)."""
-    k, n = codes.shape
-    nb = scale.shape[0]
-    return (codes.to(dtype).reshape(nb, k // nb, n)
-            * scale.to(dtype)[:, None, :]).reshape(k, n)
+    """``(..., K, N)`` codes × per-block ``(..., K/B, N)`` scale → dense
+    weight, by reshape-multiply (no repeated scale plane); leading stack
+    dims pass through."""
+    lead, (k, n) = codes.shape[:-2], codes.shape[-2:]
+    nb = scale.shape[-2]
+    return (codes.to(dtype).reshape(*lead, nb, k // nb, n)
+            * scale.to(dtype)[..., :, None, :]).reshape(*lead, k, n)
 
 
 def qlr_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
@@ -146,3 +156,91 @@ def qlr_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         xl = x2.float() @ l.float()
         y = qlr_xl_matmul(x2.contiguous(), codes, scale, xl, r)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+
+
+def qlr_matmul_batched_plain(x: torch.Tensor, codes: torch.Tensor,
+                             scale: torch.Tensor, l: torch.Tensor,
+                             r: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: ``x (E, M, K) → y (E, M, N)`` in f32,
+    ``y[e] = x[e]·dequant(codes[e], scale[e]) + (x[e]·L[e])·R[e]``."""
+    xf = x.float()
+    y = torch.bmm(xf, dequant_blockwise(codes, scale, torch.float32))
+    if l.shape[-1] > 0:
+        y = y + torch.bmm(torch.bmm(xf, l.float()), r.float())
+    return y
+
+
+def qlr_batched_matmul_cuda(x: torch.Tensor, codes: torch.Tensor,
+                            scale: torch.Tensor, xl: torch.Tensor,
+                            r: torch.Tensor) -> torch.Tensor:
+    """Launch K6 on ``x (E, M, K)`` with the precomputed sliver ``xl =
+    x·L`` (E, M, rank) f32: y (E, M, N) f32. Codes are int8 only, as the
+    TPU kernel's."""
+    if codes.dtype != torch.int8:
+        raise TypeError(f"K6 takes int8 codes, got {codes.dtype} (packed4 "
+                        f"expert stacks take the dequantize-then-matmul path)")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    for name, t in (("scale", scale), ("xl", xl), ("r", r)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("x", x), ("codes", codes), ("scale", scale), ("xl", xl),
+                    ("r", r)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.ndim != 3 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 3-D stack, got "
+                             f"shape {tuple(t.shape)}")
+    e, m, k = x.shape
+    n = codes.shape[2]
+    rank = r.shape[1]
+    if codes.shape != (e, k, n):
+        raise ValueError(f"codes {tuple(codes.shape)} must be (E, K, N) = "
+                         f"({e}, {k}, N) for x {tuple(x.shape)}")
+    if k % MXINT_BLOCK or scale.shape != (e, k // MXINT_BLOCK, n):
+        raise ValueError(f"scale {tuple(scale.shape)} must be (E, K/"
+                         f"{MXINT_BLOCK}, N) = ({e}, {k // MXINT_BLOCK}, {n}) "
+                         f"with K % {MXINT_BLOCK} == 0")
+    if n % QLR_COL_VEC:
+        raise ValueError(f"N={n} must be a multiple of {QLR_COL_VEC}")
+    if rank > QLR_MAX_RANK or r.shape != (e, rank, n) \
+            or xl.shape != (e, m, rank):
+        raise ValueError(f"xl {tuple(xl.shape)}, r {tuple(r.shape)} do not "
+                         f"fit E={e}, M={m}, N={n} (rank ≤ {QLR_MAX_RANK})")
+    row_tile = QLR_BATCHED_SMALL_ROWS if m <= QLR_BATCHED_SMALL_ROWS \
+        else 2 * QLR_BATCHED_SMALL_ROWS
+    if m < 1 or m > CUDA_MAX_GRID_YZ \
+            or e * -(-m // row_tile) > CUDA_MAX_GRID_YZ:
+        raise ValueError(f"E={e}, M={m}: K6's grid takes 1 ≤ M and E · "
+                         f"ceil(M/{row_tile}) ≤ {CUDA_MAX_GRID_YZ}")
+    if codes.data_ptr() % 4 or scale.data_ptr() % 16:
+        raise ValueError("codes must be 4-byte and scale 16-byte aligned")
+    splits = -(-k // QLR_SPLIT_ROWS)
+    y = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+    part = torch.empty((e, splits, m, n), dtype=torch.float32,
+                       device=x.device)
+    fn = _build.function("mxint_matmul", "qlr_batched_launch", 7, 6)
+    err = fn(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), xl.data_ptr(),
+             r.data_ptr(), y.data_ptr(), part.data_ptr(), e, m, k, n, rank,
+             int(x.dtype == torch.bfloat16),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "qlr_batched_launch (K6)")
+    LAUNCHES["qlr_batched"] += 1
+    return y
+
+
+def qlr_matmul_batched(x: torch.Tensor, codes: torch.Tensor,
+                       scale: torch.Tensor, l: torch.Tensor,
+                       r: torch.Tensor) -> torch.Tensor:
+    """Stacked ``y[e] = x[e]·dequant(codes[e], scale[e]) + (x[e]·L[e])·
+    R[e]`` for ``x (E, M, K)``, int8 ``codes (E, K, N)``, ``scale (E,
+    K/32, N)``, ``l (E, K, r)``, ``r (E, r, N)``; returns ``x.dtype``. CPU
+    tensors take the plain version; CUDA tensors take K6 after one
+    ``torch.bmm`` for the sliver ``x·L``."""
+    if x.device.type == "cpu":
+        y = qlr_matmul_batched_plain(x, codes, scale, l, r)
+    else:
+        x = x.contiguous()
+        xl = torch.bmm(x.float(), l.float())
+        y = qlr_batched_matmul_cuda(x, codes, scale, xl, r)
+    return y.to(x.dtype)

@@ -4,8 +4,9 @@ Init a model from a seed → SRR-quantize it (identity scaling: the port
 has no calibration yet) into the Q + LR container → serve requests
 through the continuous-batching engine, on the card by default
 (``--device cuda``; ``--device cpu`` runs the kernels' plain versions).
-``--full`` serves the architecture at its published size instead of its
-``.reduced()`` smoke-test size. ``--paged`` serves from the paged KV
+``--arch`` picks a registered architecture (``phi3-mini-3.8b``, dense,
+or ``deepseek-moe-16b``, MoE); ``--full`` serves it at its published
+size instead of its ``.reduced()`` smoke-test size. ``--paged`` serves from the paged KV
 cache with prefix reuse and chunked prefill.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import PTQConfig
 from repro_torch.models.transformer import LM, init_lm
@@ -55,7 +56,7 @@ def make_requests(cfg: ModelConfig, n: int, seed: int,
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--arch", default="phi3-mini-3.8b")
+    p.add_argument("--arch", default="phi3-mini-3.8b", choices=sorted(ARCHS))
     p.add_argument("--method", default="srr", choices=["srr", "none"])
     p.add_argument("--rank", type=int, default=16)
     p.add_argument("--bits", type=int, default=3)

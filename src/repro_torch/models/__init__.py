@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder and its Q + LR layers."""
+"""Model zoo of the port: the decoder (dense or MoE) and its Q + LR
+layers."""
 from repro_torch.models.linear import Ctx, FpLinear, QLinear, linear
 from repro_torch.models.transformer import (LM, decode_step, forward,
                                             init_cache, init_lm, prefill,

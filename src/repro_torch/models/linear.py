@@ -11,20 +11,29 @@ is in ``repro/models/linear.py``:
 ``m_pad`` rounds the input dim up to the MXINT block; ``l`` keeps the
 true row count, and the padding rows are zero-padded on the fly.
 
+An expert stack (``models.moe``) is the same two modules with a leading
+expert axis on every buffer: ``w`` (E, m, n); ``codes`` (E, m_pad, n) or
+``packed`` (E, m_pad/2, n), ``scale`` (E, m_pad/32, n), ``l`` (E, m, r),
+``r`` (E, r, n), ``gscale`` (E, r) [, ``b`` (E, n)]. :func:`linear_stack`
+applies one to an (E, C, m) dispatch buffer.
+
 ``Ctx.fused`` picks the Q + LR path: ``"auto"`` and ``"on"`` both go
 through :func:`repro_torch.kernels.mxint_matmul.qlr_matmul`, which
 launches K1/K2 on a CUDA tensor and runs their plain version on a CPU
-tensor; ``"off"`` keeps the dequantize-then-matmul baseline.
+tensor (an int8 expert stack: :func:`~repro_torch.kernels.mxint_matmul.
+qlr_matmul_batched`, K6); ``"off"`` keeps the dequantize-then-matmul
+baseline.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, List, Optional
 
 import torch
 from torch import nn
 
-from repro_torch.kernels.mxint_matmul import dequant_blockwise, qlr_matmul
+from repro_torch.kernels.mxint_matmul import (dequant_blockwise, qlr_matmul,
+                                              qlr_matmul_batched)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
 
@@ -34,6 +43,12 @@ class Ctx:
 
     compute_dtype: torch.dtype = torch.float32
     fused: str = "auto"                           # Q+LR matmul: auto|on|off
+    # MoE routing probes (``models.moe``): each MoE layer appends its
+    # (T, top_k) expert choice to ``route_log``, and takes it from
+    # ``route_replay`` instead of its own top-k when that is set — so two
+    # lowerings can be compared under one routing
+    route_log: Optional[List[torch.Tensor]] = None
+    route_replay: Optional[Iterator[torch.Tensor]] = None
 
 
 class FpLinear(nn.Module):
@@ -78,10 +93,11 @@ def fused_mode(ctx: Ctx) -> str:
 
 def dequant_weight(p: QLinear, dtype) -> torch.Tensor:
     """Materialize the quantized backbone (the ``fused="off"`` path),
-    sliced back to the true input dim."""
+    sliced back to the true input dim; an expert stack dequantizes over
+    its leading axis."""
     codes = unpack_codes_4bit(p.packed) if p.packed is not None else p.codes
     w = dequant_blockwise(codes, p.scale, dtype)
-    return w[: p.l.shape[0]]
+    return w[..., : p.l.shape[-2], :]
 
 
 def _fused_qlr(p: QLinear, x: torch.Tensor) -> torch.Tensor:
@@ -112,4 +128,36 @@ def linear(ctx: Ctx, p: nn.Module, x: torch.Tensor) -> torch.Tensor:
             y = y + (x.to(dt) @ p.l.to(dt)) @ p.r.to(dt)
     if p.b is not None:
         y = y + p.b.to(dt)
+    return y
+
+
+def _fused_qlr_stack(p: QLinear, x: torch.Tensor) -> torch.Tensor:
+    """An int8 expert stack through the batched Q + LR matmul, padding x
+    and l with zeros up to the MXINT-padded code rows."""
+    l = p.l
+    pad = p.codes.shape[-2] - x.shape[-1]
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+        l = torch.nn.functional.pad(l, (0, 0, 0, pad))
+    return qlr_matmul_batched(x, p.codes, p.scale, l, p.r)
+
+
+def linear_stack(ctx: Ctx, p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``y[e] = x[e] @ W[e] (+ b[e])`` for an expert stack and ``x`` (E, C,
+    m). int8 stacks under the kernel mode take the batched Q + LR matmul
+    (K6 on the card); fp stacks, packed4 stacks and ``fused="off"`` take
+    one batched matmul on the dequantized stack, as the JAX package's
+    ``vmap`` of dequantize-then-matmul does."""
+    dt = ctx.compute_dtype
+    xd = x.to(dt)
+    if isinstance(p, FpLinear):
+        y = torch.bmm(xd, p.w.to(dt))
+    elif fused_mode(ctx) != "off" and p.codes is not None:
+        y = _fused_qlr_stack(p, xd)
+    else:
+        y = torch.bmm(xd, dequant_weight(p, dt))
+        if p.l.shape[-1] > 0:
+            y = y + torch.bmm(torch.bmm(xd, p.l.to(dt)), p.r.to(dt))
+    if p.b is not None:
+        y = y + p.b.to(dt)[:, None, :]
     return y

@@ -3,9 +3,14 @@ with its SRR ``QLinear`` (port of ``repro/models/quantize.py``
 ``quantize_model_params`` for the int8 and packed4 containers).
 
 Policy, as in the JAX package: the seven projections of each block are
-quantized; the embedding, the LM head and the norms stay full precision.
-Matrices are quantized one at a time on the model's device, and each
-block's fp weights are released as soon as it is replaced.
+quantized — in an MoE block the attention projections, the router, the
+shared experts' three and every (expert, projection) matrix of the
+routed stacks, each with its own k* and its own generator, stacked back
+into the expert container; the embedding, the LM head and the norms stay
+full precision. Matrices are quantized one at a time on the model's
+device, and each projection's fp weights (a whole expert stack at once)
+are released as soon as it is replaced, so the f32 model's footprint
+only shrinks during the pass.
 """
 from __future__ import annotations
 
@@ -15,12 +20,13 @@ import torch
 
 from repro_torch.core.api import LayerReport, PTQConfig, quantize_layer
 from repro_torch.device import resolve_device
-from repro_torch.models.linear import FpLinear, QLinear
+from repro_torch.models.linear import QLinear
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import LM
 from repro_torch.quant.mxint import pack_codes_4bit
 
-PROJECTIONS = (("mixer", ("wq", "wk", "wv", "wo")),
-               ("mlp", ("up", "gate", "down")))
+ATTENTION = ("wq", "wk", "wv", "wo")
+SWIGLU = ("up", "gate", "down")
 
 
 def fixed_gamma_scale(rank: int, k: int, gamma: float,
@@ -31,12 +37,12 @@ def fixed_gamma_scale(rank: int, k: int, gamma: float,
     return torch.where(idx < k, gamma, 1.0).float()
 
 
-def quantize_linear(name: str, p: FpLinear, cfg: PTQConfig,
-                    gen: torch.Generator,
-                    container: str) -> Tuple[QLinear, LayerReport]:
-    """SRR-decompose one projection and pack it into the Q + LR
-    container (``"int8"`` codes or ``"packed4"`` nibbles)."""
-    dec, rep = quantize_layer(name, p.w, cfg, gen)
+def _quantize_matrix(name: str, w: torch.Tensor, cfg: PTQConfig,
+                     gen: torch.Generator, container: str
+                     ) -> Tuple[dict, LayerReport]:
+    """SRR-decompose one (m, n) matrix into the Q + LR container's
+    buffers (``"int8"`` codes or ``"packed4"`` nibbles)."""
+    dec, rep = quantize_layer(name, w, cfg, gen)
     packed = cfg.quantizer().quantize(dec.q)
     store = {"codes": packed.codes}
     if container == "packed4":
@@ -45,11 +51,10 @@ def quantize_linear(name: str, p: FpLinear, cfg: PTQConfig,
         store = {"packed": pack_codes_4bit(packed.codes)}
     elif container != "int8":
         raise ValueError(f"unknown container {container!r} (int8 | packed4)")
-    q = QLinear(torch.exp2(packed.exponents.float()), dec.l.float(),
-                dec.r.float(), gscale=fixed_gamma_scale(dec.rank, dec.k, 0.1,
-                                                        p.w.device),
-                b=p.b, **store)
-    return q, rep
+    return dict(scale=torch.exp2(packed.exponents.float()), l=dec.l.float(),
+                r=dec.r.float(),
+                gscale=fixed_gamma_scale(dec.rank, dec.k, 0.1, w.device),
+                **store), rep
 
 
 def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
@@ -64,18 +69,42 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
         raise ValueError(f"model lives on {model.device}, not on {dev}")
     reports: List[LayerReport] = []
     index = 0
+
+    def one(name: str, w: torch.Tensor) -> dict:
+        nonlocal index
+        index += 1
+        gen = torch.Generator(device=model.device).manual_seed(
+            cfg.seed * 1_000_003 + index)
+        bufs, rep = _quantize_matrix(name, w, cfg, gen, container)
+        reports.append(rep)
+        if progress is not None:
+            progress(rep)
+        return bufs
+
+    def projections(owner, prefix: str, names) -> None:
+        for n in names:
+            p = getattr(owner, n)
+            setattr(owner, n, QLinear(b=p.b, **one(f"{prefix}.{n}", p.w)))
+
+    def stacks(owner, prefix: str) -> None:
+        # one matrix per expert, stacked back along the expert axis; the
+        # fp stack goes once the module is replaced
+        for n in SWIGLU:
+            p = getattr(owner, n)
+            per = [one(f"{prefix}.{n}[{e}]", p.w[e])
+                   for e in range(p.w.shape[0])]
+            stacked = {key: torch.stack([q[key] for q in per])
+                       for key in per[0]}
+            setattr(owner, n, QLinear(b=p.b, **stacked))
+
     for i, blk in enumerate(model.blocks):
-        for part, names in PROJECTIONS:
-            owner = getattr(blk, part)
-            for n in names:
-                index += 1
-                gen = torch.Generator(device=model.device).manual_seed(
-                    cfg.seed * 1_000_003 + index)
-                q, rep = quantize_linear(f"blocks.{i}.{part}.{n}",
-                                         getattr(owner, n), cfg, gen,
-                                         container)
-                setattr(owner, n, q)
-                reports.append(rep)
-                if progress is not None:
-                    progress(rep)
+        projections(blk.mixer, f"blocks.{i}.mixer", ATTENTION)
+        if isinstance(blk.mlp, MoE):
+            pre = f"blocks.{i}.mlp"
+            projections(blk.mlp, pre, ("router",))
+            if blk.mlp.shared is not None:
+                projections(blk.mlp.shared, f"{pre}.shared", SWIGLU)
+            stacks(blk.mlp.experts, f"{pre}.experts")
+        else:
+            projections(blk.mlp, f"blocks.{i}.mlp", SWIGLU)
     return model, reports

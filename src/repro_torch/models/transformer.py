@@ -1,14 +1,18 @@
-"""Dense decoder: config → init / forward / prefill / decode (port of the
-dense-attention parts of ``repro/models/transformer.py``).
+"""Decoder: config → init / forward / prefill / decode (port of the
+full-attention parts of ``repro/models/transformer.py``).
 
 The JAX package folds depth into a ``lax.scan`` over stacked params; here
 the layers are an ``nn.ModuleList`` walked by a Python loop, and the
 cache is a list with one dict per layer (see ``models.attention``).
-Embeddings and the LM head stay full precision by PTQ policy.
+Each block's FFN is a SwiGLU :class:`~repro_torch.models.layers.MLP` or,
+past the config's ``first_dense`` lead-in layers of an MoE config, an
+:class:`~repro_torch.models.moe.MoE`; :func:`ffn` applies either, for
+prefill, chunks and decode alike. Embeddings and the LM head stay full
+precision by PTQ policy.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -19,28 +23,45 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, RMSNorm, embed, init_linear, mlp,
                                        rmsnorm)
 from repro_torch.models.linear import Ctx, FpLinear, linear
+from repro_torch.models.moe import MoE, init_moe, moe_apply
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """This slice serves dense full-attention RoPE/SwiGLU/RMSNorm
-    decoders; raise for anything else rather than run it wrongly."""
-    dense = (set(cfg.block_pattern) == {"attn"} and cfg.attn_kind == "gqa"
-             and not cfg.moe and not cfg.first_dense
-             and not cfg.is_encoder_decoder and not cfg.n_vision_tokens
-             and cfg.rope_kind == "full" and cfg.act == "swiglu"
-             and cfg.norm == "rmsnorm" and cfg.d_ff > 0)
-    if not dense:
+    """The port serves full-attention RoPE/SwiGLU/RMSNorm GQA decoders,
+    dense or MoE (routed + shared experts after ``first_dense`` dense
+    layers); raise for anything else rather than run it wrongly."""
+    moe_ok = not cfg.moe or (cfg.n_routed > 0 and 0 < cfg.top_k <= cfg.n_routed
+                             and cfg.d_expert > 0)
+    ok = (set(cfg.block_pattern) == {"attn"} and cfg.attn_kind == "gqa"
+          and moe_ok and (cfg.moe or not cfg.first_dense)
+          and not cfg.is_encoder_decoder and not cfg.n_vision_tokens
+          and cfg.rope_kind == "full" and cfg.act == "swiglu"
+          and cfg.norm == "rmsnorm" and cfg.d_ff > 0)
+    if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA decoders with full RoPE, "
-            f"SwiGLU and RMSNorm only (block_pattern={cfg.block_pattern}, "
-            f"attn_kind={cfg.attn_kind!r}, moe={cfg.moe})")
+            f"{cfg.name}: the port serves GQA decoders (dense or MoE) with "
+            f"full RoPE, SwiGLU and RMSNorm only (block_pattern="
+            f"{cfg.block_pattern}, attn_kind={cfg.attn_kind!r}, moe={cfg.moe})")
 
 
 class Block(nn.Module):
+    """``mlp`` is the block's FFN: a SwiGLU :class:`MLP` or an
+    :class:`MoE`."""
+
     def __init__(self, norm1: RMSNorm, mixer: attn.Attention, norm2: RMSNorm,
-                 mlp_: MLP):
+                 mlp_: Union[MLP, MoE]):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.mlp = norm1, mixer, norm2, mlp_
+
+
+def ffn(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig
+        ) -> torch.Tensor:
+    """The block's FFN (SwiGLU or MoE) applied to ``norm2(x)``; the
+    caller adds it to the residual stream ``x``."""
+    h = rmsnorm(blk.norm2, x)
+    if isinstance(blk.mlp, MoE):
+        return moe_apply(ctx, blk.mlp, h, cfg)
+    return mlp(ctx, blk.mlp, h)
 
 
 class LM(nn.Module):
@@ -66,7 +87,8 @@ class LM(nn.Module):
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     """Random f32 model from ``seed`` with the JAX package's init scales
     (``transformer.init_lm``); the numbers differ from JAX's, since the
-    generators differ."""
+    generators differ. An MoE config gets ``first_dense`` dense layers of
+    width ``d_ff``, then MoE blocks."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -74,16 +96,19 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     ones = lambda: torch.ones((d,), device=dev)  # noqa: E731
     blocks = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         mixer = attn.Attention(
             init_linear(gen, d, qd, d ** -0.5, dev),
             init_linear(gen, d, kvd, d ** -0.5, dev),
             init_linear(gen, d, kvd, d ** -0.5, dev),
             init_linear(gen, qd, d, 1.0 / (qd ** 0.5 * (2 * cfg.n_layers) ** 0.5),
                         dev))
-        mlp_ = MLP(init_linear(gen, d, ff, d ** -0.5, dev),
-                   init_linear(gen, d, ff, d ** -0.5, dev),
-                   init_linear(gen, ff, d, ff ** -0.5, dev))
+        if cfg.uses_moe_at(i):
+            mlp_ = init_moe(gen, cfg, dev)
+        else:
+            mlp_ = MLP(init_linear(gen, d, ff, d ** -0.5, dev),
+                       init_linear(gen, d, ff, d ** -0.5, dev),
+                       init_linear(gen, ff, d, ff ** -0.5, dev))
         blocks.append(Block(RMSNorm(ones()), mixer, RMSNorm(ones()), mlp_))
     embed_w = torch.randn((cfg.vocab, d), generator=gen, device=dev) * 0.02
     head = None if cfg.tie_embeddings else init_linear(gen, d, cfg.vocab,
@@ -125,7 +150,7 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
                                   cache=cache[i] if cache is not None else None,
                                   lengths=lengths)
         x = x + y
-        x = x + mlp(ctx, blk.mlp, rmsnorm(blk.norm2, x))
+        x = x + ffn(ctx, blk, x, cfg)
         if new_cache is not None:
             new_cache.append(c)
     return rmsnorm(model.final_norm, x), new_cache
@@ -157,7 +182,7 @@ def _chunk_stack(ctx: Ctx, model: LM, tokens: torch.Tensor,
         y, _ = attn.attention_chunk(ctx, blk.mixer, rmsnorm(blk.norm1, x), c,
                                     cfg, row, start, length)
         x = x + y
-        x = x + mlp(ctx, blk.mlp, rmsnorm(blk.norm2, x))
+        x = x + ffn(ctx, blk, x, cfg)
     return rmsnorm(model.final_norm, x)
 
 
@@ -183,6 +208,6 @@ def decode_step(ctx: Ctx, model: LM, token: torch.Tensor,
         y, _ = attn.attention_step(ctx, blk.mixer, rmsnorm(blk.norm1, x), c,
                                    cfg)
         x = x + y
-        x = x + mlp(ctx, blk.mlp, rmsnorm(blk.norm2, x))
+        x = x + ffn(ctx, blk, x, cfg)
     x = rmsnorm(model.final_norm, x)
     return _head(ctx, model, x), cache

@@ -3,9 +3,13 @@
 A block of ``block_size`` consecutive weights along the *reduction* axis
 (axis 0 of an ``(m, n)`` weight used as ``y = x @ W``) shares one 8-bit
 power-of-two exponent; each element stores a signed ``bits``-bit integer
-mantissa. Codes and exponents match the JAX quantizer bit for bit: the
-exponent is ``ceil(log2(amax / qmax))`` and rounding is half-to-even
-(``torch.round``, like ``jnp.round``).
+mantissa. The exponent is ``ceil(log2(amax / qmax))``, computed exactly,
+and rounding is half-to-even (``torch.round``, like ``jnp.round``); codes
+and exponents match the JAX quantizer bit for bit except where its
+``log2`` rounds across an integer (quotients at or a few ulps above a
+power of two, ROADMAP §3). ``quantize`` runs K7
+(``kernels/mxint_quantize.py``) on a CUDA tensor and its plain version
+on a CPU tensor.
 
 ``pack_codes_4bit`` / ``unpack_codes_4bit`` are the deployment container
 for ``bits <= 4``: two codes per uint8 byte, even rows in the low nibble.
@@ -17,6 +21,8 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels.mxint_quantize import mxint_quantize
 
 
 class MXIntPacked(NamedTuple):
@@ -33,10 +39,6 @@ class MXIntPacked(NamedTuple):
     orig_rows: int  # m before padding
 
 
-def _qmax(bits: int) -> int:
-    return 2 ** (bits - 1) - 1
-
-
 @dataclasses.dataclass(frozen=True)
 class MXIntQuantizer:
     """Symmetric MXINT quantizer with shared power-of-2 block exponents."""
@@ -47,19 +49,11 @@ class MXIntQuantizer:
     def quantize(self, w: torch.Tensor) -> MXIntPacked:
         if w.ndim != 2:
             raise ValueError(f"MXInt expects 2-D weights, got {tuple(w.shape)}")
-        m, n = w.shape
+        m = w.shape[0]
         b = self.block_size
-        qmax = _qmax(self.bits)
         wp = torch.nn.functional.pad(w.float(), (0, 0, 0, (-m) % b))
-        blocks = wp.reshape(-1, b, n)                       # (nb, b, n)
-        amax = blocks.abs().amax(dim=1)                     # (nb, n)
-        safe = torch.where(amax > 0, amax, torch.ones_like(amax))
-        exp = torch.ceil(torch.log2(safe / qmax)).clamp(-127, 127)
-        scale = torch.exp2(exp)[:, None, :]
-        codes = torch.clamp(torch.round(blocks / scale), -qmax - 1, qmax)
-        codes = torch.where(amax[:, None, :] > 0, codes, torch.zeros_like(codes))
-        return MXIntPacked(codes=codes.reshape(wp.shape).to(torch.int8),
-                           exponents=exp.to(torch.int8), block_size=b,
+        codes, exps = mxint_quantize(wp.contiguous(), self.bits, b)
+        return MXIntPacked(codes=codes, exponents=exps, block_size=b,
                            bits=self.bits, orig_rows=m)
 
     def dequantize(self, packed: MXIntPacked) -> torch.Tensor:

@@ -18,8 +18,8 @@ the other lanes' decode. ``max_step_tokens`` arms the token-budget step
 scheduler (``serve.scheduler.StepBudget``) under either cache.
 
 ``fused="auto"`` (the default) runs every quantized projection through
-K1/K2 and attention through K3/K4 (paged: K5 for decode, K4 for each
-chunk) on a CUDA device, and through their plain versions on the CPU.
+K1/K2 (an MoE model's int8 expert stacks through K6) and attention
+through K3/K4 (paged: K5 for decode, K4 for each chunk) on a CUDA device, and through their plain versions on the CPU.
 ``fused="off"`` keeps the dequantize-then-matmul and dequantize-the-cache
 baselines.
 

@@ -41,6 +41,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         init_lm(cfg, 0)
     with pytest.raises(RuntimeError, match="cuda"):
+        init_lm(get_config("deepseek-moe-16b").reduced(), 0)
+    with pytest.raises(RuntimeError, match="cuda"):
         Engine(model, cfg, ServeConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         quantize_model_params(model, PTQConfig(rank=4))

@@ -1,7 +1,8 @@
 """Card-only checks of the CUDA kernels (skip without a card): each
 kernel against its plain version on the card (K5 on a shuffled block
-table, K4 also at the chunk shape), and each wrapper raising on input
-the kernel does not take.
+table, K4 also at the chunk shape, K3/K4 also at head_dim 128, K6 over
+an expert stack, K7 bit for bit), and each wrapper raising on input the
+kernel does not take.
 
 Run on a machine with an H100: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``. Tolerances: the kernels sum in another
@@ -15,6 +16,7 @@ import torch
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import mxint_matmul as mk
+from repro_torch.kernels import mxint_quantize as kq
 from repro_torch.quant.mxint import MXIntQuantizer, pack_codes_4bit
 
 pytestmark = pytest.mark.cuda
@@ -192,3 +194,103 @@ def test_flash_attention_wrapper_raises(dev):
         fk.flash_attention_cuda(q[..., :90], k[..., :90], k[..., :90], pos, pos)
     with pytest.raises(ValueError):
         fk.flash_attention_cuda(q.transpose(1, 2), k, k, pos, pos)
+
+
+def _stack(dev, e, m, k, n, r, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((e, m, k), generator=g, device=dev)
+    q = MXIntQuantizer(bits=3).quantize(
+        torch.randn((e * k, n), generator=g, device=dev) * 0.05)
+    codes = q.codes.reshape(e, k, n)
+    scale = torch.exp2(q.exponents.float()).reshape(e, k // 32, n)
+    l = torch.randn((e, k, r), generator=g, device=dev) * 0.1
+    rr = torch.randn((e, r, n), generator=g, device=dev) * 0.1
+    return x, codes, scale, l, rr
+
+
+@pytest.mark.parametrize("m,r", [(1, 16), (8, 16), (8, 0), (30, 16), (45, 8)])
+def test_qlr_batched_matches_plain(dev, m, r):
+    # K = 1088: three split-K slices, the last of 64 rows
+    x, codes, scale, l, rr = _stack(dev, 6, m, 1088, 200, r, seed=m + r)
+    want = mk.qlr_matmul_batched_plain(x, codes, scale, l, rr)
+    before = mk.LAUNCHES["qlr_batched"]
+    _close(mk.qlr_matmul_batched(x, codes, scale, l, rr), want, 1e-4)
+    assert mk.LAUNCHES["qlr_batched"] == before + 1
+    _close(mk.qlr_matmul_batched(x.bfloat16(), codes, scale, l, rr),
+           mk.qlr_matmul_batched_plain(x.bfloat16(), codes, scale, l, rr),
+           2 ** -8)
+
+
+def test_qlr_batched_wrapper_raises(dev):
+    x, codes, scale, l, rr = _stack(dev, 4, 8, 256, 128, 8)
+    xl = torch.bmm(x, l)
+    packed = pack_codes_4bit(codes.reshape(-1, 128)).reshape(4, 128, 128)
+    with pytest.raises(TypeError):                      # packed4 codes
+        mk.qlr_batched_matmul_cuda(x, packed, scale, xl, rr)
+    with pytest.raises(ValueError):                     # wrong stack shape
+        mk.qlr_batched_matmul_cuda(x, codes[:3], scale, xl, rr)
+    with pytest.raises(ValueError):
+        mk.qlr_batched_matmul_cuda(x[:, :, :128], codes, scale, xl, rr)
+    with pytest.raises(ValueError):
+        mk.qlr_batched_matmul_cuda(x.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), codes, scale, xl, rr)
+    with pytest.raises(ValueError):
+        mk.qlr_batched_matmul_cuda(x, codes.cpu(), scale, xl, rr)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_mxint_quantize_bit_exact(dev, bits):
+    g = torch.Generator(device=dev).manual_seed(bits)
+    w = torch.randn((2048, 1408), generator=g, device=dev) * 0.05
+    w[:32, :9] = 0.0                                    # all-zero blocks
+    w[64:96, 10] = 0.0
+    w[64, 10] = 3.0 * 2.0 ** -13                        # amax / qmax = 2^-13
+    w[96:128, 11] = 0.0
+    w[96, 11] = torch.nextafter(torch.tensor(3.0 * 2.0 ** -13),
+                                torch.tensor(1.0)).item()
+    w[128:, 12] *= 1e-30
+    before = kq.LAUNCHES["mxint_quantize"]
+    codes, exps = kq.mxint_quantize(w, bits)
+    assert kq.LAUNCHES["mxint_quantize"] == before + 1
+    want_c, want_e = kq.mxint_quantize_plain(w, bits)
+    assert torch.equal(codes, want_c) and torch.equal(exps, want_e)
+    cpu_c, cpu_e = kq.mxint_quantize_plain(w.cpu(), bits)
+    assert torch.equal(codes.cpu(), cpu_c) and torch.equal(exps.cpu(), cpu_e)
+
+
+def test_quantizer_runs_k7_on_the_card(dev):
+    w = torch.randn((70, 96), device=dev)
+    before = kq.LAUNCHES["mxint_quantize"]
+    q = MXIntQuantizer(bits=3).quantize(w)
+    assert kq.LAUNCHES["mxint_quantize"] == before + 1
+    ref = MXIntQuantizer(bits=3).quantize(w.cpu())
+    assert torch.equal(q.codes.cpu(), ref.codes)
+    assert torch.equal(q.exponents.cpu(), ref.exponents)
+
+
+def test_mxint_quantize_wrapper_raises(dev):
+    w = torch.randn((64, 40), device=dev)
+    with pytest.raises(TypeError):
+        kq.mxint_quantize_cuda(w.double(), 3)
+    with pytest.raises(ValueError):
+        kq.mxint_quantize_cuda(w.t(), 3)                # not contiguous
+    with pytest.raises(ValueError):
+        kq.mxint_quantize_cuda(w[:40], 3)               # rows not padded
+    with pytest.raises(ValueError):
+        kq.mxint_quantize_cuda(w, 9)
+    with pytest.raises(ValueError):
+        kq.mxint_quantize(w, 3, block=16)
+
+
+def test_attention_kernels_at_head_dim_128(dev):
+    """deepseek-moe-16b's head_dim (the kernels' limit), G = 1."""
+    q, k, v, q_pos, k_pos, _, _ = _cache(dev, "bf16", kvh=16, g=1, hd=128)
+    _close(dk.decode_attention_op(q, k, v, q_pos, k_pos),
+           dk.decode_attention_plain(q, k, v, q_pos, k_pos), 1e-4)
+    gen = torch.Generator(device=dev).manual_seed(128)
+    qf = torch.randn((1, 256, 16, 1, 128), generator=gen, device=dev)
+    kf = torch.randn((1, 256, 16, 128), generator=gen, device=dev)
+    vf = torch.randn((1, 256, 16, 128), generator=gen, device=dev)
+    pos = torch.arange(256, device=dev, dtype=torch.int32)
+    _close(fk.flash_attention(qf, kf, vf, pos, pos, causal=True),
+           fk.flash_attention_plain(qf, kf, vf, pos, pos, True), 1e-4)
