@@ -12,7 +12,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    at the full-width shapes of phi3-mini-3.8b and deepseek-moe-16b (K4
    also at the chunked-prefill shape, K5 on a shuffled block table; K1 at
    the MoE router's 64 columns and the dense lead-in layer's 10944; K3
-   and K4 at head_dim 128; K6 over the 64-expert stacks at decode and
+   and K4 at head_dim 128, K3 also at phase 4's occupancy, rows of
+   150–282 valid slots of 512; K6 over the 64-expert stacks at decode and
    prefill rows; K7 bit for bit): max error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
@@ -51,6 +52,12 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 The last lines are the nvidia-smi line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --compare PARENT_ROOT
+
+times phase 3's K3, K4 and K5 cases of the tree at PARENT_ROOT (an
+unpacked ``git archive``) and of this one on one card, in the order
+parent, change, change, parent, and prints one line per case.
 """
 from __future__ import annotations
 
@@ -170,7 +177,11 @@ def check_qlr(dev, m: int, k: int, n: int, rank: int, packed: bool) -> dict:
                 bound_by=b_by)
 
 
-def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96) -> dict:
+def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
+                 ragged: bool = False) -> dict:
+    """K3 over a full cache (every row valid up to slot s - 1) or, with
+    ``ragged``, at phase 4's serving occupancy: row i holds 150 + 132·i/7
+    valid slots (150–282) and the slots past them carry k_pos = -1."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
@@ -191,8 +202,11 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96) -> dict:
         v = torch.round(vf / vs[..., None]).clamp(-qmax, qmax).to(torch.int8)
         if kind == "int4":
             k, v = pack_codes_4bit(k), pack_codes_4bit(v)
-    q_pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    lengths = [150 + (132 * i) // (b - 1) if ragged else s for i in range(b)]
+    q_pos = torch.tensor(lengths, dtype=torch.int32, device=dev) - 1
     k_pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+    k_pos = torch.where(k_pos <= q_pos[:, None], k_pos, -1)
+    mask = (k_pos >= 0)[:, None, None, :]
 
     def kernel(q_, k_, v_, ks_, vs_):
         return dk.flash_decode(q_, k_, v_, q_pos, k_pos, ks_, vs_)
@@ -218,14 +232,26 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96) -> dict:
     dense = [(qd, kd.clone(), vd.clone()) for _ in range(n_copies)]
     t_kernel, host = time_ms(kernel, sets)
     t_plain, _ = time_ms(plain, sets)
-    t_lib, _ = time_ms(F.scaled_dot_product_attention, dense)
-    nbytes = tensor_bytes(q, k, v, ks, vs, q_pos, k_pos) + q.numel() * 4
-    ops = 2 * 2 * b * kvh * s * hd
+    t_lib, _ = time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, attn_mask=mask if ragged else None), dense)
+    # bytes: the K/V rows (and scales) of the valid slots, the positions,
+    # q and the output; "walked": every slot of every row
+    valid = sum(lengths)
+    slot_bytes = 2 * kvh * hd * k.element_size() / (2 if kind == "int4" else 1)
+    if ks is not None:
+        slot_bytes += 2 * kvh * 4
+    nbytes = valid * slot_bytes + tensor_bytes(q, q_pos, k_pos) \
+        + q.numel() * 4
+    ops = 2 * 2 * valid * kvh * hd
     b_ms, b_by = bound_ms(nbytes, ops, "float32")
-    return dict(name="K3 flash_decode", shape=f"B={b} KV={kvh} G=1 S={s} "
-                f"hd={hd} {kind}", max_abs_err=err, tol=tol, ms=t_kernel,
-                host_ms=host, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                bound_by=b_by)
+    row = dict(name="K3 flash_decode", shape=f"B={b} KV={kvh} G=1 S={s} "
+               f"hd={hd} {kind}" + (" rows 150-282" if ragged else ""),
+               max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
+               plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+               bound_by=b_by)
+    if ragged:
+        row["walked_bound_ms"] = b * s * slot_bytes / HBM_BYTES_PER_S * 1e3
+    return row
 
 
 def check_flash(dev, h=32, s=256, hd=96) -> dict:
@@ -481,6 +507,7 @@ def phase_kernels(dev) -> list:
     for kind in ("bf16", "int8", "int4"):
         rows.append(check_decode(dev, kind))
     rows.append(check_decode(dev, "bf16", kvh=16, hd=128))
+    rows.append(check_decode(dev, "bf16", ragged=True))
     rows.append(check_flash(dev))
     rows.append(check_flash(dev, h=16, hd=128))
     rows.append(check_flash_chunk(dev))
@@ -589,11 +616,20 @@ def profile_decode(eng, cfg, reqs, n_steps: int = 4,
         f"{1e3 * wall / n_steps:.2f} ms/step wall, device busy "
         f"{sum(dev_us.values()) / n_steps / 1e3:.2f} ms/step "
         f"({100 * busy:.1f}% busy, {100 * (1 - busy):.1f}% idle)")
+    for kname in ("flash_decode_kernel", "decode_combine_kernel",
+                  "flash_attention_kernel"):
+        us = sum(v for k_, v in dev_us.items() if kname in k_)
+        log(tag, f"  {kname}: {us / n_steps / 1e3:.3f} ms/step")
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
     for key, us in top:
         log(tag, f"  {us / n_steps / 1e3:8.3f} ms/step  {key[:90]}")
     return dict(wall_ms=1e3 * wall / n_steps, busy=busy,
                 device_ms=sum(dev_us.values()) / n_steps / 1e3,
+                decode_ms=sum(v for k_, v in dev_us.items()
+                              if "flash_decode_kernel" in k_) / n_steps / 1e3,
+                combine_ms=sum(v for k_, v in dev_us.items()
+                               if "decode_combine_kernel" in k_)
+                / n_steps / 1e3,
                 top=[(key, us / n_steps / 1e3) for key, us in top])
 
 
@@ -657,7 +693,8 @@ def phase_main_path(dev, cfg, model) -> dict:
     require(all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4")),
             f"a kernel of the path never launched: {counts}")
 
-    profile_decode(eng, cfg, make_requests(cfg, 8, seed=4, lengths=lengths))
+    prof = profile_decode(eng, cfg, make_requests(cfg, 8, seed=4,
+                                                  lengths=lengths))
 
     # kernels vs the dequantize-then-matmul baseline, same model, same input
     tokens = torch.from_numpy(reqs[0].prompt).long()[None].to(dev)
@@ -678,7 +715,7 @@ def phase_main_path(dev, cfg, model) -> dict:
     del eng
     torch.cuda.empty_cache()
     return dict(counts=counts, tok_s=n_tok / wall, step_ms=step_ms,
-                ttft_ms=[1e3 * t for t in ttft])
+                ttft_ms=[1e3 * t for t in ttft], profile=prof)
 
 
 def shared_prefix_requests(cfg, n: int, seed: int) -> list:
@@ -967,6 +1004,67 @@ def phase_moe(dev) -> dict:
                 logit_err=err)
 
 
+# ---------------------------------------------------------------------------
+# the attention kernels of two trees, in turns on one card
+# ---------------------------------------------------------------------------
+_ATTENTION_ROWS = """
+import inspect, json, sys, torch
+root = sys.argv[1]
+sys.path[:0] = [root, root + "/src"]
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+rows = [cs.check_decode(dev, kind) for kind in ("bf16", "int8", "int4")]
+rows.append(cs.check_decode(dev, "bf16", kvh=16, hd=128))
+if "ragged" in inspect.signature(cs.check_decode).parameters:
+    rows.append(cs.check_decode(dev, "bf16", ragged=True))
+rows += [cs.check_flash(dev), cs.check_flash(dev, h=16, hd=128),
+         cs.check_flash_chunk(dev)]
+rows += [cs.check_paged(dev, kind) for kind in ("bf16", "int8", "int4")]
+print("ROWS " + json.dumps(rows))
+"""
+
+
+def compare_attention(parent: str) -> int:
+    """K3, K4 and K5 at phase 3's shapes, from the tree at ``parent`` and
+    from this one, in the order parent, change, change, parent, each turn
+    in a process of its own (each tree builds its kernels into its own
+    ``build/``). Prints one line per case and writes
+    ``build/compare_attention.json``."""
+    turns = [("parent", os.path.abspath(parent)), ("change", ROOT),
+             ("change", ROOT), ("parent", os.path.abspath(parent))]
+    runs = []
+    for who, root in turns:
+        proc = subprocess.run([sys.executable, "-c", _ATTENTION_ROWS, root],
+                              capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("ROWS ")]
+        if proc.returncode or not lines:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs.append((who, {(r["name"], r["shape"]): r
+                           for r in json.loads(lines[-1][5:])}))
+        log("compare", f"{who} turn done ({root})")
+    for key, row in runs[1][1].items():
+        ms = [run.get(key, {}).get("ms") for _, run in runs]
+        parent_ms = [m for m in (ms[0], ms[3]) if m is not None]
+        verdict = ("faster" if parent_ms and max(ms[1:3]) < min(parent_ms)
+                   else "not faster" if parent_ms else "new case")
+        log("compare", f"{key[0]:22s} {key[1]:40s} parent/change/change/"
+            f"parent ms " + " / ".join("-" if m is None else f"{m:.4f}"
+                                       for m in ms)
+            + f"; bound {row['bound_ms']:.4f}; library "
+            + ("-" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f}") + f"; err "
+            f"{row['max_abs_err']:.2e}: {verdict}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "compare_attention.json"), "w") as fh:
+        json.dump([{"turn": who, "rows": list(run.values())}
+                   for who, run in runs], fh, indent=1)
+    bad = [k for k, r in runs[1][1].items() if not r["max_abs_err"] <= r["tol"]]
+    return 1 if bad else 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -985,6 +1083,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     log("device", f"{name}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        return compare_attention(sys.argv[2])
 
     t0 = time.perf_counter()
     took = _build.build()

@@ -32,15 +32,30 @@ QLR_FUSED_MAX_ROWS = 128
 QLR_SPLIT_ROWS = 512
 
 # --- K3/K4 (kernels/csrc/decode_attention.cu, flash_attention.cu) ---------
-# One thread per head-dim column in the P·V product of a 128-thread block.
+# Head-dim limits: K4 keeps a warp's 16 query rows and output rows in
+# registers as mma fragments sized for 128 columns, in 8-column tiles.
 ATTN_MAX_HEAD_DIM = 128
 ATTN_HEAD_DIM_ALIGN = 8
+# K4's tiles: 64 query rows a block (16 a warp, 4 row warps, times 2
+# warps splitting each key tile) against 64-key tiles of K and V,
+# double-buffered in shared memory.
+ATTN_Q_TILE = 64
+ATTN_K_TILE = 64
 # K3 keeps one accumulator per query head of a KV group in registers.
 DECODE_MAX_GROUP = 8
-# K3/K5 load K/V rows as 16-byte (f32/bf16) or 8-byte (int8/packed4)
-# vectors: the pools' base address must be 16-byte aligned (a fresh
-# allocation is; a view at an odd offset may not be).
+# K3/K4/K5 copy K/V rows into shared memory in 16-byte (f32/bf16) or
+# 8-byte (int8/packed4) chunks: the tensors' base address must be 16-byte
+# aligned (a fresh allocation is; a view at an odd offset may not be).
 KV_PTR_ALIGN = 16
+# K3/K5 walk the slot axis in tiles of this many slots (one valid-slot
+# bit each in a 32-bit mask; 8 slots for each of a block's 4 warps).
+DECODE_TILE_SLOTS = 32
+# ... split across blocks (flash-decoding): at most this many tiles a
+# split, so a block's per-slot row table fits in shared memory ...
+DECODE_MAX_SPLIT_TILES = 16
+# ... into as many splits as it takes for about this many blocks per SM
+# (never a split shorter than one tile).
+DECODE_BLOCKS_PER_SM = 4
 
 # --- K5 (kernels/csrc/decode_attention.cu, paged) --------------------------
 # K5 walks a row's logical slots in K3's tiles and looks up the page of

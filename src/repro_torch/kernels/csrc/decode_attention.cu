@@ -11,25 +11,54 @@
 //             0 <= k_pos[b, j] <= q_pos[b] (and q_pos - k_pos < window);
 //   out[g]  = Σ_j softmax(s)[g, j] · v_scale[j] · v[j]
 // with an online softmax over tiles of the slot axis. A row with no valid
-// slot outputs zeros: p is zeroed while the running max still sits at the
-// -0.7·FLT_MAX sentinel, as the TPU kernel does.
+// slot outputs zeros, as the TPU kernel does.
 //
-// What bounds it on an H100: bytes. Each decode step reads the whole live
-// cache once (bf16 B=8, KV=32, S=512, hd=96: 50 MB for K and V) for
-// 2·G·hd FLOPs per slot, far below the card's ops-per-byte balance.
+// What bounds it on an H100: bytes. A decode step reads each row's live
+// cache once (bf16 B=8, KV=32, S=512, hd=96: 50 MB for K and V if every
+// slot is valid) for 2·G·hd FLOPs per slot, far below the card's
+// ops-per-byte balance. The lever is to read fewer bytes and to keep
+// enough loads in flight, not the tensor cores.
 //
-// Design: one 128-thread block per (row, KV head) — 256 blocks at the
-// serving shape, about two per SM — walks the slot axis in 64-slot tiles;
-// the sequential TPU grid axis becomes this loop. Each tile is loaded
-// coalesced into shared memory as f32, in 8- or 16-byte vectors with
-// several loads in flight per thread (bf16 widened, int8 codes converted,
-// packed4 bytes split into their two slots with the shift-based sign
-// extension of unpack_codes_4bit), scores one thread per (head, slot),
-// the running max/sum per head by one warp, and P·V one thread per
-// head-dim column, so hd = 96 needs no power-of-two tiling. int8/int4
-// scales are folded into the score and probability columns, never into
-// the tile: the dequantized cache exists nowhere. The K tile's buffer is
-// reused for V, keeping the block under 48 KB of static shared memory.
+// Design (flash-decoding):
+// - The slot axis is split across blocks: grid (KV, B, splits), 128
+//   threads a block, each split a run of whole 32-slot tiles (at most 16).
+//   The host picks the split count from B·KV, S and the SM count for about
+//   four blocks per SM (kernels/decode_attention.py:decode_splits): at
+//   phi3's decode (B·KV = 256, S = 512) 3 splits of 6 tiles, 768 blocks,
+//   5.8 per SM of 132; at deepseek-moe-16b's (B·KV = 128) 4 splits of 4
+//   tiles, 512 blocks, 3.9 per SM. A split writes f32 partials (m, l,
+//   acc[G, hd]) to scratch that the wrapper allocates; a second kernel,
+//   decode_combine_kernel, merges the splits of each (b, h) in split order
+//   (deterministic, no atomics). With one split the kernel normalizes and
+//   writes the output itself, and no combine runs.
+// - Dead work is skipped from the positions. A first pass reads the
+//   split's k_pos and keeps one valid-slot bit mask per tile and, for the
+//   valid slots only, the slot's row in the pool (K5 looks up the block
+//   table there, so only for slots it reads). A split with no valid slot
+//   loads nothing and writes its empty partial (m = sentinel, l = 0); a
+//   tile with no valid slot issues no loads; inside a tile only valid rows
+//   are loaded, and rows not loaded are never read. The combine outputs
+//   zeros when every split of a row is empty.
+// - Inside a block each warp is an independent flash-decode over 8 slots
+//   of every tile, with its own running max, sum and accumulators, and
+//   no block barrier until the four warps merge in order at the end.
+//   Its slots' K and V rows stay in their storage type in shared memory
+//   (f32, bf16, int8 codes, packed4 bytes; rows padded by 16 bytes) and
+//   are converted at use; K and V have separate buffers, double-buffered
+//   and filled by cp.async, so the next live tile arrives while this one
+//   is computed (a third stage was no faster on the card: it costs
+//   resident blocks). int8/int4 scales fold into the score and
+//   probability columns: the dequantized cache exists nowhere.
+// - Every lane works at G = 1: the scores run a quad of lanes per slot,
+//   each lane a quarter of the head-dim vectors, summed with two
+//   shuffles; P·V gives each lane the columns lane, lane + 32, ..., so
+//   hd = 96 keeps all 32 lanes busy, with each slot's probability
+//   broadcast from its quad by a shuffle.
+// - Accumulators are sized by a template bound on G: MHA models (G = 1,
+//   both phi3 and deepseek-moe-16b) take 56–64 registers, any G up to 8
+//   94–104, none spilling, per `nvcc -Xptxas -v` (CUDA 12.8); static
+//   shared memory 2,144 / 2,368 bytes; dynamic 27 KB for bf16 at hd 96
+//   (seven blocks per SM), 35 KB at hd 128; the combine 32 registers.
 //
 // The limits below repeat src/repro_torch/kernels/constraints.py.
 #include <cfloat>
@@ -39,13 +68,57 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTileS = 64;        // slots per tile (even: packed4 pairs)
-constexpr int kMaxHd = 128;       // constraints.ATTN_MAX_HEAD_DIM
-constexpr int kMaxG = 8;          // constraints.DECODE_MAX_GROUP
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileS = 32;          // constraints.DECODE_TILE_SLOTS
+constexpr int kMaxSplitTiles = 16;  // constraints.DECODE_MAX_SPLIT_TILES
+constexpr int kMaxHd = 128;         // constraints.ATTN_MAX_HEAD_DIM
+constexpr int kMaxG = 8;            // constraints.DECODE_MAX_GROUP
+constexpr int kRowPad = 16;         // bytes after each stored row in a tile
+constexpr int kStages = 2;          // tiles in flight: this one and the next
+constexpr int kSubS = kTileS / kWarps;   // slots of a tile one warp owns
+constexpr int kSmemMax = 232448;    // shared memory a block may opt in to
 constexpr float kNegInf = -0.7f * FLT_MAX;
 
 enum KvKind { kF32 = 0, kBF16 = 1, kInt8 = 2, kPacked4 = 3 };
+
+// Storage of one kind: element bytes, cp.async chunk bytes, columns a
+// score read covers, slots a stored row holds (packed4: a byte pair).
+template <int KV> struct Kind;
+template <> struct Kind<kF32> {
+  static constexpr int kElt = 4, kCp = 16, kVec = 4, kSlots = 1;
+};
+template <> struct Kind<kBF16> {
+  static constexpr int kElt = 2, kCp = 16, kVec = 8, kSlots = 1;
+};
+template <> struct Kind<kInt8> {
+  static constexpr int kElt = 1, kCp = 8, kVec = 8, kSlots = 1;
+};
+template <> struct Kind<kPacked4> {
+  static constexpr int kElt = 1, kCp = 8, kVec = 8, kSlots = 2;
+};
+
+template <int KV>
+__host__ __device__ inline int tile_stride(int hd) {
+  return hd * Kind<KV>::kElt + kRowPad;
+}
+template <int KV>
+__host__ __device__ inline int tile_bytes(int hd) {
+  return kTileS / Kind<KV>::kSlots * tile_stride<KV>(hd);
+}
+// Dynamic shared memory: the K and V tiles [kStages][tile] each (a warp
+// owns kSubS slots of each tile; the area is reused by the final merge of
+// the warps, [kWarps][G][hd] f32), then q [G][hd] in f32.
+template <int KV>
+__host__ __device__ inline int tiles_bytes(int hd, int G) {
+  const int tiles = 2 * kStages * tile_bytes<KV>(hd);
+  const int red = kWarps * G * hd * 4;
+  return tiles > red ? tiles : red;
+}
+template <int KV>
+inline size_t smem_bytes(int hd, int G) {
+  return tiles_bytes<KV>(hd, G) + static_cast<size_t>(G) * hd * sizeof(float);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -60,98 +133,90 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
 }
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// One vector load of the tile: 16 bytes of f32/bf16, 8 bytes of int8 codes
-// or packed4 bytes, i.e. VecLoad<KV>::kElems head-dim columns of one
-// stored row.
-// hd is a multiple of 8 (constraints.ATTN_HEAD_DIM_ALIGN), so a row splits
-// into whole vectors and every vector is aligned once the pool's base is
-// (constraints.KV_PTR_ALIGN, checked by the wrapper).
-template <int KV> struct VecLoad;
-template <> struct VecLoad<kF32> { using T = uint4; static constexpr int kElems = 4; };
-template <> struct VecLoad<kBF16> { using T = uint4; static constexpr int kElems = 8; };
-template <> struct VecLoad<kInt8> { using T = uint2; static constexpr int kElems = 8; };
-template <> struct VecLoad<kPacked4> { using T = uint2; static constexpr int kElems = 8; };
-constexpr int kLoadsInFlight = 8;   // vector loads a thread starts before storing
-
-// Widen one loaded vector into tile row r (packed4: rows 2r, 2r+1), columns
-// d0.. of the vector.
+// Columns kVec·w .. kVec·w + kVec − 1 of slot j's stored row, widened to
+// f32: one 16- or 8-byte shared-memory read, split in registers. packed4
+// takes slot j's nibble with the shift-based sign extension of
+// unpack_codes_4bit (low nibble: the even slot).
 template <int KV>
-__device__ __forceinline__ void store_vec(float (*tile)[kMaxHd + 1], int r,
-                                          int d0,
-                                          const typename VecLoad<KV>::T& x) {
-  constexpr int n = VecLoad<KV>::kElems;
-  if (KV == kF32) {
-    const float* e = reinterpret_cast<const float*>(&x);
-#pragma unroll
-    for (int i = 0; i < n; ++i) tile[r][d0 + i] = e[i];
-  } else if (KV == kBF16) {
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-    for (int i = 0; i < n; ++i) tile[r][d0 + i] = to_f32(e[i]);
-  } else if (KV == kInt8) {
-    const int8_t* e = reinterpret_cast<const int8_t*>(&x);
-#pragma unroll
-    for (int i = 0; i < n; ++i) tile[r][d0 + i] = static_cast<float>(e[i]);
+__device__ __forceinline__ void read_cols(const unsigned char* tile,
+                                          int stride, int j, int w,
+                                          float (&x)[Kind<KV>::kVec]) {
+  using K = Kind<KV>;
+  constexpr int kWords = K::kVec * K::kElt / 4;
+  const unsigned char* row = tile + (j / K::kSlots) * stride
+      + w * K::kVec * K::kElt;
+  uint32_t u[kWords];
+  if constexpr (kWords == 4) {
+    const uint4 a = *reinterpret_cast<const uint4*>(row);
+    u[0] = a.x; u[1] = a.y; u[2] = a.z; u[3] = a.w;
   } else {
-    const uint8_t* e = reinterpret_cast<const uint8_t*>(&x);
+    const uint2 a = *reinterpret_cast<const uint2*>(row);
+    u[0] = a.x; u[1] = a.y;
+  }
 #pragma unroll
-    for (int i = 0; i < n; ++i) {
-      const int b = static_cast<int>(e[i]);
-      tile[2 * r][d0 + i] = static_cast<float>((b << 28) >> 28);
-      tile[2 * r + 1][d0 + i] = static_cast<float>((b << 24) >> 28);
+  for (int i = 0; i < kWords; ++i) {
+    if constexpr (KV == kF32) {
+      x[i] = __uint_as_float(u[i]);
+    } else if constexpr (KV == kBF16) {
+      x[2 * i] = __uint_as_float(u[i] << 16);
+      x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int sh = KV == kInt8 ? 24 - 8 * e
+                                   : ((j & 1) ? 24 : 28) - 8 * e;
+        x[4 * i + e] = static_cast<float>(
+            static_cast<int>(u[i] << sh) >> (KV == kInt8 ? 24 : 28));
+      }
     }
   }
 }
 
-// Load the tile's ts slots into tile[j][d] as f32. slot_s[j] is slot j's
-// flat index in the (rows or pages) x KV x slots layout; a packed4 pair's
-// byte row is slot_s[2jp] / 2 (pairs never straddle a row or a page). Each
-// thread starts kLoadsInFlight independent vector loads before it stores
-// any, so the loads overlap instead of waiting on each other's latency.
+// Column c of slot j's stored row (packed4: slot j's nibble of byte row
+// j / 2), widened to f32.
 template <int KV>
-__device__ __forceinline__ void load_tile(float (*tile)[kMaxHd + 1],
-                                          const void* src,
-                                          const long long* slot_s, int ts,
-                                          int hd) {
-  using T = typename VecLoad<KV>::T;
-  constexpr int kE = VecLoad<KV>::kElems;
-  constexpr int kEltBytes = KV == kF32 ? 4 : (KV == kBF16 ? 2 : 1);
-  const char* base = static_cast<const char*>(src);
-  const int per_row = hd / kE;
-  const int n = (KV == kPacked4 ? ts / 2 : ts) * per_row;
-  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kLoadsInFlight) {
-    T buf[kLoadsInFlight];
-#pragma unroll
-    for (int u = 0; u < kLoadsInFlight; ++u) {
-      const int i = i0 + u * kThreads;
-      if (i < n) {
-        const int r = i / per_row, c = i % per_row;
-        const long long row = KV == kPacked4 ? slot_s[2 * r] / 2 : slot_s[r];
-        buf[u] = *reinterpret_cast<const T*>(
-            base + (static_cast<size_t>(row) * hd + c * kE) * kEltBytes);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadsInFlight; ++u) {
-      const int i = i0 + u * kThreads;
-      if (i < n) store_vec<KV>(tile, i / per_row, (i % per_row) * kE, buf[u]);
-    }
+__device__ __forceinline__ float read_col(const unsigned char* tile,
+                                          int stride, int j, int c) {
+  const unsigned char* row = tile + (j / Kind<KV>::kSlots) * stride;
+  if constexpr (KV == kF32) {
+    return reinterpret_cast<const float*>(row)[c];
+  } else if constexpr (KV == kBF16) {
+    return to_f32(reinterpret_cast<const __nv_bfloat16*>(row)[c]);
+  } else if constexpr (KV == kInt8) {
+    return static_cast<float>(reinterpret_cast<const int8_t*>(row)[c]);
+  } else {
+    const int byte = row[c];
+    return static_cast<float>((j & 1) ? (byte << 24) >> 28
+                                      : (byte << 28) >> 28);
   }
 }
 
 // S counts a row's logical slots (nb * page when PAGED). Unpaged, slot j of
 // (b, h) is flat slot bh * S + j; paged, it is (pg * KVH + h) * page +
 // j % page with pg = block_table[b * nb + j / page].
-template <typename QT, int KV, bool PAGED>
+// MG: the query heads a KV head's accumulators are sized for (1, or
+// kMaxG for any G up to it): MHA models (G = 1) keep 4 registers of
+// accumulators a lane instead of 32.
+template <typename QT, int KV, bool PAGED, int MG>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
                     const void* __restrict__ v,
@@ -160,125 +225,328 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
                     const int* __restrict__ q_pos,
                     const int* __restrict__ k_pos,
                     const int* __restrict__ block_table, QT* __restrict__ out,
-                    int KVH, int G, int S, int nb, int page, int hd,
-                    int window, float scale) {
-  __shared__ float qs[kMaxG][kMaxHd];
-  __shared__ float tile[kTileS][kMaxHd + 1];   // K tile, then V tile
-  __shared__ float ps[kMaxG][kTileS];          // scores, then probabilities
-  __shared__ float m_s[kMaxG], l_s[kMaxG], corr_s[kMaxG];
-  __shared__ int ok_s[kTileS];
-  __shared__ long long slot_s[kTileS];         // flat slot index in k/v
+                    float* __restrict__ m_part, float* __restrict__ l_part,
+                    float* __restrict__ acc_part, int KVH, int G, int S,
+                    int nb, int page, int hd, int window, int split_tiles,
+                    float scale) {
+  using K = Kind<KV>;
+  constexpr int kSubRows = kSubS / K::kSlots;   // stored rows a warp owns
+  constexpr int kCols = kMaxHd / 32;            // P·V columns a lane owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float wm_s[kWarps][MG], wl_s[kWarps][MG];
+  __shared__ unsigned ok_s[kMaxSplitTiles];       // valid-slot mask per tile
+  __shared__ int row_s[kMaxSplitTiles * kTileS];  // flat slot of valid slots
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  const int split = blockIdx.z, splits = gridDim.z;
   const size_t bh = static_cast<size_t>(b) * KVH + h;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const bool quantized = k_scale != nullptr;
   const int qp = q_pos[b];
+  const int s0 = split * split_tiles * kTileS;
+  const int n_tiles = min(split_tiles, (S - s0 + kTileS - 1) / kTileS);
+  const int stride = tile_stride<KV>(hd);
+  const int sub_bytes = kSubRows * stride;      // a warp's share of a tile
+  float* qs = reinterpret_cast<float*>(smem + tiles_bytes<KV>(hd, G));
 
-  for (int i = threadIdx.x; i < G * hd; i += kThreads)
-    qs[i / hd][i % hd] = to_f32(q[bh * G * hd + i]);
-  if (threadIdx.x < G) {
-    m_s[threadIdx.x] = kNegInf;
-    l_s[threadIdx.x] = 0.f;
+  for (int t = warp; t < n_tiles; t += kWarps) {
+    const int j = s0 + t * kTileS + lane;
+    bool ok = false;
+    if (j < S) {
+      const int kp = k_pos[static_cast<size_t>(b) * S + j];
+      ok = kp >= 0 && kp <= qp && (window <= 0 || qp - kp < window);
+    }
+    if (ok) {
+      long long row;
+      if (PAGED) {
+        const int pg = block_table[static_cast<size_t>(b) * nb + j / page];
+        row = (static_cast<long long>(pg) * KVH + h) * page + j % page;
+      } else {
+        row = static_cast<long long>(bh) * S + j;
+      }
+      row_s[t * kTileS + lane] = static_cast<int>(row);
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) ok_s[t] = mask;
   }
-  float acc[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
+  for (int i = threadIdx.x; i < G * hd; i += kThreads)
+    qs[i] = to_f32(q[bh * G * hd + i]);
+  __syncthreads();
 
-  for (int s0 = 0; s0 < S; s0 += kTileS) {
-    const int ts = min(kTileS, S - s0);
-    if (threadIdx.x < kTileS) {
-      const int j = threadIdx.x;
-      const int kp = j < ts ? k_pos[static_cast<size_t>(b) * S + s0 + j] : -1;
-      ok_s[j] = kp >= 0 && kp <= qp && (window <= 0 || qp - kp < window);
-      if (j < ts) {
-        if (PAGED) {
-          const int pg = block_table[static_cast<size_t>(b) * nb
-                                     + (s0 + j) / page];
-          slot_s[j] = (static_cast<long long>(pg) * KVH + h) * page
-              + (s0 + j) % page;
-        } else {
-          slot_s[j] = static_cast<long long>(bh) * S + s0 + j;
+  // From here each warp is an independent flash-decode over its kSubS
+  // slots of every tile, with its own running max/sum and accumulators:
+  // no block barrier until the warps merge.
+  auto wmask = [&](int t) {
+    return (ok_s[t] >> (warp * kSubS)) & ((1u << kSubS) - 1u);
+  };
+  auto next_live = [&](int t) {
+    while (t < n_tiles && wmask(t) == 0u) ++t;
+    return t;
+  };
+  unsigned char* kw = smem + warp * sub_bytes;                   // stage 0
+  unsigned char* vw = smem + kStages * kWarps * sub_bytes + warp * sub_bytes;
+  // this warp's valid rows of tile t into stage st (packed4: the byte
+  // rows of the pairs with a valid slot)
+  // a lane copies chunk lc of stored rows lr, lr + rows_per_pass, ...
+  // (no division in the loop; per_row <= 32: a row is at most 512 bytes)
+  const int per_row = hd * K::kElt / K::kCp;
+  const int rows_per_pass = 32 / per_row;
+  const int lr = lane / per_row, lc = lane % per_row;
+  const char* kg = static_cast<const char*>(k);
+  const char* vg = static_cast<const char*>(v);
+  auto load = [&](int t, int st) {
+    const unsigned mask = wmask(t);
+    for (int r = lr; r < kSubRows && lr < rows_per_pass; r += rows_per_pass) {
+      const unsigned bits =
+          (mask >> (r * K::kSlots)) & (K::kSlots == 2 ? 3u : 1u);
+      if (!bits) continue;
+      const int slot = t * kTileS + warp * kSubS + r * K::kSlots
+          + ((bits & 1u) ? 0 : 1);
+      const size_t off = static_cast<size_t>(row_s[slot] / K::kSlots) * hd
+          * K::kElt + lc * K::kCp;
+      const int so = st * kWarps * sub_bytes + r * stride + lc * K::kCp;
+      cp_async<K::kCp>(kw + so, kg + off);
+      cp_async<K::kCp>(vw + so, vg + off);
+    }
+  };
+
+  const int sl = lane / 4, qd = lane % 4;   // scores: slot, head-dim quarter
+  float m[MG], l[MG], acc[MG][kCols];
+#pragma unroll
+  for (int g = 0; g < MG; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) acc[g][i] = 0.f;
+  }
+
+  int t = next_live(0);
+  if (t < n_tiles) {
+    // kStages - 1 live tiles ahead; one cp.async group per tile (empty
+    // past the last), so "all but the newest kStages - 1 groups" is the
+    // tile about to be computed
+    int ahead = t;
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (ahead < n_tiles) {
+        load(ahead, st);
+        ahead = next_live(ahead + 1);
+      }
+      cp_async_commit();
+    }
+    int st = 0;
+    while (t < n_tiles) {
+      if (ahead < n_tiles) {   // into the stage the last tile used
+        load(ahead, (st + kStages - 1) % kStages);
+        ahead = next_live(ahead + 1);
+      }
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      __syncwarp();
+      const unsigned mask = wmask(t);
+      const unsigned char* kt = kw + st * kWarps * sub_bytes;
+      const unsigned char* vt = vw + st * kWarps * sub_bytes;
+      const bool ok = (mask >> sl) & 1u;
+      const int row = row_s[t * kTileS + warp * kSubS + sl];
+
+      // scores: a quad of lanes per slot, each a quarter of the vectors
+      float s[MG];
+#pragma unroll
+      for (int g = 0; g < MG; ++g) s[g] = 0.f;
+      if (ok) {
+        for (int w = qd; w < hd / K::kVec; w += 4) {
+          float x[K::kVec];
+          read_cols<KV>(kt, stride, sl, w, x);
+#pragma unroll
+          for (int g = 0; g < MG; ++g) {
+            if (g < G) {
+              const float4* q4 =
+                  reinterpret_cast<const float4*>(qs + g * hd + w * K::kVec);
+#pragma unroll
+              for (int e = 0; e < K::kVec / 4; ++e) {
+                const float4 qv = q4[e];
+                s[g] = fmaf(qv.x, x[4 * e], s[g]);
+                s[g] = fmaf(qv.y, x[4 * e + 1], s[g]);
+                s[g] = fmaf(qv.z, x[4 * e + 2], s[g]);
+                s[g] = fmaf(qv.w, x[4 * e + 3], s[g]);
+              }
+            }
+          }
         }
       }
-    }
-    __syncthreads();
-    load_tile<KV>(tile, k, slot_s, ts, hd);
-    __syncthreads();
+      const float ksc = ok && quantized ? k_scale[row] * scale : scale;
+      const float vsc = ok && quantized ? v_scale[row] : 1.f;
 
-    for (int p = threadIdx.x; p < G * kTileS; p += kThreads) {
-      const int g = p / kTileS, j = p % kTileS;
-      float s = kNegInf;
-      if (ok_s[j]) {
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot = fmaf(qs[g][d], tile[j][d], dot);
-        if (quantized) dot *= k_scale[slot_s[j]];
-        s = dot * scale;
+      // online softmax over the warp's slots, P·V with p from the slot's
+      // quad; lanes own columns lane, lane + 32, ...
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        if (g < G) {
+          float sg = s[g];
+          sg += __shfl_xor_sync(0xffffffffu, sg, 1);
+          sg += __shfl_xor_sync(0xffffffffu, sg, 2);
+          sg = ok ? sg * ksc : kNegInf;
+          float mx = sg;
+          for (int o = 4; o < 32; o <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float m_new = fmaxf(m[g], mx);   // real: a slot is valid
+          float p = ok ? expf(sg - m_new) : 0.f;
+          float sum = p;
+          for (int o = 4; o < 32; o <<= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, o);
+          const float corr = expf(m[g] - m_new);
+          m[g] = m_new;
+          l[g] = l[g] * corr + sum;
+          p *= vsc;
+#pragma unroll
+          for (int i = 0; i < kCols; ++i) acc[g][i] *= corr;
+#pragma unroll
+          for (int j = 0; j < kSubS; ++j) {
+            const float pj = __shfl_sync(0xffffffffu, p, 4 * j);
+            if ((mask >> j) & 1u) {
+#pragma unroll
+              for (int i = 0; i < kCols; ++i) {
+                const int c = lane + 32 * i;
+                if (c < hd)
+                  acc[g][i] = fmaf(pj, read_col<KV>(vt, stride, j, c),
+                                   acc[g][i]);
+              }
+            }
+          }
+        }
       }
-      ps[g][j] = s;
+      __syncwarp();   // the next iteration refills this stage
+      st = (st + 1) % kStages;
+      t = next_live(t + 1);
     }
-    __syncthreads();
+  }
 
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const float a = ps[g][lane], c = ps[g][lane + 32];
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(a, c)));
-      const bool live = m_new > 0.5f * kNegInf;
-      float pa = live ? expf(a - m_new) : 0.f;
-      float pc = live ? expf(c - m_new) : 0.f;
-      const float sum = warp_sum(pa + pc);
-      const float corr = expf(m_prev - m_new);
-      if (quantized) {
-        if (lane < ts) pa *= v_scale[slot_s[lane]];
-        if (lane + 32 < ts) pc *= v_scale[slot_s[lane + 32]];
-      }
-      ps[g][lane] = pa;
-      ps[g][lane + 32] = pc;
-      __syncwarp();
+  // merge the warps in order (through the now idle tile buffers), then
+  // write the output (one split) or this split's partial
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);   // [kWarps][G][hd]
+#pragma unroll
+  for (int g = 0; g < MG; ++g) {
+    if (g < G) {
+#pragma unroll
+      for (int i = 0; i < kCols; ++i)
+        if (lane + 32 * i < hd)
+          red[(warp * G + g) * hd + lane + 32 * i] = acc[g][i];
       if (lane == 0) {
-        m_s[g] = m_new;
-        l_s[g] = l_s[g] * corr + sum;
-        corr_s[g] = corr;
+        wm_s[warp][g] = m[g];
+        wl_s[warp][g] = l[g];
       }
     }
-    __syncthreads();
-
-    load_tile<KV>(tile, v, slot_s, ts, hd);
-    __syncthreads();
-
-    if (threadIdx.x < hd) {
-      const int d = threadIdx.x;
+  }
+  __syncthreads();
+  const size_t pidx = bh * splits + split;
+  for (int i = threadIdx.x; i < G * hd; i += kThreads) {
+    const int g = i / hd, d = i % hd;
+    float mx = kNegInf;
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) acc[g] *= corr_s[g];
-      for (int j = 0; j < ts; ++j) {
-        const float vv = tile[j][d];
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm_s[w][g]);
+    float lsum = 0.f, a = 0.f;
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) acc[g] = fmaf(ps[g][j], vv, acc[g]);
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(wm_s[w][g] - mx);   // an empty warp has l = 0
+      lsum += wl_s[w][g] * c;
+      a += red[(w * G + g) * hd + d] * c;
+    }
+    if (splits == 1) {
+      out[(bh * G + g) * hd + d] = from_f32<QT>(lsum > 0.f ? a / lsum : 0.f);
+    } else {
+      acc_part[(pidx * G + g) * hd + d] = a;
+      if (d == 0) {
+        m_part[pidx * G + g] = mx;
+        l_part[pidx * G + g] = lsum;
       }
     }
-    __syncthreads();
   }
+}
 
-  if (threadIdx.x < hd) {
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G)
-        out[(bh * G + g) * hd + threadIdx.x] =
-            from_f32<QT>(acc[g] / fmaxf(l_s[g], 1e-30f));
+// Merge the splits of each (b, h): out = Σ_s acc_s·e^(m_s − M) /
+// Σ_s l_s·e^(m_s − M), in split order; zeros when every split is empty.
+template <typename QT>
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ m_part,
+                      const float* __restrict__ l_part,
+                      const float* __restrict__ acc_part, QT* __restrict__ out,
+                      int G, int hd, int splits) {
+  const size_t bh = blockIdx.x;
+  for (int i = threadIdx.x; i < G * hd; i += kThreads) {
+    const int g = i / hd, d = i % hd;
+    float mx = kNegInf;
+    for (int s = 0; s < splits; ++s)
+      mx = fmaxf(mx, m_part[(bh * splits + s) * G + g]);
+    float l = 0.f, a = 0.f;
+    if (mx > 0.5f * kNegInf) {
+      for (int s = 0; s < splits; ++s) {
+        const size_t p = (bh * splits + s) * G + g;
+        const float w = expf(m_part[p] - mx);
+        l += l_part[p] * w;
+        a += acc_part[p * hd + d] * w;
+      }
+    }
+    out[(bh * G + g) * hd + d] = from_f32<QT>(l > 0.f ? a / l : 0.f);
   }
+}
+
+template <typename QT, int KV, bool PAGED, int MG>
+int launch_groups(const QT* q, const void* k, const void* v, const float* ks,
+                const float* vs, const int* qp, const int* kp, const int* bt,
+                QT* out, float* m_part, float* l_part, float* acc_part, int B,
+                int KVH, int G, int S, int nb, int page, int hd, int window,
+                int splits, int split_tiles, float scale, cudaStream_t s) {
+  const size_t smem = smem_bytes<KV>(hd, G);
+  if (smem > static_cast<size_t>(kSmemMax) - 4 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static size_t opted = 44 * 1024;   // under the default with the static part
+  if (smem > opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_decode_kernel<QT, KV, PAGED, MG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted = smem;
+  }
+  const dim3 grid(KVH, B, splits);
+  flash_decode_kernel<QT, KV, PAGED, MG><<<grid, kThreads, smem, s>>>(
+      q, k, v, ks, vs, qp, kp, bt, out, m_part, l_part, acc_part, KVH, G, S,
+      nb, page, hd, window, split_tiles, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  decode_combine_kernel<QT><<<B * KVH, kThreads, 0, s>>>(
+      m_part, l_part, acc_part, out, G, hd, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, int KV, bool PAGED>
+int launch_kind(const QT* q, const void* k, const void* v, const float* ks,
+                const float* vs, const int* qp, const int* kp, const int* bt,
+                QT* out, float* m_part, float* l_part, float* acc_part, int B,
+                int KVH, int G, int S, int nb, int page, int hd, int window,
+                int splits, int split_tiles, float scale, cudaStream_t s) {
+  return G == 1
+      ? launch_groups<QT, KV, PAGED, 1>(q, k, v, ks, vs, qp, kp, bt, out,
+                                        m_part, l_part, acc_part, B, KVH, G,
+                                        S, nb, page, hd, window, splits,
+                                        split_tiles, scale, s)
+      : launch_groups<QT, KV, PAGED, kMaxG>(q, k, v, ks, vs, qp, kp, bt, out,
+                                            m_part, l_part, acc_part, B, KVH,
+                                            G, S, nb, page, hd, window, splits,
+                                            split_tiles, scale, s);
 }
 
 template <typename QT, bool PAGED>
 int launch_q(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* q_pos, const void* k_pos,
-             const void* block_table, void* out, int B, int KVH, int G, int S,
-             int nb, int ps, int hd, int window, float scale, int kv_kind,
-             cudaStream_t stream) {
-  const dim3 grid(KVH, B);
+             const void* block_table, void* out, void* m_part, void* l_part,
+             void* acc_part, int B, int KVH, int G, int S, int nb, int ps,
+             int hd, int window, int splits, int split_tiles, float scale,
+             int kv_kind, cudaStream_t stream) {
+  if (split_tiles < 1 || split_tiles > kMaxSplitTiles || splits < 1
+      || (splits - 1) * split_tiles * kTileS >= S || G > kMaxG)
+    return static_cast<int>(cudaErrorInvalidValue);
   const QT* qq = static_cast<const QT*>(q);
   QT* oo = static_cast<QT*>(out);
   const float* kss = static_cast<const float*>(ks);
@@ -286,31 +554,24 @@ int launch_q(const void* q, const void* k, const void* v, const void* ks,
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(k_pos);
   const int* bt = static_cast<const int*>(block_table);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  float* ap = static_cast<float*>(acc_part);
+#define REPRO_DECODE_CASE(KIND)                                              \
+  case KIND:                                                                 \
+    return launch_kind<QT, KIND, PAGED>(qq, k, v, kss, vss, qp, kp, bt, oo,  \
+                                        mp, lp, ap, B, KVH, G, S, nb, ps, hd, \
+                                        window, splits, split_tiles, scale,  \
+                                        stream);
   switch (kv_kind) {
-    case kF32:
-      flash_decode_kernel<QT, kF32, PAGED><<<grid, kThreads, 0, stream>>>(
-          qq, k, v, kss, vss, qp, kp, bt, oo, KVH, G, S, nb, ps, hd, window,
-          scale);
-      break;
-    case kBF16:
-      flash_decode_kernel<QT, kBF16, PAGED><<<grid, kThreads, 0, stream>>>(
-          qq, k, v, kss, vss, qp, kp, bt, oo, KVH, G, S, nb, ps, hd, window,
-          scale);
-      break;
-    case kInt8:
-      flash_decode_kernel<QT, kInt8, PAGED><<<grid, kThreads, 0, stream>>>(
-          qq, k, v, kss, vss, qp, kp, bt, oo, KVH, G, S, nb, ps, hd, window,
-          scale);
-      break;
-    case kPacked4:
-      flash_decode_kernel<QT, kPacked4, PAGED><<<grid, kThreads, 0, stream>>>(
-          qq, k, v, kss, vss, qp, kp, bt, oo, KVH, G, S, nb, ps, hd, window,
-          scale);
-      break;
+    REPRO_DECODE_CASE(kF32)
+    REPRO_DECODE_CASE(kBF16)
+    REPRO_DECODE_CASE(kInt8)
+    REPRO_DECODE_CASE(kPacked4)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef REPRO_DECODE_CASE
 }
 
 }  // namespace
@@ -318,37 +579,49 @@ int launch_q(const void* q, const void* k, const void* v, const void* ks,
 // q, out (B, KVH, G, hd) f32/bf16 (q_bf16); k, v per kv_kind (0 f32, 1 bf16,
 // 2 int8, 3 packed4 (B, KVH, S/2, hd) uint8); k_scale, v_scale (B, KVH, S)
 // f32 or null; q_pos (B,) and k_pos (B, S) int32. S counts logical slots.
+// The slot axis runs in `splits` blocks of `split_tiles` 32-slot tiles;
+// with splits > 1, m_part, l_part (B, KVH, splits, G) and acc_part
+// (B, KVH, splits, G, hd) f32 are scratch for the combine (null otherwise).
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale,
                                    const void* q_pos, const void* k_pos,
-                                   void* out, int B, int KVH, int G, int S,
-                                   int hd, int window, int kv_kind, int q_bf16,
+                                   void* out, void* m_part, void* l_part,
+                                   void* acc_part, int B, int KVH, int G,
+                                   int S, int hd, int window, int kv_kind,
+                                   int q_bf16, int splits, int split_tiles,
                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return q_bf16
       ? launch_q<__nv_bfloat16, false>(q, k, v, k_scale, v_scale, q_pos, k_pos,
-                                       nullptr, out, B, KVH, G, S, 0, 1, hd,
-                                       window, scale, kv_kind, s)
+                                       nullptr, out, m_part, l_part, acc_part,
+                                       B, KVH, G, S, 0, 1, hd, window, splits,
+                                       split_tiles, scale, kv_kind, s)
       : launch_q<float, false>(q, k, v, k_scale, v_scale, q_pos, k_pos,
-                               nullptr, out, B, KVH, G, S, 0, 1, hd, window,
+                               nullptr, out, m_part, l_part, acc_part, B, KVH,
+                               G, S, 0, 1, hd, window, splits, split_tiles,
                                scale, kv_kind, s);
 }
 
-// K5. q, out as above; k, v the page pools (P, KVH, ps, hd) per kv_kind
-// (packed4: (P, KVH, ps/2, hd) uint8); k_scale, v_scale (P, KVH, ps) f32 or
-// null; block_table (B, nb) int32, every entry a valid page; q_pos (B,) and
-// k_pos (B, nb * ps) int32. ps is even.
+// K5. q, out, scratch as above; k, v the page pools (P, KVH, ps, hd) per
+// kv_kind (packed4: (P, KVH, ps/2, hd) uint8); k_scale, v_scale (P, KVH, ps)
+// f32 or null; block_table (B, nb) int32, every entry a valid page; q_pos
+// (B,) and k_pos (B, nb * ps) int32. ps is even.
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* q_pos, const void* k_pos,
-    const void* block_table, void* out, int B, int KVH, int G, int nb, int ps,
-    int hd, int window, int kv_kind, int q_bf16, float scale, void* stream) {
+    const void* block_table, void* out, void* m_part, void* l_part,
+    void* acc_part, int B, int KVH, int G, int nb, int ps, int hd, int window,
+    int kv_kind, int q_bf16, int splits, int split_tiles, float scale,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return q_bf16
       ? launch_q<__nv_bfloat16, true>(q, k, v, k_scale, v_scale, q_pos, k_pos,
-                                      block_table, out, B, KVH, G, nb * ps, nb,
-                                      ps, hd, window, scale, kv_kind, s)
+                                      block_table, out, m_part, l_part,
+                                      acc_part, B, KVH, G, nb * ps, nb, ps, hd,
+                                      window, splits, split_tiles, scale,
+                                      kv_kind, s)
       : launch_q<float, true>(q, k, v, k_scale, v_scale, q_pos, k_pos,
-                              block_table, out, B, KVH, G, nb * ps, nb, ps, hd,
-                              window, scale, kv_kind, s);
+                              block_table, out, m_part, l_part, acc_part, B,
+                              KVH, G, nb * ps, nb, ps, hd, window, splits,
+                              split_tiles, scale, kv_kind, s);
 }

@@ -15,6 +15,12 @@ slot outputs zeros. The kernel masks the ragged tail of the slot axis
 itself, so the wrapper pads nothing (the TPU wrapper padded S to its
 block size).
 
+On the card the slot axis is split across blocks (flash-decoding):
+:func:`decode_splits` picks the split count, each split leaves f32
+partials ``(m, l, acc)`` in scratch this module allocates, and a second
+kernel merges them as :func:`combine_splits_plain` does. The launch
+counts stay one per wrapper call.
+
 Paged (``block_table`` given): k/v are page pools ``(P, KV, ps, hd)``
 (packed4 ``(P, KV, ps/2, hd)`` uint8), the scales ``(P, KV, ps)``, and
 row b's logical slot j lives in page ``block_table[b, j // ps]``, row
@@ -22,12 +28,17 @@ row b's logical slot j lives in page ``block_table[b, j // ps]``, row
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.constraints import (DECODE_MAX_GROUP, KV_PTR_ALIGN,
+from repro_torch.kernels.constraints import (CUDA_MAX_GRID_YZ,
+                                             DECODE_BLOCKS_PER_SM,
+                                             DECODE_MAX_GROUP,
+                                             DECODE_MAX_SPLIT_TILES,
+                                             DECODE_TILE_SLOTS, KV_PTR_ALIGN,
                                              PACKED4_ALIGN, check_head_dim,
                                              validate_page_size)
 from repro_torch.quant.mxint import unpack_codes_4bit
@@ -68,10 +79,65 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgs,bksd->bkgd", p, v.float()).to(q.dtype)
 
 
+def combine_splits_plain(m: torch.Tensor, l: torch.Tensor,
+                         acc: torch.Tensor) -> torch.Tensor:
+    """Plain version of the combine kernel: merge per-split partials of an
+    online softmax, in split order. ``m``/``l`` (..., splits) are each
+    split's running max and sum (``NEG_INF`` / 0 for a split with no valid
+    slot), ``acc`` (..., splits, hd) its unnormalized ``Σ p·v``. Returns
+    ``Σ acc·e^(m−M) / Σ l·e^(m−M)`` in f32, zeros where every split is
+    empty (the empty-row rule)."""
+    mx = m.amax(-1, keepdim=True)
+    live = mx > 0.5 * NEG_INF
+    w = torch.where(live, torch.exp(m - mx), 0.0)
+    den = (l * w).sum(-1, keepdim=True)
+    num = (acc * w[..., None]).sum(-2)
+    return torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
+
+
+def decode_splits(rows: int, slots: int, sm_count: int) -> Tuple[int, int]:
+    """(splits, tiles per split) for ``rows`` = B·KV blocks over ``slots``
+    logical slots: about ``DECODE_BLOCKS_PER_SM`` blocks per SM, at most
+    ``DECODE_MAX_SPLIT_TILES`` tiles a split, whole tiles only, and never
+    more splits than tiles (so no split is shorter than one tile)."""
+    tiles = -(-slots // DECODE_TILE_SLOTS)
+    want = -(-DECODE_BLOCKS_PER_SM * sm_count // rows)
+    splits = max(1, min(want, tiles), -(-tiles // DECODE_MAX_SPLIT_TILES))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scratch(q: torch.Tensor, slots: int) -> tuple:
+    """(splits, tiles per split, m, l, acc) for q's device: the split plan
+    and the combine's f32 scratch, None with one split. Freed after the
+    launch, the scratch goes back to the caching allocator in stream
+    order, so the kernels still own it while they run."""
+    b, kvh, g, hd = q.shape
+    splits, per = decode_splits(b * kvh, slots, _sm_count(q.device.index or 0))
+    if splits > CUDA_MAX_GRID_YZ:
+        raise ValueError(f"{slots} slots need {splits} splits, over the grid "
+                         f"limit {CUDA_MAX_GRID_YZ}")
+    if splits == 1:
+        return splits, per, None, None, None
+    m = torch.empty((b, kvh, splits, g), dtype=torch.float32, device=q.device)
+    return (splits, per, m, torch.empty_like(m),
+            torch.empty((b, kvh, splits, g, hd), dtype=torch.float32,
+                        device=q.device))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _check_decode_args(q, k, v, k_scale, v_scale, rows: int,
-                       slots: int) -> bool:
+                       slots: int) -> None:
     """The checks K3 and K5 share; ``rows`` × ``slots`` is the leading
-    shape of k/v (B × S for K3, P × ps for K5). Returns ``quantized``."""
+    shape of k/v (B × S for K3, P × ps for K5)."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype not in _KV_KIND or v.dtype != k.dtype:
@@ -101,7 +167,13 @@ def _check_decode_args(q, k, v, k_scale, v_scale, rows: int,
             if t.dtype != torch.float32 or t.shape != (rows, kvh, slots):
                 raise ValueError(f"scales must be float32 {(rows, kvh, slots)}"
                                  f", got {t.dtype} {tuple(t.shape)}")
-    return quantized
+
+
+def _check_rows(rows: int) -> None:
+    """The kernel keeps each valid slot's flat row as a 32-bit int."""
+    if rows >= 2 ** 31:
+        raise ValueError(f"{rows} cache rows exceed the kernel's 32-bit row "
+                         f"index")
 
 
 def _check_on_one_device(what: str, q, *tensors) -> None:
@@ -119,7 +191,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, kvh, g, hd = q.shape
     packed = k.dtype == torch.uint8
     s_len = k.shape[2] * (2 if packed else 1)
-    quantized = _check_decode_args(q, k, v, k_scale, v_scale, b, s_len)
+    _check_decode_args(q, k, v, k_scale, v_scale, b, s_len)
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
     if q_pos.shape != (b,) or k_pos.shape != (b, s_len):
@@ -129,14 +201,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          v_scale)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
+    _check_rows(b * kvh * s_len)
     out = torch.empty_like(q)
-    fn = _build.function("decode_attention", "flash_decode_launch", 8, 8, 1)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             k_scale.data_ptr() if quantized else None,
-             v_scale.data_ptr() if quantized else None,
-             q_pos.data_ptr(), k_pos.data_ptr(), out.data_ptr(),
+    splits, per, m_p, l_p, acc_p = _scratch(q, s_len)
+    fn = _build.function("decode_attention", "flash_decode_launch", 11, 10, 1)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+             _ptr(v_scale), q_pos.data_ptr(), k_pos.data_ptr(),
+             out.data_ptr(), _ptr(m_p), _ptr(l_p), _ptr(acc_p),
              b, kvh, g, s_len, hd, window, _KV_KIND[k.dtype],
-             int(q.dtype == torch.bfloat16), float(scale),
+             int(q.dtype == torch.bfloat16), splits, per, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode_launch (K3)")
     LAUNCHES["flash_decode"] += 1
@@ -190,7 +263,7 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_pages = k.shape[0]
     ps = k.shape[2] * (2 if packed else 1)
     validate_page_size(ps)
-    quantized = _check_decode_args(q, k, v, k_scale, v_scale, n_pages, ps)
+    _check_decode_args(q, k, v, k_scale, v_scale, n_pages, ps)
     block_table = block_table.to(torch.int32).contiguous()
     if block_table.ndim != 2 or block_table.shape[0] != b:
         raise ValueError(f"block_table {tuple(block_table.shape)} must be "
@@ -206,15 +279,16 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          block_table, k_scale, v_scale)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
+    _check_rows(n_pages * kvh * ps)
     out = torch.empty_like(q)
-    fn = _build.function("decode_attention", "flash_decode_paged_launch", 9,
-                         9, 1)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             k_scale.data_ptr() if quantized else None,
-             v_scale.data_ptr() if quantized else None,
-             q_pos.data_ptr(), k_pos.data_ptr(), block_table.data_ptr(),
-             out.data_ptr(), b, kvh, g, nb, ps, hd, window,
-             _KV_KIND[k.dtype], int(q.dtype == torch.bfloat16), float(scale),
+    splits, per, m_p, l_p, acc_p = _scratch(q, nb * ps)
+    fn = _build.function("decode_attention", "flash_decode_paged_launch", 12,
+                         11, 1)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+             _ptr(v_scale), q_pos.data_ptr(), k_pos.data_ptr(),
+             block_table.data_ptr(), out.data_ptr(), _ptr(m_p), _ptr(l_p),
+             _ptr(acc_p), b, kvh, g, nb, ps, hd, window, _KV_KIND[k.dtype],
+             int(q.dtype == torch.bfloat16), splits, per, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode_paged_launch (K5)")
     LAUNCHES["flash_decode_paged"] += 1

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.constraints import check_head_dim
+from repro_torch.kernels.constraints import KV_PTR_ALIGN, check_head_dim
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -64,6 +64,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("flash_attention needs contiguous tensors on "
                              "one device")
+    if any(t.data_ptr() % KV_PTR_ALIGN for t in (q, k, v)):
+        raise ValueError(f"q/k/v must start {KV_PTR_ALIGN}-byte aligned (the "
+                         f"kernel copies rows in 16-byte chunks)")
     out = torch.empty_like(q)
     fn = _build.function("flash_attention", "flash_attention_launch", 6, 9, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),

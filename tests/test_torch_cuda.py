@@ -1,7 +1,8 @@
 """Card-only checks of the CUDA kernels (skip without a card): each
 kernel against its plain version on the card (K5 on a shuffled block
-table, K4 also at the chunk shape, K3/K4 also at head_dim 128, K6 over
-an expert stack, K7 bit for bit), and each wrapper raising on input the
+table, K4 also at the chunk shape and where whole key tiles are dead,
+K3/K4 also at head_dim 128, K3/K5 across split boundaries, K6 over an
+expert stack, K7 bit for bit), and each wrapper raising on input the
 kernel does not take.
 
 Run on a machine with an H100: ``PYTHONPATH=src python -m pytest -m cuda
@@ -17,6 +18,7 @@ from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import mxint_matmul as mk
 from repro_torch.kernels import mxint_quantize as kq
+from repro_torch.kernels.constraints import DECODE_TILE_SLOTS
 from repro_torch.quant.mxint import MXIntQuantizer, pack_codes_4bit
 
 pytestmark = pytest.mark.cuda
@@ -294,3 +296,104 @@ def test_attention_kernels_at_head_dim_128(dev):
     pos = torch.arange(256, device=dev, dtype=torch.int32)
     _close(fk.flash_attention(qf, kf, vf, pos, pos, causal=True),
            fk.flash_attention_plain(qf, kf, vf, pos, pos, True), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [96, 128])
+@pytest.mark.parametrize("case", ["causal", "chunk", "window"])
+def test_flash_attention_dead_tiles(dev, dtype, hd, case):
+    """K4 where whole key tiles hold no valid pair, at G = 2: a causal
+    prefill of 200 rows (not a multiple of the query tile), a chunk of
+    100 queries from start 131 (off a tile boundary) over 256 stored
+    slots, and a 300-row prefill under a 40-token window (the leading key
+    tiles of the late query tiles are dead)."""
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    kvh, g, window = 2, 2, 0
+    if case == "chunk":
+        sq, ctx, start = 100, 256, 131
+        q_pos = torch.arange(start, start + sq, dtype=torch.int32, device=dev)
+        slots = torch.arange(ctx, dtype=torch.int32, device=dev)
+        k_pos = torch.cat([torch.where(slots < start, slots, -1), q_pos])
+    else:
+        sq = 200 if case == "causal" else 300
+        window = 40 if case == "window" else 0
+        q_pos = k_pos = torch.arange(sq, dtype=torch.int32, device=dev)
+    sk = k_pos.shape[0]
+    q = torch.randn((1, sq, kvh, g, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((1, sk, kvh, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((1, sk, kvh, hd), generator=gen, device=dev).to(dtype)
+    want = fk.flash_attention_plain(q, k, v, q_pos, k_pos, True, window)
+    before = fk.LAUNCHES["flash_attention"]
+    got = fk.flash_attention(q, k, v, q_pos, k_pos, causal=True,
+                             window=window)
+    assert fk.LAUNCHES["flash_attention"] == before + 1
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2 ** -8)
+
+
+def _to_pages(x, bt, ps):
+    """Scatter a head-major (B, KV, S', ...) tensor into a pool of pages
+    (P, KV, ps', ...) along the shuffled table ``bt`` (B, nb)."""
+    b, kvh, nb = x.shape[0], x.shape[1], bt.shape[1]
+    per = x.shape[2] // nb                       # ps, or ps/2 for packed4
+    blocks = x.reshape((b, kvh, nb, per) + x.shape[3:]).transpose(1, 2)
+    pool = torch.zeros((int(bt.max()) + 3, kvh, per) + x.shape[3:],
+                       dtype=x.dtype, device=x.device)
+    pool[bt.flatten().long()] = blocks.reshape((b * nb, kvh, per)
+                                               + x.shape[3:])
+    return pool
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("g,hd,window", [(1, 96, 0), (8, 128, 0),
+                                         (8, 128, 40)])
+def test_flash_decode_split_boundaries(dev, kind, g, hd, window):
+    """K3 and K5 with the slot axis split across blocks: rows whose valid
+    slots end at a split boundary, one slot past it, a whole tile before
+    it, and a row with no valid slot (exact zeros); S = 304 is a multiple
+    of neither the tile nor the split; G = 8 (DECODE_MAX_GROUP) at hd 128,
+    windows, int8/int4 scales on rows with skipped tiles."""
+    b, kvh, ps, nb = 4, 16, 16, 19
+    s = ps * nb
+    q, k, v, _, _, ks, vs = _cache(dev, kind, b=b, kvh=kvh, g=g, s=s, hd=hd,
+                                   seed=g + hd + window)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, per = dk.decode_splits(b * kvh, s, sm)
+    assert splits > 1
+    edge = per * DECODE_TILE_SLOTS                  # end of split 0
+    q_pos = torch.tensor([edge - 1, edge, edge - 1 - DECODE_TILE_SLOTS, s],
+                         dtype=torch.int32, device=dev)
+    k_pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+    k_pos[3] = -1                                   # empty row → zeros
+    want = dk.decode_attention_plain(q, k, v, q_pos, k_pos, ks, vs, window)
+    before = dk.LAUNCHES["flash_decode"]
+    got = dk.decode_attention_op(q, k, v, q_pos, k_pos, k_scale=ks,
+                                 v_scale=vs, window=window)
+    assert dk.LAUNCHES["flash_decode"] == before + 1
+    _close(got, want, 1e-4)
+    assert torch.all(got[3] == 0)
+
+    gen = torch.Generator(device="cpu").manual_seed(g + hd)
+    bt = (torch.randperm(b * nb + 8, generator=gen)[:b * nb]
+          .reshape(b, nb).to(torch.int32).to(dev))
+    kp, vp = _to_pages(k, bt, ps), _to_pages(v, bt, ps)
+    ksp = vsp = None
+    if ks is not None:
+        ksp, vsp = _to_pages(ks, bt, ps), _to_pages(vs, bt, ps)
+    want = dk.decode_attention_paged_plain(q, kp, vp, q_pos, k_pos, bt, ksp,
+                                           vsp, window)
+    before = dk.LAUNCHES["flash_decode_paged"]
+    got = dk.decode_attention_op(q, kp, vp, q_pos, k_pos, k_scale=ksp,
+                                 v_scale=vsp, window=window, block_table=bt)
+    assert dk.LAUNCHES["flash_decode_paged"] == before + 1
+    _close(got, want, 1e-4)
+    assert torch.all(got[3] == 0)
+
+
+def test_flash_decode_one_split(dev):
+    """B·KV = 2048 fills the card alone: one split, no combine."""
+    q, k, v, q_pos, k_pos, _, _ = _cache(dev, "bf16", b=64, kvh=32, g=1,
+                                         s=256, hd=96)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert dk.decode_splits(64 * 32, 256, sm)[0] == 1
+    _close(dk.decode_attention_op(q, k, v, q_pos, k_pos),
+           dk.decode_attention_plain(q, k, v, q_pos, k_pos), 1e-4)
