@@ -17,7 +17,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    prefill rows; K7 bit for bit): max error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
-   layers finds them cold) and the bound;
+   layers finds them cold) and the bound (K1/K2/K6: the function's
+   operations at the bf16 peak, which the tensor cores reach within the
+   gate since the MXINT weight is exact in bf16 and an f32 x enters as a
+   bf16 pair, beside the f32 CUDA-core figure earlier runs used; K2 also
+   the time of the ``x·L`` GEMM it includes);
 4. the unpaged main path at full width, through the entry points a user
    calls: ``init_lm`` (seed 0) → SRR ``quantize_model_params`` (rank 16,
    3-bit MXINT, int8 container) → ``Engine`` (8 lanes, bf16 KV, fused
@@ -55,9 +59,11 @@ per kernel, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --compare PARENT_ROOT
 
-times phase 3's K3, K4 and K5 cases of the tree at PARENT_ROOT (an
-unpacked ``git archive``) and of this one on one card, in the order
-parent, change, change, parent, and prints one line per case.
+times phase 3's Q+LR cases (K1 at its main, router and dense lead-in
+shapes, K2 at both M = 256 shapes, K6 at both shapes) and its K3, K4 and
+K5 cases, of the tree at PARENT_ROOT (an unpacked ``git archive``) and of
+this one on one card, in the order parent, change, change, parent, and
+prints one line per case (``build/compare_kernels.json`` holds them).
 """
 from __future__ import annotations
 
@@ -168,13 +174,16 @@ def check_qlr(dev, m: int, k: int, n: int, rank: int, packed: bool) -> dict:
     nbytes = tensor_bytes(x, codes, scale, r) + m * n * 4 \
         + (k * rank * 4 if fused else m * rank * 4)
     ops = 2 * m * k * n + 2 * m * k * rank + 2 * m * rank * n
-    b_ms, b_by = bound_ms(nbytes, ops, "float32")
-    return dict(name="K1 qlr_fused_matmul" if fused else "K2 qlr_xl_matmul",
-                shape=f"M={m} K={k} N={n} r={rank} "
-                      f"{'packed4' if packed else 'int8'}",
-                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
-                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                bound_by=b_by)
+    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+    row = dict(name="K1 qlr_fused_matmul" if fused else "K2 qlr_xl_matmul",
+               shape=f"M={m} K={k} N={n} r={rank} "
+                     f"{'packed4' if packed else 'int8'}",
+               max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
+               plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+               bound_by=b_by, f32_bound_ms=bound_ms(nbytes, ops, "float32")[0])
+    if not fused:     # K2's time includes the x·L GEMM before its launch
+        row["xl_ms"] = time_ms(lambda x_, c_, s_, l_, r_: x_ @ l_, sets)[0]
+    return row
 
 
 def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
@@ -456,12 +465,13 @@ def check_qlr_batched(dev, e: int, m: int, k: int, n: int, rank: int) -> dict:
     t_lib, _ = time_ms(torch.bmm, dense)
     nbytes = tensor_bytes(x, codes, scale, xl, r) + e * m * n * 4
     ops = 2 * e * m * n * (k + rank)
-    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")     # as check_qlr's
     return dict(name="K6 qlr_batched_matmul",
                 shape=f"E={e} M={m} K={k} N={n} r={rank} int8",
                 max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
                 plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by,
+                f32_bound_ms=bound_ms(nbytes, ops, "float32")[0])
 
 
 def check_quantize(dev, m: int, n: int, bits: int = 3) -> dict:
@@ -499,7 +509,7 @@ def phase_kernels(dev) -> list:
             for packed in (False, True):
                 for rank in (16, 0):
                     rows.append(check_qlr(dev, m, k, n, rank, packed))
-    # deepseek-moe-16b: the router (N = 64, half of K1's column tile), the
+    # deepseek-moe-16b: the router (N = 64, K1's 64-column tile), the
     # dense lead-in layer (N = 10944; K = 10944 for its down projection)
     for m, k, n in ((8, 2048, 64), (256, 2048, 64), (8, 2048, 10944),
                     (8, 10944, 2048)):
@@ -529,7 +539,10 @@ def phase_kernels(dev) -> list:
             f"{r['plain_ms']:.4f} ms {lib} bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
             + (f", pages walked {r['walked_bound_ms']:.4f} ms"
-               if "walked_bound_ms" in r else ""))
+               if "walked_bound_ms" in r else "")
+            + (f", f32 bound {r['f32_bound_ms']:.4f} ms"
+               if "f32_bound_ms" in r else "")
+            + (f", x·L GEMM {r['xl_ms']:.4f} ms" if "xl_ms" in r else ""))
     bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
     require(not bad, f"kernels disagree with their plain versions: {bad}")
     return rows
@@ -616,7 +629,9 @@ def profile_decode(eng, cfg, reqs, n_steps: int = 4,
         f"{1e3 * wall / n_steps:.2f} ms/step wall, device busy "
         f"{sum(dev_us.values()) / n_steps / 1e3:.2f} ms/step "
         f"({100 * busy:.1f}% busy, {100 * (1 - busy):.1f}% idle)")
-    for kname in ("flash_decode_kernel", "decode_combine_kernel",
+    # K1/K2 (qlr_tc_kernel) run alone: qlr_finish_kernel is K6's only
+    for kname in ("qlr_tc_kernel", "qlr_partial_kernel", "qlr_finish_kernel",
+                  "flash_decode_kernel", "decode_combine_kernel",
                   "flash_attention_kernel"):
         us = sum(v for k_, v in dev_us.items() if kname in k_)
         log(tag, f"  {kname}: {us / n_steps / 1e3:.3f} ms/step")
@@ -627,6 +642,10 @@ def profile_decode(eng, cfg, reqs, n_steps: int = 4,
                 device_ms=sum(dev_us.values()) / n_steps / 1e3,
                 decode_ms=sum(v for k_, v in dev_us.items()
                               if "flash_decode_kernel" in k_) / n_steps / 1e3,
+                qlr_ms=sum(v for k_, v in dev_us.items()
+                           if "qlr_tc_kernel" in k_) / n_steps / 1e3,
+                finish_ms=sum(v for k_, v in dev_us.items()
+                              if "qlr_finish_kernel" in k_) / n_steps / 1e3,
                 combine_ms=sum(v for k_, v in dev_us.items()
                                if "decode_combine_kernel" in k_)
                 / n_steps / 1e3,
@@ -1005,16 +1024,24 @@ def phase_moe(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the attention kernels of two trees, in turns on one card
+# phase 3's kernels of two trees, in turns on one card
 # ---------------------------------------------------------------------------
-_ATTENTION_ROWS = """
+_COMPARE_ROWS = """
 import inspect, json, sys, torch
 root = sys.argv[1]
 sys.path[:0] = [root, root + "/src"]
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
-rows = [cs.check_decode(dev, kind) for kind in ("bf16", "int8", "int4")]
+# K1 at phi3's main shape, the MoE router and the dense lead-in layer; K2
+# at both M = 256 shapes and the router's prefill rows; K6 at decode and
+# prefill rows (the control)
+rows = [cs.check_qlr(dev, m, k, n, 16, False)
+        for m, k, n in ((8, 3072, 8192), (8, 2048, 64), (8, 2048, 10944),
+                        (8, 10944, 2048), (256, 3072, 8192),
+                        (256, 3072, 3072), (256, 2048, 64))]
+rows += [cs.check_qlr_batched(dev, 64, m, 2048, 1408, 16) for m in (8, 30)]
+rows += [cs.check_decode(dev, kind) for kind in ("bf16", "int8", "int4")]
 rows.append(cs.check_decode(dev, "bf16", kvh=16, hd=128))
 if "ragged" in inspect.signature(cs.check_decode).parameters:
     rows.append(cs.check_decode(dev, "bf16", ragged=True))
@@ -1025,17 +1052,20 @@ print("ROWS " + json.dumps(rows))
 """
 
 
-def compare_attention(parent: str) -> int:
-    """K3, K4 and K5 at phase 3's shapes, from the tree at ``parent`` and
-    from this one, in the order parent, change, change, parent, each turn
-    in a process of its own (each tree builds its kernels into its own
-    ``build/``). Prints one line per case and writes
-    ``build/compare_attention.json``."""
+def compare_kernels(parent: str) -> int:
+    """Phase 3's Q+LR cases (K1 at its main, router and dense lead-in
+    shapes, K2 at both M = 256 shapes and the router's prefill rows, K6
+    at both as the control) and its K3, K4 and K5 cases, from the tree at
+    ``parent`` and from this one, in the order parent, change, change,
+    parent, each turn in a process of its own (each tree builds its
+    kernels into its own ``build/``). Prints one line per case, with the
+    library yardstick's fastest and slowest turn, and writes
+    ``build/compare_kernels.json``."""
     turns = [("parent", os.path.abspath(parent)), ("change", ROOT),
              ("change", ROOT), ("parent", os.path.abspath(parent))]
     runs = []
     for who, root in turns:
-        proc = subprocess.run([sys.executable, "-c", _ATTENTION_ROWS, root],
+        proc = subprocess.run([sys.executable, "-c", _COMPARE_ROWS, root],
                               capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("ROWS ")]
@@ -1050,18 +1080,24 @@ def compare_attention(parent: str) -> int:
         parent_ms = [m for m in (ms[0], ms[3]) if m is not None]
         verdict = ("faster" if parent_ms and max(ms[1:3]) < min(parent_ms)
                    else "not faster" if parent_ms else "new case")
+        lib = [run[key]["library_ms"] for _, run in runs if key in run
+               and run[key]["library_ms"] is not None]
         log("compare", f"{key[0]:22s} {key[1]:40s} parent/change/change/"
             f"parent ms " + " / ".join("-" if m is None else f"{m:.4f}"
                                        for m in ms)
-            + f"; bound {row['bound_ms']:.4f}; library "
-            + ("-" if row["library_ms"] is None
-               else f"{row['library_ms']:.4f}") + f"; err "
-            f"{row['max_abs_err']:.2e}: {verdict}")
+            + f"; bound {row['bound_ms']:.4f}"
+            + (f" (f32 {row['f32_bound_ms']:.4f})"
+               if "f32_bound_ms" in row else "")
+            + (f"; x·L GEMM {row['xl_ms']:.4f}" if "xl_ms" in row else "")
+            + "; library " + (f"{min(lib):.4f}–{max(lib):.4f}" if lib else "-")
+            + f"; err {row['max_abs_err']:.2e} (tol {row['tol']:.1e}): "
+            f"{verdict}")
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "compare_attention.json"), "w") as fh:
+    with open(os.path.join(OUT_DIR, "compare_kernels.json"), "w") as fh:
         json.dump([{"turn": who, "rows": list(run.values())}
                    for who, run in runs], fh, indent=1)
-    bad = [k for k, r in runs[1][1].items() if not r["max_abs_err"] <= r["tol"]]
+    bad = [k for _, run in runs[1:3] for k, r in run.items()
+           if not r["max_abs_err"] <= r["tol"]]
     return 1 if bad else 0
 
 
@@ -1084,7 +1120,7 @@ def main() -> int:
     log("device", f"{name}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
     if len(sys.argv) == 3 and sys.argv[1] == "--compare":
-        return compare_attention(sys.argv[2])
+        return compare_kernels(sys.argv[2])
 
     t0 = time.perf_counter()
     took = _build.build()
@@ -1161,6 +1197,8 @@ def main() -> int:
                  "library_ms": row["library_ms"]}
         if "note" in row:
             entry["note"] = row["note"]
+        if "f32_bound_ms" in row:
+            entry["f32_bound_ms"] = row["f32_bound_ms"]
         kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -19,15 +19,42 @@ MXINT_BLOCK = 32
 # slot (KV cache) axis, so those counts must be even.
 PACKED4_ALIGN = 2
 
-# --- K1/K2 (kernels/csrc/mxint_matmul.cu) ---------------------------------
-# Each thread reads four neighbouring output columns as one 32-bit word.
+# --- K1/K2 (kernels/csrc/mxint_matmul.cu, qlr_tc_kernel) ------------------
+# Output columns come in groups of four: the scale rows are read as
+# 16-byte vectors (K6 reads four neighbouring columns as one word).
 QLR_COL_VEC = 4
-# Largest low-rank width: the fused kernel keeps x·L for two rank
-# entries per lane of a warp.
+# Largest low-rank width: x·L runs as at most four 16-rank mma tiles.
 QLR_MAX_RANK = 64
 # Rows above which the wrapper takes K2 (x·L precomputed outside) —
 # the same threshold as the JAX dispatch (kernels/ops.py:196-198).
 QLR_FUSED_MAX_ROWS = 128
+# The kernel's tile shapes (the .cu's launch_tile cases): output columns
+# a block, rows of x a block, 32-row MXINT blocks a pipeline stage, and
+# warps across K (block b of a stage goes to warp b mod that).
+# Decode (rows <= QLR_DECODE_ROWS, the lanes as one 8-row mma n-tile),
+# the same at the router's narrow outputs (N <= QLR_ROUTER_COLS) and twice
+# as wide below QLR_WIDE_MAX_COLS outputs (few column tiles, so each
+# block's fixed cost covers more columns), and the prefill tile (8 n-tiles
+# of rows). K2 takes only the prefill tile.
+QLR_TILE_DECODE, QLR_TILE_ROUTER, QLR_TILE_PREFILL, QLR_TILE_WIDE = 0, 1, 2, 3
+QLR_TILES = {QLR_TILE_DECODE: (128, 8, 4, 4), QLR_TILE_ROUTER: (64, 8, 4, 4),
+             QLR_TILE_PREFILL: (128, 64, 2, 2), QLR_TILE_WIDE: (256, 8, 4, 4)}
+QLR_DECODE_ROWS = 8
+QLR_ROUTER_COLS = 64
+QLR_WIDE_MAX_COLS = 4096
+# K is split into at most this many slices, one block each, summed inside
+# one thread-block cluster (8 is the portable cluster size); splits double
+# while the grid stays within the target count of blocks: one wave of the
+# decode tiles (one block an SM: their shared memory), two blocks an SM
+# of the prefill tile.
+QLR_MAX_SPLITS = 8
+QLR_DECODE_TARGET_BLOCKS = 132
+QLR_PREFILL_TARGET_BLOCKS = 264
+# x, and R in the decode tiles, are read by 16-byte cp.async: their base
+# addresses must be 16-byte aligned.
+QLR_X_ALIGN = 16
+
+# --- K6 (kernels/csrc/mxint_matmul.cu, batched) ----------------------------
 # K rows one block reduces before the split-K partials are summed.
 QLR_SPLIT_ROWS = 512
 
@@ -66,7 +93,6 @@ PAGE_ALIGN = PACKED4_ALIGN
 # CUDA's limit on a grid's y and z extents.
 CUDA_MAX_GRID_YZ = 65535
 
-# --- K6 (kernels/csrc/mxint_matmul.cu, batched) ----------------------------
 # K6 puts (stack entry, row tile) on the grid's z axis: E · ceil(M / row
 # tile) must stay within CUDA_MAX_GRID_YZ. Its row tiles are 8 rows (the
 # decode lanes) up to this many rows, 16 above.

@@ -10,110 +10,793 @@
 //       leading stack of E independent int8 weights — every MoE expert
 //       projection, on the (E, capacity, K) dispatch buffer.
 //
-// What bounds it on an H100: at decode (M = 8 lanes) the codes dominate
-// the bytes — a 3072×8192 int8 projection is 25 MB against 0.2 MB of
-// activations — so the kernel has to stream every code byte exactly once,
-// coalesced, from as many SMs as the card has. At M = 8 the f32 FMAs on
-// the CUDA cores (M·K·N) take about as long as the bytes, so the inner
-// loop does nothing but one 32-bit code load, four converts, four scale
-// multiplies and 4·MT FMAs against x held in shared memory.
+// K1 and K2: one tensor-core kernel, qlr_tc_kernel, one launch a call.
 //
-// Design:
-//   * the TPU kernel walks K as a sequential grid axis with the output
-//     tile resident in VMEM; here K is split across blocks instead
-//     (kSplitRows rows each, grid.y), so even a 3072-column projection
-//     puts 24 × 6 = 144 blocks on the 132 SMs. Each block writes its
-//     partial (MT, 128) tile to a workspace, and a second small kernel
-//     sums the splits in a fixed order (deterministic, no atomics) and
-//     adds the low-rank term (x·L)·R;
-//   * a warp reads one MXINT block row at a time: 32 lanes × 4 columns =
-//     one 128-byte coalesced load of int8 codes (64 bytes of a packed4
-//     row pair), one float4 of scales per 32 rows;
-//   * packed4 codes are unpacked in registers with the shift-based sign
-//     extension of repro.quant.mxint.unpack_codes_4bit (low nibble = row
-//     2i, high nibble = row 2i+1), so packed weights stream at half the
-//     int8 bytes and are never expanded in memory;
-//   * K1 computes x·L only in the blocks of the first column tile (the
-//     sliver does not depend on N), where the TPU kernel recomputes it per
-//     N block; K2 reads the precomputed sliver in the finishing kernel.
-//   * rank 0 needs no zero sliver: the low-rank loops simply run empty;
-//   * K6 is K2's body instantiated with STACKED: the stack entry is folded
-//     into grid.z next to the row tile (z = entry · row_tiles + tile),
-//     every block offsets its pointers by its entry's strides, and the
-//     finishing kernel takes the entry from its own grid.z. K1 and K2
-//     compile without that arithmetic, which slowed K1 on the card
-//     (PERF.md). At decode (M = 8 lanes, E = 64 experts, K = 2048,
-//     N = 1408) one gate/up call streams 185 MB of codes from 64 · 4 · 11
-//     = 2816 blocks; the tile is 8 rows up to 8 rows, 16 above.
+// Why the tensor cores keep the 1e-4 gate. An MXINT weight is code·2^e: an
+// int8 code (at most 8 significant bits) times a power of two, so it is
+// exact in bf16 wherever the product is a bf16 normal (bf16 has f32's
+// exponent range). An f32 x goes in as two bf16 terms, hi = bf16(x) and
+// lo = bf16(x − hi), whose sum misses x by about 2^-17 of |x|; a bf16 x
+// goes in once. Products run on mma.sync.m16n8k16 (bf16 in, f32
+// accumulators). x·L (L f32) runs as x hi/lo × L hi/lo: three products.
+// The scales must be powers of two, as MXIntQuantizer writes them; another
+// scale would be rounded to bf16's 8 significant bits.
+//
+// What bounds each shape on an H100, and what the design does about it:
+// - Decode (K1, M <= 8 lanes): bytes. A 3072×8192 int8 projection streams
+//   25 MB of codes against 0.2 MB of activations (bound 0.0088 ms). The
+//   tile computes yᵀ = Wᵀ·xᵀ: the dequantized weight is the A operand (16
+//   output columns × 16 K rows, built in registers from code bytes) and
+//   the lanes are the n = 8 side, so M = 8 fills an n-tile with no
+//   padding. Codes stream through a 3-stage ring of 128-row stages in
+//   shared memory filled by 16-byte cp.async (16 KB of codes a stage at
+//   128 columns), so tens of KB per SM are in flight. Eight warps: two
+//   column groups × four warps across K, each warp one 32-row MXINT block
+//   of a stage, whose scales it reads once. A thread's A fragment rows are
+//   chosen so that its code bytes are 2J neighbouring columns of a row (8
+//   bytes at J = 4): fragment row g of m-tile j is column 2J·g + 2j, row
+//   g + 8 is column 2J·g + 2j + 1. Below 4096 output columns the tile is
+//   256 columns wide (J = 8), so each block's fixed cost covers more.
+// - The router (N = 64, K = 2048): latency; 64-column tiles so no lane is
+//   idle, and K split 8 ways.
+// - Prefill (K2, and K1 at 8 < M <= 128): operations. The same kernel with
+//   64 rows of x (8 n-tiles) against 128 columns, eight warps (four column
+//   groups of 32 × two across K), 64-row stages: each code byte is read
+//   ceil(M / 64) times (the SIMT kernel read it M / 16 times).
+// - An f32 x tile is split into its bf16 pair once a stage, into shared
+//   memory, rather than by every warp that reads it.
+// - Split-K without a second launch: the K-splits of one output tile form a
+//   thread-block cluster (at most 8 blocks, constraints.QLR_MAX_SPLITS).
+//   Every block sums its warps' partial tiles (and partial x·L) in its own
+//   shared memory; after a cluster barrier, block s sums slice s of the
+//   tile over the splits in rank order through distributed shared memory
+//   (deterministic, no atomics; each split's value is loaded before the
+//   first add, so the remote loads overlap), adds (x·L)·R and writes y. No
+//   workspace, no finishing kernel. Splits are chosen from (M, K, N) by the
+//   wrapper (mxint_matmul.qlr_plan) to keep the grid within one wave;
+//   the last split may be short. Decode tiles stage R's columns with the
+//   first stage, so the epilogue waits on no device-memory load.
+// - x·L (K1): L's rows ride in the same ring; with one n-tile of rows the
+//   16-rank tiles rotate over the column warps from k-step to k-step, with
+//   more rows rank tile lm stays with column group lm % WC — so no column
+//   tile's blocks straggle; the block and then the cluster sum it.
+// - Dequantization without the conversion pipe: a code's offset-binary
+//   value (byte ^ 0x80, or nibble ^ 8) is dropped into the mantissa of
+//   2^23 by one byte permute; subtracting the offset's 2^23 + 128 (or + 8)
+//   and multiplying by 2^e give code·2^e exactly, and the bf16 is the top
+//   16 bits (exact). packed4 codes (low nibble = row 2i, high nibble = row
+//   2i+1, as repro.quant.mxint.unpack_codes_4bit) stream at half the int8
+//   bytes and are never expanded in memory.
+// - Copy loops run over each stage's chunk grid with compile-time widths
+//   (shifts, not divisions) and mask a short last stage.
+//
+// Measured on the card (PERF.md §6): the decode tiles sit about 3.5×
+// above their byte bound, and a block's loads and products barely
+// overlap (a build that skips either keeps most of the time). That
+// overlap is the next redesign's target (ROADMAP §2a).
+//
+// K6 keeps the SIMT split-K body of the first port (int8, x·L precomputed,
+// partials summed by a second kernel); it is next in the redesign queue.
 //
 // The limits below repeat src/repro_torch/kernels/constraints.py, whose
 // wrapper checks raise before a launch the kernel cannot take.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kMxBlock = 32;      // constraints.MXINT_BLOCK
-constexpr int kColsPerLane = 4;   // constraints.QLR_COL_VEC
 constexpr int kMaxRank = 64;      // constraints.QLR_MAX_RANK
-constexpr int kSplitRows = 512;   // constraints.QLR_SPLIT_ROWS
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileN = 32 * kColsPerLane;  // 128 output columns per block
-constexpr int kFinishThreads = 256;
+
+// ---------------------------------------------------------------------------
+// shared helpers
+// ---------------------------------------------------------------------------
+// Byte c of a 32-bit word as a sign-extended int8 code.
+__device__ __forceinline__ int int8_at(uint32_t word, int c) {
+  return static_cast<int>(word << (24 - 8 * c)) >> 24;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Byte c of a 32-bit word as a sign-extended int8 code.
-__device__ __forceinline__ int int8_at(uint32_t word, int c) {
-  return static_cast<int>(word << (24 - 8 * c)) >> 24;
+// ---------------------------------------------------------------------------
+// K1 / K2: qlr_tc_kernel
+// ---------------------------------------------------------------------------
+constexpr int kMaxSplits = 8;     // constraints.QLR_MAX_SPLITS (cluster)
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         bool valid = true) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? N : 0;    // 0: zero-fill, read nothing
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(gmem), "n"(N), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Nibbles of byte c: low = row 2i, high = row 2i+1, sign-extended by
-// shifts in int32 exactly as unpack_codes_4bit does.
-__device__ __forceinline__ int nib_lo(uint32_t word, int c) {
-  const int b = static_cast<int>((word >> (8 * c)) & 0xFFu);
-  return (b << 28) >> 28;
-}
-__device__ __forceinline__ int nib_hi(uint32_t word, int c) {
-  const int b = static_cast<int>((word >> (8 * c)) & 0xFFu);
-  return (b << 24) >> 28;
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One (column tile, K split, row tile) block of partial sums.
-//   x       (M, K) f32 or bf16
-//   codes   (K, N) int8, or (K/2, N) packed4 uint8
-//   scale   (K/32, N) f32
-//   l       (K, rank) f32                     FUSED only
-//   part    (splits, M, N) f32   partial x·dequant(codes) per K split
-//   xl_part (splits, M, rank) f32 partial x·L per K split   FUSED only
-// STACKED (K6): x, codes, scale and part carry a leading entry axis and
-// grid.z = entries · row_tiles.
-template <int MT, bool PACKED, bool FUSED, bool STACKED, typename XT>
+// Two values as one bf16x2 register: `lo` (the smaller k index) in the low
+// half, as the mma fragments order them.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// The bf16 pair of two f32 values exact in bf16 (low 16 bits zero): their
+// top halves, `lo` in the low half, by one byte permute.
+__device__ __forceinline__ uint32_t top16(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+// The f32 2^23 + (byte q of w): the byte lands in the mantissa.
+__device__ __forceinline__ float magic(uint32_t w, int q) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | q));
+}
+// hi = bf16(v), lo = bf16(v − hi), both packed as above.
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
+}
+
+// A tile shape (constraints.QLR_TILES; the .cu's launch_tile cases):
+//   J  m-tiles (16 output columns each) a warp, WC warps across columns;
+//   NT n-tiles (8 rows of x each) a warp;
+//   SB 32-row MXINT blocks a stage, block b of a stage to warp b % WK of
+//      the WK warps across K; ST stages in the cp.async ring;
+//   MB blocks an SM the registers are held to (__launch_bounds__; K2's
+//      instantiations only: K1's keep x·L accumulators too).
+template <int J_, int NT_, int WC_, int WK_, int SB_, int ST_, int MB_>
+struct Tile {
+  static constexpr int J = J_, NT = NT_, WC = WC_, WK = WK_, SB = SB_;
+  static constexpr int ST = ST_, MB = MB_;
+  static constexpr int kWarps = WC * WK;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBN = 16 * J * WC;          // output columns a tile
+  static constexpr int kBM = 8 * NT;               // rows of x a tile
+  static constexpr int kRows = kMxBlock * SB;      // K rows a stage
+  // x·L's 16-rank tiles (at most 4): with one n-tile of rows they rotate
+  // over the column warps from k-step to k-step (so each warp keeps all
+  // four accumulators); with more, tile lm stays with column warp lm % WC
+  static constexpr bool kLRot = NT == 1;
+  // decode tiles (one n-tile of rows, one block an SM) also stage R's
+  // columns of the tile in shared memory with the first stage, so that
+  // the epilogue waits on no device-memory load
+  static constexpr bool kRPre = NT == 1;
+  static constexpr int kLI = kLRot ? 4 : (4 + WC - 1) / WC;
+  static_assert(SB % WK == 0, "a stage's blocks deal evenly to the warps");
+};
+using TileDecode = Tile<4, 1, 2, 4, 4, 3, 1>;    // 128 columns × 8 rows
+using TileRouter = Tile<2, 1, 2, 4, 4, 3, 1>;    //  64 columns × 8 rows
+using TilePrefill = Tile<2, 8, 4, 2, 2, 3, 2>;   // 128 columns × 64 rows
+using TileWide = Tile<8, 1, 2, 4, 4, 3, 1>;      // 256 columns × 8 rows
+
+// Shared-memory layout of the ring, of the bf16 x pair converted once a
+// stage (f32 x), and of the split-K reduction (which reuses the ring).
+template <class T, bool PACKED, bool XBF>
+struct Layout {
+  static constexpr int kCodeRows = PACKED ? T::kRows / 2 : T::kRows;
+  // Row strides padded so that a warp's fragment reads hit distinct banks.
+  static constexpr int kCodeStride = T::kBN + (PACKED ? 32 : 16);  // bytes
+  static constexpr int kXStride = XBF ? 2 * T::kRows + 16 : 4 * T::kRows + 32;
+  static constexpr int kXcStride = 2 * T::kRows + 16;               // bytes
+  static constexpr int kPStride = T::kBN + 4;                       // floats
+  int lm, lstride;                 // L's 16-rank tiles; its row stride
+  int code, scale, x, l, stage;    // byte offsets in a stage; stage bytes
+  int xc, ring;                    // the converted x pair; ring bytes
+  int p, xlp, xl, red;             // reduction: float offsets; bytes
+  int rt, total;                   // R's staged columns; all bytes
+  __host__ __device__ Layout(int rank, bool fused) {
+    lm = (rank + 15) / 16;
+    lstride = 16 * lm + 4;
+    code = 0;
+    scale = code + kCodeRows * kCodeStride;
+    x = scale + 4 * T::SB * T::kBN;
+    l = x + T::kBM * kXStride;
+    stage = l + (fused ? 4 * T::kRows * lstride : 0);
+    xc = T::ST * stage;
+    ring = xc + (XBF ? 0 : 2 * T::kBM * kXcStride);
+    p = 0;
+    xlp = p + T::WK * T::kBM * kPStride;
+    xl = xlp + T::kWarps * 16 * lm * T::kBM;
+    red = 4 * (xl + T::kBM * rank);
+    rt = ((ring > red ? ring : red) + 15) / 16 * 16;
+    total = rt + (T::kRPre ? 4 * rank * T::kBN : 0);
+  }
+};
+
+// 2J bytes from shared memory, as 32-bit words (2J >= 4).
+template <int J>
+__device__ __forceinline__ void read_row(const unsigned char* p,
+                                         uint32_t (&w)[(2 * J + 3) / 4]) {
+  if constexpr (J == 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (J == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// One output tile's partial over one K split, then the cluster's sum.
+//   x      (M, K) f32 or bf16, 16-byte aligned
+//   codes  (K, N) int8, or (K/2, N) packed4 uint8
+//   scale  (K/32, N) f32, powers of two
+//   l      (K, rank) f32                          FUSED (K1) only
+//   xl     (M, rank) f32, x·L precomputed         !FUSED (K2) only
+//   r      (rank, N) f32
+//   y      (M, N) f32
+// Grid (splits, ceil(N / BN), ceil(M / BM)); cluster (splits, 1, 1). Split
+// s covers MXINT blocks [s·split_blocks, (s+1)·split_blocks) ∩ [0, K/32).
+template <class T, bool PACKED, bool FUSED, typename XT>
+__global__ void __launch_bounds__(T::kThreads, FUSED ? 1 : T::MB)
+qlr_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
+              const float* __restrict__ scale, const float* __restrict__ l,
+              const float* __restrict__ xl_in, const float* __restrict__ r,
+              float* __restrict__ y, int M, int K, int N, int rank,
+              int split_blocks, int codes_vec16, int l_vec16) {
+  constexpr bool XBF = sizeof(XT) == 2;
+  using Lay = Layout<T, PACKED, XBF>;
+  constexpr int J = T::J, NT = T::NT, WC = T::WC, WK = T::WK, SB = T::SB;
+  constexpr int ST = T::ST, BN = T::kBN, BM = T::kBM, kT = T::kThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const Lay lay(rank, FUSED);
+  const int splits = gridDim.x;
+  const int split = blockIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.z * BM;
+  const int b_begin = split * split_blocks;
+  const int b_end = min(K / kMxBlock, b_begin + split_blocks);
+  const int n_stages = b_end > b_begin ? (b_end - b_begin + SB - 1) / SB : 0;
+  const int ncols = min(BN, N - n0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wc = warp % WC, wk = warp / WC;
+  const int col0 = wc * 16 * J + 2 * J * g;   // this thread's first column
+
+  // Every copy loop runs over the full stage's chunk grid, whose width is
+  // a compile-time power of two (so row and column come from shifts, not
+  // divisions), and masks what a short last stage or a narrow tile lacks.
+  constexpr int kXe = 16 / static_cast<int>(sizeof(XT));   // x per chunk
+  auto load = [&](int st) {
+    unsigned char* base = smem + (st % ST) * lay.stage;
+    const int b0 = b_begin + st * SB;
+    const int nb = min(SB, b_end - b0);
+    const int rows = nb * (PACKED ? kMxBlock / 2 : kMxBlock);
+    const uint8_t* cg0 = codes + static_cast<size_t>(b0)
+        * (PACKED ? kMxBlock / 2 : kMxBlock) * N + n0;
+    if (codes_vec16) {
+      constexpr int kC = BN / 16, kAll = Lay::kCodeRows * kC;
+#pragma unroll
+      for (int i0 = 0; i0 < kAll; i0 += kT) {
+        const int i = i0 + threadIdx.x;
+        const int rr = i / kC, cc = (i % kC) * 16;
+        if ((kAll % kT == 0 || i < kAll) && rr < rows && cc < ncols)
+          cp_async<16>(base + lay.code + rr * Lay::kCodeStride + cc,
+                       cg0 + static_cast<size_t>(rr) * N + cc);
+      }
+    } else {
+      constexpr int kC = BN / 4, kAll = Lay::kCodeRows * kC;
+#pragma unroll 4
+      for (int i0 = 0; i0 < kAll; i0 += kT) {
+        const int i = i0 + threadIdx.x;
+        const int rr = i / kC, cc = (i % kC) * 4;
+        if ((kAll % kT == 0 || i < kAll) && rr < rows && cc < ncols)
+          cp_async<4>(base + lay.code + rr * Lay::kCodeStride + cc,
+                      cg0 + static_cast<size_t>(rr) * N + cc);
+      }
+    }
+    {
+      constexpr int kC = BN / 4, kAll = SB * kC;
+#pragma unroll
+      for (int i0 = 0; i0 < kAll; i0 += kT) {
+        const int i = i0 + threadIdx.x;
+        const int rr = i / kC, cc = (i % kC) * 4;
+        if ((kAll % kT == 0 || i < kAll) && rr < nb && cc < ncols)
+          cp_async<16>(base + lay.scale + 4 * (rr * BN + cc),
+                       scale + static_cast<size_t>(b0 + rr) * N + n0 + cc);
+      }
+    }
+    {
+      constexpr int kC = T::kRows / kXe, kAll = BM * kC;
+      const XT* xg0 = x + static_cast<size_t>(m0) * K + b0 * kMxBlock;
+#pragma unroll
+      for (int i0 = 0; i0 < kAll; i0 += kT) {
+        const int i = i0 + threadIdx.x;
+        const int rr = i / kC, cc = (i % kC) * kXe;
+        if ((kAll % kT == 0 || i < kAll) && cc < nb * kMxBlock) {
+          const bool ok = m0 + rr < M;            // rows past M are zero
+          cp_async<16>(base + lay.x + rr * Lay::kXStride + cc * sizeof(XT),
+                       ok ? xg0 + static_cast<size_t>(rr) * K + cc : x, ok);
+        }
+      }
+    }
+    if (FUSED && rank > 0) {
+      const float* lg0 = l + static_cast<size_t>(b0) * kMxBlock * rank;
+      float* ldst = reinterpret_cast<float*>(base + lay.l);
+      const int lrows = nb * kMxBlock;
+      if (l_vec16) {
+        constexpr int kC = kMaxRank / 4, kAll = T::kRows * kC;
+#pragma unroll 4
+        for (int i0 = 0; i0 < kAll; i0 += kT) {
+          const int i = i0 + threadIdx.x;
+          const int rr = i / kC, cc = (i % kC) * 4;
+          if (rr < lrows && cc < rank)
+            cp_async<16>(ldst + rr * lay.lstride + cc,
+                         lg0 + static_cast<size_t>(rr) * rank + cc);
+        }
+      } else {
+        constexpr int kAll = T::kRows * kMaxRank;
+#pragma unroll 4
+        for (int i0 = 0; i0 < kAll; i0 += kT) {
+          const int i = i0 + threadIdx.x;
+          const int rr = i / kMaxRank, cc = i % kMaxRank;
+          if (rr < lrows && cc < rank)
+            cp_async<4>(ldst + rr * lay.lstride + cc,
+                        lg0 + static_cast<size_t>(rr) * rank + cc);
+        }
+      }
+    }
+  };
+
+  // f32 x: the stage's x tile split once into its bf16 pair (hi, lo), so
+  // no warp splits it again
+  auto convert = [&](int st) {
+    const unsigned char* base = smem + (st % ST) * lay.stage;
+    const int cols = min(SB, b_end - (b_begin + st * SB)) * kMxBlock;
+    constexpr int kC = T::kRows / 2, kAll = BM * kC;
+#pragma unroll
+    for (int i0 = 0; i0 < kAll; i0 += kT) {
+      const int i = i0 + threadIdx.x;
+      const int rr = i / kC, cc = (i % kC) * 2;
+      if ((kAll % kT == 0 || i < kAll) && cc < cols) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            base + lay.x + rr * Lay::kXStride + 4 * cc);
+        uint32_t hi, lo;
+        split_bf16(v.x, v.y, hi, lo);
+        unsigned char* d = smem + lay.xc + rr * Lay::kXcStride + 2 * cc;
+        *reinterpret_cast<uint32_t*>(d) = hi;
+        *reinterpret_cast<uint32_t*>(d + BM * Lay::kXcStride) = lo;
+      }
+    }
+  };
+
+  float acc[J][NT][4];
+  float xacc[T::kLI][NT][4];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
+#pragma unroll
+  for (int li = 0; li < T::kLI; ++li)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xacc[li][nt][e] = 0.f;
+
+  auto compute = [&](int st) {
+    const unsigned char* base = smem + (st % ST) * lay.stage;
+    const int nb = min(SB, b_end - (b_begin + st * SB));
+    // x's bf16 rows: the pair converted above, or a bf16 x as loaded
+    const unsigned char* xb = XBF ? base + lay.x : smem + lay.xc;
+    constexpr int kXb = XBF ? Lay::kXStride : Lay::kXcStride;
+#pragma unroll
+    for (int bi = wk; bi < SB; bi += WK) {
+      if (bi >= nb) break;                            // warp-uniform
+      float sc[2 * J];
+      const float* srow = reinterpret_cast<const float*>(base + lay.scale)
+          + bi * BN + col0;
+#pragma unroll
+      for (int q = 0; q < 2 * J; q += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(srow + q);
+        sc[q] = v.x; sc[q + 1] = v.y; sc[q + 2] = v.z; sc[q + 3] = v.w;
+      }
+      constexpr float kOff = PACKED ? 8388616.f : 8388736.f;  // 2^23 + offset
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {                // two k16 steps a block
+        const int kr = bi * kMxBlock + kk * 16;       // first row, in the stage
+        // A: the dequantized weight, 16 columns × 16 K rows per m-tile. A
+        // code enters as the f32 2^23 + u, u its offset-binary value (c +
+        // 128 for a byte, c + 8 for a nibble) dropped into the mantissa by
+        // one byte permute; removing the offset and scaling by 2^e are
+        // exact, and so is keeping the top 16 bits as the bf16 (at most 8
+        // significant bits) — no int→float or float→bf16 conversion, which
+        // run on the quarter-rate conversion pipe.
+        uint32_t a[J][4];
+        {
+          constexpr int W = (2 * J + 3) / 4;
+          uint32_t u0[W], u1[W], u2[W], u3[W];   // rows 2t, 2t+1, 2t+8, 2t+9
+          const unsigned char* cbase = base + lay.code + col0;
+          if constexpr (PACKED) {
+            uint32_t p0[W], p1[W];
+            read_row<J>(cbase + (kr / 2 + t) * Lay::kCodeStride, p0);
+            read_row<J>(cbase + (kr / 2 + t + 4) * Lay::kCodeStride, p1);
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+              const uint32_t b0 = p0[i] ^ 0x88888888u, b1 = p1[i] ^ 0x88888888u;
+              u0[i] = b0 & 0x0F0F0F0Fu;          // low nibble: row 2i
+              u1[i] = (b0 >> 4) & 0x0F0F0F0Fu;   // high nibble: row 2i + 1
+              u2[i] = b1 & 0x0F0F0F0Fu;
+              u3[i] = (b1 >> 4) & 0x0F0F0F0Fu;
+            }
+          } else {
+            read_row<J>(cbase + (kr + 2 * t) * Lay::kCodeStride, u0);
+            read_row<J>(cbase + (kr + 2 * t + 1) * Lay::kCodeStride, u1);
+            read_row<J>(cbase + (kr + 2 * t + 8) * Lay::kCodeStride, u2);
+            read_row<J>(cbase + (kr + 2 * t + 9) * Lay::kCodeStride, u3);
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+              u0[i] ^= 0x80808080u; u1[i] ^= 0x80808080u;
+              u2[i] ^= 0x80808080u; u3[i] ^= 0x80808080u;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            float v[4][2];   // [row 2t, 2t+1, 2t+8, 2t+9][column 2j, 2j+1]
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int q = 2 * j + h;
+              v[0][h] = (magic(u0[q / 4], q % 4) - kOff) * sc[q];
+              v[1][h] = (magic(u1[q / 4], q % 4) - kOff) * sc[q];
+              v[2][h] = (magic(u2[q / 4], q % 4) - kOff) * sc[q];
+              v[3][h] = (magic(u3[q / 4], q % 4) - kOff) * sc[q];
+            }
+            a[j][0] = top16(v[0][0], v[1][0]);   // row g,   k 2t, 2t+1
+            a[j][1] = top16(v[0][1], v[1][1]);   // row g+8, k 2t, 2t+1
+            a[j][2] = top16(v[2][0], v[3][0]);   // row g,   k 2t+8, 2t+9
+            a[j][3] = top16(v[2][1], v[3][1]);   // row g+8, k 2t+8, 2t+9
+          }
+        }
+        // Lᵀ as the A operand of x·L (K1): 16 ranks × 16 K rows, split
+        // hi/lo, for the rank tiles this warp owns at this k-step
+        const int kstep = 2 * bi + kk;
+        auto owns = [&](int li) {
+          const int lm = T::kLRot ? li : li * WC + wc;
+          return lm < lay.lm && (!T::kLRot || (lm + kstep) % WC == wc);
+        };
+        uint32_t lh[T::kLI][4], ll[T::kLI][4];
+        if constexpr (FUSED) {
+          const float* lk = reinterpret_cast<const float*>(base + lay.l)
+              + (kr + 2 * t) * lay.lstride;
+#pragma unroll
+          for (int li = 0; li < T::kLI; ++li) {
+            if (!owns(li)) continue;
+            const int c = (T::kLRot ? li : li * WC + wc) * 16 + g;
+            split_bf16(lk[c], lk[lay.lstride + c], lh[li][0], ll[li][0]);
+            split_bf16(lk[c + 8], lk[lay.lstride + c + 8], lh[li][1],
+                       ll[li][1]);
+            split_bf16(lk[8 * lay.lstride + c], lk[9 * lay.lstride + c],
+                       lh[li][2], ll[li][2]);
+            split_bf16(lk[8 * lay.lstride + c + 8],
+                       lk[9 * lay.lstride + c + 8], lh[li][3], ll[li][3]);
+          }
+        }
+        // B: x's rows as the n side, as bf16 hi and lo (f32) or once
+        // (bf16), one n-tile at a time
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const unsigned char* xr = xb + (nt * 8 + g) * kXb + 2 * (kr + 2 * t);
+          uint32_t bh[2], bl[2];
+          bh[0] = *reinterpret_cast<const uint32_t*>(xr);
+          bh[1] = *reinterpret_cast<const uint32_t*>(xr + 16);
+          if constexpr (!XBF) {
+            bl[0] = *reinterpret_cast<const uint32_t*>(xr + BM * kXb);
+            bl[1] = *reinterpret_cast<const uint32_t*>(xr + BM * kXb + 16);
+          }
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            mma_bf16(acc[j][nt], a[j], bh);
+            if constexpr (!XBF) mma_bf16(acc[j][nt], a[j], bl);
+          }
+          if constexpr (FUSED) {
+#pragma unroll
+            for (int li = 0; li < T::kLI; ++li) {
+              if (!owns(li)) continue;
+              mma_bf16(xacc[li][nt], lh[li], bh);
+              mma_bf16(xacc[li][nt], ll[li], bh);
+              if constexpr (!XBF) mma_bf16(xacc[li][nt], lh[li], bl);
+            }
+          }
+        }
+      }
+    }
+  };
+
+  if constexpr (T::kRPre) {         // R's columns, with the first stage
+    float* rdst = reinterpret_cast<float*>(smem + lay.rt);
+    constexpr int kC = BN / 4;
+    for (int i = threadIdx.x; i < rank * kC; i += kT) {
+      const int c = i / kC, cc = (i % kC) * 4;
+      if (cc < ncols)
+        cp_async<16>(rdst + c * BN + cc,
+                     r + static_cast<size_t>(c) * N + n0 + cc);
+    }
+  }
+  // the ring: ST - 1 stages in flight while one is multiplied; one
+  // commit group a stage (empty past the end, so the count is uniform)
+#pragma unroll
+  for (int st = 0; st < ST - 1; ++st) {
+    if (st < n_stages) load(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_stages; ++st) {
+    // stage st has landed, and every warp is done with stage st - 1, whose
+    // slot the next copy refills
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    if (st + ST - 1 < n_stages) load(st + ST - 1);
+    cp_async_commit();
+    if constexpr (!XBF) {
+      convert(st);
+      __syncthreads();
+    }
+    compute(st);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this block's partials into its own shared memory (the ring is free):
+  //   P[wk][m][n] of x·W (one per warp row across K), XLP[warp][rank][m]
+  //   of x·L (every warp, zeros where it owned no rank tile)
+  float* red = reinterpret_cast<float*>(smem);
+  {
+    float* pw = red + lay.p + wk * BM * Lay::kPStride;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int m = nt * 8 + 2 * t, n = col0 + 2 * j;
+        *reinterpret_cast<float2*>(pw + m * Lay::kPStride + n) =
+            make_float2(acc[j][nt][0], acc[j][nt][2]);
+        *reinterpret_cast<float2*>(pw + (m + 1) * Lay::kPStride + n) =
+            make_float2(acc[j][nt][1], acc[j][nt][3]);
+      }
+    if constexpr (FUSED) {
+      float* xw = red + lay.xlp + warp * 16 * lay.lm * BM;
+#pragma unroll
+      for (int lm = 0; lm < 4; ++lm) {
+        if (lm >= lay.lm) continue;
+        const int li = T::kLRot ? lm : lm / WC;
+        const bool mine = T::kLRot || lm % WC == wc;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int m = nt * 8 + 2 * t, c = lm * 16 + g;
+          xw[c * BM + m] = mine ? xacc[li][nt][0] : 0.f;
+          xw[c * BM + m + 1] = mine ? xacc[li][nt][1] : 0.f;
+          xw[(c + 8) * BM + m] = mine ? xacc[li][nt][2] : 0.f;
+          xw[(c + 8) * BM + m + 1] = mine ? xacc[li][nt][3] : 0.f;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // the block's own sums first, in warp order, into P[0] and XLP[0], so
+  // that the cluster's sums read one value per split
+  if constexpr (WK > 1) {
+    for (int e = threadIdx.x; e < BM * BN; e += kT) {
+      const int o = (e / BN) * Lay::kPStride + e % BN;
+      float v = red[lay.p + o];
+#pragma unroll
+      for (int w = 1; w < WK; ++w) v += red[lay.p + w * BM * Lay::kPStride + o];
+      red[lay.p + o] = v;
+    }
+  }
+  if constexpr (FUSED) {
+    const int n_xl = 16 * lay.lm * BM;
+    for (int e = threadIdx.x; e < n_xl; e += kT) {
+      float v = red[lay.xlp + e];
+#pragma unroll
+      for (int w = 1; w < T::kWarps; ++w) v += red[lay.xlp + w * n_xl + e];
+      red[lay.xlp + e] = v;
+    }
+  }
+  cluster.sync();
+
+  // x·L of the tile's rows: the splits' sums added in rank order (every
+  // split's value loaded before the first add), or the caller's sliver
+  float* xl_s = red + lay.xl;                       // [BM][rank]
+  for (int i = threadIdx.x; i < BM * rank; i += kT) {
+    const int m = i / rank, c = i % rank;
+    float s = 0.f;
+    if constexpr (FUSED) {
+      float part[kMaxSplits];
+#pragma unroll
+      for (int sp = 0; sp < kMaxSplits; ++sp)
+        part[sp] = sp < splits
+            ? cluster.map_shared_rank(red + lay.xlp, sp)[c * BM + m] : 0.f;
+#pragma unroll
+      for (int sp = 0; sp < kMaxSplits; ++sp) s += part[sp];
+    } else {
+      if (m0 + m < M) s = xl_in[static_cast<size_t>(m0 + m) * rank + c];
+    }
+    xl_s[i] = s;
+  }
+  __syncthreads();
+
+  // slice `split` of the tile: Σ over splits in rank order, + (x·L)·R
+  const int per = (BM * BN + splits - 1) / splits;
+  const int e_end = min(BM * BN, (split + 1) * per);
+  for (int e = split * per + threadIdx.x; e < e_end; e += kT) {
+    const int m = e / BN, n = e % BN;
+    if (m0 + m >= M || n >= ncols) continue;
+    const int o = m * Lay::kPStride + n;
+    float part[kMaxSplits];
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      part[sp] = sp < splits ? cluster.map_shared_rank(red + lay.p, sp)[o]
+                             : 0.f;
+    float v = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) v += part[sp];
+    if constexpr (T::kRPre) {
+      const float* rc = reinterpret_cast<const float*>(smem + lay.rt) + n;
+      for (int c = 0; c < rank; ++c)
+        v = fmaf(xl_s[m * rank + c], rc[c * BN], v);
+    } else {
+      const float* rc = r + n0 + n;
+#pragma unroll 16
+      for (int c = 0; c < rank; ++c)
+        v = fmaf(xl_s[m * rank + c], rc[static_cast<size_t>(c) * N], v);
+    }
+    y[static_cast<size_t>(m0 + m) * N + n0 + n] = v;
+  }
+  cluster.sync();     // no block leaves while another reads its partials
+}
+
+template <class T, bool PACKED, bool FUSED, typename XT>
+int launch_tc(const void* x, const void* codes, const void* scale,
+              const void* l, const void* xl, const void* r, void* y, int M,
+              int K, int N, int rank, int splits, int split_blocks,
+              cudaStream_t stream) {
+  using Lay = Layout<T, PACKED, sizeof(XT) == 2>;
+  if (splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
+  auto kernel = qlr_tc_kernel<T, PACKED, FUSED, XT>;
+  const int smem = Lay(rank, FUSED).total;
+  static int opted = 0;           // per instantiation
+  if (smem > opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted = smem;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (N + T::kBN - 1) / T::kBN,
+                     (M + T::kBM - 1) / T::kBM);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int codes_vec16 =
+      N % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  const int l_vec16 = rank % 4 == 0 && reinterpret_cast<uintptr_t>(l) % 16 == 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const XT*>(x),
+      static_cast<const uint8_t*>(codes), static_cast<const float*>(scale),
+      static_cast<const float*>(l), static_cast<const float*>(xl),
+      static_cast<const float*>(r), static_cast<float*>(y), M, K, N, rank,
+      split_blocks, codes_vec16, l_vec16);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile shapes by constraints.QLR_TILE_* (the wrapper's qlr_plan picks).
+// K2 (rows > 128) only ever takes the prefill tile, so the decode tiles
+// are built for K1 alone.
+template <bool PACKED, bool FUSED, typename XT>
+int launch_tile(int tile, const void* x, const void* codes, const void* scale,
+                const void* l, const void* xl, const void* r, void* y, int M,
+                int K, int N, int rank, int splits, int split_blocks,
+                cudaStream_t s) {
+  if (tile == 2)
+    return launch_tc<TilePrefill, PACKED, FUSED, XT>(
+        x, codes, scale, l, xl, r, y, M, K, N, rank, splits, split_blocks, s);
+  if constexpr (FUSED) {
+    switch (tile) {
+      case 0:
+        return launch_tc<TileDecode, PACKED, FUSED, XT>(
+            x, codes, scale, l, xl, r, y, M, K, N, rank, splits, split_blocks,
+            s);
+      case 1:
+        return launch_tc<TileRouter, PACKED, FUSED, XT>(
+            x, codes, scale, l, xl, r, y, M, K, N, rank, splits, split_blocks,
+            s);
+      case 3:
+        return launch_tc<TileWide, PACKED, FUSED, XT>(
+            x, codes, scale, l, xl, r, y, M, K, N, rank, splits, split_blocks,
+            s);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool FUSED>
+int dispatch_tc(int tile, const void* x, const void* codes, const void* scale,
+                const void* l, const void* xl, const void* r, void* y, int M,
+                int K, int N, int rank, int splits, int split_blocks,
+                int x_bf16, int packed, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return packed
+        ? launch_tile<true, FUSED, __nv_bfloat16>(tile, x, codes, scale, l, xl,
+                                                  r, y, M, K, N, rank, splits,
+                                                  split_blocks, s)
+        : launch_tile<false, FUSED, __nv_bfloat16>(tile, x, codes, scale, l,
+                                                   xl, r, y, M, K, N, rank,
+                                                   splits, split_blocks, s);
+  return packed
+      ? launch_tile<true, FUSED, float>(tile, x, codes, scale, l, xl, r, y, M,
+                                        K, N, rank, splits, split_blocks, s)
+      : launch_tile<false, FUSED, float>(tile, x, codes, scale, l, xl, r, y, M,
+                                         K, N, rank, splits, split_blocks, s);
+}
+
+// ---------------------------------------------------------------------------
+// K6: the SIMT split-K body over a stack of int8 weights
+// ---------------------------------------------------------------------------
+constexpr int kColsPerLane = 4;   // constraints.QLR_COL_VEC
+constexpr int kSplitRows = 512;   // constraints.QLR_SPLIT_ROWS
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileN = 32 * kColsPerLane;  // 128 output columns per block
+constexpr int kFinishThreads = 256;
+
+// One (column tile, K split, entry · row tile) block of partial sums.
+//   x       (E, M, K) f32 or bf16
+//   codes   (E, K, N) int8
+//   scale   (E, K/32, N) f32
+//   part    (E, splits, M, N) f32   partial x·dequant(codes) per K split
+// grid.z = entries · row_tiles (z = entry · row_tiles + tile).
+template <int MT, typename XT>
 __global__ void __launch_bounds__(kThreads)
 qlr_partial_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
-                   const float* __restrict__ scale, const float* __restrict__ l,
-                   float* __restrict__ part, float* __restrict__ xl_part,
-                   int M, int K, int N, int rank, int row_tiles) {
+                   const float* __restrict__ scale, float* __restrict__ part,
+                   int M, int K, int N, int row_tiles) {
   __shared__ float xs[kSplitRows][MT];              // x tile, transposed
   __shared__ float red[MT][kTileN];                 // cross-warp reduction
-  __shared__ float xlr[FUSED ? MT : 1][kMaxRank];   // x·L reduction
 
   const int n0 = blockIdx.x * kTileN;
   const int split = blockIdx.y;
-  int m0 = blockIdx.z * MT;
-  if (STACKED) {
-    const size_t entry = blockIdx.z / row_tiles;
-    m0 = (blockIdx.z % row_tiles) * MT;
-    x += entry * M * K;
-    codes += entry * (PACKED ? K / 2 : K) * N;
-    scale += entry * (K / kMxBlock) * N;
-    part += entry * gridDim.y * M * N;
-  }
+  const size_t entry = blockIdx.z / row_tiles;
+  const int m0 = (blockIdx.z % row_tiles) * MT;
+  x += entry * M * K;
+  codes += entry * K * N;
+  scale += entry * (K / kMxBlock) * N;
+  part += entry * gridDim.y * M * N;
   const int k_begin = split * kSplitRows;
   const int rows = min(K - k_begin, kSplitRows);    // a multiple of 32
   const int warp = threadIdx.x / 32;
@@ -129,69 +812,40 @@ qlr_partial_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
 
   const int n = n0 + lane * kColsPerLane;
   const bool col_ok = n < N;                 // N % 4 == 0: all 4 or none
-  const bool do_xl = FUSED && blockIdx.x == 0;
 
   float acc[MT][kColsPerLane];
-  float xl_acc[MT][2];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c) acc[m][c] = 0.f;
-    xl_acc[m][0] = 0.f;
-    xl_acc[m][1] = 0.f;
-  }
 
   for (int blk = warp; blk < rows / kMxBlock; blk += kWarps) {
     const int kb = k_begin + blk * kMxBlock;        // first row of the block
     const int kr = blk * kMxBlock;                  // same row, in xs
-    if (col_ok) {
-      const float4 sc4 = *reinterpret_cast<const float4*>(
-          scale + static_cast<size_t>(kb / kMxBlock) * N + n);
-      const float sc[kColsPerLane] = {sc4.x, sc4.y, sc4.z, sc4.w};
+    if (!col_ok) continue;
+    const float4 sc4 = *reinterpret_cast<const float4*>(
+        scale + static_cast<size_t>(kb / kMxBlock) * N + n);
+    const float sc[kColsPerLane] = {sc4.x, sc4.y, sc4.z, sc4.w};
 #pragma unroll 4
-      for (int j = 0; j < kMxBlock; j += 2) {       // one row pair per step
-        float w0[kColsPerLane], w1[kColsPerLane];
-        if (PACKED) {
-          const uint32_t word = *reinterpret_cast<const uint32_t*>(
-              codes + static_cast<size_t>((kb + j) / 2) * N + n);
+    for (int j = 0; j < kMxBlock; j += 2) {         // one row pair per step
+      float w0[kColsPerLane], w1[kColsPerLane];
+      const uint32_t word0 = *reinterpret_cast<const uint32_t*>(
+          codes + static_cast<size_t>(kb + j) * N + n);
+      const uint32_t word1 = *reinterpret_cast<const uint32_t*>(
+          codes + static_cast<size_t>(kb + j + 1) * N + n);
 #pragma unroll
-          for (int c = 0; c < kColsPerLane; ++c) {
-            w0[c] = static_cast<float>(nib_lo(word, c)) * sc[c];
-            w1[c] = static_cast<float>(nib_hi(word, c)) * sc[c];
-          }
-        } else {
-          const uint32_t word0 = *reinterpret_cast<const uint32_t*>(
-              codes + static_cast<size_t>(kb + j) * N + n);
-          const uint32_t word1 = *reinterpret_cast<const uint32_t*>(
-              codes + static_cast<size_t>(kb + j + 1) * N + n);
-#pragma unroll
-          for (int c = 0; c < kColsPerLane; ++c) {
-            w0[c] = static_cast<float>(int8_at(word0, c)) * sc[c];
-            w1[c] = static_cast<float>(int8_at(word1, c)) * sc[c];
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float x0 = xs[kr + j][m];
-          const float x1 = xs[kr + j + 1][m];
-#pragma unroll
-          for (int c = 0; c < kColsPerLane; ++c) {
-            acc[m][c] = fmaf(x0, w0[c], acc[m][c]);
-            acc[m][c] = fmaf(x1, w1[c], acc[m][c]);
-          }
-        }
+      for (int c = 0; c < kColsPerLane; ++c) {
+        w0[c] = static_cast<float>(int8_at(word0, c)) * sc[c];
+        w1[c] = static_cast<float>(int8_at(word1, c)) * sc[c];
       }
-    }
-    if (do_xl) {
-      for (int j = 0; j < kMxBlock; ++j) {
-        const float* lrow = l + static_cast<size_t>(kb + j) * rank;
-        const float l0 = lane < rank ? lrow[lane] : 0.f;
-        const float l1 = lane + 32 < rank ? lrow[lane + 32] : 0.f;
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float xv = xs[kr + j][m];
-          xl_acc[m][0] = fmaf(xv, l0, xl_acc[m][0]);
-          xl_acc[m][1] = fmaf(xv, l1, xl_acc[m][1]);
+      for (int m = 0; m < MT; ++m) {
+        const float x0 = xs[kr + j][m];
+        const float x1 = xs[kr + j + 1][m];
+#pragma unroll
+        for (int c = 0; c < kColsPerLane; ++c) {
+          acc[m][c] = fmaf(x0, w0[c], acc[m][c]);
+          acc[m][c] = fmaf(x1, w1[c], acc[m][c]);
         }
       }
     }
@@ -201,18 +855,12 @@ qlr_partial_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
   for (int w = 0; w < kWarps; ++w) {
     if (warp == w) {
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int c = 0; c < kColsPerLane; ++c) {
           float* dst = &red[m][lane * kColsPerLane + c];
           *dst = (w == 0 ? 0.f : *dst) + acc[m][c];
         }
-        if (do_xl) {
-          xlr[m][lane] = (w == 0 ? 0.f : xlr[m][lane]) + xl_acc[m][0];
-          xlr[m][lane + 32] = (w == 0 ? 0.f : xlr[m][lane + 32])
-              + xl_acc[m][1];
-        }
-      }
     }
     __syncthreads();
   }
@@ -224,44 +872,24 @@ qlr_partial_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
       part[(static_cast<size_t>(split) * M + m0 + m) * N + col] =
           red[m][i % kTileN];
   }
-  if (do_xl) {
-    for (int i = threadIdx.x; i < MT * rank; i += kThreads) {
-      const int m = i / rank;
-      if (m0 + m < M)
-        xl_part[(static_cast<size_t>(split) * M + m0 + m) * rank + i % rank] =
-            xlr[m][i % rank];
-    }
-  }
 }
 
-// y[m, n] = Σ_split part[split, m, n] + Σ_r xl[m, r]·R[r, n], where xl is
-// Σ_split xl_part (K1) or the caller's precomputed sliver (K2, K6).
-// STACKED (K6): part, xl, r and y carry a leading entry axis: grid.z.
-template <bool FUSED, bool STACKED>
+// y[e, m, n] = Σ_split part[e, split, m, n] + Σ_r xl[e, m, r]·R[e, r, n];
+// grid.z is the entry.
 __global__ void __launch_bounds__(kFinishThreads)
 qlr_finish_kernel(const float* __restrict__ part, int splits,
                   const float* __restrict__ xl, const float* __restrict__ r,
                   float* __restrict__ y, int M, int N, int rank) {
   __shared__ float xl_s[kMaxRank];
-  if (STACKED) {
-    const size_t entry = blockIdx.z;
-    part += entry * splits * M * N;
-    xl += entry * M * rank;
-    r += entry * rank * N;
-    y += entry * M * N;
-  }
+  const size_t entry = blockIdx.z;
+  part += entry * splits * M * N;
+  xl += entry * M * rank;
+  r += entry * rank * N;
+  y += entry * M * N;
   const int m = blockIdx.y;
   const int n = blockIdx.x * kFinishThreads + threadIdx.x;
-  if (threadIdx.x < rank) {
-    float s = 0.f;
-    if (FUSED) {
-      for (int sp = 0; sp < splits; ++sp)
-        s += xl[(static_cast<size_t>(sp) * M + m) * rank + threadIdx.x];
-    } else {
-      s = xl[static_cast<size_t>(m) * rank + threadIdx.x];
-    }
-    xl_s[threadIdx.x] = s;
-  }
+  if (threadIdx.x < rank)
+    xl_s[threadIdx.x] = xl[static_cast<size_t>(m) * rank + threadIdx.x];
   __syncthreads();
   if (n >= N) return;
   float acc = 0.f;
@@ -272,86 +900,59 @@ qlr_finish_kernel(const float* __restrict__ part, int splits,
   y[static_cast<size_t>(m) * N + n] = acc;
 }
 
-template <int MT, bool PACKED, bool FUSED, bool STACKED, typename XT>
-int launch(const void* x, const void* codes, const void* scale, const void* l,
-           const void* xl, const void* r, void* y, void* part, void* xl_part,
-           int E, int M, int K, int N, int rank, cudaStream_t stream) {
+template <int MT, typename XT>
+int launch_stacked(const void* x, const void* codes, const void* scale,
+                   const void* xl, const void* r, void* y, void* part, int E,
+                   int M, int K, int N, int rank, cudaStream_t stream) {
   const int splits = (K + kSplitRows - 1) / kSplitRows;
   const int row_tiles = (M + MT - 1) / MT;
   const dim3 grid((N + kTileN - 1) / kTileN, splits, E * row_tiles);
-  qlr_partial_kernel<MT, PACKED, FUSED, STACKED, XT>
-      <<<grid, kThreads, 0, stream>>>(
+  qlr_partial_kernel<MT, XT><<<grid, kThreads, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const float*>(scale), static_cast<const float*>(l),
-      static_cast<float*>(part), static_cast<float*>(xl_part), M, K, N, rank,
+      static_cast<const float*>(scale), static_cast<float*>(part), M, K, N,
       row_tiles);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 fgrid((N + kFinishThreads - 1) / kFinishThreads, M, E);
-  qlr_finish_kernel<FUSED, STACKED><<<fgrid, kFinishThreads, 0, stream>>>(
-      static_cast<const float*>(part), splits,
-      static_cast<const float*>(FUSED ? xl_part : xl),
+  qlr_finish_kernel<<<fgrid, kFinishThreads, 0, stream>>>(
+      static_cast<const float*>(part), splits, static_cast<const float*>(xl),
       static_cast<const float*>(r), static_cast<float*>(y), M, N, rank);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MT, bool FUSED>
-int dispatch(const void* x, const void* codes, const void* scale, const void* l,
-             const void* xl, const void* r, void* y, void* part, void* xl_part,
-             int M, int K, int N, int rank, int x_bf16, int packed,
-             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return packed
-        ? launch<MT, true, FUSED, false, __nv_bfloat16>(
-              x, codes, scale, l, xl, r, y, part, xl_part, 1, M, K, N, rank, s)
-        : launch<MT, false, FUSED, false, __nv_bfloat16>(
-              x, codes, scale, l, xl, r, y, part, xl_part, 1, M, K, N, rank, s);
-  }
-  return packed
-      ? launch<MT, true, FUSED, false, float>(x, codes, scale, l, xl, r, y,
-                                              part, xl_part, 1, M, K, N, rank,
-                                              s)
-      : launch<MT, false, FUSED, false, float>(x, codes, scale, l, xl, r, y,
-                                               part, xl_part, 1, M, K, N, rank,
-                                               s);
-}
-
-// K6: int8 codes only, like the TPU kernel.
 template <int MT>
 int dispatch_stacked(const void* x, const void* codes, const void* scale,
                      const void* xl, const void* r, void* y, void* part, int E,
                      int M, int K, int N, int rank, int x_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_bf16
-      ? launch<MT, false, false, true, __nv_bfloat16>(
-            x, codes, scale, nullptr, xl, r, y, part, nullptr, E, M, K, N,
-            rank, s)
-      : launch<MT, false, false, true, float>(
-            x, codes, scale, nullptr, xl, r, y, part, nullptr, E, M, K, N,
-            rank, s);
+      ? launch_stacked<MT, __nv_bfloat16>(x, codes, scale, xl, r, y, part, E,
+                                          M, K, N, rank, s)
+      : launch_stacked<MT, float>(x, codes, scale, xl, r, y, part, E, M, K, N,
+                                  rank, s);
 }
 
 }  // namespace
 
 // K1: y (M, N) f32 = x·dequant(codes, scale) + (x·L)·R, x·L in the pass.
-// Workspaces: part (splits, M, N) f32, xl_part (splits, M, rank) f32.
+// `tile`, `splits` and `split_blocks` come from the wrapper's qlr_plan.
 extern "C" int qlr_fused_launch(const void* x, const void* codes,
                                 const void* scale, const void* l, const void* r,
-                                void* y, void* part, void* xl_part, int M,
-                                int K, int N, int rank, int x_bf16, int packed,
-                                void* stream) {
-  return dispatch<8, true>(x, codes, scale, l, nullptr, r, y, part, xl_part, M,
-                           K, N, rank, x_bf16, packed, stream);
+                                void* y, int M, int K, int N, int rank,
+                                int tile, int splits, int split_blocks,
+                                int x_bf16, int packed, void* stream) {
+  return dispatch_tc<true>(tile, x, codes, scale, l, nullptr, r, y, M, K, N,
+                           rank, splits, split_blocks, x_bf16, packed, stream);
 }
 
 // K2: the same op with xl = x·L (M, rank) f32 precomputed by the caller.
 extern "C" int qlr_launch(const void* x, const void* codes, const void* scale,
-                          const void* xl, const void* r, void* y, void* part,
-                          int M, int K, int N, int rank, int x_bf16, int packed,
+                          const void* xl, const void* r, void* y, int M, int K,
+                          int N, int rank, int tile, int splits,
+                          int split_blocks, int x_bf16, int packed,
                           void* stream) {
-  return dispatch<16, false>(x, codes, scale, nullptr, xl, r, y, part, nullptr,
-                             M, K, N, rank, x_bf16, packed, stream);
+  return dispatch_tc<false>(tile, x, codes, scale, nullptr, xl, r, y, M, K, N,
+                            rank, splits, split_blocks, x_bf16, packed, stream);
 }
 
 // K6: y (E, M, N) f32, y[e] = x[e]·dequant(codes[e], scale[e]) + xl[e]·R[e]

@@ -14,7 +14,10 @@ accumulated in the kernel) when there are at most
 ``QLR_FUSED_MAX_ROWS`` rows and K2 (x·L precomputed by one small
 ``torch.matmul``) otherwise, or raises on an input the kernels do not
 take. ``codes`` is the int8 container ``(K, N)`` or the packed4 uint8
-container ``(K/2, N)``, which the kernels unpack in registers.
+container ``(K/2, N)``, which the kernels unpack in registers. K1 and K2
+are one tensor-core kernel launched once a call; :func:`qlr_plan` picks
+its tile and its split of K. The kernels build each weight as
+``code · scale`` in bf16, exact for MXINT's power-of-two scales.
 
 :func:`qlr_matmul_batched` is the stacked entry (MoE experts): ``x (E, M,
 K)`` against ``E`` int8 weights, ``xl = x·L`` computed outside the kernel
@@ -26,10 +29,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.constraints import (CUDA_MAX_GRID_YZ, MXINT_BLOCK,
-                                             QLR_BATCHED_SMALL_ROWS,
-                                             QLR_COL_VEC, QLR_FUSED_MAX_ROWS,
-                                             QLR_MAX_RANK, QLR_SPLIT_ROWS)
+from repro_torch.kernels.constraints import (
+    CUDA_MAX_GRID_YZ, MXINT_BLOCK, QLR_BATCHED_SMALL_ROWS, QLR_COL_VEC,
+    QLR_DECODE_ROWS, QLR_DECODE_TARGET_BLOCKS, QLR_FUSED_MAX_ROWS,
+    QLR_MAX_RANK, QLR_MAX_SPLITS, QLR_PREFILL_TARGET_BLOCKS, QLR_ROUTER_COLS,
+    QLR_SPLIT_ROWS, QLR_TILE_DECODE, QLR_TILE_PREFILL, QLR_TILE_ROUTER,
+    QLR_TILE_WIDE, QLR_TILES, QLR_WIDE_MAX_COLS, QLR_X_ALIGN)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
 # launches of each kernel since the last reset; a plain count per wrapper
@@ -60,6 +65,28 @@ def qlr_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
     return y
 
 
+def qlr_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """The K1/K2 launch for ``x (m, k)`` against ``(k, n)`` codes: (tile
+    shape, K splits, MXINT blocks a split). Splits double, up to
+    ``QLR_MAX_SPLITS`` (one thread-block cluster), while the doubled grid
+    stays within the tile's target count of blocks and every split keeps
+    at least one MXINT block; the last split may be short."""
+    if m <= QLR_DECODE_ROWS:
+        tile = QLR_TILE_ROUTER if n <= QLR_ROUTER_COLS else \
+            QLR_TILE_WIDE if n < QLR_WIDE_MAX_COLS else QLR_TILE_DECODE
+        target = QLR_DECODE_TARGET_BLOCKS
+    else:
+        tile, target = QLR_TILE_PREFILL, QLR_PREFILL_TARGET_BLOCKS
+    cols, rows = QLR_TILES[tile][:2]
+    tiles = -(-n // cols) * -(-m // rows)
+    k32 = k // MXINT_BLOCK
+    splits = 1
+    while splits < QLR_MAX_SPLITS and tiles * 2 * splits <= target \
+            and (2 * splits - 1) * -(-k32 // (2 * splits)) < k32:
+        splits *= 2
+    return tile, splits, -(-k32 // splits)
+
+
 def _check(x, codes, scale, l, r, rank_rows: int) -> tuple[int, int, int]:
     """Raise on anything the kernels do not take; returns (K, N, rank)."""
     packed = codes.dtype == torch.uint8
@@ -79,8 +106,9 @@ def _check(x, codes, scale, l, r, rank_rows: int) -> tuple[int, int, int]:
     k = codes.shape[0] * (2 if packed else 1)
     n = codes.shape[1]
     rank = r.shape[0]
-    if x.shape[-1] != k:
-        raise ValueError(f"x has {x.shape[-1]} columns, codes hold {k} rows")
+    if x.ndim != 2 or x.shape[-1] != k:
+        raise ValueError(f"x {tuple(x.shape)} must be (M, K) with K = {k}, "
+                         f"the rows the codes hold")
     if k % MXINT_BLOCK or scale.shape != (k // MXINT_BLOCK, n):
         raise ValueError(f"scale {tuple(scale.shape)} must be (K/{MXINT_BLOCK}, "
                          f"N) = ({k // MXINT_BLOCK}, {n}) with K % "
@@ -92,8 +120,16 @@ def _check(x, codes, scale, l, r, rank_rows: int) -> tuple[int, int, int]:
         raise ValueError(f"low-rank factors l {tuple(l.shape)}, r "
                          f"{tuple(r.shape)} do not fit K={k}, N={n} (rank ≤ "
                          f"{QLR_MAX_RANK})")
-    if codes.data_ptr() % 4 or scale.data_ptr() % 16:
-        raise ValueError("codes must be 4-byte and scale 16-byte aligned")
+    m = x.shape[0]
+    if m < 1 or -(-m // QLR_TILES[QLR_TILE_PREFILL][1]) > CUDA_MAX_GRID_YZ \
+            or -(-n // QLR_TILES[QLR_TILE_ROUTER][0]) > CUDA_MAX_GRID_YZ:
+        raise ValueError(f"M={m}, N={n}: the grid's row and column tiles "
+                         f"must number 1 to {CUDA_MAX_GRID_YZ}")
+    if codes.data_ptr() % 4 or scale.data_ptr() % 16 \
+            or x.data_ptr() % QLR_X_ALIGN \
+            or (rank and r.data_ptr() % QLR_X_ALIGN):
+        raise ValueError(f"codes must be 4-byte, scale 16-byte and x and r "
+                         f"{QLR_X_ALIGN}-byte aligned")
     return k, n, rank
 
 
@@ -104,16 +140,12 @@ def qlr_fused_matmul(x: torch.Tensor, codes: torch.Tensor,
     kernel's pass over K."""
     k, n, rank = _check(x, codes, scale, l, r, rank_rows=x.shape[-1])
     m = x.shape[0]
-    splits = -(-k // QLR_SPLIT_ROWS)
+    tile, splits, per = qlr_plan(m, k, n)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    xl_part = torch.empty((splits, m, max(rank, 1)), dtype=torch.float32,
-                          device=x.device)
-    fn = _build.function("mxint_matmul", "qlr_fused_launch", 8, 6)
+    fn = _build.function("mxint_matmul", "qlr_fused_launch", 6, 9)
     err = fn(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), l.data_ptr(),
-             r.data_ptr(), y.data_ptr(), part.data_ptr(), xl_part.data_ptr(),
-             m, k, n, rank, int(x.dtype == torch.bfloat16),
-             int(codes.dtype == torch.uint8),
+             r.data_ptr(), y.data_ptr(), m, k, n, rank, tile, splits, per,
+             int(x.dtype == torch.bfloat16), int(codes.dtype == torch.uint8),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "qlr_fused_launch (K1)")
     LAUNCHES["qlr_fused"] += 1
@@ -126,14 +158,12 @@ def qlr_xl_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     (M, rank) f32: y (M, N) f32."""
     k, n, rank = _check(x, codes, scale, xl, r, rank_rows=x.shape[0])
     m = x.shape[0]
-    splits = -(-k // QLR_SPLIT_ROWS)
+    tile, splits, per = qlr_plan(m, k, n)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    fn = _build.function("mxint_matmul", "qlr_launch", 7, 6)
+    fn = _build.function("mxint_matmul", "qlr_launch", 6, 9)
     err = fn(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), xl.data_ptr(),
-             r.data_ptr(), y.data_ptr(), part.data_ptr(),
-             m, k, n, rank, int(x.dtype == torch.bfloat16),
-             int(codes.dtype == torch.uint8),
+             r.data_ptr(), y.data_ptr(), m, k, n, rank, tile, splits, per,
+             int(x.dtype == torch.bfloat16), int(codes.dtype == torch.uint8),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "qlr_launch (K2)")
     LAUNCHES["qlr"] += 1
@@ -150,11 +180,15 @@ def qlr_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     x2 = x.reshape(-1, k)
     if x.device.type == "cpu":
         y = qlr_matmul_plain(x2, codes, scale, l, r)
-    elif x2.shape[0] <= QLR_FUSED_MAX_ROWS:
-        y = qlr_fused_matmul(x2.contiguous(), codes, scale, l, r)
     else:
-        xl = x2.float() @ l.float()
-        y = qlr_xl_matmul(x2.contiguous(), codes, scale, xl, r)
+        x2 = x2.contiguous()
+        if x2.data_ptr() % QLR_X_ALIGN:     # a view at an odd offset
+            x2 = x2.clone()
+        if x2.shape[0] <= QLR_FUSED_MAX_ROWS:
+            y = qlr_fused_matmul(x2, codes, scale, l, r)
+        else:
+            xl = x2.float() @ l.float()
+            y = qlr_xl_matmul(x2, codes, scale, xl, r)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
 

@@ -18,7 +18,8 @@ from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import mxint_matmul as mk
 from repro_torch.kernels import mxint_quantize as kq
-from repro_torch.kernels.constraints import DECODE_TILE_SLOTS
+from repro_torch.kernels.constraints import (DECODE_TILE_SLOTS,
+                                             QLR_FUSED_MAX_ROWS)
 from repro_torch.quant.mxint import MXIntQuantizer, pack_codes_4bit
 
 pytestmark = pytest.mark.cuda
@@ -70,6 +71,116 @@ def test_qlr_wrapper_raises(dev):
         mk.qlr_fused_matmul(x, codes.t().contiguous().t(), scale, l, rr)
     with pytest.raises(ValueError):
         mk.qlr_fused_matmul(x[:, :128], codes, scale, l, rr)
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_qlr_wrapper_raises_on_misaligned_r(dev, m):
+    """R 4 bytes off a 16-byte boundary (the decode tiles copy it in 16-byte
+    chunks) raises before a launch, and the card runs the next call."""
+    x, codes, scale, l, rr = _qlr(dev, m, 256, 128, 8, False)
+    r_off = torch.empty(rr.numel() + 1, device=dev)[1:].view(rr.shape)
+    r_off.copy_(rr)
+    assert r_off.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        mk.qlr_matmul(x, codes, scale, l, r_off)
+    _close(mk.qlr_matmul(x, codes, scale, l, rr),
+           mk.qlr_matmul_plain(x, codes, scale, l, rr), 1e-4)
+
+
+def _qlr_kernel(x, codes, scale, l, rr):
+    """K1 or K2 as ``qlr_matmul`` picks them, returning the kernel's f32 y
+    for either x dtype."""
+    if x.shape[0] <= QLR_FUSED_MAX_ROWS:
+        return mk.qlr_fused_matmul(x, codes, scale, l, rr)
+    return mk.qlr_xl_matmul(x, codes, scale, x.float() @ l, rr)
+
+
+# K = 1056: 33 MXINT blocks, a short last K split; N = 200: a partial
+# column tile whose code rows are not 16-byte aligned (4-byte copies)
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m", [1, 8, 64, 128, 129, 256])
+def test_qlr_tensor_core_rows(dev, packed, m):
+    x, codes, scale, l, rr = _qlr(dev, m, 1056, 200, 16, packed, seed=m)
+    for xx in (x, x.bfloat16()):
+        _close(_qlr_kernel(xx, codes, scale, l, rr),
+               mk.qlr_matmul_plain(xx, codes, scale, l, rr), 1e-4)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 64), (8, 10944, 256),
+                                   (8, 1056, 4112), (256, 3072, 384)])
+def test_qlr_serving_shapes(dev, m, k, n):
+    """The MoE router (N = 64), deepseek's dense down projection (K =
+    10944: 342 MXINT blocks, 8 splits of 43, the last of 41), the
+    128-column decode tile (N >= 4096; 4112 leaves a partial tile) and a
+    split prefill tile."""
+    x, codes, scale, l, rr = _qlr(dev, m, k, n, 16, False, seed=k)
+    for xx in (x, x.bfloat16()):
+        _close(_qlr_kernel(xx, codes, scale, l, rr),
+               mk.qlr_matmul_plain(xx, codes, scale, l, rr), 1e-4)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m", [8, 256])
+def test_qlr_extreme_exponents(dev, packed, m):
+    """Blocks at MXINT's exponent clip ends, with scales made as the port
+    makes them (``torch.exp2`` of the exponents on the card); at +127 only
+    codes of magnitude <= 1 keep the weight finite, and x is small enough
+    for y to stay finite. Held at 1e-4 of each case's own output scale."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    k, n = 256, 128
+    for e in (-127, -126, 127):
+        lim = 1 if e > 0 else 4
+        c = torch.randint(-lim, lim, (k, n), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        exps = torch.full((k // 32, n), e, device=dev)
+        exps[1::2] = 0 if e < 0 else 100       # a mix with ordinary blocks
+        scale = torch.exp2(exps.float()).contiguous()
+        codes = pack_codes_4bit(c) if packed else c
+        x = torch.randn((m, k), generator=g, device=dev) \
+            * (2.0 ** -40 if e > 0 else 1.0)
+        l = torch.zeros((k, 0), device=dev)
+        rr = torch.zeros((0, n), device=dev)
+        want = mk.qlr_matmul_plain(x, codes, scale, l, rr)
+        got = _qlr_kernel(x, codes, scale, l, rr)
+        assert bool(torch.isfinite(want).all())
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (e, err)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 3072, 1024), (8, 2048, 64),
+                                   (8, 2048, 4096), (64, 1056, 200),
+                                   (256, 3072, 384)])
+def test_qlr_repeat_is_bit_identical(dev, m, k, n):
+    """The split-K sum runs in a fixed order: two calls on the same inputs
+    give the same bits."""
+    x, codes, scale, l, rr = _qlr(dev, m, k, n, 16, False, seed=3)
+    a = mk.qlr_matmul(x, codes, scale, l, rr)
+    b = mk.qlr_matmul(x, codes, scale, l, rr)
+    assert mk.qlr_plan(m, k, n)[1] > 1           # the case is split
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_qlr_one_launch_per_call(dev, m):
+    """Each qlr_matmul call adds one to its LAUNCHES entry and launches
+    one K1/K2 kernel (K1's call launches nothing else; K2's wrapper also
+    runs the x·L matmul)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, codes, scale, l, rr = _qlr(dev, m, 1024, 384, 16, False)
+    mk.qlr_matmul(x, codes, scale, l, rr)             # built and warm
+    torch.cuda.synchronize()
+    key = "qlr_fused" if m <= QLR_FUSED_MAX_ROWS else "qlr"
+    before = mk.LAUNCHES[key]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mk.qlr_matmul(x, codes, scale, l, rr)
+        torch.cuda.synchronize()
+    assert mk.LAUNCHES[key] == before + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [k_ for k_ in kernels if "qlr_tc_kernel" in k_]
+    assert len(ours) == 1, kernels
+    if key == "qlr_fused":
+        assert kernels == ours, kernels
 
 
 def _cache(dev, kind, b=8, kvh=4, g=2, s=200, hd=96, seed=0):
