@@ -14,14 +14,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    the MoE router's 64 columns and the dense lead-in layer's 10944; K3
    and K4 at head_dim 128, K3 also at phase 4's occupancy, rows of
    150–282 valid slots of 512; K6 over the 64-expert stacks at decode and
-   prefill rows; K7 bit for bit): max error against a stated tolerance,
+   prefill rows, and at decode with the counts of a seeded top-6 routing
+   (rows past a count must come out exactly 0); K7 bit for bit): max
+   error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
    layers finds them cold) and the bound (K1/K2/K6: the function's
    operations at the bf16 peak, which the tensor cores reach within the
    gate since the MXINT weight is exact in bf16 and an f32 x enters as a
    bf16 pair, beside the f32 CUDA-core figure earlier runs used; K2 also
-   the time of the ``x·L`` GEMM it includes);
+   the time of the ``x·L`` GEMM it includes; K6 at serving occupancy
+   counts only the experts and rows that hold a token);
 4. the unpaged main path at full width, through the entry points a user
    calls: ``init_lm`` (seed 0) → SRR ``quantize_model_params`` (rank 16,
    3-bit MXINT, int8 container) → ``Engine`` (8 lanes, bf16 KV, fused
@@ -47,7 +50,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    around the pass, with the pass's seconds and peak memory) → ``Engine``
    (8 lanes, bf16 KV, fused auto) answering 8 requests of 32 new tokens
    with 150–250-token prompts, with every launch count read around that
-   run and one profiled decode step; then a prompt's prefill logits
+   run and profiled decode steps (K6's device time a step logged; no K6
+   finishing kernel and no ``aten::bmm`` may appear); then a prompt's
+   prefill logits
    through the kernels against ``fused="off"``, with the tokens and
    layers whose top-k expert sets differ between the two runs counted
    (a routing flip), and the logits held to the tolerance under one
@@ -60,10 +65,11 @@ per kernel, and ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --compare PARENT_ROOT
 
 times phase 3's Q+LR cases (K1 at its main, router and dense lead-in
-shapes, K2 at both M = 256 shapes, K6 at both shapes) and its K3, K4 and
-K5 cases, of the tree at PARENT_ROOT (an unpacked ``git archive``) and of
-this one on one card, in the order parent, change, change, parent, and
-prints one line per case (``build/compare_kernels.json`` holds them).
+shapes, K2 at both M = 256 shapes, K6 at all five), its K3, K4 and K5
+cases and K7's, of the tree at PARENT_ROOT (an unpacked ``git
+archive``) and of this one on one card, in the order parent, change,
+change, parent, and prints one line per case
+(``build/compare_kernels.json`` holds them).
 """
 from __future__ import annotations
 
@@ -433,8 +439,24 @@ def check_flash_chunk(dev, h=32, sq=256, ctx=512, start=200, hd=96) -> dict:
                 bound_by=b_by)
 
 
-def check_qlr_batched(dev, e: int, m: int, k: int, n: int, rank: int) -> dict:
-    """K6 over an ``e``-expert int8 stack with ``m`` rows each."""
+def routed_counts(e: int, t: int, k: int, seed: int) -> list:
+    """Rows of each of ``e`` experts' capacity queues that hold a token
+    when ``t`` tokens each pick ``k`` distinct experts uniformly at random
+    (seeded): the dropless decode dispatch, capacity ``t``."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.rand((t, e), generator=gen).argsort(dim=-1)[:, :k]
+    return torch.bincount(idx.reshape(-1), minlength=e).clamp_max(t).tolist()
+
+
+def check_qlr_batched(dev, e: int, m: int, k: int, n: int, rank: int,
+                      top_k: int = 0) -> dict:
+    """K6 over an ``e``-expert int8 stack with ``m`` rows each. With
+    ``top_k``, at serving occupancy: ``counts`` from a seeded top-k
+    routing of ``m`` tokens, x zero past them (as the dispatch buffer
+    is), and the bound over the bytes and operations of the experts and
+    rows that hold a token (the library's ``bmm`` on the dense stack
+    cannot skip experts without a host sync, so it computes them all)."""
     import torch
     from repro_torch.kernels import mxint_matmul as mk
     from repro_torch.quant.mxint import MXIntQuantizer
@@ -447,31 +469,50 @@ def check_qlr_batched(dev, e: int, m: int, k: int, n: int, rank: int) -> dict:
     scale = torch.exp2(qz.exponents.float()).reshape(e, k // 32, n)
     l = torch.randn((e, k, rank), generator=gen, device=dev) * 0.05
     r = torch.randn((e, rank, n), generator=gen, device=dev) * 0.05
-    xl = torch.bmm(x, l)
-    got = mk.qlr_batched_matmul_cuda(x, codes, scale, xl, r)
-    want = mk.qlr_matmul_batched_plain(x, codes, scale, l, r)
+    rows = [m] * e
+    counts = None
+    if top_k:
+        rows = routed_counts(e, m, top_k, seed=m)
+        counts = torch.tensor(rows, dtype=torch.int32, device=dev)
+        past = torch.arange(m, device=dev)[None, :] >= counts[:, None]
+        x = x.masked_fill(past[..., None], 0.0)
+    got = mk.qlr_batched_matmul_cuda(x, codes, scale, l, r, counts)
+    want = mk.qlr_matmul_batched_plain(x, codes, scale, l, r, counts)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    if top_k and bool(got[past].any()):
+        err = math.inf                 # a row past its count is not zero
     tol = 1e-4 * max(1.0, float(want.abs().max()))
     w_dense = mk.dequant_blockwise(codes, scale, torch.float32) \
         + torch.bmm(l, r)
-    sets = [(x, codes.clone(), scale.clone(), xl, r.clone())
-            for _ in range(copies_for(tensor_bytes(codes, scale, r)))]
+    sets = [(x, codes.clone(), scale.clone(), l.clone(), r.clone(), counts)
+            for _ in range(copies_for(tensor_bytes(codes, scale, l, r)))]
     dense = [(x, w_dense.clone())
              for _ in range(copies_for(tensor_bytes(w_dense)))]
     t_kernel, host = time_ms(mk.qlr_batched_matmul_cuda, sets)
-    t_plain, _ = time_ms(lambda x_, c_, s_, xl_, r_:
-                         mk.qlr_matmul_batched_plain(x_, c_, s_, l, r_), sets)
+    t_plain, _ = time_ms(mk.qlr_matmul_batched_plain, sets)
     t_lib, _ = time_ms(torch.bmm, dense)
-    nbytes = tensor_bytes(x, codes, scale, xl, r) + e * m * n * 4
-    ops = 2 * e * m * n * (k + rank)
+    # bytes: x's rows that hold a token, the codes, scale, L and R of the
+    # experts that hold one, the counts, and all of y (zeros included)
+    live = sum(1 for c in rows if c > 0)
+    per_expert = tensor_bytes(codes[0], scale[0], l[0], r[0])
+    nbytes = live * per_expert + sum(rows) * k * x.element_size() \
+        + tensor_bytes(counts) + e * m * n * 4
+    ops = 2 * sum(rows) * (k * n + k * rank + rank * n)
     b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")     # as check_qlr's
-    return dict(name="K6 qlr_batched_matmul",
-                shape=f"E={e} M={m} K={k} N={n} r={rank} int8",
-                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
-                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                bound_by=b_by,
-                f32_bound_ms=bound_ms(nbytes, ops, "float32")[0])
+    shape = f"E={e} M={m} K={k} N={n} r={rank} int8"
+    row = dict(name="K6 qlr_batched_matmul",
+               shape=shape + (f" top-{top_k} counts ({live} experts, "
+                              f"{sum(rows)} rows)" if top_k else ""),
+               max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
+               plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+               bound_by=b_by,
+               f32_bound_ms=bound_ms(nbytes, ops, "float32")[0])
+    if top_k:
+        row["note"] = ("library: torch.bmm on the whole dense stack, which "
+                       "cannot skip the experts without a token (that would "
+                       "need a host sync)")
+    return row
 
 
 def check_quantize(dev, m: int, n: int, bits: int = 3) -> dict:
@@ -523,11 +564,13 @@ def phase_kernels(dev) -> list:
     rows.append(check_flash_chunk(dev))
     for kind in ("bf16", "int8", "int4"):
         rows.append(check_paged(dev, kind))
-    # K6 at the expert stacks: gate/up (K = 2048) and down (K = 1408: three
-    # split-K slices, the last of 384 rows), decode (8) and prefill (30) rows
+    # K6 at the expert stacks: gate/up (K = 2048) and down (K = 1408),
+    # decode (8) and prefill (30) rows, every row computed; then gate/up at
+    # decode with the counts of a top-6 routing of the 8 lanes
     for m in (8, 30):
         for k, n in ((2048, 1408), (1408, 2048)):
             rows.append(check_qlr_batched(dev, 64, m, k, n, 16))
+    rows.append(check_qlr_batched(dev, 64, 8, 2048, 1408, 16, top_k=6))
     for m, n in ((2048, 1408), (3072, 8192)):
         rows.append(check_quantize(dev, m, n))
     for r in rows:
@@ -542,7 +585,9 @@ def phase_kernels(dev) -> list:
                if "walked_bound_ms" in r else "")
             + (f", f32 bound {r['f32_bound_ms']:.4f} ms"
                if "f32_bound_ms" in r else "")
-            + (f", x·L GEMM {r['xl_ms']:.4f} ms" if "xl_ms" in r else ""))
+            + (f", x·L GEMM {r['xl_ms']:.4f} ms" if "xl_ms" in r else "")
+            + (f" [{r['note']}]" if "note" in r and r["library_ms"] is not None
+               else ""))
     bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
     require(not bad, f"kernels disagree with their plain versions: {bad}")
     return rows
@@ -629,12 +674,16 @@ def profile_decode(eng, cfg, reqs, n_steps: int = 4,
         f"{1e3 * wall / n_steps:.2f} ms/step wall, device busy "
         f"{sum(dev_us.values()) / n_steps / 1e3:.2f} ms/step "
         f"({100 * busy:.1f}% busy, {100 * (1 - busy):.1f}% idle)")
-    # K1/K2 (qlr_tc_kernel) run alone: qlr_finish_kernel is K6's only
-    for kname in ("qlr_tc_kernel", "qlr_partial_kernel", "qlr_finish_kernel",
+    # K1/K2 (qlr_tc_kernel) and K6 (qlr_stacked_kernel) run alone; the
+    # finishing kernel and the x·L bmm of the first K6 must not appear
+    for kname in ("qlr_tc_kernel", "qlr_stacked_kernel", "qlr_finish_kernel",
                   "flash_decode_kernel", "decode_combine_kernel",
                   "flash_attention_kernel"):
         us = sum(v for k_, v in dev_us.items() if kname in k_)
         log(tag, f"  {kname}: {us / n_steps / 1e3:.3f} ms/step")
+    bmm_calls = sum(e.count for e in prof.key_averages()
+                    if e.key == "aten::bmm")
+    log(tag, f"  aten::bmm calls: {bmm_calls / n_steps:.1f} a step")
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
     for key, us in top:
         log(tag, f"  {us / n_steps / 1e3:8.3f} ms/step  {key[:90]}")
@@ -644,6 +693,9 @@ def profile_decode(eng, cfg, reqs, n_steps: int = 4,
                               if "flash_decode_kernel" in k_) / n_steps / 1e3,
                 qlr_ms=sum(v for k_, v in dev_us.items()
                            if "qlr_tc_kernel" in k_) / n_steps / 1e3,
+                stacked_ms=sum(v for k_, v in dev_us.items()
+                               if "qlr_stacked_kernel" in k_) / n_steps / 1e3,
+                bmm_calls=bmm_calls,
                 finish_ms=sum(v for k_, v in dev_us.items()
                               if "qlr_finish_kernel" in k_) / n_steps / 1e3,
                 combine_ms=sum(v for k_, v in dev_us.items()
@@ -979,6 +1031,12 @@ def phase_moe(dev) -> dict:
             f"a kernel of the MoE path never launched: {counts}")
     prof = profile_decode(eng, cfg, make_requests(cfg, 8, seed=4,
                                                   lengths=lengths), tag="moe")
+    log("moe", f"K6 (qlr_stacked_kernel) {prof['stacked_ms']:.3f} ms of "
+        f"device time a decode step; finishing kernel "
+        f"{prof['finish_ms']:.3f} ms, aten::bmm calls {prof['bmm_calls']}")
+    require(prof["stacked_ms"] > 0, "K6 took no device time in the profile")
+    require(prof["finish_ms"] == 0 and prof["bmm_calls"] == 0,
+            "a finishing kernel or an x·L bmm ran in the MoE decode step")
     del eng
 
     # kernels vs fused="off" on one prompt (150 tokens: capacity 17, so
@@ -1035,12 +1093,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 # K1 at phi3's main shape, the MoE router and the dense lead-in layer; K2
 # at both M = 256 shapes and the router's prefill rows; K6 at decode and
-# prefill rows (the control)
+# prefill rows, gate/up and down, and (where the tree has it) at the
+# serving occupancy of a top-6 routing
 rows = [cs.check_qlr(dev, m, k, n, 16, False)
         for m, k, n in ((8, 3072, 8192), (8, 2048, 64), (8, 2048, 10944),
                         (8, 10944, 2048), (256, 3072, 8192),
                         (256, 3072, 3072), (256, 2048, 64))]
-rows += [cs.check_qlr_batched(dev, 64, m, 2048, 1408, 16) for m in (8, 30)]
+rows += [cs.check_qlr_batched(dev, 64, m, k, n, 16) for m in (8, 30)
+         for k, n in ((2048, 1408), (1408, 2048))]
+if "top_k" in inspect.signature(cs.check_qlr_batched).parameters:
+    rows.append(cs.check_qlr_batched(dev, 64, 8, 2048, 1408, 16, top_k=6))
 rows += [cs.check_decode(dev, kind) for kind in ("bf16", "int8", "int4")]
 rows.append(cs.check_decode(dev, "bf16", kvh=16, hd=128))
 if "ragged" in inspect.signature(cs.check_decode).parameters:
@@ -1048,6 +1110,7 @@ if "ragged" in inspect.signature(cs.check_decode).parameters:
 rows += [cs.check_flash(dev), cs.check_flash(dev, h=16, hd=128),
          cs.check_flash_chunk(dev)]
 rows += [cs.check_paged(dev, kind) for kind in ("bf16", "int8", "int4")]
+rows += [cs.check_quantize(dev, m, n) for m, n in ((2048, 1408), (3072, 8192))]
 print("ROWS " + json.dumps(rows))
 """
 
@@ -1055,7 +1118,8 @@ print("ROWS " + json.dumps(rows))
 def compare_kernels(parent: str) -> int:
     """Phase 3's Q+LR cases (K1 at its main, router and dense lead-in
     shapes, K2 at both M = 256 shapes and the router's prefill rows, K6
-    at both as the control) and its K3, K4 and K5 cases, from the tree at
+    at its four full-occupancy shapes and, where the tree has it, the
+    serving occupancy), its K3, K4 and K5 cases and K7's, from the tree at
     ``parent`` and from this one, in the order parent, change, change,
     parent, each turn in a process of its own (each tree builds its
     kernels into its own ``build/``). Prints one line per case, with the

@@ -19,9 +19,9 @@ MXINT_BLOCK = 32
 # slot (KV cache) axis, so those counts must be even.
 PACKED4_ALIGN = 2
 
-# --- K1/K2 (kernels/csrc/mxint_matmul.cu, qlr_tc_kernel) ------------------
+# --- K1/K2/K6 (kernels/csrc/mxint_matmul.cu, qlr_tc_body) ----------------
 # Output columns come in groups of four: the scale rows are read as
-# 16-byte vectors (K6 reads four neighbouring columns as one word).
+# 16-byte vectors, and K6 writes an empty tile's zeros as 16-byte vectors.
 QLR_COL_VEC = 4
 # Largest low-rank width: x·L runs as at most four 16-rank mma tiles.
 QLR_MAX_RANK = 64
@@ -37,8 +37,13 @@ QLR_FUSED_MAX_ROWS = 128
 # block's fixed cost covers more columns), and the prefill tile (8 n-tiles
 # of rows). K2 takes only the prefill tile.
 QLR_TILE_DECODE, QLR_TILE_ROUTER, QLR_TILE_PREFILL, QLR_TILE_WIDE = 0, 1, 2, 3
+# K6's tiles (the .cu's launch_stacked_tile cases), two blocks an SM:
+# 8 rows up to QLR_DECODE_ROWS, 32 rows above.
+QLR_TILE_STACK_DECODE, QLR_TILE_STACK_PREFILL = 4, 5
 QLR_TILES = {QLR_TILE_DECODE: (128, 8, 4, 4), QLR_TILE_ROUTER: (64, 8, 4, 4),
-             QLR_TILE_PREFILL: (128, 64, 2, 2), QLR_TILE_WIDE: (256, 8, 4, 4)}
+             QLR_TILE_PREFILL: (128, 64, 2, 2), QLR_TILE_WIDE: (256, 8, 4, 4),
+             QLR_TILE_STACK_DECODE: (256, 8, 2, 2),
+             QLR_TILE_STACK_PREFILL: (256, 32, 2, 1)}
 QLR_DECODE_ROWS = 8
 QLR_ROUTER_COLS = 64
 QLR_WIDE_MAX_COLS = 4096
@@ -50,13 +55,12 @@ QLR_WIDE_MAX_COLS = 4096
 QLR_MAX_SPLITS = 8
 QLR_DECODE_TARGET_BLOCKS = 132
 QLR_PREFILL_TARGET_BLOCKS = 264
+# K6's grid (entries × column tiles × row tiles) is wide already: splits
+# only while it stays within two blocks an SM.
+QLR_STACK_TARGET_BLOCKS = 264
 # x, and R in the decode tiles, are read by 16-byte cp.async: their base
 # addresses must be 16-byte aligned.
 QLR_X_ALIGN = 16
-
-# --- K6 (kernels/csrc/mxint_matmul.cu, batched) ----------------------------
-# K rows one block reduces before the split-K partials are summed.
-QLR_SPLIT_ROWS = 512
 
 # --- K3/K4 (kernels/csrc/decode_attention.cu, flash_attention.cu) ---------
 # Head-dim limits: K4 keeps a warp's 16 query rows and output rows in
@@ -90,13 +94,9 @@ DECODE_BLOCKS_PER_SM = 4
 # limit is the packed4 one: a page holds whole byte pairs.
 PAGE_ALIGN = PACKED4_ALIGN
 
-# CUDA's limit on a grid's y and z extents.
+# CUDA's limit on a grid's y and z extents (K6 puts (stack entry, row
+# tile) on z: E · ceil(M / row tile) must stay within it).
 CUDA_MAX_GRID_YZ = 65535
-
-# K6 puts (stack entry, row tile) on the grid's z axis: E · ceil(M / row
-# tile) must stay within CUDA_MAX_GRID_YZ. Its row tiles are 8 rows (the
-# decode lanes) up to this many rows, 16 above.
-QLR_BATCHED_SMALL_ROWS = 8
 
 # --- K7 (kernels/csrc/mxint_quantize.cu) -----------------------------------
 # K7 puts the 32-row blocks on the grid's y axis (M / 32 within

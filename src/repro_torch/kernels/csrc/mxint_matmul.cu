@@ -10,7 +10,9 @@
 //       leading stack of E independent int8 weights — every MoE expert
 //       projection, on the (E, capacity, K) dispatch buffer.
 //
-// K1 and K2: one tensor-core kernel, qlr_tc_kernel, one launch a call.
+// One tensor-core body, qlr_tc_body, one launch a call: K1 and K2 as
+// qlr_tc_kernel, K6 as qlr_stacked_kernel (its own name, so a profile
+// tells them apart).
 //
 // Why the tensor cores keep the 1e-4 gate. An MXINT weight is code·2^e: an
 // int8 code (at most 8 significant bits) times a power of two, so it is
@@ -75,8 +77,25 @@
 // overlap (a build that skips either keeps most of the time). That
 // overlap is the next redesign's target (ROADMAP §2a).
 //
-// K6 keeps the SIMT split-K body of the first port (int8, x·L precomputed,
-// partials summed by a second kernel); it is next in the redesign queue.
+// K6 is the same body over a stack (the STACKED instantiation, the only one
+// that computes per-entry offsets: K1 ran 11 % slower on the card with them in
+// every instantiation). grid.z walks (entry, row tile); x·L runs in the pass
+// as in K1, so the caller computes no sliver, and the splits of a tile sum in
+// their cluster, so there is no finishing kernel. An optional counts (E,)
+// int32 says how many leading rows of each entry's capacity queue hold a token
+// (the dispatch buffer is zero past them): a block whose rows all lie at or
+// past the count loads nothing and writes zeros; a block that straddles it
+// multiplies only the 8-row n-tiles that hold a token, masks x past the count
+// and writes zeros there. At decode (8 lanes, top-6 of 64 experts) about 35 of
+// the 64 experts hold a token, so about 45 % of the stack's code bytes are
+// skipped. Its tiles (constraints.QLR_TILE_STACK_*) are 256 columns wide, so
+// each block's share of L's bytes and of x·L is half a 128-column tile's, and
+// hold two blocks an SM (at most 128 registers a thread; no R staged), so one
+// block's loads overlap the other's products: with 64 experts × 6–8 column
+// tiles there are blocks enough without splitting K. On the card (PERF.md §6)
+// they beat, at 8 rows, K1's decode and wide tiles (one block an SM) and a
+// 128-column two-block tile, and at 30 rows a 128 × 32 tile and the 64-row
+// prefill tile with the n-tiles past the rows skipped.
 //
 // The limits below repeat src/repro_torch/kernels/constraints.py, whose
 // wrapper checks raise before a launch the kernel cannot take.
@@ -94,19 +113,6 @@ constexpr int kMaxRank = 64;      // constraints.QLR_MAX_RANK
 
 // ---------------------------------------------------------------------------
 // shared helpers
-// ---------------------------------------------------------------------------
-// Byte c of a 32-bit word as a sign-extended int8 code.
-__device__ __forceinline__ int int8_at(uint32_t word, int c) {
-  return static_cast<int>(word << (24 - 8 * c)) >> 24;
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// ---------------------------------------------------------------------------
-// K1 / K2: qlr_tc_kernel
 // ---------------------------------------------------------------------------
 constexpr int kMaxSplits = 8;     // constraints.QLR_MAX_SPLITS (cluster)
 
@@ -168,7 +174,7 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
 //   SB 32-row MXINT blocks a stage, block b of a stage to warp b % WK of
 //      the WK warps across K; ST stages in the cp.async ring;
 //   MB blocks an SM the registers are held to (__launch_bounds__; K2's
-//      instantiations only: K1's keep x·L accumulators too).
+//      and K6's instantiations: K1's keep x·L accumulators in up to 255).
 template <int J_, int NT_, int WC_, int WK_, int SB_, int ST_, int MB_>
 struct Tile {
   static constexpr int J = J_, NT = NT_, WC = WC_, WK = WK_, SB = SB_;
@@ -184,8 +190,9 @@ struct Tile {
   static constexpr bool kLRot = NT == 1;
   // decode tiles (one n-tile of rows, one block an SM) also stage R's
   // columns of the tile in shared memory with the first stage, so that
-  // the epilogue waits on no device-memory load
-  static constexpr bool kRPre = NT == 1;
+  // the epilogue waits on no device-memory load (not K6's two-block tile,
+  // whose shared memory would no longer fit twice)
+  static constexpr bool kRPre = NT == 1 && MB == 1;
   static constexpr int kLI = kLRot ? 4 : (4 + WC - 1) / WC;
   static_assert(SB % WK == 0, "a stage's blocks deal evenly to the warps");
 };
@@ -193,6 +200,11 @@ using TileDecode = Tile<4, 1, 2, 4, 4, 3, 1>;    // 128 columns × 8 rows
 using TileRouter = Tile<2, 1, 2, 4, 4, 3, 1>;    //  64 columns × 8 rows
 using TilePrefill = Tile<2, 8, 4, 2, 2, 3, 2>;   // 128 columns × 64 rows
 using TileWide = Tile<8, 1, 2, 4, 4, 3, 1>;      // 256 columns × 8 rows
+// K6's tiles (constraints.QLR_TILE_STACK_*), two blocks an SM: 64-row
+// stages in a 4-deep ring at decode; at prefill eight column warps, each
+// over all of a stage's K rows
+using TileStackDecode = Tile<4, 1, 4, 2, 2, 4, 2>;   // 256 columns × 8 rows
+using TileStackPrefill = Tile<2, 4, 8, 1, 2, 3, 2>;  // 256 columns × 32 rows
 
 // Shared-memory layout of the ring, of the bf16 x pair converted once a
 // stage (f32 x), and of the split-K reduction (which reuses the ring).
@@ -247,19 +259,22 @@ __device__ __forceinline__ void read_row(const unsigned char* p,
 //   x      (M, K) f32 or bf16, 16-byte aligned
 //   codes  (K, N) int8, or (K/2, N) packed4 uint8
 //   scale  (K/32, N) f32, powers of two
-//   l      (K, rank) f32                          FUSED (K1) only
+//   l      (K, rank) f32                          FUSED (K1, K6) only
 //   xl     (M, rank) f32, x·L precomputed         !FUSED (K2) only
 //   r      (rank, N) f32
 //   y      (M, N) f32
 // Grid (splits, ceil(N / BN), ceil(M / BM)); cluster (splits, 1, 1). Split
 // s covers MXINT blocks [s·split_blocks, (s+1)·split_blocks) ∩ [0, K/32).
-template <class T, bool PACKED, bool FUSED, typename XT>
-__global__ void __launch_bounds__(T::kThreads, FUSED ? 1 : T::MB)
-qlr_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
-              const float* __restrict__ scale, const float* __restrict__ l,
-              const float* __restrict__ xl_in, const float* __restrict__ r,
-              float* __restrict__ y, int M, int K, int N, int rank,
-              int split_blocks, int codes_vec16, int l_vec16) {
+// STACKED (K6): every operand has a leading entry axis, grid.z is (entry,
+// row tile) and counts (E,) int32, or null for all M, gives each entry's
+// rows that hold a token; the rest of its rows are written as zeros.
+template <class T, bool PACKED, bool FUSED, typename XT, bool STACKED>
+__device__ __forceinline__ void qlr_tc_body(
+    const XT* __restrict__ x, const uint8_t* __restrict__ codes,
+    const float* __restrict__ scale, const float* __restrict__ l,
+    const float* __restrict__ xl_in, const float* __restrict__ r,
+    float* __restrict__ y, const int* __restrict__ counts, int M, int K,
+    int N, int rank, int split_blocks, int codes_vec16, int l_vec16) {
   constexpr bool XBF = sizeof(XT) == 2;
   using Lay = Layout<T, PACKED, XBF>;
   constexpr int J = T::J, NT = T::NT, WC = T::WC, WK = T::WK, SB = T::SB;
@@ -271,11 +286,40 @@ qlr_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
   const int splits = gridDim.x;
   const int split = blockIdx.x;
   const int n0 = blockIdx.y * BN;
-  const int m0 = blockIdx.z * BM;
+  const int ncols = min(BN, N - n0);
+  int m0 = blockIdx.z * BM;
+  int m_end = M;          // rows of x from here on hold no token
+  int nt_live = NT;       // n-tiles with a row below m_end
+  if constexpr (STACKED) {
+    const int row_tiles = (M + BM - 1) / BM;
+    const int entry = blockIdx.z / row_tiles;
+    m0 = (blockIdx.z - entry * row_tiles) * BM;
+    const size_t e = entry;
+    x += e * M * K;
+    codes += e * K * N;
+    scale += e * (K / kMxBlock) * N;
+    l += e * K * rank;
+    r += e * rank * N;
+    y += e * M * N;
+    if (counts != nullptr) m_end = min(max(counts[entry], 0), M);
+    if (m_end <= m0) {
+      // no token in the tile: every block of the cluster writes its
+      // slice of zeros and leaves (before any cluster barrier, as all of
+      // them do); y rows are 16-byte aligned as N % 4 == 0
+      const int c4 = ncols / 4, total = min(BM, M - m0) * c4;
+      const int per = (total + splits - 1) / splits;
+      const int i_end = min(total, (split + 1) * per);
+      for (int i = split * per + threadIdx.x; i < i_end; i += kT)
+        *reinterpret_cast<float4*>(y + static_cast<size_t>(m0 + i / c4) * N
+                                   + n0 + 4 * (i % c4)) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      return;
+    }
+    nt_live = min(NT, (m_end - m0 + 7) / 8);
+  }
   const int b_begin = split * split_blocks;
   const int b_end = min(K / kMxBlock, b_begin + split_blocks);
   const int n_stages = b_end > b_begin ? (b_end - b_begin + SB - 1) / SB : 0;
-  const int ncols = min(BN, N - n0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int wc = warp % WC, wk = warp / WC;
@@ -332,7 +376,7 @@ qlr_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
         const int i = i0 + threadIdx.x;
         const int rr = i / kC, cc = (i % kC) * kXe;
         if ((kAll % kT == 0 || i < kAll) && cc < nb * kMxBlock) {
-          const bool ok = m0 + rr < M;            // rows past M are zero
+          const bool ok = m0 + rr < m_end;        // rows past it are zero
           cp_async<16>(base + lay.x + rr * Lay::kXStride + cc * sizeof(XT),
                        ok ? xg0 + static_cast<size_t>(rr) * K + cc : x, ok);
         }
@@ -504,6 +548,7 @@ qlr_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
         // (bf16), one n-tile at a time
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
+          if (STACKED && nt >= nt_live) break;         // no token: skipped
           const unsigned char* xr = xb + (nt * 8 + g) * kXb + 2 * (kr + 2 * t);
           uint32_t bh[2], bl[2];
           bh[0] = *reinterpret_cast<const uint32_t*>(xr);
@@ -648,40 +693,66 @@ qlr_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
   for (int e = split * per + threadIdx.x; e < e_end; e += kT) {
     const int m = e / BN, n = e % BN;
     if (m0 + m >= M || n >= ncols) continue;
-    const int o = m * Lay::kPStride + n;
-    float part[kMaxSplits];
+    float v = 0.f;                                  // a row with no token
+    if (!STACKED || m0 + m < m_end) {
+      const int o = m * Lay::kPStride + n;
+      float part[kMaxSplits];
 #pragma unroll
-    for (int sp = 0; sp < kMaxSplits; ++sp)
-      part[sp] = sp < splits ? cluster.map_shared_rank(red + lay.p, sp)[o]
-                             : 0.f;
-    float v = 0.f;
+      for (int sp = 0; sp < kMaxSplits; ++sp)
+        part[sp] = sp < splits ? cluster.map_shared_rank(red + lay.p, sp)[o]
+                               : 0.f;
 #pragma unroll
-    for (int sp = 0; sp < kMaxSplits; ++sp) v += part[sp];
-    if constexpr (T::kRPre) {
-      const float* rc = reinterpret_cast<const float*>(smem + lay.rt) + n;
-      for (int c = 0; c < rank; ++c)
-        v = fmaf(xl_s[m * rank + c], rc[c * BN], v);
-    } else {
-      const float* rc = r + n0 + n;
+      for (int sp = 0; sp < kMaxSplits; ++sp) v += part[sp];
+      if constexpr (T::kRPre) {
+        const float* rc = reinterpret_cast<const float*>(smem + lay.rt) + n;
+        for (int c = 0; c < rank; ++c)
+          v = fmaf(xl_s[m * rank + c], rc[c * BN], v);
+      } else {
+        const float* rc = r + n0 + n;
 #pragma unroll 16
-      for (int c = 0; c < rank; ++c)
-        v = fmaf(xl_s[m * rank + c], rc[static_cast<size_t>(c) * N], v);
+        for (int c = 0; c < rank; ++c)
+          v = fmaf(xl_s[m * rank + c], rc[static_cast<size_t>(c) * N], v);
+      }
     }
     y[static_cast<size_t>(m0 + m) * N + n0 + n] = v;
   }
   cluster.sync();     // no block leaves while another reads its partials
 }
 
+// K1 (FUSED) and K2 (!FUSED).
 template <class T, bool PACKED, bool FUSED, typename XT>
-int launch_tc(const void* x, const void* codes, const void* scale,
-              const void* l, const void* xl, const void* r, void* y, int M,
-              int K, int N, int rank, int splits, int split_blocks,
-              cudaStream_t stream) {
-  using Lay = Layout<T, PACKED, sizeof(XT) == 2>;
-  if (splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
-  auto kernel = qlr_tc_kernel<T, PACKED, FUSED, XT>;
-  const int smem = Lay(rank, FUSED).total;
-  static int opted = 0;           // per instantiation
+__global__ void __launch_bounds__(T::kThreads, FUSED ? 1 : T::MB)
+qlr_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
+              const float* __restrict__ scale, const float* __restrict__ l,
+              const float* __restrict__ xl_in, const float* __restrict__ r,
+              float* __restrict__ y, int M, int K, int N, int rank,
+              int split_blocks, int codes_vec16, int l_vec16) {
+  qlr_tc_body<T, PACKED, FUSED, XT, false>(x, codes, scale, l, xl_in, r, y,
+                                           nullptr, M, K, N, rank,
+                                           split_blocks, codes_vec16, l_vec16);
+}
+
+// K6: int8 codes, x·L in the pass, over a stack of E entries.
+template <class T, typename XT>
+__global__ void __launch_bounds__(T::kThreads, T::MB)
+qlr_stacked_kernel(const XT* __restrict__ x,
+                   const uint8_t* __restrict__ codes,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ l, const float* __restrict__ r,
+                   float* __restrict__ y, const int* __restrict__ counts,
+                   int M, int K, int N, int rank, int split_blocks,
+                   int codes_vec16, int l_vec16) {
+  qlr_tc_body<T, false, true, XT, true>(x, codes, scale, l, nullptr, r, y,
+                                        counts, M, K, N, rank, split_blocks,
+                                        codes_vec16, l_vec16);
+}
+
+// Opt a kernel in to `smem` bytes of dynamic shared memory (once per
+// instantiation and size) and launch it on a (splits, 1, 1) cluster.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), int& opted, int smem,
+                   dim3 grid, int threads, int splits, cudaStream_t stream,
+                   Args... args) {
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -694,24 +765,48 @@ int launch_tc(const void* x, const void* codes, const void* scale,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, (N + T::kBN - 1) / T::kBN,
-                     (M + T::kBM - 1) / T::kBM);
-  cfg.blockDim = dim3(T::kThreads);
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1/K2 (E = 1, counts null) or K6 (STACKED: int8, FUSED).
+template <class T, bool PACKED, bool FUSED, typename XT, bool STACKED = false>
+int launch_tc(const void* x, const void* codes, const void* scale,
+              const void* l, const void* xl, const void* r, void* y,
+              const int* counts, int E, int M, int K, int N, int rank,
+              int splits, int split_blocks, cudaStream_t stream) {
+  using Lay = Layout<T, PACKED, sizeof(XT) == 2>;
+  if (splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
+  const int smem = Lay(rank, FUSED).total;
+  static int opted = 0;           // per instantiation
+  const dim3 grid(splits, (N + T::kBN - 1) / T::kBN,
+                  E * ((M + T::kBM - 1) / T::kBM));
   const int codes_vec16 =
       N % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
   const int l_vec16 = rank % 4 == 0 && reinterpret_cast<uintptr_t>(l) % 16 == 0;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const XT*>(x),
-      static_cast<const uint8_t*>(codes), static_cast<const float*>(scale),
-      static_cast<const float*>(l), static_cast<const float*>(xl),
-      static_cast<const float*>(r), static_cast<float*>(y), M, K, N, rank,
-      split_blocks, codes_vec16, l_vec16);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const auto* xt = static_cast<const XT*>(x);
+  const auto* ct = static_cast<const uint8_t*>(codes);
+  const auto* st = static_cast<const float*>(scale);
+  const auto* lt = static_cast<const float*>(l);
+  const auto* rt = static_cast<const float*>(r);
+  auto* yt = static_cast<float*>(y);
+  if constexpr (STACKED)
+    return launch_cluster(qlr_stacked_kernel<T, XT>, opted, smem, grid,
+                          T::kThreads, splits, stream, xt, ct, st, lt, rt, yt,
+                          counts, M, K, N, rank, split_blocks, codes_vec16,
+                          l_vec16);
+  else
+    return launch_cluster(qlr_tc_kernel<T, PACKED, FUSED, XT>, opted, smem,
+                          grid, T::kThreads, splits, stream, xt, ct, st, lt,
+                          static_cast<const float*>(xl), rt, yt, M, K, N, rank,
+                          split_blocks, codes_vec16, l_vec16);
 }
 
 // The tile shapes by constraints.QLR_TILE_* (the wrapper's qlr_plan picks).
@@ -724,21 +819,22 @@ int launch_tile(int tile, const void* x, const void* codes, const void* scale,
                 cudaStream_t s) {
   if (tile == 2)
     return launch_tc<TilePrefill, PACKED, FUSED, XT>(
-        x, codes, scale, l, xl, r, y, M, K, N, rank, splits, split_blocks, s);
+        x, codes, scale, l, xl, r, y, nullptr, 1, M, K, N, rank, splits,
+        split_blocks, s);
   if constexpr (FUSED) {
     switch (tile) {
       case 0:
         return launch_tc<TileDecode, PACKED, FUSED, XT>(
-            x, codes, scale, l, xl, r, y, M, K, N, rank, splits, split_blocks,
-            s);
+            x, codes, scale, l, xl, r, y, nullptr, 1, M, K, N, rank, splits,
+            split_blocks, s);
       case 1:
         return launch_tc<TileRouter, PACKED, FUSED, XT>(
-            x, codes, scale, l, xl, r, y, M, K, N, rank, splits, split_blocks,
-            s);
+            x, codes, scale, l, xl, r, y, nullptr, 1, M, K, N, rank, splits,
+            split_blocks, s);
       case 3:
         return launch_tc<TileWide, PACKED, FUSED, XT>(
-            x, codes, scale, l, xl, r, y, M, K, N, rank, splits, split_blocks,
-            s);
+            x, codes, scale, l, xl, r, y, nullptr, 1, M, K, N, rank, splits,
+            split_blocks, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -765,171 +861,23 @@ int dispatch_tc(int tile, const void* x, const void* codes, const void* scale,
                                          K, N, rank, splits, split_blocks, s);
 }
 
-// ---------------------------------------------------------------------------
-// K6: the SIMT split-K body over a stack of int8 weights
-// ---------------------------------------------------------------------------
-constexpr int kColsPerLane = 4;   // constraints.QLR_COL_VEC
-constexpr int kSplitRows = 512;   // constraints.QLR_SPLIT_ROWS
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileN = 32 * kColsPerLane;  // 128 output columns per block
-constexpr int kFinishThreads = 256;
-
-// One (column tile, K split, entry · row tile) block of partial sums.
-//   x       (E, M, K) f32 or bf16
-//   codes   (E, K, N) int8
-//   scale   (E, K/32, N) f32
-//   part    (E, splits, M, N) f32   partial x·dequant(codes) per K split
-// grid.z = entries · row_tiles (z = entry · row_tiles + tile).
-template <int MT, typename XT>
-__global__ void __launch_bounds__(kThreads)
-qlr_partial_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
-                   const float* __restrict__ scale, float* __restrict__ part,
-                   int M, int K, int N, int row_tiles) {
-  __shared__ float xs[kSplitRows][MT];              // x tile, transposed
-  __shared__ float red[MT][kTileN];                 // cross-warp reduction
-
-  const int n0 = blockIdx.x * kTileN;
-  const int split = blockIdx.y;
-  const size_t entry = blockIdx.z / row_tiles;
-  const int m0 = (blockIdx.z % row_tiles) * MT;
-  x += entry * M * K;
-  codes += entry * K * N;
-  scale += entry * (K / kMxBlock) * N;
-  part += entry * gridDim.y * M * N;
-  const int k_begin = split * kSplitRows;
-  const int rows = min(K - k_begin, kSplitRows);    // a multiple of 32
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < rows * MT; i += kThreads) {
-    const int kk = i % rows;
-    const int m = i / rows;
-    xs[kk][m] = (m0 + m < M)
-        ? to_f32(x[static_cast<size_t>(m0 + m) * K + k_begin + kk]) : 0.f;
-  }
-  __syncthreads();
-
-  const int n = n0 + lane * kColsPerLane;
-  const bool col_ok = n < N;                 // N % 4 == 0: all 4 or none
-
-  float acc[MT][kColsPerLane];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) acc[m][c] = 0.f;
-
-  for (int blk = warp; blk < rows / kMxBlock; blk += kWarps) {
-    const int kb = k_begin + blk * kMxBlock;        // first row of the block
-    const int kr = blk * kMxBlock;                  // same row, in xs
-    if (!col_ok) continue;
-    const float4 sc4 = *reinterpret_cast<const float4*>(
-        scale + static_cast<size_t>(kb / kMxBlock) * N + n);
-    const float sc[kColsPerLane] = {sc4.x, sc4.y, sc4.z, sc4.w};
-#pragma unroll 4
-    for (int j = 0; j < kMxBlock; j += 2) {         // one row pair per step
-      float w0[kColsPerLane], w1[kColsPerLane];
-      const uint32_t word0 = *reinterpret_cast<const uint32_t*>(
-          codes + static_cast<size_t>(kb + j) * N + n);
-      const uint32_t word1 = *reinterpret_cast<const uint32_t*>(
-          codes + static_cast<size_t>(kb + j + 1) * N + n);
-#pragma unroll
-      for (int c = 0; c < kColsPerLane; ++c) {
-        w0[c] = static_cast<float>(int8_at(word0, c)) * sc[c];
-        w1[c] = static_cast<float>(int8_at(word1, c)) * sc[c];
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float x0 = xs[kr + j][m];
-        const float x1 = xs[kr + j + 1][m];
-#pragma unroll
-        for (int c = 0; c < kColsPerLane; ++c) {
-          acc[m][c] = fmaf(x0, w0[c], acc[m][c]);
-          acc[m][c] = fmaf(x1, w1[c], acc[m][c]);
-        }
-      }
-    }
-  }
-
-  // cross-warp reduction in a fixed warp order (deterministic)
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < kColsPerLane; ++c) {
-          float* dst = &red[m][lane * kColsPerLane + c];
-          *dst = (w == 0 ? 0.f : *dst) + acc[m][c];
-        }
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < MT * kTileN; i += kThreads) {
-    const int m = i / kTileN;
-    const int col = n0 + i % kTileN;
-    if (m0 + m < M && col < N)
-      part[(static_cast<size_t>(split) * M + m0 + m) * N + col] =
-          red[m][i % kTileN];
-  }
-}
-
-// y[e, m, n] = Σ_split part[e, split, m, n] + Σ_r xl[e, m, r]·R[e, r, n];
-// grid.z is the entry.
-__global__ void __launch_bounds__(kFinishThreads)
-qlr_finish_kernel(const float* __restrict__ part, int splits,
-                  const float* __restrict__ xl, const float* __restrict__ r,
-                  float* __restrict__ y, int M, int N, int rank) {
-  __shared__ float xl_s[kMaxRank];
-  const size_t entry = blockIdx.z;
-  part += entry * splits * M * N;
-  xl += entry * M * rank;
-  r += entry * rank * N;
-  y += entry * M * N;
-  const int m = blockIdx.y;
-  const int n = blockIdx.x * kFinishThreads + threadIdx.x;
-  if (threadIdx.x < rank)
-    xl_s[threadIdx.x] = xl[static_cast<size_t>(m) * rank + threadIdx.x];
-  __syncthreads();
-  if (n >= N) return;
-  float acc = 0.f;
-  for (int sp = 0; sp < splits; ++sp)
-    acc += part[(static_cast<size_t>(sp) * M + m) * N + n];
-  for (int rr = 0; rr < rank; ++rr)
-    acc = fmaf(xl_s[rr], r[static_cast<size_t>(rr) * N + n], acc);
-  y[static_cast<size_t>(m) * N + n] = acc;
-}
-
-template <int MT, typename XT>
-int launch_stacked(const void* x, const void* codes, const void* scale,
-                   const void* xl, const void* r, void* y, void* part, int E,
-                   int M, int K, int N, int rank, cudaStream_t stream) {
-  const int splits = (K + kSplitRows - 1) / kSplitRows;
-  const int row_tiles = (M + MT - 1) / MT;
-  const dim3 grid((N + kTileN - 1) / kTileN, splits, E * row_tiles);
-  qlr_partial_kernel<MT, XT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const XT*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const float*>(scale), static_cast<float*>(part), M, K, N,
-      row_tiles);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 fgrid((N + kFinishThreads - 1) / kFinishThreads, M, E);
-  qlr_finish_kernel<<<fgrid, kFinishThreads, 0, stream>>>(
-      static_cast<const float*>(part), splits, static_cast<const float*>(xl),
-      static_cast<const float*>(r), static_cast<float*>(y), M, N, rank);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int MT>
-int dispatch_stacked(const void* x, const void* codes, const void* scale,
-                     const void* xl, const void* r, void* y, void* part, int E,
-                     int M, int K, int N, int rank, int x_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16
-      ? launch_stacked<MT, __nv_bfloat16>(x, codes, scale, xl, r, y, part, E,
-                                          M, K, N, rank, s)
-      : launch_stacked<MT, float>(x, codes, scale, xl, r, y, part, E, M, K, N,
-                                  rank, s);
+// K6's tiles by constraints.QLR_TILE_STACK_* (the wrapper's
+// qlr_stacked_plan picks).
+template <typename XT>
+int launch_stacked_tile(int tile, const void* x, const void* codes,
+                        const void* scale, const void* l, const void* r,
+                        void* y, const int* counts, int E, int M, int K, int N,
+                        int rank, int splits, int split_blocks,
+                        cudaStream_t s) {
+  if (tile == 4)      // QLR_TILE_STACK_DECODE
+    return launch_tc<TileStackDecode, false, true, XT, true>(
+        x, codes, scale, l, nullptr, r, y, counts, E, M, K, N, rank, splits,
+        split_blocks, s);
+  if (tile == 5)      // QLR_TILE_STACK_PREFILL
+    return launch_tc<TileStackPrefill, false, true, XT, true>(
+        x, codes, scale, l, nullptr, r, y, counts, E, M, K, N, rank, splits,
+        split_blocks, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -955,18 +903,25 @@ extern "C" int qlr_launch(const void* x, const void* codes, const void* scale,
                             rank, splits, split_blocks, x_bf16, packed, stream);
 }
 
-// K6: y (E, M, N) f32, y[e] = x[e]·dequant(codes[e], scale[e]) + xl[e]·R[e]
-// over a stack of E int8 weights; x (E, M, K) f32/bf16, codes (E, K, N)
-// int8, scale (E, K/32, N), xl = x·L (E, M, rank) f32 precomputed by the
-// caller, r (E, rank, N). Workspace: part (E, splits, M, N) f32.
-extern "C" int qlr_batched_launch(const void* x, const void* codes,
-                                  const void* scale, const void* xl,
-                                  const void* r, void* y, void* part, int E,
-                                  int M, int K, int N, int rank, int x_bf16,
-                                  void* stream) {
-  if (M <= 8)   // constraints.QLR_BATCHED_SMALL_ROWS: the decode lanes
-    return dispatch_stacked<8>(x, codes, scale, xl, r, y, part, E, M, K, N,
-                               rank, x_bf16, stream);
-  return dispatch_stacked<16>(x, codes, scale, xl, r, y, part, E, M, K, N,
-                              rank, x_bf16, stream);
+// K6: y (E, M, N) f32, y[e] = x[e]·dequant(codes[e], scale[e]) +
+// (x[e]·L[e])·R[e] over a stack of E int8 weights, x·L in the pass; x (E,
+// M, K) f32/bf16, codes (E, K, N) int8, scale (E, K/32, N), l (E, K,
+// rank), r (E, rank, N); counts (E,) int32 or null: rows of entry e at or
+// past counts[e] (clamped to [0, M]) are written as zeros and not
+// computed. `tile`, `splits` and `split_blocks` come from the wrapper's
+// qlr_stacked_plan.
+extern "C" int qlr_stacked_launch(const void* x, const void* codes,
+                                  const void* scale, const void* l,
+                                  const void* r, void* y, const void* counts,
+                                  int E, int M, int K, int N, int rank,
+                                  int tile, int splits, int split_blocks,
+                                  int x_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* c = static_cast<const int*>(counts);
+  return x_bf16
+      ? launch_stacked_tile<__nv_bfloat16>(tile, x, codes, scale, l, r, y, c,
+                                           E, M, K, N, rank, splits,
+                                           split_blocks, s)
+      : launch_stacked_tile<float>(tile, x, codes, scale, l, r, y, c, E, M, K,
+                                   N, rank, splits, split_blocks, s);
 }

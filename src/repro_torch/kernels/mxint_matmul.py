@@ -20,9 +20,15 @@ its tile and its split of K. The kernels build each weight as
 ``code · scale`` in bf16, exact for MXINT's power-of-two scales.
 
 :func:`qlr_matmul_batched` is the stacked entry (MoE experts): ``x (E, M,
-K)`` against ``E`` int8 weights, ``xl = x·L`` computed outside the kernel
-by one ``torch.bmm`` (as the JAX dispatch computes it outside Pallas),
-then K6 on a CUDA tensor, :func:`qlr_matmul_batched_plain` on a CPU one.
+K)`` against ``E`` int8 weights. On a CUDA tensor it launches K6, the same
+tensor-core body over the stack with x·L in the pass (one launch, no
+sliver computed outside, no finishing kernel; :func:`qlr_stacked_plan`
+picks its tile and split); on a CPU tensor it runs
+:func:`qlr_matmul_batched_plain`. Its optional ``counts`` (E,) int32 gives
+the rows of each entry's capacity queue that hold a token: the rows past
+it come out as zeros and K6 does not compute them (the JAX kernel computes
+every row; on the MoE dispatch buffer, zero past the counts, the two
+agree).
 """
 from __future__ import annotations
 
@@ -30,10 +36,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.constraints import (
-    CUDA_MAX_GRID_YZ, MXINT_BLOCK, QLR_BATCHED_SMALL_ROWS, QLR_COL_VEC,
-    QLR_DECODE_ROWS, QLR_DECODE_TARGET_BLOCKS, QLR_FUSED_MAX_ROWS,
-    QLR_MAX_RANK, QLR_MAX_SPLITS, QLR_PREFILL_TARGET_BLOCKS, QLR_ROUTER_COLS,
-    QLR_SPLIT_ROWS, QLR_TILE_DECODE, QLR_TILE_PREFILL, QLR_TILE_ROUTER,
+    CUDA_MAX_GRID_YZ, MXINT_BLOCK, QLR_COL_VEC, QLR_DECODE_ROWS,
+    QLR_DECODE_TARGET_BLOCKS, QLR_FUSED_MAX_ROWS, QLR_MAX_RANK,
+    QLR_MAX_SPLITS, QLR_PREFILL_TARGET_BLOCKS, QLR_ROUTER_COLS,
+    QLR_STACK_TARGET_BLOCKS, QLR_TILE_DECODE, QLR_TILE_PREFILL,
+    QLR_TILE_ROUTER, QLR_TILE_STACK_DECODE, QLR_TILE_STACK_PREFILL,
     QLR_TILE_WIDE, QLR_TILES, QLR_WIDE_MAX_COLS, QLR_X_ALIGN)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
@@ -65,12 +72,25 @@ def qlr_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
     return y
 
 
+def _split_k(tile: int, tiles: int, k: int,
+             target: int) -> tuple[int, int, int]:
+    """(tile, K splits, MXINT blocks a split) for a grid of ``tiles``
+    output tiles over ``k`` rows. Splits double, up to ``QLR_MAX_SPLITS``
+    (one thread-block cluster), while the doubled grid stays within
+    ``target`` blocks and every split keeps at least one MXINT block; the
+    last split may be short."""
+    k32 = k // MXINT_BLOCK
+    splits = 1
+    while splits < QLR_MAX_SPLITS and tiles * 2 * splits <= target \
+            and (2 * splits - 1) * -(-k32 // (2 * splits)) < k32:
+        splits *= 2
+    return tile, splits, -(-k32 // splits)
+
+
 def qlr_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
     """The K1/K2 launch for ``x (m, k)`` against ``(k, n)`` codes: (tile
-    shape, K splits, MXINT blocks a split). Splits double, up to
-    ``QLR_MAX_SPLITS`` (one thread-block cluster), while the doubled grid
-    stays within the tile's target count of blocks and every split keeps
-    at least one MXINT block; the last split may be short."""
+    shape, K splits, MXINT blocks a split), the splits within the tile's
+    target count of blocks (one wave)."""
     if m <= QLR_DECODE_ROWS:
         tile = QLR_TILE_ROUTER if n <= QLR_ROUTER_COLS else \
             QLR_TILE_WIDE if n < QLR_WIDE_MAX_COLS else QLR_TILE_DECODE
@@ -78,13 +98,20 @@ def qlr_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
     else:
         tile, target = QLR_TILE_PREFILL, QLR_PREFILL_TARGET_BLOCKS
     cols, rows = QLR_TILES[tile][:2]
-    tiles = -(-n // cols) * -(-m // rows)
-    k32 = k // MXINT_BLOCK
-    splits = 1
-    while splits < QLR_MAX_SPLITS and tiles * 2 * splits <= target \
-            and (2 * splits - 1) * -(-k32 // (2 * splits)) < k32:
-        splits *= 2
-    return tile, splits, -(-k32 // splits)
+    return _split_k(tile, -(-n // cols) * -(-m // rows), k, target)
+
+
+def qlr_stacked_plan(e: int, m: int, k: int,
+                     n: int) -> tuple[int, int, int]:
+    """The K6 launch for ``x (e, m, k)`` against ``(e, k, n)`` codes:
+    (tile shape, K splits, MXINT blocks a split). 8-row tiles for the
+    decode lanes, 32-row tiles above; K splits only while the grid of
+    ``e`` entries' tiles stays within ``QLR_STACK_TARGET_BLOCKS``."""
+    tile = QLR_TILE_STACK_DECODE if m <= QLR_DECODE_ROWS \
+        else QLR_TILE_STACK_PREFILL
+    cols, rows = QLR_TILES[tile][:2]
+    return _split_k(tile, e * -(-n // cols) * -(-m // rows), k,
+                    QLR_STACK_TARGET_BLOCKS)
 
 
 def _check(x, codes, scale, l, r, rank_rows: int) -> tuple[int, int, int]:
@@ -192,33 +219,50 @@ def qlr_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
 
+def _zero_past_counts(y: torch.Tensor,
+                     counts: torch.Tensor | None) -> torch.Tensor:
+    """Rows of entry ``e`` at or past ``counts[e]`` set to exactly 0."""
+    if counts is None:
+        return y
+    rows = torch.arange(y.shape[1], device=y.device)
+    live = rows[None, :] < counts.to(y.device, torch.int64)[:, None]
+    return torch.where(live[..., None], y, 0.0)
+
+
 def qlr_matmul_batched_plain(x: torch.Tensor, codes: torch.Tensor,
                              scale: torch.Tensor, l: torch.Tensor,
-                             r: torch.Tensor) -> torch.Tensor:
+                             r: torch.Tensor,
+                             counts: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """Plain version of K6: ``x (E, M, K) → y (E, M, N)`` in f32,
-    ``y[e] = x[e]·dequant(codes[e], scale[e]) + (x[e]·L[e])·R[e]``."""
+    ``y[e] = x[e]·dequant(codes[e], scale[e]) + (x[e]·L[e])·R[e]``, rows
+    of entry ``e`` at or past ``counts[e]`` zero."""
     xf = x.float()
     y = torch.bmm(xf, dequant_blockwise(codes, scale, torch.float32))
     if l.shape[-1] > 0:
         y = y + torch.bmm(torch.bmm(xf, l.float()), r.float())
-    return y
+    return _zero_past_counts(y, counts)
 
 
 def qlr_batched_matmul_cuda(x: torch.Tensor, codes: torch.Tensor,
-                            scale: torch.Tensor, xl: torch.Tensor,
-                            r: torch.Tensor) -> torch.Tensor:
-    """Launch K6 on ``x (E, M, K)`` with the precomputed sliver ``xl =
-    x·L`` (E, M, rank) f32: y (E, M, N) f32. Codes are int8 only, as the
-    TPU kernel's."""
+                            scale: torch.Tensor, l: torch.Tensor,
+                            r: torch.Tensor,
+                            counts: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Launch K6 on ``x (E, M, K)``: y (E, M, N) f32, x·L accumulated in
+    the kernel's pass over K. Codes are int8 only, as the TPU kernel's.
+    ``counts`` (E,) int32 on x's device, or None for every row; its
+    values are not checked here (that would wait on the device): the
+    kernel clamps them to [0, M]."""
     if codes.dtype != torch.int8:
         raise TypeError(f"K6 takes int8 codes, got {codes.dtype} (packed4 "
                         f"expert stacks take the dequantize-then-matmul path)")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    for name, t in (("scale", scale), ("xl", xl), ("r", r)):
+    for name, t in (("scale", scale), ("l", l), ("r", r)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-    for name, t in (("x", x), ("codes", codes), ("scale", scale), ("xl", xl),
+    for name, t in (("x", x), ("codes", codes), ("scale", scale), ("l", l),
                     ("r", r)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -238,43 +282,56 @@ def qlr_batched_matmul_cuda(x: torch.Tensor, codes: torch.Tensor,
     if n % QLR_COL_VEC:
         raise ValueError(f"N={n} must be a multiple of {QLR_COL_VEC}")
     if rank > QLR_MAX_RANK or r.shape != (e, rank, n) \
-            or xl.shape != (e, m, rank):
-        raise ValueError(f"xl {tuple(xl.shape)}, r {tuple(r.shape)} do not "
-                         f"fit E={e}, M={m}, N={n} (rank ≤ {QLR_MAX_RANK})")
-    row_tile = QLR_BATCHED_SMALL_ROWS if m <= QLR_BATCHED_SMALL_ROWS \
-        else 2 * QLR_BATCHED_SMALL_ROWS
-    if m < 1 or m > CUDA_MAX_GRID_YZ \
-            or e * -(-m // row_tile) > CUDA_MAX_GRID_YZ:
-        raise ValueError(f"E={e}, M={m}: K6's grid takes 1 ≤ M and E · "
-                         f"ceil(M/{row_tile}) ≤ {CUDA_MAX_GRID_YZ}")
-    if codes.data_ptr() % 4 or scale.data_ptr() % 16:
-        raise ValueError("codes must be 4-byte and scale 16-byte aligned")
-    splits = -(-k // QLR_SPLIT_ROWS)
+            or l.shape != (e, k, rank):
+        raise ValueError(f"l {tuple(l.shape)}, r {tuple(r.shape)} do not "
+                         f"fit E={e}, K={k}, N={n} (rank ≤ {QLR_MAX_RANK})")
+    if counts is not None:
+        if counts.dtype != torch.int32:
+            raise TypeError(f"counts must be int32, got {counts.dtype}")
+        if counts.device != x.device:
+            raise ValueError(f"counts is on {counts.device}, x on {x.device}")
+        if counts.shape != (e,) or not counts.is_contiguous():
+            raise ValueError(f"counts {tuple(counts.shape)} must be a "
+                             f"contiguous ({e},) vector")
+    tile, splits, per = qlr_stacked_plan(e, m, k, n)
+    cols, rows = QLR_TILES[tile][:2]
+    if m < 1 or e < 1 or e * -(-m // rows) > CUDA_MAX_GRID_YZ \
+            or -(-n // cols) > CUDA_MAX_GRID_YZ:
+        raise ValueError(f"E={e}, M={m}, N={n}: K6's grid takes 1 ≤ E · "
+                         f"ceil(M/{rows}) ≤ {CUDA_MAX_GRID_YZ} and "
+                         f"ceil(N/{cols}) ≤ {CUDA_MAX_GRID_YZ}")
+    if codes.data_ptr() % 4 or scale.data_ptr() % 16 \
+            or x.data_ptr() % QLR_X_ALIGN \
+            or (rank and r.data_ptr() % QLR_X_ALIGN):
+        raise ValueError(f"codes must be 4-byte, scale 16-byte and x and r "
+                         f"{QLR_X_ALIGN}-byte aligned")
     y = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
-    part = torch.empty((e, splits, m, n), dtype=torch.float32,
-                       device=x.device)
-    fn = _build.function("mxint_matmul", "qlr_batched_launch", 7, 6)
-    err = fn(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), xl.data_ptr(),
-             r.data_ptr(), y.data_ptr(), part.data_ptr(), e, m, k, n, rank,
-             int(x.dtype == torch.bfloat16),
+    fn = _build.function("mxint_matmul", "qlr_stacked_launch", 7, 9)
+    err = fn(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), l.data_ptr(),
+             r.data_ptr(), y.data_ptr(),
+             None if counts is None else counts.data_ptr(), e, m, k, n, rank,
+             tile, splits, per, int(x.dtype == torch.bfloat16),
              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "qlr_batched_launch (K6)")
+    _build.check(err, "qlr_stacked_launch (K6)")
     LAUNCHES["qlr_batched"] += 1
     return y
 
 
 def qlr_matmul_batched(x: torch.Tensor, codes: torch.Tensor,
                        scale: torch.Tensor, l: torch.Tensor,
-                       r: torch.Tensor) -> torch.Tensor:
+                       r: torch.Tensor,
+                       counts: torch.Tensor | None = None) -> torch.Tensor:
     """Stacked ``y[e] = x[e]·dequant(codes[e], scale[e]) + (x[e]·L[e])·
     R[e]`` for ``x (E, M, K)``, int8 ``codes (E, K, N)``, ``scale (E,
-    K/32, N)``, ``l (E, K, r)``, ``r (E, r, N)``; returns ``x.dtype``. CPU
-    tensors take the plain version; CUDA tensors take K6 after one
-    ``torch.bmm`` for the sliver ``x·L``."""
+    K/32, N)``, ``l (E, K, r)``, ``r (E, r, N)``; rows of entry ``e`` at
+    or past ``counts[e]`` (an (E,) int32, or None for none) are zero.
+    Returns ``x.dtype``. CPU tensors take the plain version; CUDA tensors
+    take K6."""
     if x.device.type == "cpu":
-        y = qlr_matmul_batched_plain(x, codes, scale, l, r)
+        y = qlr_matmul_batched_plain(x, codes, scale, l, r, counts)
     else:
         x = x.contiguous()
-        xl = torch.bmm(x.float(), l.float())
-        y = qlr_batched_matmul_cuda(x, codes, scale, xl, r)
+        if x.data_ptr() % QLR_X_ALIGN:      # a view at an odd offset
+            x = x.clone()
+        y = qlr_batched_matmul_cuda(x, codes, scale, l, r, counts)
     return y.to(x.dtype)

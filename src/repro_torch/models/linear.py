@@ -131,7 +131,8 @@ def linear(ctx: Ctx, p: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _fused_qlr_stack(p: QLinear, x: torch.Tensor) -> torch.Tensor:
+def _fused_qlr_stack(p: QLinear, x: torch.Tensor,
+                     counts: Optional[torch.Tensor]) -> torch.Tensor:
     """An int8 expert stack through the batched Q + LR matmul, padding x
     and l with zeros up to the MXINT-padded code rows."""
     l = p.l
@@ -139,21 +140,25 @@ def _fused_qlr_stack(p: QLinear, x: torch.Tensor) -> torch.Tensor:
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
         l = torch.nn.functional.pad(l, (0, 0, 0, pad))
-    return qlr_matmul_batched(x, p.codes, p.scale, l, p.r)
+    return qlr_matmul_batched(x, p.codes, p.scale, l, p.r, counts)
 
 
-def linear_stack(ctx: Ctx, p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def linear_stack(ctx: Ctx, p: nn.Module, x: torch.Tensor,
+                 counts: Optional[torch.Tensor]) -> torch.Tensor:
     """``y[e] = x[e] @ W[e] (+ b[e])`` for an expert stack and ``x`` (E, C,
     m). int8 stacks under the kernel mode take the batched Q + LR matmul
-    (K6 on the card); fp stacks, packed4 stacks and ``fused="off"`` take
-    one batched matmul on the dequantized stack, as the JAX package's
-    ``vmap`` of dequantize-then-matmul does."""
+    (K6 on the card), which skips the rows of entry ``e`` at or past
+    ``counts[e]`` ((E,) int32: rows that hold no token, zero in ``x``) and
+    returns them as zeros (plus the bias); fp stacks, packed4 stacks and
+    ``fused="off"`` ignore ``counts`` and take one batched matmul on the
+    dequantized stack, as the JAX package's ``vmap`` of
+    dequantize-then-matmul does."""
     dt = ctx.compute_dtype
     xd = x.to(dt)
     if isinstance(p, FpLinear):
         y = torch.bmm(xd, p.w.to(dt))
     elif fused_mode(ctx) != "off" and p.codes is not None:
-        y = _fused_qlr_stack(p, xd)
+        y = _fused_qlr_stack(p, xd, counts)
     else:
         y = torch.bmm(xd, dequant_weight(p, dt))
         if p.l.shape[-1] > 0:

@@ -8,7 +8,8 @@ with top-k routing. The dispatch is capacity-based scatter/gather
 on it as stacks: ``experts`` is an :class:`MLP` whose three projections
 carry a leading expert axis (``models.linear``), applied by
 :func:`~repro_torch.models.linear.linear_stack` — K6 for int8 stacks on
-the card.
+the card, told by each expert's count of kept assignments which rows of
+its queue hold a token.
 
 The JAX function also returns the Switch load-balancing loss; it feeds
 only the training objective, which the port has not ported (ROADMAP M10),
@@ -91,12 +92,16 @@ def route(ctx: Ctx, p: MoE, xf: torch.Tensor, k: int
     return idx, gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
 
-def expert_ffn(ctx: Ctx, experts: MLP, buf: torch.Tensor) -> torch.Tensor:
-    """SwiGLU over the whole expert stack; buf (E, C, d)."""
+def expert_ffn(ctx: Ctx, experts: MLP, buf: torch.Tensor,
+               counts: torch.Tensor) -> torch.Tensor:
+    """SwiGLU over the whole expert stack; buf (E, C, d). ``counts`` (E,)
+    int32: the leading rows of each expert's queue that hold a token (buf
+    is zero past them); the kernel path skips the rest."""
     dt = buf.dtype
-    h = torch.nn.functional.silu(linear_stack(ctx, experts.gate, buf)) \
-        * linear_stack(ctx, experts.up, buf)
-    return linear_stack(ctx, experts.down, h.to(dt)).to(dt)
+    gate = linear_stack(ctx, experts.gate, buf, counts)
+    h = torch.nn.functional.silu(gate) * linear_stack(ctx, experts.up, buf,
+                                                      counts)
+    return linear_stack(ctx, experts.down, h.to(dt), counts).to(dt)
 
 
 def moe_apply(ctx: Ctx, p: MoE, x: torch.Tensor,
@@ -127,7 +132,10 @@ def moe_apply(ctx: Ctx, p: MoE, x: torch.Tensor,
     flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = xf.new_zeros((e * cap + 1, d))
     buf.index_copy_(0, dest, xf[flat_tok])
-    out = expert_ffn(ctx, p.experts, buf[:-1].reshape(e, cap, d))
+    # kept assignments per expert: its queue's leading rows, zero past
+    # them (from the one-hot, on the device: no host sync)
+    counts = onehot.sum(dim=0).clamp_max(cap).int()
+    out = expert_ffn(ctx, p.experts, buf[:-1].reshape(e, cap, d), counts)
 
     gathered = out.reshape(e * cap, d)[torch.where(keep, dest, 0)]
     gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))

@@ -2,8 +2,8 @@
 kernel against its plain version on the card (K5 on a shuffled block
 table, K4 also at the chunk shape and where whole key tiles are dead,
 K3/K4 also at head_dim 128, K3/K5 across split boundaries, K6 over an
-expert stack, K7 bit for bit), and each wrapper raising on input the
-kernel does not take.
+expert stack with and without counts, K7 bit for bit), and each wrapper
+raising on input the kernel does not take.
 
 Run on a machine with an H100: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``. Tolerances: the kernels sum in another
@@ -321,9 +321,16 @@ def _stack(dev, e, m, k, n, r, seed=0):
     return x, codes, scale, l, rr
 
 
+def _past_counts(x, counts):
+    """Row mask (E, M) of the rows at or past each entry's count."""
+    rows = torch.arange(x.shape[1], device=x.device)
+    return rows[None, :] >= counts.long().clamp(0, x.shape[1])[:, None]
+
+
 @pytest.mark.parametrize("m,r", [(1, 16), (8, 16), (8, 0), (30, 16), (45, 8)])
 def test_qlr_batched_matches_plain(dev, m, r):
-    # K = 1088: three split-K slices, the last of 64 rows
+    # K = 1088: 34 MXINT blocks, so the last stage is short; N = 200: a
+    # narrow last column tile
     x, codes, scale, l, rr = _stack(dev, 6, m, 1088, 200, r, seed=m + r)
     want = mk.qlr_matmul_batched_plain(x, codes, scale, l, rr)
     before = mk.LAUNCHES["qlr_batched"]
@@ -332,23 +339,68 @@ def test_qlr_batched_matches_plain(dev, m, r):
     _close(mk.qlr_matmul_batched(x.bfloat16(), codes, scale, l, rr),
            mk.qlr_matmul_batched_plain(x.bfloat16(), codes, scale, l, rr),
            2 ** -8)
+    # counts: experts with no token, partial queues and full ones
+    counts = torch.tensor([0, m, m // 2, 0, max(m - 1, 0), m],
+                          dtype=torch.int32, device=dev)
+    xz = x.masked_fill(_past_counts(x, counts)[..., None], 0.0)
+    want = mk.qlr_matmul_batched_plain(xz, codes, scale, l, rr, counts)
+    got = mk.qlr_matmul_batched(xz, codes, scale, l, rr, counts)
+    _close(got, want, 1e-4)
+    assert not got[_past_counts(x, counts)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [8, 30])
+def test_qlr_batched_counts(dev, dtype, m):
+    """K6 with counts on f32 and bf16 x, K = 1088 (a short last stage), N
+    = 200 (a narrow tile): one launch a call, rows past the counts exactly
+    0 (x there is not zero, so nothing past a count is computed), counts
+    out of [0, M] clamped."""
+    x, codes, scale, l, rr = _stack(dev, 8, m, 1088, 200, 16, seed=m)
+    x = x.to(dtype)
+    counts = torch.tensor([0, 1, m // 2, m, 9, -3, m + 5, 0],
+                          dtype=torch.int32, device=dev)
+    want = mk.qlr_matmul_batched_plain(x, codes, scale, l, rr, counts)
+    before = mk.LAUNCHES["qlr_batched"]
+    got = mk.qlr_batched_matmul_cuda(x, codes, scale, l, rr, counts)
+    assert mk.LAUNCHES["qlr_batched"] == before + 1
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2 ** -8)
+    past = _past_counts(x, counts)
+    assert past.any() and not got[past].any()
+    assert got[~past].abs().max() > 0
 
 
 def test_qlr_batched_wrapper_raises(dev):
     x, codes, scale, l, rr = _stack(dev, 4, 8, 256, 128, 8)
-    xl = torch.bmm(x, l)
+    counts = torch.full((4,), 8, dtype=torch.int32, device=dev)
     packed = pack_codes_4bit(codes.reshape(-1, 128)).reshape(4, 128, 128)
     with pytest.raises(TypeError):                      # packed4 codes
-        mk.qlr_batched_matmul_cuda(x, packed, scale, xl, rr)
+        mk.qlr_batched_matmul_cuda(x, packed, scale, l, rr)
     with pytest.raises(ValueError):                     # wrong stack shape
-        mk.qlr_batched_matmul_cuda(x, codes[:3], scale, xl, rr)
+        mk.qlr_batched_matmul_cuda(x, codes[:3], scale, l, rr)
     with pytest.raises(ValueError):
-        mk.qlr_batched_matmul_cuda(x[:, :, :128], codes, scale, xl, rr)
+        mk.qlr_batched_matmul_cuda(x[:, :, :128], codes, scale, l, rr)
     with pytest.raises(ValueError):
         mk.qlr_batched_matmul_cuda(x.transpose(1, 2).contiguous()
-                                   .transpose(1, 2), codes, scale, xl, rr)
+                                   .transpose(1, 2), codes, scale, l, rr)
     with pytest.raises(ValueError):
-        mk.qlr_batched_matmul_cuda(x, codes.cpu(), scale, xl, rr)
+        mk.qlr_batched_matmul_cuda(x, codes.cpu(), scale, l, rr)
+    with pytest.raises(ValueError):                     # l of another rank
+        mk.qlr_batched_matmul_cuda(x, codes, scale, l[..., :4], rr)
+    with pytest.raises(TypeError):                      # counts' dtype
+        mk.qlr_batched_matmul_cuda(x, codes, scale, l, rr, counts.long())
+    with pytest.raises(ValueError):                     # counts' shape
+        mk.qlr_batched_matmul_cuda(x, codes, scale, l, rr, counts[:3])
+    with pytest.raises(ValueError):                     # counts' device
+        mk.qlr_batched_matmul_cuda(x, codes, scale, l, rr, counts.cpu())
+    r_off = torch.empty(rr.numel() + 1, device=dev)[1:].view(rr.shape)
+    r_off.copy_(rr)
+    assert r_off.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):    # R off 16 bytes
+        mk.qlr_batched_matmul_cuda(x, codes, scale, l, r_off, counts)
+    # the card runs the next call
+    _close(mk.qlr_batched_matmul_cuda(x, codes, scale, l, rr, counts),
+           mk.qlr_matmul_batched_plain(x, codes, scale, l, rr, counts), 1e-4)
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])

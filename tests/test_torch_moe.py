@@ -3,7 +3,10 @@ layers, the first dense; 8 routed experts + 1 shared, top-2, d_expert 32):
 
 * K6's plain version ``qlr_matmul_batched_plain`` against the JAX
   package's ``ops.mxint_lowrank_matmul_batched`` (the Pallas kernel in
-  interpret mode) and ``ops._qlr_matmul_batched_xla``;
+  interpret mode) and ``ops._qlr_matmul_batched_xla``, without and with
+  per-expert ``counts`` (rows past a count zero in x and exactly 0 in y);
+* the counts ``moe_apply`` hands the experts against the JAX routing's
+  per-expert load, clamped at the capacity;
 * ``moe_apply`` against JAX ``moe_apply`` on converted params — fp, int8
   and packed4 experts, ``fused`` auto/off — at 128 tokens, where the
   capacity (40) drops assignments, and at a 3-token decode;
@@ -80,6 +83,34 @@ def test_batched_plain_matches_jax_kernel_and_xla(rank, m):
     _close(got.numpy(), jops._qlr_matmul_batched_xla(*j), 1e-5)
 
 
+@pytest.mark.parametrize("counts", [[0, 0, 0, 0], [0, 1, 2, 3], [5, 0, 8, 2],
+                                    [8, 8, 8, 8]],
+                         ids=["none", "partial", "mixed", "full"])
+def test_batched_plain_counts_match_jax_kernel(counts):
+    """On a stack zero past each expert's count (as the dispatch buffer
+    is), the plain K6 with counts equals the full plain version, the JAX
+    kernel (interpret mode) and its XLA lowering, and its rows past the
+    counts are exactly 0."""
+    rng = np.random.default_rng(sum(counts))
+    e, m, k, n, rank = 4, 8, 64, 48, 8
+    x = rng.standard_normal((e, m, k)).astype(np.float32)
+    past = np.arange(m)[None, :] >= np.asarray(counts)[:, None]
+    x[past] = 0
+    codes = rng.integers(-4, 4, (e, k, n)).astype(np.int8)
+    scale = np.exp2(rng.integers(-6, -2, (e, k // 32, n))).astype(np.float32)
+    l = (rng.standard_normal((e, k, rank)) * 0.1).astype(np.float32)
+    r = (rng.standard_normal((e, rank, n)) * 0.1).astype(np.float32)
+    args = tuple(map(torch.from_numpy, (x, codes, scale, l, r)))
+    c = torch.tensor(counts, dtype=torch.int32)
+    got = mk.qlr_matmul_batched(*args, counts=c)
+    assert got.shape == (e, m, n) and not got.numpy()[past].any()
+    assert torch.equal(got, mk.qlr_matmul_batched_plain(*args, c))
+    _close(got.numpy(), mk.qlr_matmul_batched_plain(*args).numpy(), 1e-6)
+    j = tuple(map(jnp.asarray, (x, codes, scale, l, r)))
+    _close(got.numpy(), jops.mxint_lowrank_matmul_batched(*j), 1e-5)
+    _close(got.numpy(), jops._qlr_matmul_batched_xla(*j), 1e-5)
+
+
 # --------------------------------------------------------------------------
 # moe_apply, with capacity drops
 # --------------------------------------------------------------------------
@@ -143,6 +174,36 @@ def test_moe_apply_matches_jax(moe_params, container, fused, b, s):
         assert cap == 40 and load.max() > cap, load
     else:
         assert cap == t
+
+
+@pytest.mark.parametrize("b,s", [(2, 64), (3, 1)], ids=["t128-drops", "decode"])
+def test_moe_counts_match_jax_routing(moe_params, monkeypatch, b, s):
+    """The per-expert counts ``moe_apply`` hands ``expert_ffn`` (from its
+    one-hot, no host sync) equal ``np.bincount`` of the JAX routing,
+    clamped at the capacity, and are int32 on x's device."""
+    from repro_torch.models import moe as moe_mod
+    jcfg, cfg = jget_config(ARCH).reduced(), get_config(ARCH).reduced()
+    jp, port = moe_params["int8"]
+    rng = np.random.default_rng(b * s)
+    x = (rng.standard_normal((b, s, cfg.d_model))
+         + rng.standard_normal(cfg.d_model)).astype(np.float32)
+    seen = []
+    ffn = moe_mod.expert_ffn
+
+    def spy(ctx, experts, buf, counts=None):
+        seen.append(counts)
+        return ffn(ctx, experts, buf, counts)
+
+    monkeypatch.setattr(moe_mod, "expert_ffn", spy)
+    moe_apply(Ctx(), port, torch.from_numpy(x), cfg)
+    (counts,) = seen
+    cap = capacity(b * s, cfg)
+    load = np.bincount(_jax_route(JCtx(fused="on"), jp, x, jcfg).reshape(-1),
+                       minlength=cfg.n_routed)
+    assert counts.dtype == torch.int32 and counts.device.type == "cpu"
+    assert counts.tolist() == np.minimum(load, cap).tolist()
+    if b * s == 128:
+        assert load.max() > cap          # some queues overflow: drops
 
 
 def test_route_replay_reproduces_and_overrides_the_routing(moe_params):

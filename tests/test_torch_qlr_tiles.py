@@ -1,4 +1,4 @@
-"""The number path of the tensor-core K1/K2 kernel (qlr_tc_kernel in
+"""The number path of the tensor-core K1/K2/K6 kernel (qlr_tc_body in
 ``kernels/csrc/mxint_matmul.cu``), emulated in torch on the CPU and held
 against the JAX oracle ``repro.kernels.ref.mxint_lowrank_matmul_ref``.
 
@@ -9,7 +9,9 @@ to f32 accumulators (hi first, then lo); each warp of a stage owns its
 MXINT blocks; each block of a K split of :func:`qlr_plan` sums its warps
 in order, and the splits' sums add in rank order; K1's x·L runs as x hi/lo × L hi/lo
 (three products) and K2 takes ``x·L`` from the caller; the epilogue adds
-``(x·L)·R`` one rank at a time.
+``(x·L)·R`` one rank at a time. K6 is K1 per stack entry under
+:func:`qlr_stacked_plan`, with the entry's x rows at or past its count
+loaded as zeros and its y rows there written as zeros.
 
 Tolerance: ``1e-4 · max(1, max|y|)``, the gate the card run holds the
 kernel to. The weights are exact in bf16; x's hi/lo pair misses x by about
@@ -24,9 +26,11 @@ import torch
 
 from repro.kernels.ref import mxint_lowrank_matmul_ref
 from repro.quant.mxint import MXIntQuantizer, pack_codes_4bit
-from repro_torch.kernels.constraints import (MXINT_BLOCK, QLR_FUSED_MAX_ROWS,
+from repro_torch.kernels.constraints import (CUDA_MAX_GRID_YZ, MXINT_BLOCK,
+                                             QLR_FUSED_MAX_ROWS,
                                              QLR_MAX_SPLITS, QLR_TILES)
-from repro_torch.kernels.mxint_matmul import _check, qlr_plan
+from repro_torch.kernels.mxint_matmul import (_check, qlr_plan,
+                                              qlr_stacked_plan)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
 K16 = 16                       # mma.sync m16n8k16: K rows a step
@@ -41,15 +45,16 @@ def _bf16_terms(v: torch.Tensor) -> list:
     return [hi, (v - hi).bfloat16().float()]
 
 
-def emulate(x, codes, scale, l, r, xl=None) -> torch.Tensor:
+def emulate(x, codes, scale, l, r, xl=None, plan=None) -> torch.Tensor:
     """y = x·dequant(codes, scale) + (x·L)·R as the kernel computes it;
-    K1 (x·L in the pass) when ``xl`` is None, else K2."""
+    K1 (x·L in the pass) when ``xl`` is None, else K2; ``plan`` (tile,
+    splits, blocks a split) when not :func:`qlr_plan`'s."""
     if codes.dtype == torch.uint8:
         codes = unpack_codes_4bit(codes)
     m, k = x.shape
     n = codes.shape[1]
     rank = r.shape[0]
-    tile, splits, per = qlr_plan(m, k, n)
+    tile, splits, per = plan or qlr_plan(m, k, n)
     stage_blocks, k_warps = QLR_TILES[tile][2:]
     w = (codes.float().reshape(k // MXINT_BLOCK, MXINT_BLOCK, n)
          * scale[:, None, :]).reshape(k, n)
@@ -89,6 +94,23 @@ def emulate(x, codes, scale, l, r, xl=None) -> torch.Tensor:
     for c in range(rank):
         y += xl_sum[:, c:c + 1] * r[c]
     return y
+
+
+def emulate_stacked(x, codes, scale, l, r, counts) -> torch.Tensor:
+    """K6 as the kernel computes it: K1 per entry under the stacked plan,
+    x rows at or past the entry's count (clamped to [0, M]) loaded as
+    zeros, y rows there written as zeros."""
+    e, m, k = x.shape
+    plan = qlr_stacked_plan(e, m, k, codes.shape[2])
+    ys = []
+    for i in range(e):
+        c = min(max(int(counts[i]), 0), m)
+        xi = x[i].clone()
+        xi[c:] = 0
+        yi = emulate(xi, codes[i], scale[i], l[i], r[i], plan=plan)
+        yi[c:] = 0
+        ys.append(yi)
+    return torch.stack(ys)
 
 
 def _case(m, k, n, rank, seed, extreme=False):
@@ -141,6 +163,36 @@ def test_tiles_match_jax_oracle(packed, rank, m, n):
     _hold(m, 1056, n, rank, packed, seed=m + n + rank)
 
 
+# K6: entries with no token, one, part of the queue and all of it, and
+# counts past M and below 0 (clamped); M = 30 is the prefill capacity
+# (one 32-row tile), 40 takes two row tiles, 8 the decode lanes
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("rank", [0, 16])
+@pytest.mark.parametrize("m", [1, 8, 30, 40])
+@pytest.mark.parametrize("n", [64, 200])
+def test_stacked_tiles_match_jax_oracle(bf16, rank, m, n):
+    e, k = 6, 1056
+    counts = [0, 1, m // 2, m, m + 3, -2]
+    cases = [_case(m, k, n, rank, seed=m + n + rank + i) for i in range(e)]
+    x, codes, scale, l, r = (np.stack(a) for a in zip(*cases))
+    rows = np.arange(m)[None, :] >= np.clip(counts, 0, m)[:, None]
+    x[rows] = 0                  # the dispatch buffer is zero past a count
+    if bf16:
+        x = np.asarray(torch.from_numpy(x).bfloat16().float())
+    want = np.stack([np.asarray(mxint_lowrank_matmul_ref(
+        *(jnp.asarray(a[i]) for a in (x, codes, scale, l, r))))
+        for i in range(e)])
+    xt = torch.from_numpy(x)
+    if bf16:
+        xt = xt.bfloat16()
+    got = emulate_stacked(xt, *(torch.from_numpy(a)
+                                for a in (codes, scale, l, r)),
+                          counts).numpy()
+    assert np.isfinite(got).all() and not got[rows].any()
+    tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got - want).max()) <= tol
+
+
 @pytest.mark.parametrize("m", [8, 130])
 def test_tiles_bf16_x_match_jax_oracle(m):
     _hold(m, 1056, 200, 16, False, seed=m, bf16=True)
@@ -166,6 +218,36 @@ def test_plan_splits_cover_k():
         assert (splits - 1) * per < blocks <= splits * per
     assert qlr_plan(8, 10944, 2048)[1:] == (8, 43)     # 342 = 7·43 + 41
     assert qlr_plan(8, 2048, 64)[1:] == (8, 8)         # the router
+
+
+def test_stacked_plan_covers_the_grid():
+    """The K6 grid of :func:`qlr_stacked_plan` — (splits, column tiles,
+    entries × row tiles), entry and row tile from grid.z as the kernel
+    takes them — covers every (entry, row, column, MXINT block) exactly
+    once and stays within the grid's limits; the serving shapes take one
+    split (64 experts × 11 column tiles are blocks enough)."""
+    for e, m, k, n in [(6, 45, 1088, 200), (2, 30, 1056, 64), (3, 1, 2048, 96),
+                       (8, 3, 64, 32), (4, 64, 256, 128), (5, 8, 1088, 136)]:
+        tile, splits, per = qlr_stacked_plan(e, m, k, n)
+        cols, rows = QLR_TILES[tile][:2]
+        k32 = k // MXINT_BLOCK
+        row_tiles = -(-m // rows)
+        grid = (splits, -(-n // cols), e * row_tiles)
+        assert 1 <= splits <= QLR_MAX_SPLITS
+        assert max(grid[1:]) <= CUDA_MAX_GRID_YZ
+        cover = np.zeros((e, m, n, k32), np.int32)
+        for z in range(grid[2]):
+            ent, m0 = z // row_tiles, (z % row_tiles) * rows
+            for yy in range(grid[1]):
+                for s in range(grid[0]):
+                    cover[ent, m0:m0 + rows, yy * cols:(yy + 1) * cols,
+                          s * per:min(k32, (s + 1) * per)] += 1
+        assert (cover == 1).all(), (e, m, k, n)
+    for m in (8, 30):
+        for k, n in ((2048, 1408), (1408, 2048)):
+            tile, splits, per = qlr_stacked_plan(64, m, k, n)
+            assert (splits, per) == (1, k // MXINT_BLOCK)
+            assert QLR_TILES[tile][1] == (8 if m == 8 else 32)
 
 
 def test_bf16_dequant_is_exact():
