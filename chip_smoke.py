@@ -15,8 +15,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    and K4 at head_dim 128, K3 also at phase 4's occupancy, rows of
    150–282 valid slots of 512; K6 over the 64-expert stacks at decode and
    prefill rows, and at decode with the counts of a seeded top-6 routing
-   (rows past a count must come out exactly 0); K7 bit for bit): max
-   error against a stated tolerance,
+   (rows past a count must come out exactly 0); K7 bit for bit at every
+   matrix shape of both SRR passes, an N below a multiple of 128 and an
+   N % 4 != 0, with an f32 → int8 ``copy_`` of the same bytes timed
+   beside it): max error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
    layers finds them cold) and the bound (K1/K2/K6: the function's
@@ -38,7 +40,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    with the launch counts read around that run (K3 must stay at 0: paged
    decode goes through K5); then a 300-token prompt's logits through two
    paged chunks against the unpaged one-shot prefill and against
-   ``fused="off"``;
+   ``fused="off"``; then, after serving, where phase 4's SRR pass goes
+   (``profile_srr``, as in phase 6, over its first two layers' 14
+   matrices);
 5. a reduced-depth (2-layer, full-width) model in the packed4 container
    served with int4 and int8 KV, unpaged and paged (chunks of 64, so the
    packed4 chunk writes and nibble read-modify-writes run on the card),
@@ -57,7 +61,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    layers whose top-k expert sets differ between the two runs counted
    (a routing flip), and the logits held to the tolerance under one
    routing (the ``fused="off"`` run replays the kernel run's choices when
-   any flipped).
+   any flipped); last, where the SRR pass goes, read apart from the
+   timed pass (``profile_srr``): the model cut to its first two layers
+   (207 matrices) quantized again under ``torch.profiler``, for device
+   time by stage (the ``srr.*`` and ``mxint.*`` ranges of ``core/srr.py``
+   and ``quant/mxint.py``) and by kernel, the device's busy share, host
+   ms a matrix profiled and in the timed pass, and K7's device total over
+   the timed pass from its launches × phase 3's time at each shape.
 
 The last lines are the nvidia-smi line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -66,13 +76,14 @@ per kernel, and ``{"ok": true, "device": {...}}``.
 
 times phase 3's Q+LR cases (K1 at its main, router and dense lead-in
 shapes, K2 at both M = 256 shapes, K6 at all five), its K3, K4 and K5
-cases and K7's, of the tree at PARENT_ROOT (an unpacked ``git
+cases and K7's thirteen, of the tree at PARENT_ROOT (an unpacked ``git
 archive``) and of this one on one card, in the order parent, change,
 change, parent, and prints one line per case
 (``build/compare_kernels.json`` holds them).
 """
 from __future__ import annotations
 
+import bisect
 import copy
 import dataclasses
 import json
@@ -517,8 +528,11 @@ def check_qlr_batched(dev, e: int, m: int, k: int, n: int, rank: int,
 
 def check_quantize(dev, m: int, n: int, bits: int = 3) -> dict:
     """K7 against its plain version, bit for bit (tolerance 0): max_abs_err
-    is the largest code or exponent difference."""
+    is the largest code or exponent difference. Beside the kernel's time:
+    the same-bytes yardstick ``copy_ms`` (an f32 → int8 ``copy_``: 4 bytes
+    read and 1 written a weight) and the path its plan takes."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import mxint_quantize as kq
 
     gen = torch.Generator(device=dev).manual_seed(m + n)
@@ -532,15 +546,32 @@ def check_quantize(dev, m: int, n: int, bits: int = 3) -> dict:
     sets = [(w.clone(), bits) for _ in range(copies_for(tensor_bytes(w)))]
     t_kernel, host = time_ms(kq.mxint_quantize_cuda, sets)
     t_plain, _ = time_ms(kq.mxint_quantize_plain, sets)
+    t_copy, _ = time_ms(lambda w_, b_: torch.empty_like(
+        w_, dtype=torch.int8).copy_(w_), sets)
+    plan = kq.mxint_quantize_plan(m, n, _build.sm_count(dev.index or 0))
     # one read of w, one write of the codes and of the exponents; per
     # weight an abs, a max, a scaling, a rounding and two clamps
     nbytes = tensor_bytes(w, codes, exps)
     b_ms, b_by = bound_ms(nbytes, 6 * m * n, "float32")
+    path = {kq.MXINT_PATH_SCALAR: "scalar", kq.MXINT_PATH_REGISTERS:
+            "register"}[plan.path]
     return dict(name="K7 mxint_quantize", shape=f"M={m} N={n} bits={bits}",
                 max_abs_err=err, tol=0.0, ms=t_kernel, host_ms=host,
                 plain_ms=t_plain, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by,
+                bound_by=b_by, copy_ms=t_copy,
+                path=f"{path} path, grid {plan.grid}×{kq.MXINT_THREADS}",
                 note="no single PyTorch call computes MXINT quantization")
+
+
+# Every distinct matrix shape the SRR pass quantizes: phi3-mini-3.8b
+# (attention 3072², gate/up 3072×8192, down 8192×3072), deepseek-moe-16b
+# (attention 2048², router 2048×64, expert gate/up and down, shared-expert
+# gate/up and down, the dense lead-in layer's), then an N below a
+# multiple of 128 and an N that is not a multiple of 4 (the scalar path).
+K7_SHAPES = ((3072, 3072), (3072, 8192), (8192, 3072), (2048, 2048),
+             (2048, 64), (2048, 1408), (1408, 2048), (2048, 2816),
+             (2816, 2048), (2048, 10944), (10944, 2048), (2048, 1000),
+             (2048, 1002))
 
 
 def phase_kernels(dev) -> list:
@@ -571,7 +602,7 @@ def phase_kernels(dev) -> list:
         for k, n in ((2048, 1408), (1408, 2048)):
             rows.append(check_qlr_batched(dev, 64, m, k, n, 16))
     rows.append(check_qlr_batched(dev, 64, 8, 2048, 1408, 16, top_k=6))
-    for m, n in ((2048, 1408), (3072, 8192)):
+    for m, n in K7_SHAPES:
         rows.append(check_quantize(dev, m, n))
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms"
@@ -586,6 +617,8 @@ def phase_kernels(dev) -> list:
             + (f", f32 bound {r['f32_bound_ms']:.4f} ms"
                if "f32_bound_ms" in r else "")
             + (f", x·L GEMM {r['xl_ms']:.4f} ms" if "xl_ms" in r else "")
+            + (f", copy_ {r['copy_ms']:.4f} ms, {r['path']}"
+               if "copy_ms" in r else "")
             + (f" [{r['note']}]" if "note" in r and r["library_ms"] is not None
                else ""))
     bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
@@ -704,9 +737,105 @@ def profile_decode(eng, cfg, reqs, n_steps: int = 4,
                 top=[(key, us / n_steps / 1e3) for key, us in top])
 
 
+# the SRR stages' torch.profiler ranges (core/srr.py, quant/mxint.py)
+SRR_STAGES = ("srr.", "mxint.")
+
+
+def profile_srr(dev, cfg, tag: str, t_pass: float, reports,
+                k7_ms=None) -> dict:
+    """Where an SRR pass's time goes, read apart from the timed pass and
+    after serving: ``cfg`` cut to its first two layers (``init_lm`` seed
+    0; the same matrix shapes as the full model's first two layers) is
+    quantized as the timed pass quantizes, under torch.profiler. Logs and
+    returns the device time by stage (the ranges ``srr.select_rank``,
+    ``srr.svd_factors``, ``mxint.quantize`` — K7 and the row pad —,
+    ``mxint.dequantize``; a kernel counts to the range whose span on the
+    device timeline holds it) and by kernel, the device's busy share, the
+    host ms a matrix profiled and, from the timed pass (``t_pass``,
+    ``reports``), unprofiled, and K7's device total over the timed pass
+    from its launches × phase 3's time at each shape (``k7_ms``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.api import PTQConfig
+    from repro_torch.models import init_lm
+    from repro_torch.models.quantize import quantize_model_params
+
+    model = init_lm(dataclasses.replace(cfg, n_layers=2), 0, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, window = quantize_model_params(
+            model, PTQConfig(method="srr", rank=16, bits=3, seed=0),
+            container="int8", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del model
+    n = len(window)
+    cuda = torch.autograd.DeviceType.CUDA
+    # kernels, memcpys and memsets; a range's own span on the device
+    # timeline (a user annotation) is not device work
+    kernels = {e.key: e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0
+               and not e.key.startswith(SRR_STAGES)}
+    busy_ms = sum(kernels.values()) / 1e3
+    # the stream runs one kernel at a time, so a range's device span holds
+    # its kernels and no other range's
+    spans = sorted((e.time_range.start, e.time_range.end, e.key)
+                   for e in prof.events() if e.device_type == cuda
+                   and e.key.startswith(SRR_STAGES))
+    starts = [sp[0] for sp in spans]
+    by_stage = {key: 0.0 for _, _, key in spans}
+    for e in prof.events():
+        if e.device_type != cuda or e.key.startswith(SRR_STAGES):
+            continue
+        j = bisect.bisect_right(starts, e.time_range.start) - 1
+        if j >= 0 and e.time_range.start < spans[j][1]:
+            by_stage[spans[j][2]] += e.time_range.elapsed_us() / 1e3
+    rest = busy_ms - sum(by_stage.values())
+    log(tag, f"SRR pass of the first two layers under torch.profiler: {n} "
+        f"matrices in {wall:.3f} s ({1e3 * wall / n:.2f} ms a matrix on "
+        f"the host clock; the timed pass, unprofiled: "
+        f"{1e3 * t_pass / len(reports):.2f} ms a matrix); device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / (1e3 * wall):.1f}% busy, "
+        f"{100 - 100 * busy_ms / (1e3 * wall):.1f}% idle)")
+    for key, ms in sorted(by_stage.items(), key=lambda kv: -kv[1]):
+        log(tag, f"  {key:22s} {ms:9.3f} ms device "
+            f"({1e3 * ms / n:.1f} us a matrix)")
+    log(tag, f"  {'other':22s} {rest:9.3f} ms device")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    for key, us in top:
+        log(tag, f"  {us / 1e3:9.3f} ms  {key[:90]}")
+    k7_window = sum(us for k_, us in kernels.items()
+                    if "mxint_quantize_kernel" in k_) / 1e3
+    k7_pass = k7_pass_ms(reports, k7_ms)
+    log(tag, f"  K7 in the profiled pass {k7_window:.3f} ms device; over "
+        f"the timed pass " + ("not measured" if k7_pass is None else
+                              f"{k7_pass:.1f} ms (launches × phase-3 time "
+                              f"at each shape)")
+        + f" of {t_pass:.2f} s")
+    return dict(matrices=n, wall_s=wall, host_ms_matrix=1e3 * wall / n,
+                timed_host_ms_matrix=1e3 * t_pass / len(reports),
+                busy_ms=busy_ms, busy=busy_ms / (1e3 * wall),
+                by_stage=by_stage, other_ms=rest, k7_window_ms=k7_window,
+                k7_pass_ms=k7_pass, top=[(k_, us / 1e3) for k_, us in top])
+
+
+def k7_pass_ms(reports, k7_ms) -> float | None:
+    """K7's device time over an SRR pass: two launches a matrix (the
+    residual's fake-quant and the stored codes) at its row-padded shape,
+    each at phase 3's time for that shape; None if phase 3 lacks one."""
+    from collections import Counter
+    shapes = Counter((-(-r.shape[0] // 32) * 32, r.shape[1]) for r in reports)
+    if k7_ms is None or any(sh not in k7_ms for sh in shapes):
+        return None
+    return sum(2 * count * k7_ms[sh] for sh, count in shapes.items())
+
+
 def quantized_model(dev, cfg):
     """``init_lm`` (seed 0) → SRR PTQ (rank 16, 3-bit MXINT, int8
-    container): the model phases 4 and 4b share."""
+    container): the model phases 4 and 4b share, with the pass's seconds
+    and reports."""
     import torch
     from repro_torch.core.api import PTQConfig
     from repro_torch.models import init_lm
@@ -727,7 +856,7 @@ def quantized_model(dev, cfg):
     mean_k = sum(r.k_star for r in reports) / len(reports)
     log("main", f"SRR quantized {len(reports)} matrices in {t_quant:.2f} s "
         f"(rank 16, 3-bit MXINT b32, mean k* {mean_k:.2f})")
-    return model, t_quant
+    return model, t_quant, reports
 
 
 def phase_main_path(dev, cfg, model) -> dict:
@@ -961,7 +1090,7 @@ def routing_flips(log_a: list, log_b: list) -> int:
     return flips
 
 
-def phase_moe(dev) -> dict:
+def phase_moe(dev, k7_ms=None) -> dict:
     """Phase 6: deepseek-moe-16b at full width, init → SRR (K7) → serve."""
     import torch
     from repro_torch.configs import get_config
@@ -1074,9 +1203,16 @@ def phase_moe(dev) -> dict:
             "with the dequantize-then-matmul baseline")
     del model
     torch.cuda.empty_cache()
+    # the first two layers: the dense lead-in (7 matrices) and the first
+    # MoE layer (4 attention, the router, 3 shared, 64 × 3 expert ones)
+    srr_profile = profile_srr(dev, cfg, "moe", t_quant, reports, k7_ms)
+    require(srr_profile["matrices"] == 7 + 8 + 3 * cfg.n_routed,
+            f"the profiled pass quantized {srr_profile['matrices']} matrices")
+    torch.cuda.empty_cache()
     return dict(counts=counts, ptq_counts=ptq_counts, tok_s=n_tok / wall,
                 step_ms=step_ms, ttft_ms=[1e3 * t for t in ttft],
                 quantize_s=t_quant, matrices=len(reports),
+                srr_profile=srr_profile,
                 peak_gib_ptq=peak, profile=prof, routing_flips=flips,
                 logit_err=err)
 
@@ -1110,7 +1246,8 @@ if "ragged" in inspect.signature(cs.check_decode).parameters:
 rows += [cs.check_flash(dev), cs.check_flash(dev, h=16, hd=128),
          cs.check_flash_chunk(dev)]
 rows += [cs.check_paged(dev, kind) for kind in ("bf16", "int8", "int4")]
-rows += [cs.check_quantize(dev, m, n) for m, n in ((2048, 1408), (3072, 8192))]
+# K7 at every shape of the SRR pass, a narrow last strip and N % 4 != 0
+rows += [cs.check_quantize(dev, m, n) for m, n in K7_SHAPES]
 print("ROWS " + json.dumps(rows))
 """
 
@@ -1129,7 +1266,8 @@ def compare_kernels(parent: str) -> int:
              ("change", ROOT), ("parent", os.path.abspath(parent))]
     runs = []
     for who, root in turns:
-        proc = subprocess.run([sys.executable, "-c", _COMPARE_ROWS, root],
+        script = _COMPARE_ROWS.replace("K7_SHAPES", repr(K7_SHAPES))
+        proc = subprocess.run([sys.executable, "-c", script, root],
                               capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("ROWS ")]
@@ -1153,6 +1291,7 @@ def compare_kernels(parent: str) -> int:
             + (f" (f32 {row['f32_bound_ms']:.4f})"
                if "f32_bound_ms" in row else "")
             + (f"; x·L GEMM {row['xl_ms']:.4f}" if "xl_ms" in row else "")
+            + (f"; copy_ {row['copy_ms']:.4f}" if "copy_ms" in row else "")
             + "; library " + (f"{min(lib):.4f}–{max(lib):.4f}" if lib else "-")
             + f"; err {row['max_abs_err']:.2e} (tol {row['tol']:.1e}): "
             f"{verdict}")
@@ -1198,7 +1337,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     cfg = get_config("phi3-mini-3.8b")
     t0 = time.perf_counter()
-    model, t_quant = quantized_model(dev, cfg)
+    k7_ms = {tuple(int(v[2:]) for v in r["shape"].split()[:2]): r["ms"]
+             for r in rows if r["name"] == "K7 mxint_quantize"}
+    model, t_quant, reports = quantized_model(dev, cfg)
     main_run = phase_main_path(dev, cfg, model)
     main_run["quantize_s"] = t_quant
     log("main", f"phase took {time.perf_counter() - t0:.1f} s")
@@ -1207,12 +1348,15 @@ def main() -> int:
     log("paged", f"phase took {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
+    main_run["srr_profile"] = profile_srr(dev, cfg, "main", t_quant, reports,
+                                          k7_ms)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_reduced(dev, dataclasses.replace(cfg, n_layers=2))
     log("reduced", f"phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    moe_run = phase_moe(dev)
+    moe_run = phase_moe(dev, k7_ms)
     log("moe", f"phase took {time.perf_counter() - t0:.1f} s")
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1261,8 +1405,9 @@ def main() -> int:
                  "library_ms": row["library_ms"]}
         if "note" in row:
             entry["note"] = row["note"]
-        if "f32_bound_ms" in row:
-            entry["f32_bound_ms"] = row["f32_bound_ms"]
+        for extra in ("f32_bound_ms", "copy_ms"):
+            if extra in row:
+                entry[extra] = row[extra]
         kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,7 @@ machine-independent part only needs ``nvcc`` when a kernel is launched.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -113,6 +114,13 @@ def function(name: str, fn: str, n_ptrs: int, n_ints: int,
         f.restype = ctypes.c_int
         _FNS[key] = f
     return f
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -99,11 +99,26 @@ PAGE_ALIGN = PACKED4_ALIGN
 CUDA_MAX_GRID_YZ = 65535
 
 # --- K7 (kernels/csrc/mxint_quantize.cu) -----------------------------------
-# K7 puts the 32-row blocks on the grid's y axis (M / 32 within
-# CUDA_MAX_GRID_YZ). Code widths it takes: int8 holds codes in
-# [-qmax-1, qmax] for bits <= 8, and 1 bit has no magnitude (qmax = 0).
+# Code widths K7 takes: int8 holds codes in [-qmax-1, qmax] for bits <= 8,
+# and 1 bit has no magnitude (qmax = 0).
 MXINT_MIN_BITS = 2
 MXINT_MAX_BITS = 8
+# K7's paths (the .cu's kPath*). The register path loads float4s, so it
+# needs w's address 16-byte aligned and every row's start too (N a
+# multiple of MXINT_VEC floats); otherwise the scalar path takes every
+# column in the same launch.
+MXINT_PATH_SCALAR, MXINT_PATH_REGISTERS = 0, 1
+MXINT_ALIGN = 16
+MXINT_VEC = 4
+# K7's persistent grid: MXINT_THREADS-thread blocks (the .cu's kThreads),
+# at most MXINT_BLOCKS_PER_SM an SM (a register-path thread holds its 32
+# float4s in ~254 registers, so four 64-thread blocks fill an SM's
+# register file).
+MXINT_THREADS = 64
+MXINT_BLOCKS_PER_SM = 4
+# Work items (quads or columns, each of one 32-row block) are counted in
+# int32.
+MXINT_MAX_ITEMS = 2 ** 31 - 1
 
 
 def validate_page_size(page_size: int, what: str = "page_size") -> None:

@@ -28,7 +28,6 @@ row b's logical slot j lives in page ``block_table[b, j // ps]``, row
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -107,18 +106,14 @@ def decode_splits(rows: int, slots: int, sm_count: int) -> Tuple[int, int]:
     return -(-tiles // per), per
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _scratch(q: torch.Tensor, slots: int) -> tuple:
     """(splits, tiles per split, m, l, acc) for q's device: the split plan
     and the combine's f32 scratch, None with one split. Freed after the
     launch, the scratch goes back to the caching allocator in stream
     order, so the kernels still own it while they run."""
     b, kvh, g, hd = q.shape
-    splits, per = decode_splits(b * kvh, slots, _sm_count(q.device.index or 0))
+    splits, per = decode_splits(b * kvh, slots,
+                                _build.sm_count(q.device.index or 0))
     if splits > CUDA_MAX_GRID_YZ:
         raise ValueError(f"{slots} slots need {splits} splits, over the grid "
                          f"limit {CUDA_MAX_GRID_YZ}")

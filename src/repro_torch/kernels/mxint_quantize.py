@@ -9,6 +9,10 @@ its header says what bounds it and how it stays exact.
 :func:`mxint_quantize_plain`, for a CUDA tensor it launches K7 or raises
 on an input the kernel does not take. Rows must already be a multiple
 of the block: ``quant.mxint.MXIntQuantizer.quantize`` pads them.
+:func:`mxint_quantize_plan` picks K7's launch: the register path's
+persistent grid, or the scalar path (a column a thread) for a misaligned
+``w``, an N that is not a multiple of 4 or too few columns to fill the
+card.
 
 The exponent is ``ceil(log2(amax / qmax))`` computed exactly, from the
 binary exponent of the f32 quotient (:func:`ceil_log2`), not from a
@@ -18,13 +22,15 @@ one too small.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.constraints import (CUDA_MAX_GRID_YZ, MXINT_BLOCK,
-                                             MXINT_MAX_BITS, MXINT_MIN_BITS)
+from repro_torch.kernels.constraints import (
+    MXINT_ALIGN, MXINT_BLOCK, MXINT_BLOCKS_PER_SM, MXINT_MAX_BITS,
+    MXINT_MAX_ITEMS, MXINT_MIN_BITS, MXINT_PATH_REGISTERS, MXINT_PATH_SCALAR,
+    MXINT_THREADS, MXINT_VEC)
 
 # launches since the last reset; a plain count per wrapper
 LAUNCHES = {"mxint_quantize": 0}
@@ -60,28 +66,80 @@ def mxint_quantize_plain(w: torch.Tensor, bits: int,
     return codes.reshape(m, n).to(torch.int8), exp.to(torch.int8)
 
 
+class QuantizePlan(NamedTuple):
+    """K7's launch for one ``(m, n)``: ``path`` (``constraints.MXINT_PATH_*``),
+    the persistent ``grid`` of ``MXINT_THREADS``-thread blocks, the
+    ``items`` it walks (register-path column quads or scalar-path columns,
+    each of one 32-row block), and the ``tail_cols`` the scalar path takes
+    (all or none)."""
+    path: int
+    grid: int
+    items: int
+    tail_cols: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _check_shape(m: int, n: int) -> None:
+    if m < MXINT_BLOCK or m % MXINT_BLOCK or n < 1:
+        raise ValueError(f"w has {m} rows: K7 takes a positive multiple of "
+                         f"{MXINT_BLOCK} (pad first) and at least one column")
+    if n > MXINT_MAX_ITEMS // (m // MXINT_BLOCK):
+        raise ValueError(f"w ({m}, {n}) has more than {MXINT_MAX_ITEMS} "
+                         f"(32-row block, column) pairs: K7 counts them in "
+                         f"int32")
+
+
+def mxint_quantize_plan(m: int, n: int, sms: int,
+                        aligned: bool = True) -> QuantizePlan:
+    """The launch of K7 on an ``(m, n)`` f32 ``w`` on a card with ``sms``
+    SMs; ``aligned``: w's address is 16-byte aligned. The register path
+    takes ``w`` when ``aligned`` and ``n`` is a multiple of 4: one thread
+    per (32-row block, four columns), 64-thread blocks, as many as the
+    items need up to four an SM, each thread walking items a grid apart.
+    Otherwise, and where there are fewer quads than one block an SM would
+    take (the router's 2048×64), every column takes the scalar path in the
+    same launch: one thread per (32-row block, column), on the same grid
+    rule. Raises ``ValueError`` on a shape K7 does not take."""
+    _check_shape(m, n)
+    if sms < 1:
+        raise ValueError(f"sms={sms} must be positive")
+    nb = m // MXINT_BLOCK
+    quads = nb * (n // MXINT_VEC)
+    if aligned and n % MXINT_VEC == 0 and quads >= sms * MXINT_THREADS:
+        path, items, tail = MXINT_PATH_REGISTERS, quads, 0
+    else:
+        path, items, tail = MXINT_PATH_SCALAR, nb * n, n
+    grid = min(_cdiv(items, MXINT_THREADS), sms * MXINT_BLOCKS_PER_SM)
+    return QuantizePlan(path, grid, items, tail)
+
+
 def mxint_quantize_cuda(w: torch.Tensor, bits: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K7 on a contiguous f32 ``w (M, N)``, ``M % 32 == 0``."""
+    """Launch K7 on a contiguous f32 CUDA ``w (M, N)``, ``M % 32 == 0``,
+    with :func:`mxint_quantize_plan`'s plan for it."""
     if w.dtype != torch.float32:
         raise TypeError(f"w must be float32, got {w.dtype}")
     if w.ndim != 2 or not w.is_contiguous():
         raise ValueError(f"w must be a contiguous 2-D tensor, got shape "
                          f"{tuple(w.shape)}")
     m, n = w.shape
-    if m % MXINT_BLOCK or m // MXINT_BLOCK > CUDA_MAX_GRID_YZ or n < 1:
-        raise ValueError(f"w has {m} rows: K7 takes a positive multiple of "
-                         f"{MXINT_BLOCK} up to {MXINT_BLOCK * CUDA_MAX_GRID_YZ}"
-                         f" (pad first) and at least one column")
+    _check_shape(m, n)
     if not MXINT_MIN_BITS <= bits <= MXINT_MAX_BITS:
         raise ValueError(f"bits={bits} outside [{MXINT_MIN_BITS}, "
                          f"{MXINT_MAX_BITS}]")
+    if w.device.type != "cuda":
+        raise ValueError(f"K7 runs on a CUDA tensor, not on {w.device}")
+    plan = mxint_quantize_plan(m, n, _build.sm_count(w.device.index or 0),
+                               w.data_ptr() % MXINT_ALIGN == 0)
     codes = torch.empty((m, n), dtype=torch.int8, device=w.device)
     exps = torch.empty((m // MXINT_BLOCK, n), dtype=torch.int8,
                        device=w.device)
-    fn = _build.function("mxint_quantize", "mxint_quantize_launch", 3, 3)
+    fn = _build.function("mxint_quantize", "mxint_quantize_launch", 3, 5)
     err = fn(w.data_ptr(), codes.data_ptr(), exps.data_ptr(), m, n,
-             2 ** (bits - 1) - 1,
+             2 ** (bits - 1) - 1, plan.path, plan.grid,
              torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(err, "mxint_quantize_launch (K7)")
     LAUNCHES["mxint_quantize"] += 1

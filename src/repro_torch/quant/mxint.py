@@ -9,7 +9,9 @@ and exponents match the JAX quantizer bit for bit except where its
 ``log2`` rounds across an integer (quotients at or a few ulps above a
 power of two, ROADMAP §3). ``quantize`` runs K7
 (``kernels/mxint_quantize.py``) on a CUDA tensor and its plain version
-on a CPU tensor.
+on a CPU tensor. ``quantize`` and ``dequantize`` run under
+``torch.profiler`` ranges named ``mxint.quantize`` and
+``mxint.dequantize``, which a profile of the SRR pass reads by stage.
 
 ``pack_codes_4bit`` / ``unpack_codes_4bit`` are the deployment container
 for ``bits <= 4``: two codes per uint8 byte, even rows in the low nibble.
@@ -21,6 +23,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels.mxint_quantize import mxint_quantize
 
@@ -51,17 +54,20 @@ class MXIntQuantizer:
             raise ValueError(f"MXInt expects 2-D weights, got {tuple(w.shape)}")
         m = w.shape[0]
         b = self.block_size
-        wp = torch.nn.functional.pad(w.float(), (0, 0, 0, (-m) % b))
-        codes, exps = mxint_quantize(wp.contiguous(), self.bits, b)
+        with record_function("mxint.quantize"):
+            wp = torch.nn.functional.pad(w.float(), (0, 0, 0, (-m) % b))
+            codes, exps = mxint_quantize(wp.contiguous(), self.bits, b)
         return MXIntPacked(codes=codes, exponents=exps, block_size=b,
                            bits=self.bits, orig_rows=m)
 
     def dequantize(self, packed: MXIntPacked) -> torch.Tensor:
         b = packed.block_size
-        codes = packed.codes.float()
-        nb, n = codes.shape[0] // b, codes.shape[1]
-        scale = torch.exp2(packed.exponents.float())
-        out = (codes.reshape(nb, b, n) * scale[:, None, :]).reshape(codes.shape)
+        with record_function("mxint.dequantize"):
+            codes = packed.codes.float()
+            nb, n = codes.shape[0] // b, codes.shape[1]
+            scale = torch.exp2(packed.exponents.float())
+            out = (codes.reshape(nb, b, n)
+                   * scale[:, None, :]).reshape(codes.shape)
         return out[: packed.orig_rows]
 
     def fake_quant(self, w: torch.Tensor) -> torch.Tensor:

@@ -403,24 +403,52 @@ def test_qlr_batched_wrapper_raises(dev):
            mk.qlr_matmul_batched_plain(x, codes, scale, l, rr, counts), 1e-4)
 
 
-@pytest.mark.parametrize("bits", [2, 3, 4, 8])
-def test_mxint_quantize_bit_exact(dev, bits):
-    g = torch.Generator(device=dev).manual_seed(bits)
-    w = torch.randn((2048, 1408), generator=g, device=dev) * 0.05
+def _quantize_input(dev, m, n, seed, offset=0):
+    """(m, n) f32 weights with K7's hard blocks: all-zero blocks (also in
+    the last columns), amax / qmax = 2^-13 at bits 3 and one ulp above,
+    subnormal-range blocks; ``offset`` floats into a fresh buffer (1: a
+    contiguous view aligned to 4 bytes, not 16)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randn((m * n + offset,), generator=g, device=dev) * 0.05
+    w = buf[offset:].view(m, n)
     w[:32, :9] = 0.0                                    # all-zero blocks
-    w[64:96, 10] = 0.0
-    w[64, 10] = 3.0 * 2.0 ** -13                        # amax / qmax = 2^-13
-    w[96:128, 11] = 0.0
-    w[96, 11] = torch.nextafter(torch.tensor(3.0 * 2.0 ** -13),
-                                torch.tensor(1.0)).item()
-    w[128:, 12] *= 1e-30
+    w[-32:, -3:] = 0.0
+    b = 32 if m > 32 else 0                             # a second block
+    w[b:b + 32, 10 % n] = 0.0
+    w[b, 10 % n] = 3.0 * 2.0 ** -13                     # amax / qmax = 2^-13
+    w[b:b + 32, 11 % n] = 0.0
+    w[b, 11 % n] = torch.nextafter(torch.tensor(3.0 * 2.0 ** -13),
+                                   torch.tensor(1.0)).item()
+    w[b:, 12 % n] *= 1e-30
+    return w
+
+
+# the SRR pass's shapes (phi3-mini-3.8b, deepseek-moe-16b; the router's
+# 2048×64 takes the scalar path), an N below a multiple of 128, N % 4 != 0
+# (the scalar path), a narrow matrix
+K7_SHAPES = [(3072, 3072), (3072, 8192), (8192, 3072), (2048, 2048),
+             (2048, 64), (2048, 1408), (1408, 2048), (2048, 2816),
+             (2816, 2048), (2048, 10944), (10944, 2048), (2048, 1000),
+             (2048, 1002), (64, 40)]
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m,n,offset", [(m, n, 0) for m, n in K7_SHAPES]
+                         + [(2048, 1408, 1), (64, 40, 1)])
+def test_mxint_quantize_bit_exact(dev, bits, m, n, offset):
+    """K7 equals its plain version bit for bit, in one launch, at every
+    pass shape, ragged N and a misaligned (4-byte aligned) view."""
+    w = _quantize_input(dev, m, n, bits, offset)
+    assert w.is_contiguous() and (w.data_ptr() % 16 != 0) == bool(offset)
     before = kq.LAUNCHES["mxint_quantize"]
     codes, exps = kq.mxint_quantize(w, bits)
     assert kq.LAUNCHES["mxint_quantize"] == before + 1
     want_c, want_e = kq.mxint_quantize_plain(w, bits)
     assert torch.equal(codes, want_c) and torch.equal(exps, want_e)
-    cpu_c, cpu_e = kq.mxint_quantize_plain(w.cpu(), bits)
-    assert torch.equal(codes.cpu(), cpu_c) and torch.equal(exps.cpu(), cpu_e)
+    if m * n <= 2048 * 1408:
+        cpu_c, cpu_e = kq.mxint_quantize_plain(w.cpu(), bits)
+        assert torch.equal(codes.cpu(), cpu_c)
+        assert torch.equal(exps.cpu(), cpu_e)
 
 
 def test_quantizer_runs_k7_on_the_card(dev):
