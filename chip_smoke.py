@@ -28,12 +28,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    the time of the ``x·L`` GEMM it includes; K6 at serving occupancy
    counts only the experts and rows that hold a token);
 4. the unpaged main path at full width, through the entry points a user
-   calls: ``init_lm`` (seed 0) → SRR ``quantize_model_params`` (rank 16,
-   3-bit MXINT, int8 container) → ``Engine`` (8 lanes, bf16 KV, fused
-   auto) answering 8 requests of 32 new tokens with 150–250-token
-   prompts, with every kernel's launch count read around that run; then
-   the same model's prefill logits through the kernels against the
-   dequantize-then-matmul baseline;
+   calls: ``init_lm`` (seed 0) → ``capture_calibration`` through
+   ``lm_loss`` (4 batches of 8 × 256 synthetic tokens, seed 0; its
+   seconds, then the ``eigh`` of every distinct moment set timed apart)
+   → qera-exact SRR ``quantize_model_params`` (rank 16, 3-bit MXINT, int8
+   container; its seconds, mean k* and the peak memory) → ``Engine`` (8
+   lanes, bf16 KV, fused auto) answering 8 requests of 32 new tokens with
+   150–250-token prompts, with every kernel's launch count read around
+   that run; then the same model's prefill logits through the kernels
+   against the dequantize-then-matmul baseline;
 4b. the paged main path with the same quantized model:
    ``ServeConfig(paged=True)`` (pages of 16, chunks of 256, a 520-token
    step budget) answering 16 requests that share a 256-token prefix,
@@ -48,8 +51,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    packed4 chunk writes and nibble read-modify-writes run on the card),
    and its prefill logits on the card (kernels) against the CPU (plain
    versions);
+5b. "ptq": phi3 at full width and 2 layers calibrated on the card and on
+   the CPU from the same batches (tap names and counts equal, moments
+   within ``MOMENT_TOL``), then quantized by w-only, qer, srr and
+   srr-joint under qera-exact with exact SVDs, gated per matrix on
+   scaled_err(qer) ≤ scaled_err(w-only) and scaled_err(srr-joint) ≤
+   scaled_err(srr) (each · (1 + 1e-5)); the held-out ``lm_loss`` of the fp
+   model and of each method through the kernels and ``fused="off"``;
 6. the MoE main path at full width: ``init_lm`` of deepseek-moe-16b (all
-   28 layers, seed 0) → SRR ``quantize_model_params`` (rank 16, 3-bit
+   28 layers, seed 0) → calibration as in phase 4 → qera-exact SRR
+   ``quantize_model_params`` (routed experts under the identity; each
+   layer's statistics released once it is quantized; rank 16, 3-bit
    MXINT, int8 container; K7 quantizes every matrix, its launches read
    around the pass, with the pass's seconds and peak memory) → ``Engine``
    (8 lanes, bf16 KV, fused auto) answering 8 requests of 32 new tokens
@@ -64,8 +76,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    any flipped); last, where the SRR pass goes, read apart from the
    timed pass (``profile_srr``): the model cut to its first two layers
    (207 matrices) quantized again under ``torch.profiler``, for device
-   time by stage (the ``srr.*`` and ``mxint.*`` ranges of ``core/srr.py``
-   and ``quant/mxint.py``) and by kernel, the device's busy share, host
+   time by stage (the ``srr.*`` and ``mxint.*`` ranges of ``core/api.py``,
+   ``core/srr.py`` and ``quant/mxint.py``) and by kernel, the device's busy share, host
    ms a matrix profiled and in the timed pass, and K7's device total over
    the timed pass from its launches × phase 3's time at each shape.
 
@@ -746,28 +758,37 @@ def profile_srr(dev, cfg, tag: str, t_pass: float, reports,
     """Where an SRR pass's time goes, read apart from the timed pass and
     after serving: ``cfg`` cut to its first two layers (``init_lm`` seed
     0; the same matrix shapes as the full model's first two layers) is
-    quantized as the timed pass quantizes, under torch.profiler. Logs and
-    returns the device time by stage (the ranges ``srr.select_rank``,
-    ``srr.svd_factors``, ``mxint.quantize`` — K7 and the row pad —,
-    ``mxint.dequantize``; a kernel counts to the range whose span on the
-    device timeline holds it) and by kernel, the device's busy share, the
-    host ms a matrix profiled and, from the timed pass (``t_pass``,
-    ``reports``), unprofiled, and K7's device total over the timed pass
-    from its launches × phase 3's time at each shape (``k7_ms``)."""
+    calibrated, its scalings built (timed apart: ``srr.scaling``'s work),
+    then quantized as the timed pass quantizes (qera-exact) under
+    torch.profiler. Logs and returns the device time by stage (the
+    ranges ``srr.scaling`` — here only the lookup of the S built ahead —,
+    ``srr.select_rank``, ``srr.svd_factors``, ``mxint.quantize`` — K7 and
+    the row pad —, ``mxint.dequantize``; a kernel counts to the range
+    whose span on the device timeline holds it) and by kernel, the
+    device's busy share, the host ms a matrix profiled and, from the
+    timed pass (``t_pass``, ``reports``), unprofiled, and K7's device
+    total over the timed pass from its launches × phase 3's time at each
+    shape (``k7_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.api import PTQConfig
     from repro_torch.models import init_lm
     from repro_torch.models.quantize import quantize_model_params
 
-    model = init_lm(dataclasses.replace(cfg, n_layers=2), 0, device=dev)
-    torch.cuda.synchronize()
+    cut = dataclasses.replace(cfg, n_layers=2)
+    model = init_lm(cut, 0, device=dev)
+    stats, _ = calibrate(dev, cut, model, tag)
+    # S is built ahead, outside the window: torch.profiler slows cuSOLVER's
+    # eigh by orders of magnitude on an H100 (phi3's two layers: 1.6 s
+    # outside the window, unfinished after 20 minutes inside it)
+    scaling_s = build_scalings(stats)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, window = quantize_model_params(
-            model, PTQConfig(method="srr", rank=16, bits=3, seed=0),
-            container="int8", device=dev)
+            model, PTQConfig(method="srr", scaling="qera-exact", rank=16,
+                             bits=3, seed=0),
+            container="int8", stats=stats, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     del model
@@ -799,6 +820,8 @@ def profile_srr(dev, cfg, tag: str, t_pass: float, reports,
         f"{1e3 * t_pass / len(reports):.2f} ms a matrix); device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / (1e3 * wall):.1f}% busy, "
         f"{100 - 100 * busy_ms / (1e3 * wall):.1f}% idle)")
+    log(tag, f"  {'srr.scaling (ahead)':22s} {1e3 * scaling_s:9.3f} ms wall, "
+        f"synchronized, outside the window (the eigh of every moment set)")
     for key, ms in sorted(by_stage.items(), key=lambda kv: -kv[1]):
         log(tag, f"  {key:22s} {ms:9.3f} ms device "
             f"({1e3 * ms / n:.1f} us a matrix)")
@@ -814,7 +837,8 @@ def profile_srr(dev, cfg, tag: str, t_pass: float, reports,
                               f"{k7_pass:.1f} ms (launches × phase-3 time "
                               f"at each shape)")
         + f" of {t_pass:.2f} s")
-    return dict(matrices=n, wall_s=wall, host_ms_matrix=1e3 * wall / n,
+    return dict(matrices=n, wall_s=wall, scaling_s=scaling_s,
+                host_ms_matrix=1e3 * wall / n,
                 timed_host_ms_matrix=1e3 * t_pass / len(reports),
                 busy_ms=busy_ms, busy=busy_ms / (1e3 * wall),
                 by_stage=by_stage, other_ms=rest, k7_window_ms=k7_window,
@@ -832,31 +856,87 @@ def k7_pass_ms(reports, k7_ms) -> float | None:
     return sum(2 * count * k7_ms[sh] for sh, count in shapes.items())
 
 
+# calibration of the full-width paths: 4 batches of 8 × 256 tokens (seed
+# 0), 8,192 rows, at least phi3's widest projection input (d_ff 8,192),
+# so Σxxᵀ is not rank-deficient by construction
+CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ = 4, 8, 256
+
+
+def calibrate(dev, cfg, model, tag: str) -> tuple:
+    """``capture_calibration`` of ``model`` over the calibration batches
+    through ``lm_loss``; returns (stats, seconds)."""
+    import torch
+    from repro_torch.data import capture_calibration, data_config_for
+    from repro_torch.models import lm_loss
+
+    dcfg = data_config_for(cfg, seq_len=CALIB_SEQ, global_batch=CALIB_BATCH,
+                           seed=0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = capture_calibration(model, dcfg, lm_loss, n_batches=CALIB_BATCHES,
+                                device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    distinct = {id(v): v for v in stats.values()}
+    log(tag, f"calibrated on {dev.type}: {CALIB_BATCHES} batches of "
+        f"{CALIB_BATCH} × {CALIB_SEQ} tokens in {took:.2f} s; {len(stats)} "
+        f"tap names, {len(distinct)} distinct moment sets, Σxxᵀ "
+        f"{sum(v.autocorr.numel() * 4 for v in distinct.values()) / 2**30:.2f}"
+        f" GiB")
+    return stats, took
+
+
+def build_scalings(stats) -> float:
+    """Build every distinct moment set's qera-exact S (an ``eigh`` each),
+    which the pass then finds built; returns the synchronized seconds."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for st in {id(v): v for v in stats.values()}.values():
+        st.scaling("qera-exact")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def quantized_model(dev, cfg):
-    """``init_lm`` (seed 0) → SRR PTQ (rank 16, 3-bit MXINT, int8
-    container): the model phases 4 and 4b share, with the pass's seconds
-    and reports."""
+    """``init_lm`` (seed 0) → calibration → qera-exact SRR PTQ (rank 16,
+    3-bit MXINT, int8 container): the model phases 4 and 4b share, with
+    the pass's seconds and reports. The scalings are built before the
+    pass and timed apart (``build_scalings``)."""
     import torch
     from repro_torch.core.api import PTQConfig
     from repro_torch.models import init_lm
     from repro_torch.models.quantize import quantize_model_params
 
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_lm(cfg, 0, device=dev)
     torch.cuda.synchronize()
     log("main", f"init_lm {cfg.name}: {cfg.n_layers} layers d_model "
         f"{cfg.d_model} heads {cfg.n_heads} head_dim {cfg.head_dim_} d_ff "
         f"{cfg.d_ff} vocab {cfg.vocab} in {time.perf_counter() - t0:.2f} s")
+    stats, t_calib = calibrate(dev, cfg, model, "main")
+    t_scaling = build_scalings(stats)
     t0 = time.perf_counter()
     model, reports = quantize_model_params(
-        model, PTQConfig(method="srr", rank=16, bits=3, seed=0),
-        container="int8", device=dev)
+        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
+                         seed=0), container="int8", stats=stats, device=dev)
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
+    require(not stats, "the pass left calibration statistics behind")
+    peak = torch.cuda.max_memory_allocated() / gib
     mean_k = sum(r.k_star for r in reports) / len(reports)
-    log("main", f"SRR quantized {len(reports)} matrices in {t_quant:.2f} s "
-        f"(rank 16, 3-bit MXINT b32, mean k* {mean_k:.2f})")
-    return model, t_quant, reports
+    log("main", f"qera-exact scalings built in {t_scaling:.2f} s; SRR "
+        f"quantized {len(reports)} matrices in {t_quant:.2f} s (rank 16, "
+        f"3-bit MXINT b32, mean k* {mean_k:.2f}, mean scaled error "
+        f"{sum(r.scaled_err for r in reports) / len(reports):.4f}); peak "
+        f"memory of init + calibration + PTQ {peak:.2f} GiB")
+    return model, t_quant, reports, dict(calibration_s=t_calib,
+                                         scaling_s=t_scaling, peak_gib=peak,
+                                         mean_k=mean_k)
 
 
 def phase_main_path(dev, cfg, model) -> dict:
@@ -1080,6 +1160,114 @@ def phase_reduced(dev, cfg) -> None:
     require(err <= 1e-3 * max(1.0, scale), "card and CPU logits disagree")
 
 
+# Σ|x|, Σx², Σxxᵀ on the card against the CPU, relative to each moment's
+# largest entry: f32 sums over 8,192 rows in another order (~1e-6), and
+# layer 1's input passes K4 and the card's GEMMs, each held to 1e-4 of its
+# output's scale in phase 3; a moment is quadratic in its input, so 2e-4
+MOMENT_TOL = 2e-4
+# held-out lm_loss through the kernels against fused="off": the loss moves
+# by at most twice the largest logit difference, which phases 4 and 6
+# hold to 1e-3 · max|logit| (a few units on these models)
+LOSS_TOL = 1e-3
+
+
+def phase_ptq(dev, cfg) -> dict:
+    """phi3 at full width and 2 layers, calibrated on the card and on the
+    CPU (plain path) from the same batches: equal tap names and counts,
+    moments within MOMENT_TOL. Then w-only, qer, srr and srr-joint under
+    qera-exact with exact SVDs from the card's statistics, gated per
+    matrix on scaled_err(qer) ≤ scaled_err(w-only)·(1 + 1e-5) and
+    scaled_err(srr-joint) ≤ scaled_err(srr)·(1 + 1e-5) (srr and
+    srr-joint draw the same probe, so they share k* and Q); the held-out
+    lm_loss of the fp model and of each method, through the kernels and
+    through ``fused="off"``."""
+    import torch
+    from repro_torch.core.api import PTQConfig
+    from repro_torch.data import data_config_for, host_batch
+    from repro_torch.models import Ctx, init_lm, lm_loss
+    from repro_torch.models.quantize import quantize_model_params
+
+    cpu = torch.device("cpu")
+    fp = init_lm(cfg, 0, device=dev)
+    card, _ = calibrate(dev, cfg, fp, "ptq")
+    host, _ = calibrate(cpu, cfg, copy.deepcopy(fp).to(cpu), "ptq")
+    require(sorted(card) == sorted(host), f"tap names differ: card "
+            f"{sorted(card)} CPU {sorted(host)}")
+    worst = {}
+    for name, st in card.items():
+        ref = host[name]
+        require(st.count == ref.count == CALIB_BATCHES * CALIB_BATCH
+                * CALIB_SEQ, f"{name}: counts {st.count} / {ref.count}")
+        for moment in ("sum_abs", "sum_sq", "autocorr"):
+            a, b = getattr(st, moment).cpu(), getattr(ref, moment)
+            rel = float((a - b).abs().max() / b.abs().max())
+            worst[moment] = max(worst.get(moment, 0.0), rel)
+    log("ptq", "card vs CPU moments, max |Δ| / max|moment| over "
+        f"{len(card)} tap names: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (tol {MOMENT_TOL:.0e}); counts equal")
+    require(all(v <= MOMENT_TOL for v in worst.values()),
+            "card and CPU calibration moments disagree")
+    del host
+
+    batch = host_batch(data_config_for(cfg, CALIB_SEQ, CALIB_BATCH, 0), 999,
+                       device=dev)
+
+    def losses(model) -> tuple:
+        with torch.no_grad():
+            got = [float(lm_loss(Ctx(fused=f), model, batch))
+                   for f in ("auto", "off")]
+        require(all(math.isfinite(v) for v in got), f"lm_loss {got}")
+        require(abs(got[0] - got[1]) <= LOSS_TOL * max(1.0, abs(got[1])),
+                f"lm_loss through the kernels {got[0]} vs fused=off {got[1]}")
+        return got[0], got[1]
+
+    out = {"fp": dict(loss=losses(fp))}
+    log("ptq", f"held-out lm_loss (step 999, {CALIB_BATCH} × {CALIB_SEQ}), "
+        f"fp: {out['fp']['loss'][0]:.6f} (fused=off "
+        f"{out['fp']['loss'][1]:.6f})")
+    errs = {}
+    for method in ("w-only", "qer", "srr", "srr-joint"):
+        model = copy.deepcopy(fp)
+        t0 = time.perf_counter()
+        model, reports = quantize_model_params(
+            model, PTQConfig(method=method, scaling="qera-exact", rank=16,
+                             bits=3, seed=0, exact_svd=True),
+            container="int8", stats=dict(card), device=dev)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        errs[method] = {r.name: r for r in reports}
+        n = len(reports)
+        out[method] = dict(
+            loss=losses(model), seconds=took,
+            mean_k=sum(r.k_star for r in reports) / n,
+            mean_scaled_err=sum(r.scaled_err for r in reports) / n,
+            mean_weight_err=sum(r.weight_err for r in reports) / n)
+        log("ptq", f"{method:9s} {n} matrices in {took:.2f} s: mean k* "
+            f"{out[method]['mean_k']:.2f}, mean scaled error "
+            f"{out[method]['mean_scaled_err']:.6f}, mean weight error "
+            f"{out[method]['mean_weight_err']:.6f}; held-out lm_loss "
+            f"{out[method]['loss'][0]:.6f} (fused=off "
+            f"{out[method]['loss'][1]:.6f})")
+        del model
+    for better, base in (("qer", "w-only"), ("srr-joint", "srr")):
+        bad = [name for name, r in errs[better].items()
+               if not r.scaled_err <= errs[base][name].scaled_err * (1 + 1e-5)]
+        ratio = max(r.scaled_err / errs[base][name].scaled_err
+                    for name, r in errs[better].items())
+        log("ptq", f"scaled_err({better}) ≤ scaled_err({base})·(1 + 1e-5) on "
+            f"{len(errs[better]) - len(bad)}/{len(errs[better])} matrices "
+            f"(largest ratio {ratio:.6f})")
+        require(not bad, f"{better} loses to {base} on {bad}")
+    shared = all(errs["srr"][k].k_star == r.k_star
+                 for k, r in errs["srr-joint"].items())
+    require(shared, "srr and srr-joint chose different k*")
+    del fp
+    torch.cuda.empty_cache()
+    out["moment_rel_err"] = worst
+    return out
+
+
 def routing_flips(log_a: list, log_b: list) -> int:
     """(token, layer) pairs whose top-k expert sets differ between two
     runs' routing logs."""
@@ -1091,7 +1279,8 @@ def routing_flips(log_a: list, log_b: list) -> int:
 
 
 def phase_moe(dev, k7_ms=None) -> dict:
-    """Phase 6: deepseek-moe-16b at full width, init → SRR (K7) → serve."""
+    """Phase 6: deepseek-moe-16b at full width, init → calibration →
+    qera-exact SRR (K7) → serve."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.api import PTQConfig
@@ -1112,20 +1301,26 @@ def phase_moe(dev, k7_ms=None) -> dict:
         f"{cfg.n_shared} shared top-{cfg.top_k} d_expert {cfg.d_expert} vocab "
         f"{cfg.vocab} in {time.perf_counter() - t0:.2f} s; f32 "
         f"{torch.cuda.memory_allocated() / gib:.2f} GiB")
+    stats, t_calib = calibrate(dev, cfg, model, "moe")
+    peak_calib = torch.cuda.max_memory_allocated() / gib
     reset_counts()
     t0 = time.perf_counter()
     model, reports = quantize_model_params(
-        model, PTQConfig(method="srr", rank=16, bits=3, seed=0),
-        container="int8", device=dev)
+        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
+                         seed=0), container="int8", stats=stats, device=dev)
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     ptq_counts = launch_counts()
+    require(not stats, "the pass left calibration statistics behind")
     peak = torch.cuda.max_memory_allocated() / gib
     mean_k = sum(r.k_star for r in reports) / len(reports)
-    log("moe", f"SRR quantized {len(reports)} matrices in {t_quant:.2f} s "
-        f"(rank 16, 3-bit MXINT b32, mean k* {mean_k:.2f}); K7 launches "
-        f"{ptq_counts['K7']}; peak memory of init + PTQ {peak:.2f} GiB; "
-        f"int8 model {torch.cuda.memory_allocated() / gib:.2f} GiB")
+    log("moe", f"qera-exact SRR (routed experts: identity) quantized "
+        f"{len(reports)} matrices in {t_quant:.2f} s, scalings built in the "
+        f"pass, each layer's statistics released after it (rank 16, 3-bit "
+        f"MXINT b32, mean k* {mean_k:.2f}); K7 launches {ptq_counts['K7']}; "
+        f"peak memory of init + calibration {peak_calib:.2f} GiB, of init + "
+        f"calibration + PTQ {peak:.2f} GiB; int8 model "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB")
     require(ptq_counts["K7"] >= 2 * len(reports),
             f"the PTQ pass did not quantize through K7: {ptq_counts}")
 
@@ -1211,7 +1406,8 @@ def phase_moe(dev, k7_ms=None) -> dict:
     torch.cuda.empty_cache()
     return dict(counts=counts, ptq_counts=ptq_counts, tok_s=n_tok / wall,
                 step_ms=step_ms, ttft_ms=[1e3 * t for t in ttft],
-                quantize_s=t_quant, matrices=len(reports),
+                calibration_s=t_calib, peak_gib_calibration=peak_calib,
+                quantize_s=t_quant, matrices=len(reports), mean_k=mean_k,
                 srr_profile=srr_profile,
                 peak_gib_ptq=peak, profile=prof, routing_flips=flips,
                 logit_err=err)
@@ -1339,9 +1535,9 @@ def main() -> int:
     t0 = time.perf_counter()
     k7_ms = {tuple(int(v[2:]) for v in r["shape"].split()[:2]): r["ms"]
              for r in rows if r["name"] == "K7 mxint_quantize"}
-    model, t_quant, reports = quantized_model(dev, cfg)
+    model, t_quant, reports, calib = quantized_model(dev, cfg)
     main_run = phase_main_path(dev, cfg, model)
-    main_run["quantize_s"] = t_quant
+    main_run.update(quantize_s=t_quant, **calib)
     log("main", f"phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paged_run = phase_paged(dev, cfg, model, main_run["step_ms"])
@@ -1356,6 +1552,9 @@ def main() -> int:
     log("reduced", f"phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    ptq_run = phase_ptq(dev, dataclasses.replace(cfg, n_layers=2))
+    log("ptq", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     moe_run = phase_moe(dev, k7_ms)
     log("moe", f"phase took {time.perf_counter() - t0:.1f} s")
 
@@ -1363,7 +1562,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "cases": rows,
                    "main_path": main_run, "paged_path": paged_run,
-                   "moe_path": moe_run}, fh, indent=1)
+                   "ptq": ptq_run, "moe_path": moe_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",

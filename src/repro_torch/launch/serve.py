@@ -1,9 +1,11 @@
 """Serving CLI: ``python -m repro_torch.launch.serve [--full] [...]``.
 
-Init a model from a seed → SRR-quantize it (identity scaling: the port
-has no calibration yet) into the Q + LR container → serve requests
-through the continuous-batching engine, on the card by default
-(``--device cuda``; ``--device cpu`` runs the kernels' plain versions).
+Init a model from a seed → calibrate it on synthetic batches → quantize
+it under the qera-exact scaling (SRR by default; ``--method qer`` or
+``w-only`` for the baselines) into the Q + LR container → serve requests
+through the continuous-batching engine, as ``repro.launch.serve`` does,
+on the card by default (``--device cuda``; ``--device cpu`` runs the
+kernels' plain versions).
 ``--arch`` picks a registered architecture (``phi3-mini-3.8b``, dense,
 or ``deepseek-moe-16b``, MoE); ``--full`` serves it at its published
 size instead of its ``.reduced()`` smoke-test size. ``--paged`` serves from the paged KV
@@ -20,23 +22,30 @@ import numpy as np
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import PTQConfig
-from repro_torch.models.transformer import LM, init_lm
+from repro_torch.data import capture_calibration, data_config_for
+from repro_torch.models.transformer import LM, init_lm, lm_loss
 from repro_torch.models.quantize import quantize_model_params
 from repro_torch.serve import Engine, Request, ServeConfig
 
 
-def build_model(args) -> tuple[LM, ModelConfig]:
-    """Init the model per the model flags and quantize it unless
-    ``--method none``; returns ``(model, cfg)``."""
+def build_quantized_model(args) -> tuple[LM, ModelConfig]:
+    """Init the model per the model flags and, unless ``--method none``,
+    run the paper's pipeline with the JAX CLI's defaults: calibrate on two
+    synthetic batches of 4 × 32 tokens, then quantize under qera-exact;
+    returns ``(model, cfg)``."""
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
     model = init_lm(cfg, args.seed, device=args.device)
     if args.method != "none":
-        ptq = PTQConfig(method=args.method, rank=args.rank, bits=args.bits,
-                        seed=args.seed)
+        dcfg = data_config_for(cfg, seq_len=32, global_batch=4,
+                               seed=args.seed)
+        stats = capture_calibration(model, dcfg, lm_loss, n_batches=2,
+                                    device=args.device)
+        ptq = PTQConfig(method=args.method, scaling="qera-exact",
+                        rank=args.rank, bits=args.bits, seed=args.seed)
         t0 = time.perf_counter()
-        model, reports = quantize_model_params(model, ptq,
+        model, reports = quantize_model_params(model, ptq, stats=stats,
                                                device=args.device)
         print(f"[serve] {args.method} quantized {len(reports)} matrices in "
               f"{time.perf_counter() - t0:.1f}s")
@@ -57,7 +66,8 @@ def make_requests(cfg: ModelConfig, n: int, seed: int,
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--arch", default="phi3-mini-3.8b", choices=sorted(ARCHS))
-    p.add_argument("--method", default="srr", choices=["srr", "none"])
+    p.add_argument("--method", default="srr",
+                   choices=["srr", "qer", "w-only", "none"])
     p.add_argument("--rank", type=int, default=16)
     p.add_argument("--bits", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
@@ -96,7 +106,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    model, cfg = build_model(args)
+    model, cfg = build_quantized_model(args)
     max_len = max(128, args.prefill_len + args.new_tokens)
     eng = Engine(model, cfg, ServeConfig(
         max_len=max_len, decode_batch=args.batch,

@@ -2,8 +2,9 @@
 layers."""
 from repro_torch.models.linear import Ctx, FpLinear, QLinear, linear
 from repro_torch.models.transformer import (LM, decode_step, forward,
-                                            init_cache, init_lm, prefill,
-                                            prefill_chunk)
+                                            init_cache, init_lm, lm_loss,
+                                            prefill, prefill_chunk)
 
 __all__ = ["Ctx", "FpLinear", "QLinear", "linear", "LM", "decode_step",
-           "forward", "init_cache", "init_lm", "prefill", "prefill_chunk"]
+           "forward", "init_cache", "init_lm", "lm_loss", "prefill",
+           "prefill_chunk"]

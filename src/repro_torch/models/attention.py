@@ -135,9 +135,9 @@ def _qkv(ctx: Ctx, p: Attention, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
     b, s, _ = x.shape
     hd = cfg.head_dim_
-    q = linear(ctx, p.wq, x).reshape(b, s, cfg.n_heads, hd)
-    k = linear(ctx, p.wk, x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(ctx, p.wv, x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = linear(ctx, p.wq, x, "attn.wq").reshape(b, s, cfg.n_heads, hd)
+    k = linear(ctx, p.wk, x, "attn.wk").reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(ctx, p.wv, x, "attn.wv").reshape(b, s, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     g = cfg.n_heads // cfg.n_kv_heads
@@ -202,7 +202,8 @@ def attention_seq(ctx: Ctx, p: Attention, x: torch.Tensor, cfg: ModelConfig,
         out = flash_attention_plain(q, k, v, positions, positions)
     else:
         out = flash_attention(q, k, v, positions, positions)
-    y = linear(ctx, p.wo, out.reshape(b, s, cfg.n_heads * cfg.head_dim_))
+    y = linear(ctx, p.wo, out.reshape(b, s, cfg.n_heads * cfg.head_dim_),
+               "attn.wo")
     if cache is not None:
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)

@@ -1,7 +1,9 @@
 """Shared building blocks: RMSNorm, full RoPE, the SwiGLU MLP, the
-embedding (port of ``repro/models/layers.py``, the parts the dense
-decoder uses)."""
+embedding and the chunked cross-entropy (port of
+``repro/models/layers.py``, the parts the dense decoder uses)."""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -50,10 +52,10 @@ class MLP(nn.Module):
         self.up, self.gate, self.down = up, gate, down
 
 
-def mlp(ctx: Ctx, p: MLP, x: torch.Tensor) -> torch.Tensor:
-    up = linear(ctx, p.up, x)
-    h = torch.nn.functional.silu(linear(ctx, p.gate, x)) * up
-    return linear(ctx, p.down, h)
+def mlp(ctx: Ctx, p: MLP, x: torch.Tensor, prefix: str = "") -> torch.Tensor:
+    up = linear(ctx, p.up, x, f"{prefix}.up")
+    h = torch.nn.functional.silu(linear(ctx, p.gate, x, f"{prefix}.gate")) * up
+    return linear(ctx, p.down, h, f"{prefix}.down")
 
 
 def init_linear(gen: torch.Generator, m: int, n: int, std: float,
@@ -63,3 +65,24 @@ def init_linear(gen: torch.Generator, m: int, n: int, std: float,
 
 def embed(w: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return w[tokens].to(dtype)
+
+
+def chunked_softmax_xent(x: torch.Tensor, head: nn.Module,
+                         labels: torch.Tensor, ctx: Ctx,
+                         chunk: int = 512) -> torch.Tensor:
+    """Mean token cross-entropy of the (B, S, D) hidden states against
+    (B, S) labels, over sequence chunks so the (B, S, V) logits never
+    exist at once; the head records no calibration tap (it stays full
+    precision). Returns a scalar f32."""
+    if ctx.tap is not None:
+        ctx = dataclasses.replace(ctx, tap=None)
+    b, s, _ = x.shape
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        logits = linear(ctx, head, x[:, i:i + c]).float()       # (B, c, V)
+        lab = logits.gather(-1, labels[:, i:i + c, None].long())[..., 0]
+        total = total + (torch.logsumexp(logits, dim=-1) - lab).sum()
+    return total / (b * s)

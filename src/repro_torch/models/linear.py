@@ -17,6 +17,11 @@ expert axis on every buffer: ``w`` (E, m, n); ``codes`` (E, m_pad, n) or
 ``r`` (E, r, n), ``gscale`` (E, r) [, ``b`` (E, n)]. :func:`linear_stack`
 applies one to an (E, C, m) dispatch buffer.
 
+``Ctx.tap`` turns on calibration capture: every ``FpLinear`` then
+records its input's moments under ``ctx.prefix + name`` (the tap names
+of ``repro/models/linear.py``), and projections fed the very same input
+tensor share one :class:`~repro_torch.core.api.CalibStats`.
+
 ``Ctx.fused`` picks the Q + LR path: ``"auto"`` and ``"on"`` both go
 through :func:`repro_torch.kernels.mxint_matmul.qlr_matmul`, which
 launches K1/K2 on a CUDA tensor and runs their plain version on a CPU
@@ -27,11 +32,12 @@ baseline.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 from torch import nn
 
+from repro_torch.core.api import CalibStats
 from repro_torch.kernels.mxint_matmul import (dequant_blockwise, qlr_matmul,
                                               qlr_matmul_batched)
 from repro_torch.quant.mxint import unpack_codes_4bit
@@ -49,6 +55,31 @@ class Ctx:
     # lowerings can be compared under one routing
     route_log: Optional[List[torch.Tensor]] = None
     route_replay: Optional[Iterator[torch.Tensor]] = None
+    # each MoE layer appends its load-balance term (``lm_loss``)
+    aux_log: Optional[List[torch.Tensor]] = None
+    tap: Optional[Dict[str, CalibStats]] = None   # calibration capture
+    prefix: str = ""                              # per-layer tap namespace
+    autocorr: bool = True                         # capture Σxxᵀ moments
+    # the input last recorded and the moments it went into
+    _last: Optional[tuple] = dataclasses.field(default=None, init=False,
+                                               repr=False)
+
+    def record(self, name: str, x: torch.Tensor, m: int) -> None:
+        """Add ``x`` (..., m) to the moments of ``prefix + name``. An
+        input that is the very tensor the last record took (wq/wk/wv,
+        up/gate) shares that record's moments instead of summing the
+        same rows again."""
+        if self.tap is None:
+            return
+        name = self.prefix + name
+        st = self.tap.get(name)
+        if self._last is not None and self._last[0] is x \
+                and st in (None, self._last[1]):
+            self.tap[name] = self._last[1]
+            return
+        if st is None:
+            st = self.tap[name] = CalibStats.init(m, self.autocorr, x.device)
+        self._last = (x, st.update(x))
 
 
 class FpLinear(nn.Module):
@@ -115,10 +146,14 @@ def _fused_qlr(p: QLinear, x: torch.Tensor) -> torch.Tensor:
     return qlr_matmul(x, codes, p.scale, l, p.r)
 
 
-def linear(ctx: Ctx, p: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``y = x @ W (+ b)``, dispatching on the layer type."""
+def linear(ctx: Ctx, p: nn.Module, x: torch.Tensor,
+           name: str = "") -> torch.Tensor:
+    """``y = x @ W (+ b)``, dispatching on the layer type; with
+    ``ctx.tap`` set an ``FpLinear`` records ``x`` under ``name``."""
     dt = ctx.compute_dtype
     if isinstance(p, FpLinear):
+        if ctx.tap is not None:
+            ctx.record(name, x, p.w.shape[0])
         y = x.to(dt) @ p.w.to(dt)
     elif fused_mode(ctx) != "off":
         y = _fused_qlr(p, x.to(dt))

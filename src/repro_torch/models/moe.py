@@ -11,9 +11,10 @@ carry a leading expert axis (``models.linear``), applied by
 the card, told by each expert's count of kept assignments which rows of
 its queue hold a token.
 
-The JAX function also returns the Switch load-balancing loss; it feeds
-only the training objective, which the port has not ported (ROADMAP M10),
-so :func:`moe_apply` returns the output alone.
+The JAX function also returns the Switch load-balancing term
+``E·Σ importance·load``; here :func:`route` appends it to ``ctx.aux_log``
+when that is set (``lm_loss`` adds it to the loss; the engine never sets
+it), so :func:`moe_apply` returns the output alone.
 """
 from __future__ import annotations
 
@@ -78,7 +79,8 @@ def route(ctx: Ctx, p: MoE, xf: torch.Tensor, k: int
     """(expert index (T, k) int64, gate (T, k) f32): f32 softmax over the
     router logits, top-k with ties to the lower index (as
     ``jax.lax.top_k``), gates renormalised by their sum."""
-    probs = torch.softmax(linear(ctx, p.router, xf).float(), dim=-1)
+    probs = torch.softmax(linear(ctx, p.router, xf, "moe.router").float(),
+                          dim=-1)
     if ctx.route_replay is not None:
         idx = next(ctx.route_replay).to(probs.device)
     else:
@@ -88,6 +90,14 @@ def route(ctx: Ctx, p: MoE, xf: torch.Tensor, k: int
                          stable=True).indices[:, :k]
     if ctx.route_log is not None:
         ctx.route_log.append(idx)
+    if ctx.aux_log is not None:
+        # importance (mean router probability) × load (share of the top-k
+        # assignments) per expert
+        flat = idx.reshape(-1)
+        load = torch.zeros_like(probs[0]).index_add_(
+            0, flat, torch.ones_like(flat, dtype=probs.dtype)) / xf.shape[0]
+        ctx.aux_log.append(probs.shape[-1]
+                           * (probs.mean(dim=0) * load).sum())
     gate = probs.gather(-1, idx)
     return idx, gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
@@ -144,5 +154,5 @@ def moe_apply(ctx: Ctx, p: MoE, x: torch.Tensor,
     combined = (gathered * gate.reshape(-1, 1).to(xf.dtype)) \
         .reshape(t, k, d).sum(dim=1)
     if p.shared is not None:
-        combined = combined + mlp(ctx, p.shared, xf)
+        combined = combined + mlp(ctx, p.shared, xf, "moe.shared")
     return combined.reshape(b, s, d)

@@ -1,6 +1,7 @@
 """Model-level PTQ: replace every projection ``FpLinear`` of the blocks
-with its SRR ``QLinear`` (port of ``repro/models/quantize.py``
-``quantize_model_params`` for the int8 and packed4 containers).
+with its Q + LR ``QLinear`` (port of ``repro/models/quantize.py``
+``quantize_model_params`` for the int8 and packed4 containers), by the
+method and scaling of a :class:`~repro_torch.core.api.PTQConfig`.
 
 Policy, as in the JAX package: the seven projections of each block are
 quantized — in an MoE block the attention projections, the router, the
@@ -11,14 +12,23 @@ full precision. Matrices are quantized one at a time on the model's
 device, and each projection's fp weights (a whole expert stack at once)
 are released as soon as it is replaced, so the f32 model's footprint
 only shrinks during the pass.
+
+Calibration statistics (``data.calibration``) are looked up by each
+matrix's own layer: ``L<i>.attn.wq`` … ``L<i>..down``, ``L<i>.moe.router``,
+``L<i>.moe.shared.up`` …. The JAX pass looks them up with an empty layer
+hint, so every scanned layer there takes layer 0's statistics (ROADMAP
+§3); here each layer takes its own. Routed experts record no tap (their
+input is the dispatch buffer), so they take the identity scaling, as in
+JAX.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.api import LayerReport, PTQConfig, quantize_layer
+from repro_torch.core.api import (CalibStats, LayerReport, PTQConfig,
+                                  quantize_layer)
 from repro_torch.device import resolve_device
 from repro_torch.models.linear import QLinear
 from repro_torch.models.moe import MoE
@@ -38,11 +48,12 @@ def fixed_gamma_scale(rank: int, k: int, gamma: float,
 
 
 def _quantize_matrix(name: str, w: torch.Tensor, cfg: PTQConfig,
-                     gen: torch.Generator, container: str
+                     gen: torch.Generator, container: str,
+                     stats: Optional[CalibStats] = None
                      ) -> Tuple[dict, LayerReport]:
-    """SRR-decompose one (m, n) matrix into the Q + LR container's
-    buffers (``"int8"`` codes or ``"packed4"`` nibbles)."""
-    dec, rep = quantize_layer(name, w, cfg, gen)
+    """Decompose one (m, n) matrix into the Q + LR container's buffers
+    (``"int8"`` codes or ``"packed4"`` nibbles)."""
+    dec, rep = quantize_layer(name, w, cfg, gen, stats)
     packed = cfg.quantizer().quantize(dec.q)
     store = {"codes": packed.codes}
     if container == "packed4":
@@ -59,52 +70,70 @@ def _quantize_matrix(name: str, w: torch.Tensor, cfg: PTQConfig,
 
 def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
                           progress: Optional[Callable[[LayerReport], None]] = None,
-                          *, device="cuda") -> Tuple[LM, List[LayerReport]]:
+                          *, stats: Optional[Dict[str, CalibStats]] = None,
+                          device="cuda") -> Tuple[LM, List[LayerReport]]:
     """Quantize ``model`` in place on ``device`` (where it must already
     live) and return it with one report per matrix. Each matrix draws its
     sketches from its own generator, seeded by ``cfg.seed`` and the
-    matrix's index."""
+    matrix's index. With ``stats`` every matrix but the routed experts'
+    is quantized under ``cfg.scaling`` of its layer's statistics, and
+    each layer's entries are deleted from ``stats`` once its matrices are
+    replaced (a full-width model's Σxxᵀ run to GBs): pass a copy to keep
+    them."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model lives on {model.device}, not on {dev}")
     reports: List[LayerReport] = []
     index = 0
 
-    def one(name: str, w: torch.Tensor) -> dict:
+    def one(name: str, w: torch.Tensor, key: Optional[str]) -> dict:
         nonlocal index
         index += 1
         gen = torch.Generator(device=model.device).manual_seed(
             cfg.seed * 1_000_003 + index)
-        bufs, rep = _quantize_matrix(name, w, cfg, gen, container)
+        st = None
+        if stats is not None and key is not None:
+            if key not in stats:
+                raise KeyError(f"no calibration statistics for {key} "
+                               f"(quantize_model_params deletes each "
+                               f"layer's entries; pass a copy to reuse them)")
+            st = stats[key]
+        bufs, rep = _quantize_matrix(name, w, cfg, gen, container, st)
         reports.append(rep)
         if progress is not None:
             progress(rep)
         return bufs
 
-    def projections(owner, prefix: str, names) -> None:
+    def projections(owner, prefix: str, names, tap: str) -> None:
         for n in names:
             p = getattr(owner, n)
-            setattr(owner, n, QLinear(b=p.b, **one(f"{prefix}.{n}", p.w)))
+            setattr(owner, n, QLinear(b=p.b, **one(f"{prefix}.{n}", p.w,
+                                                   f"{tap}{n}")))
 
     def stacks(owner, prefix: str) -> None:
         # one matrix per expert, stacked back along the expert axis; the
         # fp stack goes once the module is replaced
         for n in SWIGLU:
             p = getattr(owner, n)
-            per = [one(f"{prefix}.{n}[{e}]", p.w[e])
+            per = [one(f"{prefix}.{n}[{e}]", p.w[e], None)
                    for e in range(p.w.shape[0])]
             stacked = {key: torch.stack([q[key] for q in per])
                        for key in per[0]}
             setattr(owner, n, QLinear(b=p.b, **stacked))
 
     for i, blk in enumerate(model.blocks):
-        projections(blk.mixer, f"blocks.{i}.mixer", ATTENTION)
+        layer = f"L{i}."
+        projections(blk.mixer, f"blocks.{i}.mixer", ATTENTION, layer + "attn.")
         if isinstance(blk.mlp, MoE):
             pre = f"blocks.{i}.mlp"
-            projections(blk.mlp, pre, ("router",))
+            projections(blk.mlp, pre, ("router",), layer + "moe.")
             if blk.mlp.shared is not None:
-                projections(blk.mlp.shared, f"{pre}.shared", SWIGLU)
+                projections(blk.mlp.shared, f"{pre}.shared", SWIGLU,
+                            layer + "moe.shared.")
             stacks(blk.mlp.experts, f"{pre}.experts")
         else:
-            projections(blk.mlp, f"blocks.{i}.mlp", SWIGLU)
+            projections(blk.mlp, f"blocks.{i}.mlp", SWIGLU, layer + ".")
+        if stats is not None:
+            for key in [k for k in stats if k.startswith(layer)]:
+                del stats[key]
     return model, reports

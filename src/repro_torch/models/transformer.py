@@ -8,10 +8,13 @@ Each block's FFN is a SwiGLU :class:`~repro_torch.models.layers.MLP` or,
 past the config's ``first_dense`` lead-in layers of an MoE config, an
 :class:`~repro_torch.models.moe.MoE`; :func:`ffn` applies either, for
 prefill, chunks and decode alike. Embeddings and the LM head stay full
-precision by PTQ policy.
+precision by PTQ policy. :func:`lm_loss` is the calibration pass's
+forward (and the training objective): token cross-entropy plus the MoE
+load-balance term.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -20,10 +23,12 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (MLP, RMSNorm, embed, init_linear, mlp,
-                                       rmsnorm)
+from repro_torch.models.layers import (MLP, RMSNorm, chunked_softmax_xent,
+                                       embed, init_linear, mlp, rmsnorm)
 from repro_torch.models.linear import Ctx, FpLinear, linear
 from repro_torch.models.moe import MoE, init_moe, moe_apply
+
+AUX_WEIGHT = 0.01  # MoE load-balance loss coefficient
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -146,6 +151,8 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
     x = embed(model.embed, tokens, ctx.compute_dtype)
     new_cache = [] if cache is not None else None
     for i, blk in enumerate(model.blocks):
+        if ctx.tap is not None:
+            ctx.prefix = f"L{i}."
         y, c = attn.attention_seq(ctx, blk.mixer, rmsnorm(blk.norm1, x), cfg,
                                   cache=cache[i] if cache is not None else None,
                                   lengths=lengths)
@@ -153,7 +160,22 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
         x = x + ffn(ctx, blk, x, cfg)
         if new_cache is not None:
             new_cache.append(c)
+    ctx.prefix = ""
     return rmsnorm(model.final_norm, x), new_cache
+
+
+def lm_loss(ctx: Ctx, model: LM, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Mean token cross-entropy of ``batch["tokens"]`` (B, S) against
+    ``batch["labels"]`` plus ``AUX_WEIGHT`` × the MoE layers' summed
+    load-balance terms; a scalar f32."""
+    aux: List[torch.Tensor] = []
+    hidden, _ = forward(dataclasses.replace(ctx, aux_log=aux), model,
+                        batch["tokens"])
+    head = model.lm_head if model.lm_head is not None \
+        else FpLinear(model.embed.T)
+    xent = chunked_softmax_xent(hidden, head, batch["labels"], ctx)
+    return xent + AUX_WEIGHT * sum(aux, torch.zeros_like(xent))
 
 
 def prefill(ctx: Ctx, model: LM, tokens: torch.Tensor, cache: List[Dict],
