@@ -10,8 +10,10 @@ Phases (each prints its own lines; any failure exits non-zero):
 2. the kernel build: one ``nvcc`` per CUDA source, all started together;
 3. every kernel of the paths (K1–K7) against its plain PyTorch version
    at the full-width shapes of phi3-mini-3.8b and deepseek-moe-16b (K4
-   also at the chunked-prefill shape, K5 on a shuffled block table; K1 at
-   the MoE router's 64 columns and the dense lead-in layer's 10944; K3
+   also at the chunked-prefill shape and at the speculative verify chunk's
+   4 queries over a 512-slot context, K5 on a shuffled block table; K1 at
+   the verify chunk's 4 rows, the MoE router's 64 columns and the dense
+   lead-in layer's 10944; K3
    and K4 at head_dim 128, K3 also at phase 4's occupancy, rows of
    150–282 valid slots of 512; K6 over the 64-expert stacks at decode and
    prefill rows, and at decode with the counts of a seeded top-6 routing
@@ -46,6 +48,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``fused="off"``; then, after serving, where phase 4's SRR pass goes
    (``profile_srr``, as in phase 6, over its first two layers' 14
    matrices);
+4c. "surface", with phase 4's quantized model: (a) ``sample_tokens`` on
+   the card against the CPU over the logits (8, 32,064) of one decode
+   step, lanes greedy / temperature 0.7 / top-p 0.9 / top-k 40 and
+   combinations (tokens identical), and the threefry bits and uniforms
+   of 8 seeds × 4 indices × 32,064 bit for bit across the two devices,
+   with the sampler's device and host ms; (b) 8 requests × 32 tokens
+   under those ``SamplingParams``, ``logprobs=5`` on half and a stop id
+   on a greedy one, served twice (identical tokens, every chosen logprob
+   ≤ 0 and ≤ its top-1, ``finish_reason="stop"``), the sampled decode
+   step beside phase 4's greedy one; then 9 requests in 8 lanes, one
+   aborted after its 8th token (8 tokens, ``"abort"``) and the queued one
+   taking its slot; (c) phase 4's serving with ``speculative=True,
+   spec_k=4`` (Q-only drafts through K1 at rank 0, one verify chunk a
+   lane through K1 at 4 rows and K4 over the unpaged slots) on phase 4's
+   prompts: tokens equal phase 4's request by request (a divergence
+   prints its position and the spec-off top-2 logit gap there, and
+   fails), K1/K3/K4 launched, round ms, acceptance and tok/s; then 1 lane
+   with speculation off and on; (d) phase 4b's paged serving with
+   ``speculative=True``: tokens equal phase 4b's, K5 launched, page
+   refcounts back to the parked pages after the drain;
 5. a reduced-depth (2-layer, full-width) model in the packed4 container
    served with int4 and int8 KV, unpaged and paged (chunks of 64, so the
    packed4 chunk writes and nibble read-modify-writes run on the card),
@@ -602,9 +624,14 @@ def phase_kernels(dev) -> list:
         rows.append(check_decode(dev, kind))
     rows.append(check_decode(dev, "bf16", kvh=16, hd=128))
     rows.append(check_decode(dev, "bf16", ragged=True))
+    # the speculative verify chunk (phase "surface"): K1 at M = spec_k = 4
+    # rows, K4 at 4 queries over a 512-slot context
+    for k, n in ((3072, 3072), (3072, 8192)):
+        rows.append(check_qlr(dev, 4, k, n, 16, False))
     rows.append(check_flash(dev))
     rows.append(check_flash(dev, h=16, hd=128))
     rows.append(check_flash_chunk(dev))
+    rows.append(check_flash_chunk(dev, sq=4, ctx=512, start=250))
     for kind in ("bf16", "int8", "int4"):
         rows.append(check_paged(dev, kind))
     # K6 at the expert stacks: gate/up (K = 2048) and down (K = 1408),
@@ -939,16 +966,32 @@ def quantized_model(dev, cfg):
                                          mean_k=mean_k)
 
 
+MAIN_LENGTHS = [150 + (100 * i) // 7 for i in range(8)]   # phase 4's prompts
+
+
+def main_serve_config(**kw):
+    """Phase 4's ``ServeConfig`` (8 lanes, bf16 KV, 32 new tokens)."""
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(**dict(dict(max_len=512, decode_batch=8,
+                                   prefill_len=256, kv_dtype="bf16",
+                                   fused="auto", max_new_tokens=32), **kw))
+
+
+def paged_serve_config(**kw):
+    """Phase 4b's: pages of 16, chunks of 256, a 520-token step budget."""
+    return main_serve_config(paged=True, page_size=16, max_step_tokens=520,
+                             **kw)
+
+
 def phase_main_path(dev, cfg, model) -> dict:
     import torch
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import Ctx, init_cache, prefill
-    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve import Engine
 
-    sc = ServeConfig(max_len=512, decode_batch=8, prefill_len=256,
-                     kv_dtype="bf16", fused="auto", max_new_tokens=32)
+    sc = main_serve_config()
     eng = Engine(model, cfg, sc, device=dev)
-    lengths = [150 + (100 * i) // 7 for i in range(8)]
+    lengths = MAIN_LENGTHS
     serve(eng, make_requests(cfg, 2, seed=1, lengths=[40, 60]))  # warm-up
     eng = Engine(model, cfg, sc, device=dev)
     reqs = make_requests(cfg, 8, seed=0, lengths=lengths)
@@ -995,7 +1038,8 @@ def phase_main_path(dev, cfg, model) -> dict:
     del eng
     torch.cuda.empty_cache()
     return dict(counts=counts, tok_s=n_tok / wall, step_ms=step_ms,
-                ttft_ms=[1e3 * t for t in ttft], profile=prof)
+                ttft_ms=[1e3 * t for t in ttft], profile=prof,
+                tokens=[r.tokens.tolist() for r in results])
 
 
 def shared_prefix_requests(cfg, n: int, seed: int) -> list:
@@ -1015,12 +1059,10 @@ def phase_paged(dev, cfg, model, unpaged_step_ms: float) -> dict:
     import numpy as np
     import torch
     from repro_torch.models import Ctx, init_cache, prefill, prefill_chunk
-    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve import Engine
     from repro_torch.serve.pages import set_block_table_row
 
-    sc = ServeConfig(paged=True, page_size=16, max_len=512, decode_batch=8,
-                     prefill_len=256, kv_dtype="bf16", max_new_tokens=32,
-                     max_step_tokens=520, fused="auto")
+    sc = paged_serve_config()
     serve(Engine(model, cfg, sc, device=dev),
           shared_prefix_requests(cfg, 2, seed=7))            # warm-up
     eng = Engine(model, cfg, sc, device=dev)
@@ -1102,7 +1144,358 @@ def phase_paged(dev, cfg, model, unpaged_step_ms: float) -> dict:
                 prefill_chunks=st["prefill_chunks"],
                 prefill_tokens_computed=st["prefill_tokens_computed"],
                 prompt_tokens_total=st["prompt_tokens_total"],
-                logit_err_unpaged=err_unpaged, logit_err_off=err_off)
+                logit_err_unpaged=err_unpaged, logit_err_off=err_off,
+                tokens=[r.tokens.tolist() for r in results])
+
+
+# ---------------------------------------------------------------------------
+# phase "surface": sampling, stop ids, logprobs, abort, speculative decoding
+# ---------------------------------------------------------------------------
+# (temperature, top_p, top_k) of the 8 lanes: greedy, T 0.7, top-p 0.9,
+# top-k 40 and combinations
+SURFACE_LANES = [(0.0, 1.0, 0), (0.7, 1.0, 0), (0.7, 0.9, 0), (0.7, 1.0, 40),
+                 (0.7, 0.9, 40), (1.0, 0.9, 40), (0.0, 0.9, 40),
+                 (1.3, 0.5, 5)]
+
+
+def check_sampler(dev, model, cfg) -> dict:
+    """``sample_tokens`` on the card against the same function on the CPU
+    over the logits (8, V) of one real decode step, and the threefry bits
+    of 8 seeds × 4 indices × V, bit for bit across the two devices."""
+    import numpy as np
+    import torch
+    from repro_torch.models import Ctx, decode_step, init_cache, prefill
+    from repro_torch.serve import prng
+    from repro_torch.serve.sampling import sample_tokens
+
+    b, length = 8, 64
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, length))).to(dev)
+    cache = init_cache(cfg, b, 128, torch.bfloat16, dev)
+    logits, cache = prefill(Ctx(), model, tokens, cache)
+    logits, _ = decode_step(Ctx(), model, logits[:, -1].argmax(-1)[:, None],
+                            cache)
+    lg = logits[:, -1].float().contiguous()
+    del cache
+    temps, top_ps, top_ks = (np.array(c, dt) for c, dt in zip(
+        zip(*SURFACE_LANES), (np.float32, np.float32, np.int32)))
+    seeds = rng.integers(0, 2 ** 31 - 1, b).astype(np.int32)
+    idxs = rng.integers(0, 10 ** 6, b).astype(np.int32)
+    lanes = (temps, top_ps, top_ks, seeds, idxs)
+    got = sample_tokens(lg, *lanes).tolist()
+    want = sample_tokens(lg.cpu(), *lanes).tolist()
+    # every (seed, index) pair of 8 seeds × 4 indices: 32 keys, V bits each
+    s = torch.tensor(np.repeat(seeds, 4), dtype=torch.int32)
+    i = torch.tensor(np.tile([0, 1, 31, 10 ** 6], b))
+    bits_cpu = prng.random_bits(prng.fold_in(prng.prng_key(s), i), cfg.vocab)
+    bits_dev = prng.random_bits(prng.fold_in(prng.prng_key(s.to(dev)),
+                                             i.to(dev)), cfg.vocab).cpu()
+    unif_cpu = prng.uniform(prng.fold_in(prng.prng_key(s), i), cfg.vocab)
+    unif_dev = prng.uniform(prng.fold_in(prng.prng_key(s.to(dev)), i.to(dev)),
+                            cfg.vocab).cpu()
+    mixed = host_bound_ms(lambda: sample_tokens(lg, *lanes))
+    greedy = host_bound_ms(lambda: sample_tokens(
+        lg, np.zeros(b, np.float32), *lanes[1:]))
+    out = dict(tokens_card=got, tokens_cpu=want,
+               bits_equal=bool(torch.equal(bits_cpu, bits_dev)),
+               uniforms_equal=bool(torch.equal(unif_cpu.view(torch.int32),
+                                               unif_dev.view(torch.int32))),
+               n_bits=bits_cpu.numel(), mixed=mixed, greedy=greedy)
+    log("surface", f"sampler over logits {tuple(lg.shape)} of a decode step: "
+        f"card tokens {got}, CPU tokens {want}; threefry bits of 8 seeds × 4 "
+        f"indices × {cfg.vocab} equal across devices: {out['bits_equal']} "
+        f"(uniforms {out['uniforms_equal']}); a call, mixed lanes: "
+        f"{mixed['wall_ms']:.4f} ms wall, {mixed['device_ms']:.4f} ms "
+        f"device, {mixed['launches']:.0f} launches; all greedy: "
+        f"{greedy['wall_ms']:.4f} ms wall, {greedy['device_ms']:.4f} ms "
+        f"device, {greedy['launches']:.0f} launches")
+    require(got == want, f"sampled tokens differ between card and CPU: "
+            f"{got} vs {want}")
+    require(out["bits_equal"] and out["uniforms_equal"],
+            "threefry bits or uniforms differ between card and CPU")
+    return out
+
+
+def host_bound_ms(fn, n: int = 20) -> dict:
+    """A host-heavy function's cost a call, warm: the wall of ``n`` calls
+    back to back ending in a synchronize (the host's enqueue and the
+    device's tail), and from ``torch.profiler`` over ``n`` more calls the
+    device time and kernel launches. (``time_ms``'s enqueue behind a
+    sleep kernel does not fit a function that allocates pinned memory:
+    no pinned block frees while the card sleeps.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) for e in ev)
+    launches = sum(e.count for e in ev
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    return dict(wall_ms=1e3 * wall, device_ms=dev_us / 1e3 / n,
+                launches=launches / n)
+
+
+def top2_gap(dev, cfg, model, prompt, tokens, pos: int) -> float:
+    """Gap between the two largest logits after ``prompt`` and the first
+    ``pos`` generated ``tokens``, from a one-shot unpaged prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.models import Ctx, init_cache, prefill
+
+    seq = np.concatenate([prompt, np.asarray(tokens[:pos], np.int32)])
+    t = torch.from_numpy(seq).long()[None].to(dev)
+    n = torch.tensor([len(seq)], dtype=torch.int32, device=dev)
+    logits, _ = prefill(Ctx(), model, t, init_cache(cfg, 1, 512,
+                                                    torch.bfloat16, dev),
+                        lengths=n)
+    top = torch.topk(logits[0, 0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def hold_tokens(dev, cfg, model, reqs, got, want, what: str) -> int:
+    """Count the requests whose tokens differ; for each, print its first
+    divergent position and the spec-off top-2 logit gap there."""
+    bad = 0
+    for r, g, w in zip(reqs, got, want):
+        if g == w:
+            continue
+        bad += 1
+        pos = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
+                   min(len(g), len(w)))
+        log("surface", f"{what}: request {r.uid} diverges at token {pos} "
+            f"({g[pos:pos + 3]} vs {w[pos:pos + 3]}); spec-off top-2 logit "
+            f"gap there {top2_gap(dev, cfg, model, r.prompt, w, pos):.3e}")
+    return bad
+
+
+def serve_rounds(eng, reqs) -> tuple:
+    """``serve`` that also times the engine steps that ran a speculative
+    round and admitted nothing: (results, round seconds, wall seconds)."""
+    t0 = time.perf_counter()
+    for r in reqs:
+        r.t_submit = t0
+        eng.submit(r)
+    results, rounds = [], []
+    while eng.sched.has_work:
+        before = prefill_work(eng), eng.stats()["spec_rounds"]
+        ts = time.perf_counter()
+        results.extend(eng.step())
+        took = time.perf_counter() - ts
+        if prefill_work(eng) == before[0] \
+                and eng.stats()["spec_rounds"] > before[1]:
+            rounds.append(took)
+    return sorted(results, key=lambda r: r.uid), rounds, \
+        time.perf_counter() - t0
+
+
+def phase_surface(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
+    """Phase "surface" on phase 4's quantized model: (a) the sampler on the
+    card against the CPU; (b) sampled serving with logprobs, a stop id and
+    an abort; (c) speculative serving over the unpaged cache against
+    phase 4's tokens, then at 1 lane spec on and off; (d) speculative
+    serving over the paged cache against phase 4b's tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import Engine, SamplingParams
+
+    out = {"sampler": check_sampler(dev, model, cfg)}
+
+    # ---- b: sampled serving, twice; then an abort ----------------------
+    # uid 6 decodes greedily (temperature 0): its stop id is a token that
+    # phase 4's greedy run gave it
+    stop_id = main_run["tokens"][6][10]
+
+    def sampled_requests(n=8, stop=True):
+        reqs = make_requests(cfg, n, seed=0, lengths=(MAIN_LENGTHS * 2)[:n])
+        for r in reqs:
+            t, p, k = SURFACE_LANES[r.uid % 8]
+            r.params = SamplingParams(
+                temperature=t, top_p=p, top_k=k,
+                logprobs=5 if r.uid % 2 == 0 else None,
+                stop=(stop_id,) if stop and r.uid == 6 else ())
+        return reqs
+
+    # the sampled batch twice, in turns with phase 4's greedy batch:
+    # greedy, sampled, sampled, greedy (host time moves between runs far
+    # apart, so the two step times are compared within these turns)
+    runs, greedy_steps = [], []
+    for kind in ("greedy", "sampled", "sampled", "greedy"):
+        eng = Engine(model, cfg, main_serve_config(), device=dev)
+        infos = []
+        eng.on_token = lambda uid, tok, info: infos.append((uid, tok, info))
+        reqs = sampled_requests() if kind == "sampled" else \
+            make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+        results, steps, wall = serve(eng, reqs)
+        if kind == "sampled":
+            runs.append(([r.tokens.tolist() for r in results],
+                         [r.finish_reason for r in results], infos, steps,
+                         wall))
+        else:
+            greedy_steps.append(1e3 * sum(steps) / len(steps))
+        del eng
+    toks, reasons, infos, steps, wall = runs[0]
+    sampled_steps = [1e3 * sum(r[3]) / len(r[3]) for r in runs]
+    recs = [info for _, _, info in infos if info is not None]
+    lp_ok = all(i["logprob"] <= 0.0 and i["logprob"] <= i["top_logprobs"][0][1]
+                for i in recs)
+    n_tok = sum(len(t) for t in toks)
+    log("surface", f"sampled serving (8 lanes: {SURFACE_LANES}, logprobs=5 "
+        f"on even uids, stop id {stop_id} on uid 6): {n_tok} tokens in "
+        f"{wall:.3f} s; decode step in turns, greedy / sampled / sampled / "
+        f"greedy: {greedy_steps[0]:.2f} / {sampled_steps[0]:.2f} / "
+        f"{sampled_steps[1]:.2f} / {greedy_steps[1]:.2f} ms (phase 4: "
+        f"{main_run['step_ms']:.2f} ms); finish reasons {reasons}; "
+        f"{len(recs)} logprob records, all ≤ 0 and ≤ their top-1: {lp_ok}; "
+        f"the two runs identical: {runs[0][0] == runs[1][0]}")
+    require(runs[0][0] == runs[1][0], "two sampled runs of one batch differ")
+    require(lp_ok and len(recs) == sum(len(t) for t in toks[0::2]),
+            "a logprob record is positive, above its top-1, or missing")
+    require(reasons[6] == "stop" and toks[6][-1] == stop_id,
+            f"the stop request ended {reasons[6]} with {toks[6][-3:]}")
+    require(all(0 <= t < cfg.vocab for row in toks for t in row),
+            "a token outside the vocabulary")
+
+    eng = Engine(model, cfg, main_serve_config(), device=dev)
+    for r in sampled_requests(9, stop=False):       # uid 8 waits in queue
+        eng.submit(r)
+    done = []
+    while True:
+        done.extend(eng.step())
+        slot = next(s for s, st in eng.sched.table.active.items()
+                    if st.uid == 3)
+        if len(eng.sched.table.active[slot].tokens) >= 8:
+            break
+    aborted = eng.abort(3)
+    queued = len(eng.sched.queue)
+    done.extend(eng.step())
+    took_slot = eng.sched.table.active.get(slot)
+    done.extend(eng.drain())
+    log("surface", f"abort after the 8th token: {len(aborted.tokens)} "
+        f"tokens, finish_reason {aborted.finish_reason!r}; the queued "
+        f"request took slot {slot}: "
+        f"{took_slot is not None and took_slot.uid == 8}; "
+        f"{len(done)} others finished, aborted count "
+        f"{eng.stats()['aborted']}")
+    require(len(aborted.tokens) == 8 and aborted.finish_reason == "abort",
+            f"abort returned {len(aborted.tokens)} tokens, "
+            f"{aborted.finish_reason!r}")
+    require(queued == 1 and took_slot is not None and took_slot.uid == 8,
+            "the queued request did not take the aborted request's slot")
+    require(sorted(r.uid for r in done) == [0, 1, 2, 4, 5, 6, 7, 8],
+            "a request of the abort run did not finish")
+    del eng
+    out["sampled"] = dict(step_ms=sampled_steps, greedy_step_ms=greedy_steps,
+                          wall_s=wall, tokens=n_tok, reasons=reasons,
+                          logprob_records=len(recs))
+
+    # ---- c: speculative serving, unpaged -------------------------------
+    reqs = make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    eng = Engine(model, cfg, main_serve_config(speculative=True, spec_k=4),
+                 device=dev)
+    reset_counts()
+    results, rounds, wall = serve_rounds(eng, reqs)
+    counts = launch_counts()
+    st = eng.stats()
+    got = [r.tokens.tolist() for r in results]
+    n_tok = sum(len(t) for t in got)
+    round_ms = 1e3 * sum(rounds) / max(len(rounds), 1)
+    bad = hold_tokens(dev, cfg, model, reqs, got, main_run["tokens"],
+                      "spec unpaged vs phase 4")
+    log("surface", f"speculative, unpaged (8 lanes, spec_k 4, store="
+        f"{eng._spec_store}): {n_tok} tokens in {wall:.3f} s, "
+        f"{n_tok / wall:.1f} tok/s (phase 4 plain: {main_run['tok_s']:.1f}); "
+        f"{st['spec_rounds']} rounds, {len(rounds)} decode-only rounds of "
+        f"{round_ms:.2f} ms; acceptance {st['spec_accepted_tokens']}/"
+        f"{st['spec_draft_tokens']} = {st['spec_acceptance_rate']:.4f}, "
+        f"per lane a round {st['spec_accept_hist']}; {bad} of 8 requests "
+        f"differ from phase 4's tokens; launches {counts}")
+    require(bad == 0, f"{bad} speculative requests diverged from plain decode")
+    require(st["spec_rounds"] >= 1
+            and st["spec_accepted_tokens"] <= st["spec_draft_tokens"],
+            f"speculative counters {st}")
+    require(all(counts[k] > 0 for k in ("K1", "K3", "K4")),
+            f"a kernel of the speculative path never launched: {counts}")
+    del eng
+    out["spec_unpaged"] = dict(tok_s=n_tok / wall, round_ms=round_ms,
+                               rounds=st["spec_rounds"],
+                               decode_only_rounds=len(rounds),
+                               acceptance=st["spec_acceptance_rate"],
+                               accept_hist=st["spec_accept_hist"],
+                               drafted=st["spec_draft_tokens"],
+                               accepted=st["spec_accepted_tokens"],
+                               counts=counts, plain_tok_s=main_run["tok_s"])
+
+    # one lane, spec off then on, the first four prompts
+    one = {}
+    for spec in (False, True):
+        eng = Engine(model, cfg, main_serve_config(
+            decode_batch=1, speculative=spec, spec_k=4), device=dev)
+        reqs1 = make_requests(cfg, 4, seed=0, lengths=MAIN_LENGTHS[:4])
+        results, rounds, wall = serve_rounds(eng, reqs1)
+        toks1 = [r.tokens.tolist() for r in results]
+        n1 = sum(len(t) for t in toks1)
+        one[spec] = dict(tok_s=n1 / wall, wall_s=wall, tokens=toks1,
+                         round_ms=1e3 * sum(rounds) / max(len(rounds), 1),
+                         acceptance=eng.stats()["spec_acceptance_rate"])
+        del eng
+    bad1 = hold_tokens(dev, cfg, model, reqs1, one[True]["tokens"],
+                       one[False]["tokens"], "spec vs plain at 1 lane")
+    log("surface", f"1 lane, 4 requests × 32 tokens: plain "
+        f"{one[False]['tok_s']:.1f} tok/s, speculative "
+        f"{one[True]['tok_s']:.1f} tok/s (rounds of "
+        f"{one[True]['round_ms']:.2f} ms, acceptance "
+        f"{one[True]['acceptance']:.4f}); {bad1} of 4 requests differ")
+    require(bad1 == 0, "speculative decode at 1 lane diverged from plain")
+    out["one_lane"] = {("spec" if k else "plain"): {
+        key: v for key, v in d.items() if key != "tokens"}
+        for k, d in one.items()}
+
+    # ---- d: speculative serving, paged --------------------------------
+    reqs = shared_prefix_requests(cfg, 16, seed=6)
+    eng = Engine(model, cfg, paged_serve_config(speculative=True, spec_k=4),
+                 device=dev)
+    reset_counts()
+    results, rounds, wall = serve_rounds(eng, reqs)
+    counts = launch_counts()
+    st = eng.stats()
+    got = [r.tokens.tolist() for r in results]
+    n_tok = sum(len(t) for t in got)
+    bad = hold_tokens(dev, cfg, model, reqs, got, paged_run["tokens"],
+                      "spec paged vs phase 4b")
+    log("surface", f"speculative, paged (16 requests, shared prefix): "
+        f"{n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} tok/s (phase "
+        f"4b plain: {paged_run['tok_s']:.1f}); {st['spec_rounds']} rounds, "
+        f"acceptance {st['spec_acceptance_rate']:.4f}; pages hot after the "
+        f"drain {st['pages_hot']} (parked {eng.sc.decode_batch}); {bad} of "
+        f"16 requests differ from phase 4b's tokens; launches {counts}")
+    require(bad == 0, f"{bad} paged speculative requests diverged")
+    require(counts["K5"] > 0 and counts["K3"] == 0,
+            f"paged speculative decode launches {counts}")
+    require(st["pages_hot"] == eng.sc.decode_batch
+            and sum(eng.pool.refcount(p) for p in range(eng.pool.n_pages))
+            == eng.sc.decode_batch,
+            "page refcounts did not return to the pool's idle state")
+    del eng
+    torch.cuda.empty_cache()
+    out["spec_paged"] = dict(tok_s=n_tok / wall, rounds=st["spec_rounds"],
+                             acceptance=st["spec_acceptance_rate"],
+                             counts=counts, plain_tok_s=paged_run["tok_s"])
+    return out
 
 
 def phase_reduced(dev, cfg) -> None:
@@ -1542,6 +1935,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paged_run = phase_paged(dev, cfg, model, main_run["step_ms"])
     log("paged", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    surface_run = phase_surface(dev, cfg, model, main_run, paged_run)
+    log("surface", f"phase took {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
     main_run["srr_profile"] = profile_srr(dev, cfg, "main", t_quant, reports,
@@ -1562,7 +1958,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "cases": rows,
                    "main_path": main_run, "paged_path": paged_run,
-                   "ptq": ptq_run, "moe_path": moe_run}, fh, indent=1)
+                   "surface": surface_run, "ptq": ptq_run,
+                   "moe_path": moe_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",

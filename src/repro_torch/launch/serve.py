@@ -9,7 +9,11 @@ kernels' plain versions).
 ``--arch`` picks a registered architecture (``phi3-mini-3.8b``, dense,
 or ``deepseek-moe-16b``, MoE); ``--full`` serves it at its published
 size instead of its ``.reduced()`` smoke-test size. ``--paged`` serves from the paged KV
-cache with prefix reuse and chunked prefill.
+cache with prefix reuse and chunked prefill; ``--scheduler bucketed``
+through the bucketed baseline. ``--temperature``/``--top-p``/``--top-k``
+set every request's ``SamplingParams``; ``--spec-k K`` decodes greedy
+lanes self-speculatively (a Q-only draft of K - 1 tokens, one Q + LR
+verify chunk a lane).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from repro_torch.core.api import PTQConfig
 from repro_torch.data import capture_calibration, data_config_for
 from repro_torch.models.transformer import LM, init_lm, lm_loss
 from repro_torch.models.quantize import quantize_model_params
-from repro_torch.serve import Engine, Request, ServeConfig
+from repro_torch.serve import Engine, Request, SamplingParams, ServeConfig
 
 
 def build_quantized_model(args) -> tuple[LM, ModelConfig]:
@@ -75,6 +79,22 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--new-tokens", type=int, default=16)
     p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--scheduler", default="continuous",
+                   choices=["continuous", "bucketed"])
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="per-request sampling temperature (0 = greedy); "
+                        "applied through SamplingParams on every request")
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus sampling mass (1.0 = off)")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="top-k logit filter (0 = off)")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="self-speculative decoding: draft up to K-1 tokens a "
+                        "round through the Q-only base (the low-rank "
+                        "correction skipped), verify them in one Q+LR chunk "
+                        "a lane, rewind any rejected tail (0 = off; "
+                        "continuous scheduler, greedy lanes only: sampled "
+                        "lanes fall back to per-token decode)")
     p.add_argument("--prefill-len", type=int, default=32,
                    help="prompt pad width (with --paged: the chunk width)")
     p.add_argument("--paged", action="store_true",
@@ -115,16 +135,28 @@ def main(argv=None) -> int:
         compute_dtype=args.compute_dtype, paged=args.paged,
         page_size=args.page_size, n_pages=args.n_pages,
         prefix_cache=not args.no_prefix_cache,
-        max_step_tokens=args.max_step_tokens), device=args.device)
+        max_step_tokens=args.max_step_tokens, scheduler=args.scheduler,
+        temperature=args.temperature, seed=args.seed,
+        speculative=args.spec_k > 0,
+        spec_k=args.spec_k if args.spec_k > 0 else 4), device=args.device)
     reqs = make_requests(cfg, args.requests, args.seed)
+    sp = SamplingParams(temperature=args.temperature, top_p=args.top_p,
+                        top_k=args.top_k)
+    for r in reqs:
+        r.params = sp
     t0 = time.perf_counter()
     results = eng.generate(reqs)
     dt = time.perf_counter() - t0
     toks = sum(len(r.tokens) for r in results)
     print(f"[serve] {len(results)} requests, {toks} tokens in {dt:.2f}s "
-          f"({toks / dt:.1f} tok/s, device={args.device})")
+          f"({toks / dt:.1f} tok/s, device={args.device}, "
+          f"scheduler={args.scheduler})")
+    st = eng.stats()
+    if args.spec_k > 0:
+        print(f"[serve] speculative: {st['spec_rounds']} rounds, "
+              f"{st['spec_accepted_tokens']}/{st['spec_draft_tokens']} "
+              f"drafts accepted (rate {st['spec_acceptance_rate']:.3f})")
     if args.paged:
-        st = eng.stats()
         print(f"[serve] paged: {st['prefill_chunks']} prefill chunks, "
               f"{st['prefill_tokens_computed']}/{st['prompt_tokens_total']} "
               f"prompt tokens computed (prefix hit rate "

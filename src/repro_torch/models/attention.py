@@ -306,18 +306,26 @@ def attention_step(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
     return y, cache
 
 
-def _chunk_nibble_rmw(plane: torch.Tensor, bt_row: torch.Tensor, ps: int,
+def _chunk_nibble_rmw(plane: torch.Tensor, row: int,
+                      bt_row: Optional[torch.Tensor], ps: int,
                       codes: torch.Tensor, start: int, length: int) -> None:
     """Merge a chunk's int4 codes (C, KV, hd) for positions ``[start,
-    start+length)`` into one row's packed4 pages ``plane`` (P, KV, ps/2,
-    hd) uint8 through its block table ``bt_row``, in place, by a per-byte
-    read-modify-write at any ``start`` parity and ``length``. Only the
-    bytes the chunk touches are visited (``length`` is known on the
-    host), and a boundary byte keeps its out-of-chunk partner nibble."""
+    start+length)`` into one row's packed4 storage, in place, by a
+    per-byte read-modify-write at any ``start`` parity and ``length``:
+    the paged pool ``plane`` (P, KV, ps/2, hd) through the row's block
+    table ``bt_row``, or (``bt_row=None``) row ``row`` of the unpaged
+    (B, KV, S/2, hd) pages. Only the bytes the chunk touches are visited
+    (``length`` is known on the host), and a boundary byte keeps its
+    out-of-chunk partner nibble — a verify chunk starting mid-byte never
+    clobbers the token stored beside it."""
     byte_idx = torch.arange(start // 2, (start + length - 1) // 2 + 1,
                             device=codes.device)
-    page = bt_row[(2 * byte_idx) // ps].to(torch.int64)
-    off = (2 * byte_idx % ps) // 2              # byte row inside the page
+    if bt_row is None:
+        page = torch.full_like(byte_idx, row)
+        off = byte_idx
+    else:
+        page = bt_row[(2 * byte_idx) // ps].to(torch.int64)
+        off = (2 * byte_idx % ps) // 2          # byte row inside the page
     ol = 2 * byte_idx - start                   # chunk offset of the low slot
     oh = ol + 1
     lo_in = ((ol >= 0) & (ol < length))[:, None, None]
@@ -334,69 +342,93 @@ def _chunk_nibble_rmw(plane: torch.Tensor, bt_row: torch.Tensor, ps: int,
 def attention_chunk(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
                     cfg: ModelConfig, row: int, start: int, length: int
                     ) -> Tuple[torch.Tensor, Dict]:
-    """Chunked-prefill attention for one row of a paged cache: ``length``
-    tokens at positions ``[start, start+length)`` of slot ``row``, x
-    (1, C, D) right-padded to the chunk width C. The chunk attends to
+    """Multi-token chunk attention for one cache row: ``length`` tokens
+    at positions ``[start, start+length)`` of slot ``row``, x (1, C, D)
+    right-padded to the chunk width C. Serves chunked prefill and the
+    speculative verify (k drafted tokens scored at once; there ``start``
+    is the row's decode position, of any parity). The chunk attends to
     the row's stored context below ``start`` (earlier chunks, prefix-
-    cache pages) and to itself, causally: K4 over [stored context ‖
-    fresh chunk], the context masked by ``k_pos = -1`` at and above
-    ``start``. The chunk reads its own K/V fresh (compute dtype) and the
-    context from storage, as the JAX ``attention_chunk`` does with
-    ``chunk_store=True, step_parity=False``.
+    cache pages, decoded tokens) and to itself, causally: K4 over
+    [stored context ‖ chunk], the context masked by ``k_pos = -1`` at
+    and above ``start``.
 
-    The chunk's ``length`` valid tokens are written into the row's pages
-    in the storage container, in place, with ``pos[row] = start +
-    length``; pad lanes write nothing (``length`` is a host int, so the
-    write is sliced to it instead of steering pad lanes out of bounds as
-    the JAX scatter does)."""
+    Both layouts: a paged cache (``block_table`` present) is read and
+    written through the row's page table; the unpaged slot cache through
+    row ``row`` of its (B, KV, S, hd) pages and ``slot_pos``, where slot
+    j holds position j.
+
+    The chunk reads its own K/V fresh (compute dtype) and the context
+    from storage, so a one-chunk prompt runs the ops of the one-shot
+    prefill. ``ctx.step_parity`` (the verify) reads the chunk's K/V
+    through the int8/int4 storage round trip instead, as a decode step
+    reads its own token back; bf16/f32 storage has no round trip there,
+    as in the JAX package.
+
+    Unless ``ctx.chunk_store`` is off (a read-only verify), the chunk's
+    ``length`` valid tokens are written into the row's storage in its
+    container, in place, with ``pos[row] = start + length`` (unpaged:
+    ``slot_pos`` too); pad lanes write nothing (``length`` is a host int,
+    so the write is sliced to it instead of steering pad lanes out of
+    bounds as the JAX scatter does)."""
     _, c, _ = x.shape
     hd = cfg.head_dim_
     positions = torch.arange(start, start + c, dtype=torch.int32,
                              device=x.device)
     q, k, v = _qkv(ctx, p, x, cfg, positions)
-    bt_row = cache["block_table"][row]                       # (nb,)
-    ps = _paged_page_size(cache)
-    nslots = bt_row.shape[0] * ps
+    paged = "block_table" in cache
     packed4 = cache["k"].dtype == torch.uint8
     quant = "k_scale" in cache
-
-    # ---- context: the row's pages as they stand before the chunk ------
-    ctxk = gather_pages(cache["k"], bt_row[None])           # (1, KV, S', hd)
-    ctxv = gather_pages(cache["v"], bt_row[None])
-    if packed4:
-        ctxk, ctxv = unpack_codes_4bit(ctxk), unpack_codes_4bit(ctxv)
-    if quant:
-        ctxk = kv_dequantize(ctxk, gather_pages(cache["k_scale"], bt_row[None]),
-                             torch.float32)
-        ctxv = kv_dequantize(ctxv, gather_pages(cache["v_scale"], bt_row[None]),
-                             torch.float32)
-    ctxk = ctxk.to(k.dtype).transpose(1, 2)                  # (1, S, KV, hd)
-    ctxv = ctxv.to(v.dtype).transpose(1, 2)
-
-    # ---- write the chunk's valid tokens into the row's pages ----------
-    sl = torch.arange(start, start + length, device=x.device)
-    wpage = bt_row[sl // ps].to(torch.int64)
-    woff = sl % ps
     kw, vw = k[0, :length], v[0, :length]                    # (L, KV, hd)
     if quant:
         qmax = 7 if packed4 else 127
-        kw, ksc = kv_quantize(kw, qmax)
-        vw, vsc = kv_quantize(vw, qmax)
-        cache["k_scale"][wpage, :, woff] = ksc
-        cache["v_scale"][wpage, :, woff] = vsc
-    if packed4:
-        _chunk_nibble_rmw(cache["k"], bt_row, ps, kw, start, length)
-        _chunk_nibble_rmw(cache["v"], bt_row, ps, vw, start, length)
-    else:
-        cache["k"][wpage, :, woff] = kw.to(cache["k"].dtype)
-        cache["v"][wpage, :, woff] = vw.to(cache["v"].dtype)
-    cache["pos"][row] = start + length
+        kc, ksc = kv_quantize(k, qmax)
+        vc, vsc = kv_quantize(v, qmax)
+        kw, vw = kc[0, :length], vc[0, :length]
+        if ctx.step_parity:
+            k = kv_dequantize(kc, ksc, torch.float32).to(k.dtype)
+            v = kv_dequantize(vc, vsc, torch.float32).to(v.dtype)
 
-    # ---- attention: [stored context ‖ fresh chunk], causal ------------
+    # ---- context: the row's storage as it stands before the chunk -----
+    if paged:
+        bt_row = cache["block_table"][row]                   # (nb,)
+        ps = _paged_page_size(cache)
+        nslots = bt_row.shape[0] * ps
+        src = {key: gather_pages(cache[key], bt_row[None])   # (1, KV, S', …)
+               for key in ("k", "v", "k_scale", "v_scale") if key in cache}
+    else:
+        bt_row, ps = None, 0
+        nslots = cache["slot_pos"].shape[1]
+        src = {key: cache[key][row][None]
+               for key in ("k", "v", "k_scale", "v_scale") if key in cache}
+    ctxk, ctxv = _cache_kv(src, torch.float32) if quant \
+        else (src["k"], src["v"])
     sctx = torch.arange(nslots, dtype=torch.int32, device=x.device)
     k_pos = torch.cat([torch.where(sctx < start, sctx, -1), positions])
-    kk = torch.cat([ctxk, k], dim=1)
-    vv = torch.cat([ctxv, v], dim=1)
+    kk = torch.cat([ctxk.to(k.dtype).transpose(1, 2), k], dim=1)
+    vv = torch.cat([ctxv.to(v.dtype).transpose(1, 2), v], dim=1)
+
+    # ---- write the chunk's valid tokens into the row's storage --------
+    if ctx.chunk_store:
+        sl = torch.arange(start, start + length, device=x.device)
+        if paged:
+            wrow = bt_row[sl // ps].to(torch.int64)
+            woff = sl % ps
+        else:
+            wrow = torch.full_like(sl, row)
+            woff = sl
+            cache["slot_pos"][row, start:start + length] = positions[:length]
+        if quant:
+            cache["k_scale"][wrow, :, woff] = ksc[0, :length]
+            cache["v_scale"][wrow, :, woff] = vsc[0, :length]
+        if packed4:
+            _chunk_nibble_rmw(cache["k"], row, bt_row, ps, kw, start, length)
+            _chunk_nibble_rmw(cache["v"], row, bt_row, ps, vw, start, length)
+        else:
+            cache["k"][wrow, :, woff] = kw.to(cache["k"].dtype)
+            cache["v"][wrow, :, woff] = vw.to(cache["v"].dtype)
+        cache["pos"][row] = start + length
+
+    # ---- attention: [stored context ‖ chunk], causal -----------------
     if fused_mode(ctx) == "off":
         out = flash_attention_plain(q, kk, vv, positions, k_pos)
     else:

@@ -28,6 +28,14 @@ launches K1/K2 on a CUDA tensor and runs their plain version on a CPU
 tensor (an int8 expert stack: :func:`~repro_torch.kernels.mxint_matmul.
 qlr_matmul_batched`, K6); ``"off"`` keeps the dequantize-then-matmul
 baseline.
+
+``Ctx.draft`` is self-speculative decoding's Q-only draft: :func:`linear`
+slices a ``QLinear``'s ``l``/``r`` to rank 0, so the draft runs the same
+code on the same resident weights with the low-rank correction skipped.
+:func:`linear_stack` does not slice, as the JAX expert path never reads
+the flag: an MoE model's routed experts keep their LR in the draft.
+``step_parity`` and ``chunk_store`` steer chunk attention for the
+speculative verify (``models.attention.attention_chunk``).
 """
 from __future__ import annotations
 
@@ -49,6 +57,11 @@ class Ctx:
 
     compute_dtype: torch.dtype = torch.float32
     fused: str = "auto"                           # Q+LR matmul: auto|on|off
+    draft: bool = False                           # Q-only (skip the LR sliver)
+    step_parity: bool = False                     # chunk attention reads its
+    # own K/V through the storage quantizer round trip, as a decode step
+    chunk_store: bool = True                      # False: chunk attention
+    # writes nothing into the cache (a read-only speculative verify)
     # MoE routing probes (``models.moe``): each MoE layer appends its
     # (T, top_k) expert choice to ``route_log``, and takes it from
     # ``route_replay`` instead of its own top-k when that is set — so two
@@ -131,36 +144,39 @@ def dequant_weight(p: QLinear, dtype) -> torch.Tensor:
     return w[..., : p.l.shape[-2], :]
 
 
-def _fused_qlr(p: QLinear, x: torch.Tensor) -> torch.Tensor:
+def _fused_qlr(p: QLinear, x: torch.Tensor, l: torch.Tensor,
+               r: torch.Tensor) -> torch.Tensor:
     """One quantized projection through the Q + LR matmul, padding x and
     l with zeros up to the MXINT-padded code rows."""
     if p.packed is not None:
         codes, rows = p.packed, p.packed.shape[0] * 2
     else:
         codes, rows = p.codes, p.codes.shape[0]
-    l = p.l
     pad = rows - x.shape[-1]
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
         l = torch.nn.functional.pad(l, (0, 0, 0, pad))
-    return qlr_matmul(x, codes, p.scale, l, p.r)
+    return qlr_matmul(x, codes, p.scale, l, r)
 
 
 def linear(ctx: Ctx, p: nn.Module, x: torch.Tensor,
            name: str = "") -> torch.Tensor:
     """``y = x @ W (+ b)``, dispatching on the layer type; with
-    ``ctx.tap`` set an ``FpLinear`` records ``x`` under ``name``."""
+    ``ctx.tap`` set an ``FpLinear`` records ``x`` under ``name``; under
+    ``ctx.draft`` a ``QLinear`` runs at rank 0 (Q alone)."""
     dt = ctx.compute_dtype
     if isinstance(p, FpLinear):
         if ctx.tap is not None:
             ctx.record(name, x, p.w.shape[0])
         y = x.to(dt) @ p.w.to(dt)
-    elif fused_mode(ctx) != "off":
-        y = _fused_qlr(p, x.to(dt))
     else:
-        y = x.to(dt) @ dequant_weight(p, dt)
-        if p.l.shape[1] > 0:
-            y = y + (x.to(dt) @ p.l.to(dt)) @ p.r.to(dt)
+        l, r = (p.l[:, :0], p.r[:0]) if ctx.draft else (p.l, p.r)
+        if fused_mode(ctx) != "off":
+            y = _fused_qlr(p, x.to(dt), l, r)
+        else:
+            y = x.to(dt) @ dequant_weight(p, dt)
+            if l.shape[1] > 0:
+                y = y + (x.to(dt) @ l.to(dt)) @ r.to(dt)
     if p.b is not None:
         y = y + p.b.to(dt)
     return y
@@ -187,7 +203,8 @@ def linear_stack(ctx: Ctx, p: nn.Module, x: torch.Tensor,
     returns them as zeros (plus the bias); fp stacks, packed4 stacks and
     ``fused="off"`` ignore ``counts`` and take one batched matmul on the
     dequantized stack, as the JAX package's ``vmap`` of
-    dequantize-then-matmul does."""
+    dequantize-then-matmul does. ``ctx.draft`` is ignored: the stack
+    keeps its low-rank correction, as in the JAX expert path."""
     dt = ctx.compute_dtype
     xd = x.to(dt)
     if isinstance(p, FpLinear):

@@ -196,8 +196,10 @@ def _chunk_stack(ctx: Ctx, model: LM, tokens: torch.Tensor,
                  cache: List[Dict], row: int, start: int, length: int
                  ) -> torch.Tensor:
     """Run a (1, C) chunk through every layer in chunk mode (append its
-    K/V to row ``row``'s pages, attend over [stored context ‖ chunk]);
-    returns the final-normed hidden states (1, C, D)."""
+    K/V to row ``row``'s storage, paged or unpaged, and attend over
+    [stored context ‖ chunk]); returns the final-normed hidden states
+    (1, C, D). :func:`prefill_chunk` and :func:`verify_chunk` differ only
+    in the positions they push through the LM head."""
     cfg = model.cfg
     x = embed(model.embed, tokens, ctx.compute_dtype)
     for blk, c in zip(model.blocks, cache):
@@ -211,13 +213,39 @@ def _chunk_stack(ctx: Ctx, model: LM, tokens: torch.Tensor,
 def prefill_chunk(ctx: Ctx, model: LM, tokens: torch.Tensor,
                   cache: List[Dict], row: int, start: int, length: int
                   ) -> Tuple[torch.Tensor, List[Dict]]:
-    """One chunk of a chunked prefill into a paged cache: ``tokens``
-    (1, C) hold positions ``[start, start+length)`` of slot ``row``,
-    right-padded to the chunk width C. Returns (logits (1, 1, V) at chunk
+    """One chunk of a chunked prefill into a paged or unpaged cache:
+    ``tokens`` (1, C) hold positions ``[start, start+length)`` of slot
+    ``row``, right-padded to the chunk width C. Returns (logits (1, 1, V) at chunk
     position ``length - 1``, the cache updated in place): the logits
     matter on a prompt's final chunk, where they give the first token."""
     x = _chunk_stack(ctx, model, tokens, cache, row, start, length)
     return _head(ctx, model, x[:, length - 1:length]), cache
+
+
+def verify_chunk(ctx: Ctx, model: LM, tokens: torch.Tensor,
+                 cache: List[Dict], row: int, start: int, length: int,
+                 store: bool = False) -> Tuple[torch.Tensor, List[Dict]]:
+    """Speculative-decoding verify: score a chunk of drafted tokens in
+    one pass. The stack walk of :func:`prefill_chunk`, with the LM head
+    at **every** chunk position — logits (1, C, V) — since acceptance
+    needs the full model's next-token distribution after each draft.
+    Chunk attention reads its own K/V through the storage round trip
+    (``step_parity``), as the decode steps it stands in for do.
+
+    ``store=False`` (a model without low-rank corrections: the Q-only
+    draft IS the model) leaves the cache untouched — the draft steps
+    already wrote these slots exactly as plain decode would, so verify
+    only gates acceptance and greedy speculative output is plain
+    decode's by construction. ``store=True`` (the model has LR slivers)
+    overwrites the drafts' Q-only K/V at ``[start, start+length)`` with
+    the full model's, and sets ``pos[row] = start + length``: the
+    chunk's reduction order leaves ulp-level residue in the cache, so
+    parity holds unless logits tie at that width. The caller rewinds
+    ``pos`` past any rejected tail; the stale slots above it stay masked
+    until the next write lands there."""
+    ctx = dataclasses.replace(ctx, step_parity=True, chunk_store=store)
+    x = _chunk_stack(ctx, model, tokens, cache, row, start, length)
+    return _head(ctx, model, x), cache
 
 
 def decode_step(ctx: Ctx, model: LM, token: torch.Tensor,

@@ -1,12 +1,19 @@
-"""Serving engine: continuous batching over a Q + LR model (port of the
-continuous path of ``repro/serve/engine.py``).
+"""Serving engine: continuous batching over a Q + LR model (port of
+``repro/serve/engine.py``).
 
-A slot-based KV cache (``serve.slots``) gives every batch row its own
-write position and slot map, so requests are admitted into free slots
-mid-flight: prefill-on-admit copies a freshly prefilled row into the
-live cache while the other slots keep decoding, and a request retires
-the moment it reaches its ``max_new_tokens`` or its stop token. Prompts
-are right-padded to one prefill width (``prefill_len``) and masked.
+Two schedulers, as in the JAX package:
+
+  * ``continuous`` (default): a slot-based KV cache (``serve.slots``)
+    gives every batch row its own write position and slot map, so
+    requests are admitted into free slots mid-flight: prefill-on-admit
+    copies a freshly prefilled row into the live cache while the other
+    slots keep decoding, and a request retires the moment it reaches its
+    ``max_new_tokens`` or a stop token. Prompts are right-padded to one
+    prefill width (``prefill_len``) and masked.
+  * ``bucketed`` (baseline): requests grouped by prompt length, each
+    bucket padded to ``decode_batch`` and decoded to its slowest member.
+    It draws from the same counter-based streams, so the two schedulers
+    agree token for token.
 
 ``ServeConfig(paged=True)`` serves from the paged cache instead
 (``serve.pages``): a page pool shared by the lanes, one block table per
@@ -17,23 +24,44 @@ in ``prefill_len``-wide chunks, one per engine step, interleaved with
 the other lanes' decode. ``max_step_tokens`` arms the token-budget step
 scheduler (``serve.scheduler.StepBudget``) under either cache.
 
+``ServeConfig(speculative=True)`` decodes greedy lanes
+self-speculatively: ``spec_k - 1`` draft steps through the quantized
+base alone (``Ctx(draft=True)``: every ``QLinear`` at rank 0), then one
+``verify_chunk`` per lane re-scores [last token ‖ drafts] with the full
+Q + LR model, and the drafts it agrees with are emitted. Greedy output
+is token-identical to plain decode.
+
 ``fused="auto"`` (the default) runs every quantized projection through
 K1/K2 (an MoE model's int8 expert stacks through K6) and attention
-through K3/K4 (paged: K5 for decode, K4 for each chunk) on a CUDA device, and through their plain versions on the CPU.
-``fused="off"`` keeps the dequantize-then-matmul and dequantize-the-cache
-baselines.
+through K3/K4 (paged: K5 for decode, K4 for each chunk) on a CUDA
+device, and through their plain versions on the CPU. ``fused="off"``
+keeps the dequantize-then-matmul and dequantize-the-cache baselines.
 
-Decoding is greedy in this slice: a request asking for temperature > 0
-raises, since per-request sampling (``serve/sampling.py``) is not ported
-yet. API: ``submit()`` / ``step()`` / ``drain()`` for streaming use,
-``generate()`` for a batch of requests.
+Request surface (that of the JAX engine):
+
+  * per-request :class:`~repro_torch.serve.sampling.SamplingParams` on
+    ``Request.params`` — temperature / top-p / top-k / seed / stop ids /
+    max_new_tokens / logprobs; mixed greedy and sampled lanes decode
+    together, each lane drawing from its own counter-based stream
+    (JAX's threefry, ``serve.prng``), so a request's tokens do not
+    depend on scheduling. ``ServeConfig.temperature`` / ``eos_id`` are
+    defaults only.
+  * ``Result.finish_reason`` ∈ ``"stop" | "length" | "abort"``.
+  * ``abort(uid)`` cancels a request anywhere in its lifecycle — queued,
+    mid-chunked-prefill (pages decref'd, prefix match released) or
+    decoding — and frees its slot at once.
+  * ``on_token(uid, token, info)`` streams every generated token as it
+    is recorded (``info``: the logprob record, when asked for).
+
+API: ``submit()`` / ``step()`` / ``drain()`` / ``abort()`` for streaming
+use, ``generate()`` for a batch of requests under either scheduler.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,11 +69,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.constraints import validate_page_size
-from repro_torch.models.linear import Ctx
-from repro_torch.models.transformer import (LM, decode_step, prefill,
-                                            prefill_chunk)
+from repro_torch.models.linear import Ctx, QLinear
+from repro_torch.models.transformer import (LM, decode_step, init_cache,
+                                            prefill, prefill_chunk,
+                                            verify_chunk)
 from repro_torch.serve.pages import PagedKVCache, PagePool
 from repro_torch.serve.prefix import RadixPrefixCache
+from repro_torch.serve.sampling import (TOP_LOGPROBS, SamplingParams,
+                                        lane_seed, lanes_to, sample_tokens)
 from repro_torch.serve.scheduler import (ContinuousScheduler, SchedulerStats,
                                          StepBudget)
 from repro_torch.serve.slots import KV_DTYPES, SlotKVCache, SlotState
@@ -56,14 +87,19 @@ COMPUTE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 @dataclasses.dataclass
 class ServeConfig:
     max_len: int = 512               # cache slots (prompt + generation)
-    decode_batch: int = 8            # decode lanes (= slots)
+    decode_batch: int = 8            # decode lanes (= slots, continuous)
     max_new_tokens: int = 64
-    eos_id: int = -1                 # -1: never stop early
+    eos_id: int = -1                 # -1: never stop early. DEFAULT only:
+    # per-request SamplingParams.stop ids extend it
     kv_dtype: str = "bf16"           # bf16 | f32 | int8 | int4
-    temperature: float = 0.0         # 0 = greedy, the only mode ported
+    temperature: float = 0.0         # 0 = greedy. DEFAULT only: a
+    # request's SamplingParams.temperature overrides it per lane
     compute_dtype: str = "f32"       # f32 | bf16
+    scheduler: str = "continuous"    # continuous | bucketed
     prefill_len: Optional[int] = None  # prompt pad width (default
     # max_len); under paged=True the chunk width, no prompt-length cap
+    seed: int = 0                    # sampling stream base for submit()/
+    # step(); generate(seed=) overrides it per run
     fused: str = "auto"              # Q+LR matmul / attention: auto|on|off
     # --- paged KV cache (serve.pages / serve.prefix) ---
     paged: bool = False              # block-granular pages + block tables
@@ -79,15 +115,23 @@ class ServeConfig:
     # request, clamping its decode budget
     free_watermark: float = 0.0      # paged: fraction of the pool kept
     # free by evicting cold prefix pages ahead of demand each step
+    # --- self-speculative decoding (Q-only draft, Q+LR verify) ---
+    speculative: bool = False        # draft with the quantized base alone,
+    # then score spec_k tokens in one full-model chunk a lane; greedy
+    # lanes only (sampled lanes decode per token), token-identical
+    spec_k: int = 4                  # tokens scored per verify chunk
+    # (the last token + spec_k - 1 drafts); >= 2
 
 
 @dataclasses.dataclass
 class Request:
     uid: int
     prompt: np.ndarray               # (L,) int32
-    max_new_tokens: Optional[int] = None  # None → ServeConfig default
+    max_new_tokens: Optional[int] = None  # deprecated shim — prefer
+    # params.max_new_tokens (params wins when both are set)
     t_submit: float = 0.0
-    temperature: Optional[float] = None   # None → ServeConfig.temperature
+    params: Optional[SamplingParams] = None  # per-request sampling/stop;
+    # submit() resolves None fields against the ServeConfig defaults
 
 
 @dataclasses.dataclass
@@ -100,7 +144,8 @@ class Result:
     decode_s: Optional[float] = None   # first token → last token
     ttft_s: Optional[float] = None     # submit → first token
     latency_s: Optional[float] = None  # submit → done
-    finish_reason: Optional[str] = None  # "stop" | "length"
+    finish_reason: Optional[str] = None  # "stop" (EOS / stop id, token
+    # included in tokens) | "length" (budget exhausted) | "abort"
 
 
 @dataclasses.dataclass
@@ -120,7 +165,7 @@ class _PrefillJob:
 class Phases:
     """Host wall time per engine phase. ``phase("transfer")`` fences the
     only places the step loop waits for the device: copying sampled
-    tokens to the host."""
+    tokens (and logprobs, drafts and verify targets) to the host."""
 
     def __init__(self):
         self.seconds: Dict[str, float] = {}
@@ -135,9 +180,22 @@ class Phases:
                                   + time.perf_counter() - t0)
 
 
-def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    """(B, S, V) logits → (B, 1) argmax of the last position, on device."""
-    return logits[:, -1].float().argmax(dim=-1, keepdim=True)
+def _has_lowrank(model: LM) -> bool:
+    """True when any quantized projection carries a non-empty low-rank
+    correction. Decides the speculative verify's storage mode: without
+    one the Q-only draft IS the model, so the drafts' decode-step K/V
+    are already exact and the verify can stay read-only."""
+    return any(isinstance(m, QLinear) and m.l.shape[-1] > 0
+               for m in model.modules())
+
+
+def _logprobs(lg: torch.Tensor, tok: torch.Tensor) -> tuple:
+    """(chosen logprob (B,), top-``TOP_LOGPROBS`` logprobs and ids (B, n))
+    of f32 logits (B, V) and the sampled tokens (B,), on device."""
+    lp = torch.log_softmax(lg, dim=-1)
+    chosen = lp.gather(-1, tok[:, None])[:, 0]
+    top_lp, top_ids = torch.topk(lp, TOP_LOGPROBS, dim=-1)
+    return chosen, top_lp, top_ids
 
 
 class Engine:
@@ -147,6 +205,8 @@ class Engine:
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, the engine "
                              f"was asked to serve on {self.device}")
+        if sc.scheduler not in ("continuous", "bucketed"):
+            raise ValueError(f"unknown scheduler {sc.scheduler!r}")
         if sc.fused not in ("auto", "on", "off"):
             raise ValueError(f"unknown fused mode {sc.fused!r}")
         if sc.kv_dtype not in KV_DTYPES:
@@ -154,10 +214,24 @@ class Engine:
                              f"(choose from {sorted(KV_DTYPES)})")
         if sc.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {sc.compute_dtype!r}")
-        self._check_temperature(sc.temperature)
+        continuous = sc.scheduler == "continuous"
+        if sc.paged and not continuous:
+            raise ValueError("paged KV needs scheduler='continuous'")
+        if sc.speculative:
+            if not continuous:
+                raise ValueError("speculative decoding needs "
+                                 "scheduler='continuous'")
+            if sc.spec_k < 2:
+                raise ValueError(
+                    f"spec_k={sc.spec_k} must be >= 2 — one Q-only draft "
+                    f"token plus the verify model's own next token")
         self.model, self.cfg, self.sc = model, cfg, sc
         self.ctx = Ctx(compute_dtype=COMPUTE_DTYPES[sc.compute_dtype],
                        fused=sc.fused)
+        self._dctx = dataclasses.replace(self.ctx, draft=True)
+        # the verify writes full-model K/V over the drafts' only when the
+        # draft differs from the model (see verify_chunk)
+        self._spec_store = _has_lowrank(model)
         self.prefill_len = sc.prefill_len or sc.max_len
         if self.prefill_len > sc.max_len:
             raise ValueError(f"prefill_len={self.prefill_len} exceeds "
@@ -174,12 +248,16 @@ class Engine:
         # the unit of prefill work is one dispatch at its padded width,
         # and an admission whose prefill completes at once also decodes
         # this step (+1)
-        if sc.max_step_tokens is not None \
-                and sc.max_step_tokens < self._chunk_len + 1:
-            raise ValueError(
-                f"max_step_tokens={sc.max_step_tokens} cannot cover one "
-                f"prefill dispatch ({self._chunk_len} tokens) plus its first "
-                f"decode lane: an idle engine could never admit anything")
+        if sc.max_step_tokens is not None:
+            if not continuous:
+                raise ValueError("max_step_tokens needs "
+                                 "scheduler='continuous'")
+            if sc.max_step_tokens < self._chunk_len + 1:
+                raise ValueError(
+                    f"max_step_tokens={sc.max_step_tokens} cannot cover one "
+                    f"prefill dispatch ({self._chunk_len} tokens) plus its "
+                    f"first decode lane: an idle engine could never admit "
+                    f"anything")
         if not 0.0 <= sc.free_watermark < 1.0:
             raise ValueError(f"free_watermark={sc.free_watermark} must be in "
                              f"[0, 1)")
@@ -190,27 +268,40 @@ class Engine:
                 or sc.free_watermark > 0.0) and not sc.paged:
             raise ValueError("max_pages_per_request / free_watermark need "
                              "ServeConfig(paged=True)")
-        self._reset()
-
-    @staticmethod
-    def _check_temperature(t: float) -> None:
-        if t > 0:
-            raise NotImplementedError(
-                "temperature > 0 needs per-request sampling "
-                "(repro/serve/sampling.py), which the port has not ported "
-                "yet; this slice decodes greedily")
+        self._base_seed = sc.seed        # sampling stream base for
+        # submit()/step(); generate(seed=) overrides it per run
+        # per-lane sampling state mirrored into every decode step
+        b = sc.decode_batch
+        self._lane_temp = np.zeros((b,), np.float32)
+        self._lane_top_p = np.ones((b,), np.float32)
+        self._lane_top_k = np.zeros((b,), np.int32)
+        self._lane_seed = np.zeros((b,), np.int32)
+        self._lane_lp = np.zeros((b,), bool)
+        self._want_lp = False            # any live lane wants logprobs
+        # streaming hook: on_token(uid, token, info) for every generated
+        # token the moment it is recorded; info is the logprob record when
+        # the request asked for logprobs, else None
+        self.on_token: Optional[Callable[[int, int, Optional[Dict]],
+                                         None]] = None
+        self.sched: Optional[ContinuousScheduler] = None
+        self.pool: Optional[PagePool] = None
+        self.prefix: Optional[RadixPrefixCache] = None
+        self._prefill_jobs: Dict[int, _PrefillJob] = {}
+        self.tel = Phases()
+        self._reset_spec_counters()
+        self._bucket_stats = SchedulerStats(n_slots=b)
+        if continuous:
+            self._reset()
 
     def _reset(self) -> None:
         sc = self.sc
         self.sched = ContinuousScheduler(sc.decode_batch, sc.eos_id,
                                          sc.max_new_tokens,
                                          max_step_tokens=sc.max_step_tokens)
+        self._need_plain = False         # a rejection forces one plain
+        # decode step (the correction token's source)
         self._tok = torch.zeros((sc.decode_batch, 1), dtype=torch.int64,
                                 device=self.device)
-        self.tel = Phases()
-        self.pool: Optional[PagePool] = None
-        self.prefix: Optional[RadixPrefixCache] = None
-        self._prefill_jobs: Dict[int, _PrefillJob] = {}
         if not sc.paged:
             self.slots = SlotKVCache(self.cfg, sc.decode_batch, sc.max_len,
                                      sc.kv_dtype, self.device)
@@ -244,22 +335,147 @@ class Engine:
         self._prompt_tokens_total = 0
         self._prefix_hit_tokens = 0
 
+    def _reset_spec_counters(self) -> None:
+        self._spec_rounds = 0
+        self._spec_draft_tokens = 0
+        self._spec_accepted_tokens = 0
+        # accepted drafts per lane per round: entry j counts the lanes
+        # that accepted j drafts (plain ints)
+        self._spec_accept_hist = [0] * self.sc.spec_k
+
     def _reset_stats(self) -> None:
         """A fresh measurement window: counters and phase times, not the
         scheduler, the cache or the prefix tree."""
-        self.sched.stats = SchedulerStats(n_slots=self.sc.decode_batch)
+        n = self.sc.decode_batch
+        if self.sched is not None:
+            self.sched.stats = SchedulerStats(n_slots=n)
+        self._bucket_stats = SchedulerStats(n_slots=n)
         self.tel = Phases()
+        self._reset_spec_counters()
         if self.sc.paged:
             self.pool.reset_stats()
             if self.prefix is not None:
                 self.prefix.reset_stats()
             self._reset_paged_counters()
 
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the engine's device; to a card from pinned
+        memory, so the copy does not wait for the device."""
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # ------------------------------------------------------------------
+    def _req_budget(self, r: Request) -> int:
+        """Per-request token budget; ``is not None`` (not truthiness) so
+        an explicit max_new_tokens=0 stays 0."""
+        if r.params is not None and r.params.max_new_tokens is not None:
+            return r.params.max_new_tokens
+        return (r.max_new_tokens if r.max_new_tokens is not None
+                else self.sc.max_new_tokens)
+
+    def _resolve(self, req: Request) -> SamplingParams:
+        """Fill a request's ``SamplingParams`` None fields from the
+        ServeConfig defaults (and the deprecated ``Request.
+        max_new_tokens`` shim) — after this, every field is concrete."""
+        sp = req.params or SamplingParams()
+        t = (sp.temperature if sp.temperature is not None
+             else self.sc.temperature)
+        mnt = sp.max_new_tokens
+        if mnt is None:
+            mnt = req.max_new_tokens
+        if mnt is None:
+            mnt = self.sc.max_new_tokens
+        return dataclasses.replace(sp, temperature=float(t),
+                                   max_new_tokens=int(mnt))
+
+    # --- per-lane sampling plumbing -----------------------------------
+    @staticmethod
+    def _lanes_for(state: SlotState, idx: int) -> tuple:
+        """Single-row lane arrays for a prefill/chunk sampling this
+        request's token number ``idx``."""
+        sp = state.sampling
+        return ([sp.temperature], [sp.top_p], [sp.top_k], [state.seed],
+                [idx])
+
+    def _decode_lanes(self) -> tuple:
+        """(B,) lane arrays for the lockstep decode step; retired /
+        mid-prefill lanes ride greedy (their draw is never read)."""
+        idxs = np.zeros((self.sc.decode_batch,), np.int32)
+        for s, st in self.sched.table.active.items():
+            idxs[s] = len(st.tokens)
+        return (self._lane_temp, self._lane_top_p, self._lane_top_k,
+                self._lane_seed, idxs)
+
+    def _set_lane(self, slot: int, state: SlotState) -> None:
+        sp = state.sampling
+        self._lane_temp[slot] = sp.temperature
+        self._lane_top_p[slot] = sp.top_p
+        self._lane_top_k[slot] = sp.top_k
+        self._lane_seed[slot] = state.seed
+        self._lane_lp[slot] = sp.logprobs is not None
+        self._want_lp = bool(self._lane_lp.any())
+
+    def _clear_lane(self, slot: int) -> None:
+        self._lane_temp[slot] = 0.0
+        self._lane_top_p[slot] = 1.0
+        self._lane_top_k[slot] = 0
+        self._lane_seed[slot] = 0
+        self._lane_lp[slot] = False
+        self._want_lp = bool(self._lane_lp.any())
+
+    @staticmethod
+    def _sample(logits: torch.Tensor, lanes: tuple, want_lp: bool) -> tuple:
+        """(B, S, V) logits → ((B, 1) tokens of the last position, the
+        logprob tensors or None), on device."""
+        lg = logits[:, -1].float()
+        tok = sample_tokens(lg, *lanes)
+        return tok[:, None], (_logprobs(lg, tok) if want_lp else None)
+
+    @staticmethod
+    def _lp_entry(state: SlotState, chosen: float, top_lp: Sequence[float],
+                  top_ids: Sequence[int]) -> Optional[Dict]:
+        """One request-facing logprob record from host values: the
+        sampled token's logprob plus the top-n alternatives the request
+        asked for (computed at ``TOP_LOGPROBS``, trimmed here)."""
+        n = state.sampling.logprobs
+        if n is None:
+            return None
+        top = [(int(i), float(v)) for i, v in zip(top_ids[:n], top_lp[:n])]
+        return {"logprob": float(chosen), "top_logprobs": top}
+
+    def _record(self, slot: int, token: int, info=None) -> bool:
+        """record_token + the streaming on_token fanout."""
+        state = self.sched.table.active[slot]
+        done = self.sched.record_token(slot, token)
+        if self.on_token is not None:
+            self.on_token(state.uid, int(token), info)
+        return done
+
+    def _first_token(self, slot: int, state: SlotState, tok: torch.Tensor,
+                     lpd) -> List[Result]:
+        """Record a request's first token (its prefill's sample) and
+        retire it if that already finishes it."""
+        with self.tel.phase("transfer"):
+            first = tok[0, 0].item()
+            lp_host = [t[0].tolist() for t in lpd] if lpd is not None \
+                else None
+        self._tok[slot, 0] = first
+        info = self._lp_entry(state, *lp_host) if lp_host else None
+        if self._record(slot, first, info):
+            return [self._finish(slot)]
+        return []
+
     # ------------------------------------------------------------------
     def _validate(self, req: Request) -> None:
         plen = len(req.prompt)
         if plen < 1:
             raise ValueError(f"request {req.uid}: empty prompt")
+        if req.params is not None:
+            try:
+                req.params.validate()
+            except ValueError as e:
+                raise ValueError(f"request {req.uid}: {e}") from None
         if self.sc.max_pages_per_request is not None \
                 and plen >= self.sc.max_pages_per_request * self.page_size:
             raise ValueError(
@@ -271,20 +487,26 @@ class Engine:
             raise ValueError(f"request {req.uid}: prompt length {plen} "
                              f"leaves no decode budget within max_len="
                              f"{self.sc.max_len}")
-        if not self.sc.paged and plen > self.prefill_len:
+        if self.sc.scheduler == "continuous" and not self.sc.paged \
+                and plen > self.prefill_len:
             # the paged engine has no such cap: chunked prefill feeds any
             # prompt < max_len through the one chunk width
             raise ValueError(f"request {req.uid}: prompt length {plen} "
                              f"exceeds prefill_len={self.prefill_len} "
                              f"(ServeConfig(paged=True) lifts this via "
                              f"chunked prefill)")
-        self._check_temperature(req.temperature if req.temperature is not None
-                                else self.sc.temperature)
+
+    def _need_continuous(self, what: str) -> None:
+        if self.sc.scheduler != "continuous":
+            raise RuntimeError(f"{what} needs "
+                               f"ServeConfig(scheduler='continuous')")
 
     def submit(self, req: Request) -> int:
         """Queue a request; it is admitted on the next step() with a free
         slot. Returns the request uid."""
+        self._need_continuous("submit()/step()/drain()")
         self._validate(req)
+        req.params = self._resolve(req)
         req.t_submit = req.t_submit or time.perf_counter()
         self.sched.submit(req)
         return req.uid
@@ -334,8 +556,10 @@ class Engine:
             if not budget.can(cost):
                 self.sched.stats.budget_deferred_admissions += 1
             return None
+        state.seed = lane_seed(state.sampling.seed, self._base_seed, req.uid)
         budget.take(cost)
         slot = self.sched.admit(state)
+        self._set_lane(slot, state)
         row = matched + fresh
         self._row_pages[slot] = row
         self.slots.set_row(slot, row + [self._parked[slot]] * (nb - len(row)),
@@ -350,7 +574,7 @@ class Engine:
 
     def _advance_prefill(self, slot: int) -> List[Result]:
         """Run one prefill chunk for a mid-admission slot; on the final
-        chunk, take the first token and (maybe) retire."""
+        chunk, sample the first token and (maybe) retire."""
         job = self._prefill_jobs[slot]
         eff = job.state.prompt_len
         c = self._chunk_len
@@ -365,14 +589,14 @@ class Engine:
             self.ctx, self.model, tokens.to(self.device), self.slots.cache,
             slot, start, length)
         if final:
-            first_dev = _greedy(logits)
-            with self.tel.phase("transfer"):
-                first = int(first_dev[0, 0].item())
-        job.state.t_prefill += time.perf_counter() - t0
+            tok, lpd = self._sample(
+                logits, self._lanes_for(job.state, 0),
+                job.state.sampling.logprobs is not None)
         job.next = start + length
         self._prefill_chunks += 1
         self._prefill_tokens_computed += length
         if not final:
+            job.state.t_prefill += time.perf_counter() - t0
             return []
         del self._prefill_jobs[slot]
         if self.prefix is not None:
@@ -382,12 +606,12 @@ class Engine:
                                self._row_pages[slot][:eff // self.page_size])
         if job.state.budget <= 0:
             # max_new_tokens=0: the first token is dropped, as unpaged
+            job.state.t_prefill += time.perf_counter() - t0
             job.state.finish_reason = "length"
             return [self._finish(slot)]
-        self._tok[slot, 0] = first
-        if self.sched.record_token(slot, first):
-            return [self._finish(slot)]
-        return []
+        done = self._first_token(slot, job.state, tok, lpd)
+        job.state.t_prefill += time.perf_counter() - t0
+        return done
 
     def _admit_one(self, budget: StepBudget) -> Optional[List[Result]]:
         """Admit the next queued request into a free slot (if any):
@@ -402,6 +626,7 @@ class Engine:
             self.sched.stats.budget_deferred_admissions += 1
             return None
         req, state = self.sched.next_admission()
+        state.seed = lane_seed(state.sampling.seed, self._base_seed, req.uid)
         state.budget = min(state.budget, self.sc.max_len - state.prompt_len)
         prompts = torch.zeros((1, self.prefill_len), dtype=torch.int64)
         prompts[0, :state.prompt_len] = torch.from_numpy(
@@ -414,25 +639,24 @@ class Engine:
                                        prompts.to(self.device),
                                        self.slots.prefill_cache,
                                        lengths=lengths)
-            first_dev = _greedy(logits)
-        with self.tel.phase("transfer"):
-            first = int(first_dev[0, 0].item())
-        t1 = time.perf_counter()
+            tok, lpd = self._sample(logits, self._lanes_for(state, 0),
+                                    state.sampling.logprobs is not None)
         slot = self.sched.admit(state)
-        state.t_prefill = t1 - t0
+        self._set_lane(slot, state)
         if state.budget <= 0:
             # max_new_tokens=0: the prefill token is dropped and the slot
             # frees on the same step
+            state.t_prefill = time.perf_counter() - t0
             state.finish_reason = "length"
             return [self._finish(slot)]
         self.slots.admit(pf_cache, slot)
-        self._tok[slot, 0] = first
-        if self.sched.record_token(slot, first):
-            return [self._finish(slot)]
-        return []
+        done = self._first_token(slot, state, tok, lpd)
+        state.t_prefill = time.perf_counter() - t0
+        return done
 
     def _finish(self, slot: int) -> Result:
         state = self.sched.retire(slot)
+        self._clear_lane(slot)
         if self.sc.paged:
             # release the slot's pages (tree-registered prompt blocks go
             # cold; private blocks free) and park the row so the lockstep
@@ -452,12 +676,41 @@ class Engine:
             latency_s=now - state.t_submit if state.t_submit else None,
             finish_reason=state.finish_reason)
 
+    def abort(self, uid: int) -> Optional[Result]:
+        """Cancel a request anywhere in its lifecycle and free its
+        resources at once. Queued: removed before admission.
+        Mid-chunked-prefill: the job is dropped and the slot's pages
+        decref'd — prefix-matched pages lose the reference the match
+        took, fresh pages free — so a cancel before the first token leaks
+        no refcount. Decoding: the slot retires with the tokens generated
+        so far. Returns the (partial) :class:`Result` with
+        ``finish_reason="abort"``, or ``None`` for an unknown uid (already
+        finished or never submitted)."""
+        self._need_continuous("abort()")
+        for i, req in enumerate(self.sched.queue):
+            if req.uid == uid:
+                del self.sched.queue[i]
+                self.sched.stats.aborted += 1
+                return Result(uid=uid, tokens=np.zeros((0,), np.int32),
+                              finish_reason="abort")
+        for slot, state in list(self.sched.table.active.items()):
+            if state.uid == uid:
+                # a mid-prefill cancel: the job dies here; _finish
+                # releases the mapped pages and re-parks the row
+                self._prefill_jobs.pop(slot, None)
+                self.sched.stats.aborted += 1
+                state.finish_reason = "abort"
+                return self._finish(slot)
+        return None
+
     def step(self) -> List[Result]:
         """Open this step's token budget, admit queued requests while
         budget and slots allow, advance in-flight chunked prefills
         (paged; oldest admission first, each chunk charged against the
-        budget), then run one decode step over the decoding slots.
-        Returns the requests finished now."""
+        budget), then run one decode step — or, under ``speculative``,
+        one speculative round — over the decoding slots. Returns the
+        requests finished now."""
+        self._need_continuous("step()")
         finished: List[Result] = []
         paged = self.sc.paged
         with self.tel.phase("budget"):
@@ -497,50 +750,355 @@ class Engine:
                     if s not in self._prefill_jobs]
         if not decoding:
             return finished
+        k_round = (self._spec_k_for(decoding, budget)
+                   if self.sc.speculative else 0)
+        if k_round:
+            finished.extend(self._spec_round(decoding, k_round))
+            self.sched.note_decode_step(len(decoding))
+            return finished
         with self.tel.phase("decode"):
             logits, self.slots.cache = decode_step(self.ctx, self.model,
                                                    self._tok, self.slots.cache)
-            self._tok = _greedy(logits)
+            self._tok, lpd = self._sample(logits, self._decode_lanes(),
+                                          self._want_lp)
         self.sched.note_decode_step(len(decoding))
         with self.tel.phase("transfer"):
             toks = self._tok[:, 0].tolist()
+            lp_host = [t.tolist() for t in lpd] if lpd is not None else None
+        active = self.sched.table.active
         for slot in decoding:
-            if self.sched.record_token(slot, toks[slot]):
+            info = None
+            if lp_host is not None:
+                info = self._lp_entry(active[slot], lp_host[0][slot],
+                                      lp_host[1][slot], lp_host[2][slot])
+            if self._record(slot, toks[slot], info):
                 finished.append(self._finish(slot))
         return finished
 
+    # ------------------------------------------------------------------
+    # Self-speculative decoding: Q-only draft, full Q+LR verify
+    # ------------------------------------------------------------------
+    def _spec_k_for(self, decoding: List[int], budget: StepBudget) -> int:
+        """The speculative round's window width k (0 = run plain decode
+        this step). Needs every decoding lane greedy (sampled lanes decode
+        per token, whose counter-based draws are per-token by
+        construction), no pending post-rejection correction
+        (``_need_plain``), budget for the up-to-(k-1) emitted drafts of
+        every lane, and step-budget room for the extra passes: (k-1)
+        draft steps over n lanes plus n verify chunks of width k, beyond
+        the decode step already charged at begin_step."""
+        if self._need_plain:
+            self._need_plain = False
+            return 0
+        active = self.sched.table.active
+        k = self.sc.spec_k
+        for s in decoding:
+            st = active[s]
+            if st.sampling.temperature > 0.0:
+                return 0
+            # a round emits at most k-1 tokens for this lane
+            k = min(k, st.budget - len(st.tokens) + 1)
+        if k < 2:
+            return 0
+        n = len(decoding)
+        if not budget.try_take((k - 1) * n + k * n):
+            return 0
+        return k
+
+    def _verify_lane(self, state: SlotState) -> tuple:
+        """Lane arrays for one verify chunk: the request's sampling
+        controls at every chunk position, position j sampling with
+        counter key ``len(tokens) + j``."""
+        sp, kk, idx0 = state.sampling, self.sc.spec_k, len(state.tokens)
+        return ([sp.temperature] * kk, [sp.top_p] * kk, [sp.top_k] * kk,
+                [state.seed] * kk, list(range(idx0, idx0 + kk)))
+
+    def _rewind(self, mask: np.ndarray, newpos: np.ndarray) -> None:
+        """Set every layer's ``pos[mask] = newpos[mask]`` on the device:
+        the verified rows restart after their emitted tokens; the rows
+        left out (finished this round, or not decoding) keep theirs."""
+        packed = self._to_device(torch.from_numpy(
+            np.stack([mask.astype(np.int32), newpos.astype(np.int32)])))
+        m, p = packed[0].bool(), packed[1]
+        for layer in self.slots.cache:
+            layer["pos"] = torch.where(m, p, layer["pos"])
+
+    def _spec_round(self, decoding: List[int], k: int) -> List[Result]:
+        """One self-speculative round over the (all-greedy) decoding
+        lanes: k-1 Q-only draft steps through the lockstep decode step,
+        then one full-model verify chunk per lane re-scores [last token ‖
+        drafts], and the longest draft prefix matching the verify
+        model's predictions is accepted. Only those accepted drafts are
+        emitted; the verify model's own next token (the correction or
+        bonus token) is not taken from the chunk: a chunk reduces in
+        another order than the decode step, so its argmax can flip on a
+        near tie. Instead a round in which any lane rejected marks the
+        engine for one plain decode step (``_need_plain``), whose token is
+        the correction; a fully accepting lane lets the next round's
+        verify position 0 re-score its would-be bonus token. Positions
+        rewind to p + n_emitted; a rejected tail's K/V lies in pages (or
+        slots) the request already owns, masked by ``pos`` until
+        overwritten, so no page is allocated or released in a round.
+
+        The draft tokens never visit the host before the verify: each
+        lane's chunk [last token ‖ drafts] is cut from the device tensors,
+        and one transfer at the end brings drafts, verify targets and
+        logprobs back together."""
+        sc = self.sc
+        active = self.sched.table.active
+        states = {s: active[s] for s in decoding}
+        # next-write slot per lane: pos = prompt + generated - 1
+        p0 = {s: states[s].prompt_len + len(states[s].tokens) - 1
+              for s in decoding}
+        lanes = self._decode_lanes()
+        with self.tel.phase("decode"):
+            tok, drafts = self._tok, []
+            for _ in range(k - 1):
+                logits, self.slots.cache = decode_step(
+                    self._dctx, self.model, tok, self.slots.cache)
+                tok, _ = self._sample(logits, lanes, False)
+                drafts.append(tok)
+            fed_all = torch.cat([self._tok] + drafts, dim=1)   # (B, k)
+            if k < sc.spec_k:
+                fed_all = torch.nn.functional.pad(fed_all,
+                                                  (0, sc.spec_k - k))
+        verify = {}
+        with self.tel.phase("verify"):
+            for s in decoding:
+                st = states[s]
+                logits, self.slots.cache = verify_chunk(
+                    self.ctx, self.model, fed_all[s:s + 1], self.slots.cache,
+                    s, p0[s], k, store=self._spec_store)
+                lg = logits[0].float()
+                tv = sample_tokens(lg, *self._verify_lane(st))
+                verify[s] = (tv, _logprobs(lg, tv)
+                             if st.sampling.logprobs is not None else None)
+        with self.tel.phase("transfer"):
+            fed_host = fed_all.tolist()
+            hosted = {s: (tv.tolist(),
+                          [t.tolist() for t in lpd] if lpd is not None
+                          else None)
+                      for s, (tv, lpd) in verify.items()}
+        b = sc.decode_batch
+        tok_host = [row[0] for row in fed_host]
+        mask = np.zeros((b,), bool)
+        newpos = np.zeros((b,), np.int32)
+        results: List[Result] = []
+        n_accepted = 0
+        for s in decoding:
+            st = states[s]
+            tgt, lp_host = hosted[s]
+            draft = fed_host[s][1:k]
+            # draft j survives while it matches the verify model's
+            # prediction at the same position (the greedy rule); an
+            # accepted draft IS the verify token, so emitting tgt[j]
+            # emits the draft with the chunk's logprob row
+            n_acc = 1
+            while n_acc < k and draft[n_acc - 1] == tgt[n_acc - 1]:
+                n_acc += 1
+            n_accepted += n_acc - 1
+            self._spec_accept_hist[n_acc - 1] += 1
+            if n_acc < k:
+                # a rejected draft would be proposed again next round
+                # (drafting is deterministic): the correction must come
+                # from a plain decode step
+                self._need_plain = True
+            rec, done = 0, False
+            for j in range(n_acc - 1):
+                info = None
+                if lp_host is not None:
+                    info = self._lp_entry(st, lp_host[0][j], lp_host[1][j],
+                                          lp_host[2][j])
+                rec += 1
+                # a stop token inside the accepted window truncates here,
+                # as plain decode would retire
+                if self._record(s, tgt[j], info):
+                    done = True
+                    break
+            if rec:
+                tok_host[s] = tgt[rec - 1]
+            if done:
+                # _finish re-parks the row at pos 0: keep the lane out of
+                # the rewind so that sticks
+                results.append(self._finish(s))
+            else:
+                mask[s] = True
+                newpos[s] = p0[s] + rec
+        with self.tel.phase("verify"):
+            self._tok = self._to_device(
+                torch.tensor(tok_host, dtype=torch.int64)[:, None])
+            self._rewind(mask, newpos)
+        self._spec_rounds += 1
+        self._spec_draft_tokens += (k - 1) * len(decoding)
+        self._spec_accepted_tokens += n_accepted
+        return results
+
     def drain(self) -> List[Result]:
         """Run step() until queue and slots are empty; results by uid."""
+        self._need_continuous("drain()")
         results: List[Result] = []
         while self.sched.has_work:
             results.extend(self.step())
         results.sort(key=lambda r: r.uid)
         return results
 
-    def generate(self, requests: Sequence[Request]) -> List[Result]:
-        """Run all requests through the scheduler as a fresh measurement
-        window: stats and submission timestamps reset. The paged cache's
-        prefix tree persists across calls, as in the JAX engine."""
+    # ==================================================================
+    # Bucketed baseline
+    # ==================================================================
+    def _bucket_lanes(self, reqs: List[Request], seeds: List[int],
+                      idx: int) -> tuple:
+        """(B,) lane arrays for one bucket step at token ``idx`` — the
+        continuous engine's counter-based streams, so the two schedulers
+        agree token for token per request. Padding lanes ride greedy."""
+        b = self.sc.decode_batch
+        temps = np.zeros((b,), np.float32)
+        top_ps = np.ones((b,), np.float32)
+        top_ks = np.zeros((b,), np.int32)
+        sds = np.zeros((b,), np.int32)
+        for i, r in enumerate(reqs):
+            temps[i] = r.params.temperature
+            top_ps[i] = r.params.top_p
+            top_ks[i] = r.params.top_k
+            sds[i] = seeds[i]
+        return temps, top_ps, top_ks, sds, np.full((b,), idx, np.int32)
+
+    def _run_bucket(self, reqs: List[Request],
+                    base_seed: int) -> List[Result]:
+        sc = self.sc
+        b = sc.decode_batch
+        plen = len(reqs[0].prompt)
+        prompts = torch.zeros((b, plen), dtype=torch.int64)
+        stops: List[frozenset] = []
+        seeds: List[int] = []
+        for i, r in enumerate(reqs):
+            prompts[i] = torch.from_numpy(np.ascontiguousarray(
+                r.prompt, dtype=np.int64))
+            st = frozenset(r.params.stop)
+            if sc.eos_id >= 0:
+                st = st | {sc.eos_id}
+            stops.append(st)
+            seeds.append(lane_seed(r.params.seed, base_seed, r.uid))
+
+        t0 = time.perf_counter()
+        cache = init_cache(self.cfg, b, sc.max_len, KV_DTYPES[sc.kv_dtype],
+                           self.device)
+        # the first token takes the decode steps' per-lane sampling path
+        # (token index 0, as the continuous engine's prefill)
+        logits, cache = prefill(self.ctx, self.model, prompts.to(self.device),
+                                cache)
+        tok, _ = self._sample(logits, self._bucket_lanes(reqs, seeds, 0),
+                              False)
+        budget = min(max(self._req_budget(r) for r in reqs),
+                     sc.max_len - plen)
+        out = np.zeros((b, budget), np.int32)
+        done = np.zeros((b,), bool)
+        n = 0
+        t1 = None
+        for step in range(budget):
+            out[:, step] = tok[:, 0].tolist()
+            t1 = t1 or time.perf_counter()
+            for i in range(len(reqs)):
+                done[i] |= int(out[i, step]) in stops[i]
+            n = step + 1
+            if done[:len(reqs)].all():
+                break
+            # a lane is useful only while its request still needs tokens:
+            # padding rows and early-stop rows ride along wasted
+            self._bucket_stats.decode_steps += 1
+            self._bucket_stats.decode_slot_steps += sum(
+                1 for i, r in enumerate(reqs)
+                if not done[i] and step < self._req_budget(r))
+            # token index step+1: out[:, step] was token `step`
+            logits, cache = decode_step(self.ctx, self.model, tok, cache)
+            tok, _ = self._sample(
+                logits, self._bucket_lanes(reqs, seeds, step + 1), False)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        t1 = t1 or t2
+
+        results = []
+        self._bucket_stats.admitted += len(reqs)
+        self._bucket_stats.retired += len(reqs)
+        for i, r in enumerate(reqs):
+            toks = out[i, :n]
+            # stop truncation first (a stop wins over the budget on the
+            # same token, as in the continuous engine), then the budget
+            cut = next((j for j in range(len(toks))
+                        if int(toks[j]) in stops[i]), None)
+            if cut is not None:
+                toks = toks[:cut + 1]
+            lim = min(self._req_budget(r), sc.max_len - plen)
+            toks = toks[:lim]
+            stopped = cut is not None and cut < lim
+            if stopped and sc.eos_id >= 0 and toks[-1] == sc.eos_id:
+                self._bucket_stats.eos_retired += 1
+            since = r.t_submit or t0     # queue wait counts toward latency
+            results.append(Result(uid=r.uid, tokens=toks, prefill_s=t1 - t0,
+                                  decode_s=t2 - t1, ttft_s=t1 - since,
+                                  latency_s=t2 - since,
+                                  finish_reason="stop" if stopped
+                                  else "length"))
+        return results
+
+    def _generate_bucketed(self, requests: Sequence[Request],
+                           seed: int) -> List[Result]:
+        buckets: Dict[int, List[Request]] = {}
         for r in requests:
-            self._validate(r)
-        self._reset_stats()
+            buckets.setdefault(len(r.prompt), []).append(r)
+        results: List[Result] = []
+        for plen in sorted(buckets):
+            queue = buckets[plen]
+            for i in range(0, len(queue), self.sc.decode_batch):
+                results.extend(self._run_bucket(
+                    queue[i:i + self.sc.decode_batch], seed))
+        results.sort(key=lambda r: r.uid)
+        return results
+
+    # ==================================================================
+    def generate(self, requests: Sequence[Request],
+                 seed: int = 0) -> List[Result]:
+        """Run all requests through the configured scheduler as a fresh
+        run: sampling streams re-seeded from ``seed``, stats and
+        submission timestamps reset. The paged cache's prefix tree
+        persists across calls, as in the JAX engine."""
         now = time.perf_counter()
         for r in requests:
+            self._validate(r)
+            r.params = self._resolve(r)
             r.t_submit = now
+        self._reset_stats()
+        if self.sc.scheduler == "bucketed":
+            return self._generate_bucketed(requests, seed)
+        self._base_seed = seed
+        for r in requests:
             self.submit(r)
         return self.drain()
 
     def stats(self) -> Dict[str, float]:
-        """Scheduler counters and host phase seconds; under the paged
-        cache also the chunked-prefill, prefix-cache and page-pool
-        counters, under the JAX engine's names."""
-        s = self.sched.stats
+        """Scheduler counters and host phase seconds under the JAX
+        engine's names (the bucketed baseline counts admissions and
+        retirements too); the speculative counters always (zeros when
+        the mode is off), with ``spec_accept_hist`` (entry j: lanes that
+        accepted j drafts in a round); under the paged cache also the
+        chunked-prefill, prefix-cache and page-pool counters."""
+        s = (self._bucket_stats if self.sc.scheduler == "bucketed"
+             else self.sched.stats)
         out = {"admitted": s.admitted, "retired": s.retired,
-               "eos_retired": s.eos_retired, "decode_steps": s.decode_steps,
+               "eos_retired": s.eos_retired, "aborted": s.aborted,
+               "decode_steps": s.decode_steps,
                "decode_slot_steps": s.decode_slot_steps,
                "occupancy": round(s.occupancy, 4),
                "budget_deferred_admissions": s.budget_deferred_admissions,
                "budget_capped_chunks": s.budget_capped_chunks}
+        drafted = self._spec_draft_tokens
+        out.update(spec_rounds=self._spec_rounds,
+                   spec_draft_tokens=drafted,
+                   spec_accepted_tokens=self._spec_accepted_tokens,
+                   spec_acceptance_rate=round(
+                       self._spec_accepted_tokens / drafted, 4)
+                   if drafted else 0.0,
+                   spec_accept_hist=list(self._spec_accept_hist))
         if self.sc.paged:
             hit, total = self._prefix_hit_tokens, self._prompt_tokens_total
             out.update(self.pool.stats())

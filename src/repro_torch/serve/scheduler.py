@@ -5,8 +5,10 @@ Whenever a slot is free and the queue is not empty, the next request is
 admitted (prefilled at once, or chunk by chunk under the paged cache)
 and decodes from then on. Every step decodes all slots in lockstep; a
 request retires the moment it reaches its own ``max_new_tokens`` or
-emits its stop token, and the next queued request takes the lane on the
-same engine step.
+emits a stop token (EOS or any id in its ``SamplingParams.stop``), and
+the next queued request takes the lane on the same engine step. The
+reason lands on ``SlotState.finish_reason`` (``"stop"`` / ``"length"``;
+the engine stamps ``"abort"`` on cancellation).
 
 Token budget (``max_step_tokens``, optional): each step opens a
 :class:`StepBudget` ledger charged with the decode lanes already running;
@@ -31,6 +33,7 @@ class SchedulerStats:
     admitted: int = 0
     retired: int = 0
     eos_retired: int = 0            # retired early by EOS
+    aborted: int = 0                # cancelled via Engine.abort()
     decode_steps: int = 0
     decode_slot_steps: int = 0      # steps × active slots (useful work)
     budget_deferred_admissions: int = 0  # admissions pushed to a later
@@ -102,12 +105,20 @@ class ContinuousScheduler:
         if not self.queue or self.table.n_free == 0:
             return None
         req = self.queue.popleft()
+        sp = req.params
         # `is not None`: an explicit max_new_tokens=0 is a real budget
-        budget = (req.max_new_tokens if req.max_new_tokens is not None
-                  else self.default_budget)
-        stop = frozenset({self.eos_id}) if self.eos_id >= 0 else frozenset()
+        if sp is not None and sp.max_new_tokens is not None:
+            budget = sp.max_new_tokens
+        elif req.max_new_tokens is not None:
+            budget = req.max_new_tokens
+        else:
+            budget = self.default_budget
+        stop = frozenset(sp.stop) if sp is not None else frozenset()
+        if self.eos_id >= 0:
+            stop = stop | {self.eos_id}
         return req, SlotState(uid=req.uid, prompt_len=len(req.prompt),
-                              budget=budget, t_submit=req.t_submit, stop=stop)
+                              budget=budget, t_submit=req.t_submit,
+                              sampling=sp, stop=stop)
 
     def admit(self, state: SlotState) -> int:
         slot = self.table.alloc(state)
@@ -116,7 +127,8 @@ class ContinuousScheduler:
 
     def record_token(self, slot: int, token: int) -> bool:
         """Append a generated token; True iff the request just finished.
-        A stop token wins over budget exhaustion on the same token."""
+        Stops (EOS or a per-request stop id) win over budget exhaustion
+        when both land on the same token."""
         state = self.table.active[slot]
         if not state.tokens:
             state.t_first_token = time.perf_counter()
@@ -125,7 +137,7 @@ class ContinuousScheduler:
         done = hit_stop or len(state.tokens) >= state.budget
         if done:
             state.finish_reason = "stop" if hit_stop else "length"
-            if hit_stop:
+            if hit_stop and int(token) == self.eos_id:
                 self.stats.eos_retired += 1
         return done
 

@@ -58,8 +58,10 @@ class SlotState:
     t_admit: float = 0.0
     t_first_token: float = 0.0
     t_prefill: float = 0.0            # prefill wall time at admission
-    stop: FrozenSet[int] = frozenset()  # stop token ids (eos)
-    finish_reason: Optional[str] = None  # "stop" | "length"
+    sampling: Optional[object] = None  # resolved SamplingParams
+    stop: FrozenSet[int] = frozenset()  # stop token ids (incl. eos)
+    seed: int = 0                     # resolved lane PRNG seed
+    finish_reason: Optional[str] = None  # "stop" | "length" | "abort"
 
 
 class SlotTable:

@@ -16,7 +16,7 @@ from repro.serve import Request as JRequest
 from repro.serve import ServeConfig as JServeConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import convert_params
-from repro_torch.serve import Engine, Request, ServeConfig
+from repro_torch.serve import Engine, Request, SamplingParams, ServeConfig
 
 BUDGETS = [6, 0, 3, 8, 5, 2, 7]
 
@@ -60,13 +60,15 @@ def test_engine_greedy_tokens_identical_to_jax(quantized, kv):
 
 
 def test_engine_rejects_sampling_and_bad_requests(quantized):
+    """Invalid sampling parameters raise JAX's validation errors, naming
+    the request; a prompt past the prefill width raises as before."""
     _, _, model = quantized
     eng = Engine(model, model.cfg, ServeConfig(max_len=32, prefill_len=16),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.submit(Request(uid=0, prompt=np.ones(4, np.int32),
-                           temperature=0.7))
+    for sp, msg in ((SamplingParams(temperature=-1.0), "temperature"),
+                    (SamplingParams(top_p=0.0), "top_p"),
+                    (SamplingParams(logprobs=6), "logprobs")):
+        with pytest.raises(ValueError, match=f"request 0: {msg}"):
+            eng.submit(Request(uid=0, prompt=np.ones(4, np.int32), params=sp))
     with pytest.raises(ValueError, match="prefill_len"):
         eng.submit(Request(uid=1, prompt=np.ones(20, np.int32)))
-    with pytest.raises(NotImplementedError):
-        Engine(model, model.cfg, ServeConfig(temperature=1.0), device="cpu")
