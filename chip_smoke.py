@@ -68,6 +68,24 @@ Phases (each prints its own lines; any failure exits non-zero):
    with speculation off and on; (d) phase 4b's paged serving with
    ``speculative=True``: tokens equal phase 4b's, K5 launched, page
    refcounts back to the parked pages after the drain;
+4d. "frontend", with phase 4's quantized model: the drift probe's
+   reference pass over a live cache changes no cache tensor; (a)
+   ``serve_http`` on an ephemeral port over phase 4's config, first bare
+   (the frontend's own cost: client TTFT and tok/s beside phase 4's),
+   then with telemetry, the sanitizer and the drift monitor at rate 1.0:
+   phase 4's prompts streamed concurrently as token-id lists through
+   ``http.client`` (tokens equal phase 4's request by request), a chat
+   stream, a non-stream completion with logprobs, a client that vanishes
+   after 8 tokens (aborted, its slot reused), ``/metrics.json`` against
+   ``tools/metrics_schema.json`` (the paged-only keys exempt), no
+   non-finite logit or out-of-range token, the largest |Δlogit| within
+   1e-3 · max|logit|, every uid in ``write_trace``; the drift probe's and
+   the sanitizer's ms a step; decode step ms with telemetry off and on,
+   in turns; (b) the same over phase 4b's paged config (K5 launched, K3
+   not, the full schema); (c) the quant report of phase "ptq"'s
+   two-layer model (``QuantRecorder`` through the SRR pass: the report
+   validates, ``tools.quant_report`` renders it, the containers are
+   bit-identical to a pass without the recorder);
 5. a reduced-depth (2-layer, full-width) model in the packed4 container
    served with int4 and int8 KV, unpaged and paged (chunks of 64, so the
    packed4 chunk writes and nibble read-modify-writes run on the card),
@@ -118,6 +136,7 @@ change, parent, and prints one line per case
 from __future__ import annotations
 
 import bisect
+import contextlib
 import copy
 import dataclasses
 import json
@@ -691,9 +710,9 @@ def reset_counts() -> None:
 
 def prefill_work(eng) -> tuple:
     """(admissions, prefill chunks) so far: a step that changes neither
-    only decoded."""
-    st = eng.stats()
-    return st["admitted"], st.get("prefill_chunks", 0)
+    only decoded. Read from the counters themselves: ``stats()`` builds
+    the whole registry snapshot."""
+    return eng.sched.stats.admitted, getattr(eng, "_prefill_chunks", 0)
 
 
 def serve(eng, reqs) -> tuple[list, list, float]:
@@ -1282,6 +1301,14 @@ def hold_tokens(dev, cfg, model, reqs, got, want, what: str) -> int:
     return bad
 
 
+def _hist_line(h: dict) -> str:
+    """A registry histogram's summary on one line."""
+    if not h["count"]:
+        return "count 0"
+    return (f"count {h['count']} sum {h['sum']:.6g} min {h['min']:.6g} "
+            f"p50 {h['p50']:.6g} max {h['max']:.6g}")
+
+
 def serve_rounds(eng, reqs) -> tuple:
     """``serve`` that also times the engine steps that ran a speculative
     round and admitted nothing: (results, round seconds, wall seconds)."""
@@ -1291,12 +1318,11 @@ def serve_rounds(eng, reqs) -> tuple:
         eng.submit(r)
     results, rounds = [], []
     while eng.sched.has_work:
-        before = prefill_work(eng), eng.stats()["spec_rounds"]
+        before = prefill_work(eng), eng._spec_rounds
         ts = time.perf_counter()
         results.extend(eng.step())
         took = time.perf_counter() - ts
-        if prefill_work(eng) == before[0] \
-                and eng.stats()["spec_rounds"] > before[1]:
+        if prefill_work(eng) == before[0] and eng._spec_rounds > before[1]:
             rounds.append(took)
     return sorted(results, key=lambda r: r.uid), rounds, \
         time.perf_counter() - t0
@@ -1422,7 +1448,8 @@ def phase_surface(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
         f"{st['spec_rounds']} rounds, {len(rounds)} decode-only rounds of "
         f"{round_ms:.2f} ms; acceptance {st['spec_accepted_tokens']}/"
         f"{st['spec_draft_tokens']} = {st['spec_acceptance_rate']:.4f}, "
-        f"per lane a round {st['spec_accept_hist']}; {bad} of 8 requests "
+        f"accepted drafts a lane a round (histogram) "
+        f"{_hist_line(st['spec_accept_per_round'])}; {bad} of 8 requests "
         f"differ from phase 4's tokens; launches {counts}")
     require(bad == 0, f"{bad} speculative requests diverged from plain decode")
     require(st["spec_rounds"] >= 1
@@ -1435,7 +1462,7 @@ def phase_surface(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
                                rounds=st["spec_rounds"],
                                decode_only_rounds=len(rounds),
                                acceptance=st["spec_acceptance_rate"],
-                               accept_hist=st["spec_accept_hist"],
+                               accept_hist=st["spec_accept_per_round"],
                                drafted=st["spec_draft_tokens"],
                                accepted=st["spec_accepted_tokens"],
                                counts=counts, plain_tok_s=main_run["tok_s"])
@@ -1495,6 +1522,514 @@ def phase_surface(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
     out["spec_paged"] = dict(tok_s=n_tok / wall, rounds=st["spec_rounds"],
                              acceptance=st["spec_acceptance_rate"],
                              counts=counts, plain_tok_s=paged_run["tok_s"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase "frontend": the HTTP server and the serving observability
+# ---------------------------------------------------------------------------
+# required schema keys only the paged engine publishes (the page pool, the
+# prefix cache and the chunked-prefill entry): an unpaged snapshot lacks
+# them, as the JAX engine's does
+PAGED_ONLY_KEYS = frozenset({
+    "pages_total", "pages_free", "pages_cold", "pages_hot", "evictions",
+    "watermark_evictions", "page_allocs", "prefix_queries",
+    "prefix_hit_blocks", "prefix_miss_blocks", "prefix_cached_blocks",
+    "prefix_inserted_blocks", "prefill_chunks", "prefill_tokens_computed",
+    "prompt_tokens_total", "prefix_hit_tokens", "prefix_hit_rate",
+    "compiled_shapes_prefill_chunk", "dispatches_prefill_chunk",
+    "compile_seconds_prefill_chunk"})
+
+
+def schema_errors(snap: dict, schema_name: str = "metrics_schema.json",
+                  allow_missing=frozenset()) -> list:
+    """``tools/validate_metrics.py``'s violations of ``snap`` against the
+    named schema under ``tools/``, less missing required keys named in
+    ``allow_missing``."""
+    sys.path.insert(0, ROOT)
+    from tools.validate_metrics import validate
+    with open(os.path.join(ROOT, "tools", schema_name)) as fh:
+        schema = json.load(fh)
+    return [e for e in validate(snap, schema, schema)
+            if not any(e.endswith(f"missing required key {k!r}")
+                       for k in allow_missing)]
+
+
+def http_json(port: int, method: str, path: str, body=None) -> tuple:
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=180)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, json.loads(data)
+
+
+def http_stream(port: int, path: str, body: dict, stop_after=None) -> dict:
+    """POST ``body`` with ``stream: true`` and read the SSE frames as they
+    arrive: token ids, the seconds to the first token frame, the frames.
+    With ``stop_after=n`` the client vanishes (a reset, not a FIN) after
+    its n-th token frame."""
+    import http.client
+    import socket
+    import struct
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=180)
+    t0 = time.perf_counter()
+    conn.request("POST", path, json.dumps(dict(body, stream=True)),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    require(resp.status == 200, f"{path}: HTTP {resp.status}")
+    out = dict(tokens=[], frames=[], ttft_s=None)
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        line = line.decode().strip()
+        if not line.startswith("data: "):
+            continue
+        payload = line[len("data: "):]
+        out["frames"].append(payload)
+        if payload == "[DONE]":
+            continue                # read on to the closing chunk
+        ev = json.loads(payload)
+        ids = ev.get("choices", [{}])[0].get("token_ids")
+        if ids:
+            out["ttft_s"] = out["ttft_s"] or time.perf_counter() - t0
+            out["tokens"].extend(ids)
+            if stop_after is not None and len(out["tokens"]) >= stop_after:
+                conn.sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                     struct.pack("ii", 1, 0))
+                break
+    out["wall_s"] = time.perf_counter() - t0
+    resp.close()
+    conn.close()
+    return out
+
+
+class StepTimers:
+    """Synchronized wall time of the engine's drift probe and sanitizer,
+    and the largest |logit| the probe compared, read by wrapping the
+    engine's methods (measurement only)."""
+
+    def __init__(self, eng):
+        import torch
+        self.drift, self.sanitize, self.max_logit = [], [], 0.0
+
+        def timed(fn, into):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        ref, obs = eng._drift_reference, eng._observe_drift
+        probe = []
+
+        def observe(s, r, decoding):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = torch.tensor(decoding, device=s.device)
+            self.max_logit = max(self.max_logit,
+                                 float(s[rows].abs().max()))
+            obs(s, r, decoding)
+            self.drift.append(probe.pop() + time.perf_counter() - t0)
+
+        eng._drift_reference = timed(ref, probe)
+        eng._observe_drift = observe
+        if eng._san is not None:
+            eng._san.check = timed(eng._san.check, self.sanitize)
+
+    def ms(self, what: str) -> float:
+        xs = getattr(self, what)
+        return 1e3 * sum(xs) / max(len(xs), 1)
+
+
+def probe_leaves_cache(dev, cfg, model, sc) -> int:
+    """Serve phase 4's prompts into an engine with the drift monitor for a
+    few steps, then run the probe's reference pass once more by hand and
+    count the cache tensors it changed (bit for bit; ``pos`` by
+    identity)."""
+    import torch
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import Engine
+
+    eng = Engine(model, cfg, sc, device=dev)
+    for r in make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS):
+        eng.submit(r)
+    for _ in range(6):
+        eng.step()
+    before = [{k: v.clone() for k, v in layer.items()}
+              for layer in eng.slots.cache]
+    pos = [layer["pos"] for layer in eng.slots.cache]
+    eng._drift_reference()
+    torch.cuda.synchronize()
+    changed = sum(not torch.equal(layer[k], b[k])
+                  for layer, b in zip(eng.slots.cache, before) for k in b)
+    changed += sum(layer["pos"] is not p
+                   for layer, p in zip(eng.slots.cache, pos))
+    del eng, before
+    torch.cuda.empty_cache()
+    return changed
+
+
+def stream_all(port: int, reqs, max_tokens: int, tag: str) -> dict:
+    """Stream every request of ``reqs`` at once, as token-id prompts;
+    returns the tokens, client TTFTs and tok/s over the wall of all."""
+    import threading
+    got = [None] * len(reqs)
+
+    def client(i):
+        got[i] = http_stream(port, "/v1/completions", {
+            "prompt": reqs[i].prompt.tolist(), "max_tokens": max_tokens})
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    require(all(g is not None for g in got), f"{tag}: a stream hung")
+    errors = [f for g in got for f in g["frames"] if '"error"' in f]
+    require(not errors, f"{tag}: streams failed: {errors[:2]}")
+    require(all(g["frames"][-1] == "[DONE]" for g in got),
+            f"{tag}: a stream did not end with [DONE]")
+    n_tok = sum(len(g["tokens"]) for g in got)
+    return dict(wall_s=wall, tokens=[g["tokens"] for g in got],
+                ttft_ms=[1e3 * g["ttft_s"] for g in got], n_tok=n_tok,
+                tok_s=n_tok / wall)
+
+
+@contextlib.contextmanager
+def http_server(eng):
+    """``serve_http`` over ``eng`` on an ephemeral port, served from a
+    thread; yields (port, EngineServer) and shuts both down."""
+    import threading
+    from repro_torch.serve import serve_http
+
+    httpd, srv = serve_http(eng, port=0, model_id="repro-qlr")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        yield httpd.server_address[1], srv
+    finally:
+        httpd.shutdown()
+        srv.close()
+        httpd.server_close()
+
+
+def http_plain(dev, cfg, model, sc, reqs, tag: str) -> dict:
+    """``stream_all`` through ``serve_http`` over a warmed engine of ``sc``
+    (no telemetry, sanitizer or drift monitor): the frontend's own cost
+    beside the engine figures."""
+    import torch
+    from repro_torch.serve import Engine
+
+    eng = Engine(model, cfg, sc, device=dev)
+    eng.warmup()
+    with http_server(eng) as (port, _):
+        out = stream_all(port, reqs, sc.max_new_tokens, tag)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_over_http(dev, cfg, model, sc, reqs, tag: str) -> dict:
+    """Boot ``serve_http`` on an ephemeral port over an engine of ``sc``
+    (telemetry, sanitizer and the drift monitor at rate 1.0, warmed up),
+    stream ``reqs`` concurrently as token-id prompts, read the snapshot
+    and the trace; returns what the gates need."""
+    import torch
+    from repro_torch.serve import Engine
+
+    eng = Engine(model, cfg, sc, device=dev)
+    eng.warmup()
+    timers = StepTimers(eng)
+    admits = []
+    admit = eng.sched.admit
+
+    def logged_admit(state):
+        slot = admit(state)
+        admits.append((state.uid, slot))
+        return slot
+
+    eng.sched.admit = logged_admit
+    with http_server(eng) as (port, srv):
+        reset_counts()
+        out = stream_all(port, reqs, sc.max_new_tokens, tag)
+        out["counts"] = launch_counts()
+
+        # one chat stream, one non-stream with logprobs, one client that
+        # vanishes after its 8th token
+        chat = http_stream(port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "frontend smoke"}],
+            "max_tokens": 16})
+        ev = [json.loads(f) for f in chat["frames"][:-1]]
+        require(chat["frames"][-1] == "[DONE]"
+                and ev[0]["choices"][0]["delta"] == {"role": "assistant"}
+                and ev[-1]["choices"][0]["finish_reason"] == "length"
+                and len(chat["tokens"]) == 16,
+                f"{tag}: chat stream {chat['frames'][:2]} … "
+                f"{chat['frames'][-2:]}")
+        status, lp = http_json(port, "POST", "/v1/completions", {
+            "prompt": reqs[0].prompt.tolist(), "max_tokens": 8,
+            "logprobs": 3})
+        choice = lp["choices"][0]
+        block = choice["logprobs"]
+        lp_ok = (status == 200 and choice["token_ids"] == out["tokens"][0][:8]
+                 and all(c <= 0.0 and max(top.values()) == c
+                         for c, top in zip(block["token_logprobs"],
+                                           block["top_logprobs"])))
+        require(lp_ok, f"{tag}: logprob completion {lp}")
+        aborted0 = srv.stats()["aborted"]
+        # the longest generation the cache allows, so the server is still
+        # writing when the reset arrives
+        cut = http_stream(port, "/v1/completions", {
+            "prompt": reqs[1].prompt.tolist(),
+            "max_tokens": sc.max_len - len(reqs[1].prompt) - 1},
+            stop_after=8)
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            if srv.stats()["aborted"] > aborted0 \
+                    and eng.sched.table.n_active == 0:
+                break
+            time.sleep(0.05)
+        cut_uid, cut_slot = admits[-1]
+        status, _ = http_json(port, "POST", "/v1/completions", {
+            "prompt": reqs[2].prompt.tolist(), "max_tokens": 4})
+        snap = srv.stats()
+        require(snap["aborted"] == aborted0 + 1
+                and eng.sched.table.n_active == 0,
+                f"{tag}: the disconnect did not abort (aborted "
+                f"{snap['aborted']}, active {eng.sched.table.n_active})")
+        require(status == 200 and admits[-1][1] == cut_slot,
+                f"{tag}: the request after the abort took slot "
+                f"{admits[-1][1]}, not the freed slot {cut_slot}")
+        for route in ("/health", "/v1/models"):
+            status, _ = http_json(port, "GET", route)
+            require(status == 200, f"{tag}: GET {route} → {status}")
+        status, snap = http_json(port, "GET", "/metrics.json")
+        require(status == 200, f"{tag}: /metrics.json → {status}")
+        trace = os.path.join(OUT_DIR, f"frontend_{tag}.trace.json")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with srv.cv:                  # the server's lock contract
+            eng.write_trace(trace)
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+        uids = {uid for uid, _ in admits if uid >= 0}
+        lanes = {n: {e["tid"] for e in events
+                     if e["pid"] == 1 and e["name"] == n}
+                 for n in ("queued", "retired")}
+        out.update(snap=snap, uids=sorted(uids), lanes=lanes,
+                   drift_ms=timers.ms("drift"),
+                   sanitize_ms=timers.ms("sanitize"),
+                   drift_calls=len(timers.drift),
+                   max_logit=timers.max_logit, cut_uid=cut_uid,
+                   cut_tokens=len(cut["tokens"]))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_gates(tag: str, run: dict, want_tokens: list,
+                   allow_missing=frozenset()) -> None:
+    snap = run["snap"]
+    errs = schema_errors(snap, allow_missing=allow_missing)
+    delta = snap["drift_logit_delta"]
+    tol = 1e-3 * max(1.0, run["max_logit"])
+    bad = sum(g != w for g, w in zip(run["tokens"], want_tokens))
+    log("frontend", f"{tag}: /metrics.json against tools/metrics_schema.json"
+        f": {len(errs)} violations" + (f" (the {len(allow_missing)} "
+                                       f"paged-only keys exempt)"
+                                       if allow_missing else "")
+        + f"; drift checks {snap['drift_checks']}, top-1 agreement "
+        f"{snap['drift_top1_agreement_rate']}, non-finite "
+        f"{snap['drift_nonfinite']}, OOB tokens {snap['guard_token_oob']}; "
+        f"KL {_hist_line(snap['drift_kl'])}; max |Δlogit| "
+        f"{delta['max']:.3e} (max |logit| {run['max_logit']:.3f}, tol "
+        f"{tol:.3e}); {bad} of {len(want_tokens)} requests differ from the "
+        f"engine's tokens; trace lanes queued/retired "
+        f"{len(run['lanes']['queued'])}/{len(run['lanes']['retired'])} of "
+        f"{len(run['uids'])} uids")
+    require(not errs, f"{tag}: snapshot violates the schema: {errs[:5]}")
+    require(bad == 0, f"{tag}: {bad} HTTP requests diverged from the "
+            f"engine's tokens")
+    require(snap["drift_nonfinite"] == 0 and snap["guard_token_oob"] == 0,
+            f"{tag}: non-finite logits or out-of-range tokens")
+    require(snap["drift_checks"] > 0 and delta["max"] <= tol,
+            f"{tag}: drift gate: {snap['drift_checks']} checks, max "
+            f"|Δlogit| {delta['max']} > {tol}")
+    require(run["lanes"]["queued"] >= set(run["uids"])
+            and run["lanes"]["retired"] >= set(run["uids"]),
+            f"{tag}: the trace misses uids {run['uids']} vs {run['lanes']}")
+
+
+def step_ms_telemetry(dev, cfg, model) -> dict:
+    """Phase 4's serving, decode-only step ms with telemetry off and on,
+    in turns off, on, on, off."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import Engine
+
+    out = {False: [], True: []}
+    for tel in (False, True, True, False):
+        eng = Engine(model, cfg, main_serve_config(telemetry=tel), device=dev)
+        _, steps, _ = serve(eng, make_requests(cfg, 8, seed=0,
+                                               lengths=MAIN_LENGTHS))
+        out[tel].append(1e3 * sum(steps) / len(steps))
+        del eng
+    return {"off": out[False], "on": out[True]}
+
+
+def quant_report_pass(dev, cfg) -> dict:
+    """Phase "ptq"'s two-layer model calibrated, then quantized twice by
+    the same SRR pass (qera-exact, rank 16, the randomized SVDs of the
+    serving pipeline: phase "ptq"'s exact ones take half a minute a pass),
+    with a ``QuantRecorder`` and without: the report validates against
+    ``tools/quant_report_schema.json`` and ``python -m tools.quant_report``
+    renders it; the containers are bit-identical."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.core.api import PTQConfig
+    from repro_torch.models import init_lm
+    from repro_torch.models.linear import QLinear
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.obs import QuantRecorder
+
+    cut = dataclasses.replace(cfg, n_layers=2)
+    stats, _ = calibrate(dev, cut, init_lm(cut, 0, device=dev), "frontend")
+    ptq = PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
+                    seed=0)
+    models, took = {}, {}
+    rec = QuantRecorder()
+    for with_rec in (False, True):
+        model = init_lm(cut, 0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[with_rec], _ = quantize_model_params(
+            model, ptq, stats=dict(stats), recorder=rec if with_rec else None,
+            device=dev)
+        torch.cuda.synchronize()
+        took[with_rec] = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for ma, mb in zip(models[False].modules(),
+                                                   models[True].modules())
+               if isinstance(ma, QLinear)
+               for a, b in zip(ma.buffers(), mb.buffers()))
+    path = os.path.join(OUT_DIR, "frontend_quant_report.json")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    rec.write(path)
+    with open(path) as fh:
+        report = json.load(fh)
+    errs = schema_errors(report, "quant_report_schema.json")
+    sys.path.insert(0, ROOT)
+    from tools.quant_report import main as render_main
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rendered = render_main([path])
+    s = report["summary"]
+    log("frontend", f"quant report of the two-layer pass: {s['layers']} "
+        f"matrices, mean k* {s['mean_k']:.2f}, mean preserved energy "
+        f"{s['mean_preserved_energy_fraction']:.4f}, mean scaled rel err "
+        f"{s['mean_scaled_rel_err']:.4f}, {s['total_bytes']} container "
+        f"bytes; {len(errs)} schema violations; tools.quant_report exit "
+        f"{rendered} ({len(text.getvalue().splitlines())} lines); pass "
+        f"{took[False]:.2f} s without the recorder, {took[True]:.2f} s with "
+        f"it; containers bit-identical: {same}")
+    require(not errs, f"quant report violates its schema: {errs[:5]}")
+    require(rendered == 0, "python -m tools.quant_report failed")
+    require(same and s["layers"] == 14,
+            "the recorder changed the containers, or missed a matrix")
+    del models
+    torch.cuda.empty_cache()
+    return dict(summary=s, pass_s=took[False], recorded_pass_s=took[True])
+
+
+def phase_frontend(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
+    """Phase "frontend" on phase 4's quantized model: (a) ``serve_http``
+    over phase 4's config with telemetry, the sanitizer and the drift
+    monitor at rate 1.0 — phase 4's prompts streamed concurrently as
+    token-id lists (tokens equal phase 4's), a chat stream, a non-stream
+    completion with logprobs, a client that vanishes after 8 tokens
+    (aborted, its slot reused), the snapshot against the schema, the
+    drift and guard gates, every uid in the trace; the probe leaving the
+    cache bit for bit; step ms with telemetry off and on; (b) the same
+    over phase 4b's paged config (K5 launched, K3 not, the full schema);
+    (c) the quant report of phase "ptq"'s two-layer pass."""
+    from repro_torch.launch.serve import make_requests
+
+    obs = dict(telemetry=True, sanitize=True, drift_monitor=True,
+               drift_sample_rate=1.0)
+    out = {}
+    changed = probe_leaves_cache(dev, cfg, model, main_serve_config(**obs))
+    log("frontend", f"drift probe's reference pass over a live unpaged "
+        f"cache: {changed} cache tensors changed")
+    require(changed == 0, "the drift probe changed the cache")
+
+    # ---- a: unpaged server -----------------------------------------------
+    reqs = make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    plain = http_plain(dev, cfg, model, main_serve_config(), reqs, "plain")
+    ttft = plain["ttft_ms"]
+    bad = sum(g != w for g, w in zip(plain["tokens"], main_run["tokens"]))
+    log("frontend", f"unpaged over HTTP, no observability: 8 concurrent "
+        f"streams, {plain['n_tok']} tokens in {plain['wall_s']:.3f} s: "
+        f"{plain['tok_s']:.1f} tok/s (phase 4 engine: "
+        f"{main_run['tok_s']:.1f}); client TTFT first {min(ttft):.1f} mean "
+        f"{sum(ttft) / len(ttft):.1f} max {max(ttft):.1f} ms (phase 4 engine:"
+        f" first {min(main_run['ttft_ms']):.1f} mean "
+        f"{sum(main_run['ttft_ms']) / 8:.1f} max "
+        f"{max(main_run['ttft_ms']):.1f} ms); {bad} of 8 requests differ from "
+        f"phase 4's tokens")
+    require(bad == 0, f"{bad} HTTP requests diverged from phase 4's tokens")
+    out["plain"] = {k: v for k, v in plain.items() if k != "tokens"}
+    run = serve_over_http(dev, cfg, model, main_serve_config(**obs), reqs,
+                          "unpaged")
+    ttft = run["ttft_ms"]
+    log("frontend", f"unpaged over HTTP with telemetry, sanitizer and the "
+        f"drift monitor at rate 1.0: {run['n_tok']} tokens in "
+        f"{run['wall_s']:.3f} s: {run['tok_s']:.1f} tok/s; client TTFT first "
+        f"{min(ttft):.1f} mean {sum(ttft) / len(ttft):.1f} max "
+        f"{max(ttft):.1f} ms; drift probe "
+        f"{run['drift_ms']:.2f} ms a step over {run['drift_calls']} steps; "
+        f"sanitizer {run['sanitize_ms']:.2f} ms a step; the client cut "
+        f"after {run['cut_tokens']} tokens was aborted and its slot reused; "
+        f"launches {run['counts']}")
+    require(all(run["counts"][k] > 0 for k in ("K1", "K2", "K3", "K4")),
+            f"a kernel of the served path never launched: {run['counts']}")
+    frontend_gates("unpaged", run, main_run["tokens"],
+                   allow_missing=PAGED_ONLY_KEYS)
+    out["unpaged"] = {k: v for k, v in run.items()
+                      if k not in ("snap", "tokens", "lanes")}
+
+    tel = step_ms_telemetry(dev, cfg, model)
+    log("frontend", f"decode step, telemetry off / on / on / off: "
+        f"{tel['off'][0]:.2f} / {tel['on'][0]:.2f} / {tel['on'][1]:.2f} / "
+        f"{tel['off'][1]:.2f} ms")
+    out["step_ms_telemetry"] = tel
+
+    # ---- b: paged server -------------------------------------------------
+    preqs = shared_prefix_requests(cfg, 16, seed=6)
+    prun = serve_over_http(dev, cfg, model, paged_serve_config(**obs), preqs,
+                           "paged")
+    ttft = prun["ttft_ms"]
+    log("frontend", f"paged over HTTP: 16 concurrent streams, "
+        f"{prun['n_tok']} tokens in {prun['wall_s']:.3f} s: "
+        f"{prun['tok_s']:.1f} tok/s (phase 4b engine: "
+        f"{paged_run['tok_s']:.1f}); client TTFT first {min(ttft):.1f} mean "
+        f"{sum(ttft) / len(ttft):.1f} max {max(ttft):.1f} ms; drift probe "
+        f"{prun['drift_ms']:.2f} ms a step; sanitizer {prun['sanitize_ms']:.2f}"
+        f" ms a step; prefix hit rate {prun['snap']['prefix_hit_rate']}; "
+        f"launches {prun['counts']}")
+    require(prun["counts"]["K5"] > 0 and prun["counts"]["K3"] == 0,
+            f"paged HTTP serving launches {prun['counts']}")
+    frontend_gates("paged", prun, paged_run["tokens"])
+    out["paged"] = {k: v for k, v in prun.items()
+                    if k not in ("snap", "tokens", "lanes")}
+
+    # ---- c: the quant report ---------------------------------------------
+    out["quant_report"] = quant_report_pass(dev, cfg)
     return out
 
 
@@ -1938,6 +2473,9 @@ def main() -> int:
     t0 = time.perf_counter()
     surface_run = phase_surface(dev, cfg, model, main_run, paged_run)
     log("surface", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    frontend_run = phase_frontend(dev, cfg, model, main_run, paged_run)
+    log("frontend", f"phase took {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
     main_run["srr_profile"] = profile_srr(dev, cfg, "main", t_quant, reports,
@@ -1958,7 +2496,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "cases": rows,
                    "main_path": main_run, "paged_path": paged_run,
-                   "surface": surface_run, "ptq": ptq_run,
+                   "surface": surface_run, "frontend": frontend_run,
+                   "ptq": ptq_run,
                    "moe_path": moe_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",

@@ -111,24 +111,29 @@ class LayerReport(NamedTuple):
 
 def quantize_layer(name: str, w: torch.Tensor, cfg: PTQConfig,
                    gen: Optional[torch.Generator],
-                   stats: Optional[CalibStats] = None
+                   stats: Optional[CalibStats] = None, recorder=None
                    ) -> tuple[Decomposition, LayerReport]:
     """Apply the configured method to one weight matrix, under the
-    scaling ``cfg.scaling`` of ``stats`` (the identity without them)."""
+    scaling ``cfg.scaling`` of ``stats`` (the identity without them).
+
+    ``recorder`` is an optional duck-typed observer (see
+    :mod:`repro_torch.obs.quant`) whose ``record_layer`` receives the
+    inputs and results of the pass; this module never imports it."""
     t0 = time.perf_counter()
     with record_function("srr.scaling"):
         scaling = stats.scaling(cfg.scaling) if stats is not None \
             else IDENTITY
     rank = cfg.rank_for(tuple(w.shape))
     w = w.float()
+    quantizer = cfg.quantizer()
     if cfg.method == "w-only":
-        dec = w_only(w, cfg.quantizer(), rank)
+        dec = w_only(w, quantizer, rank)
     elif cfg.method == "qer":
-        dec = qer_decompose(w, cfg.quantizer(), rank, gen,
+        dec = qer_decompose(w, quantizer, rank, gen,
                             exact=cfg.exact_svd, scaling=scaling)
     elif cfg.method in ("srr", "srr-joint"):
         dec = srr_decompose(
-            w, cfg.quantizer(), rank, gen, k=cfg.forced_k,
+            w, quantizer, rank, gen, k=cfg.forced_k,
             exact=cfg.exact_svd, scaling=scaling,
             variant="joint" if cfg.method == "srr-joint" else "split"
         ).decomposition
@@ -140,11 +145,14 @@ def quantize_layer(name: str, w: torch.Tensor, cfg: PTQConfig,
     else:
         raise ValueError(f"unknown PTQ method {cfg.method!r}; options: "
                          f"{METHODS}")
-    return dec, LayerReport(
+    report = LayerReport(
         name=name, shape=tuple(w.shape), rank=rank, k_star=dec.k,
         scaled_err=float(scaled_error(w, dec, scaling)),
         weight_err=float(weight_error(w, dec)),
         seconds=time.perf_counter() - t0)
+    if recorder is not None:
+        recorder.record_layer(name, w, dec, scaling, cfg, quantizer, report)
+    return dec, report
 
 
 def quantize_tree(weights: Dict[str, torch.Tensor],

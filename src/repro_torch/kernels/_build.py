@@ -36,6 +36,16 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}
 
 
+class _BuildSeconds:
+    """Wall seconds this process has spent waiting on ``nvcc`` (the
+    serving telemetry's ``compile_seconds_<entry>``: the port's
+    counterpart of an XLA compile)."""
+    total = 0.0
+
+
+BUILD_SECONDS = _BuildSeconds()
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -83,6 +93,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             continue
         os.replace(tmp, out)        # atomic: a concurrent loader never
         # sees a half-written library
+    if procs:
+        BUILD_SECONDS.total += time.perf_counter() - min(p[3] for p in procs)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took

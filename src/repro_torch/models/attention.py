@@ -241,6 +241,58 @@ def _paged_page_size(cache: Dict) -> int:
     return rows * 2 if cache["k"].dtype == torch.uint8 else rows
 
 
+def _step_write_index(cache: Dict) -> Tuple[torch.Tensor, ...]:
+    """Where a decode step over this layer's ``cache`` writes each row's
+    token: (rows, logical slot, storage row, storage slot). The storage
+    row is the batch row (unpaged) or the physical page through the
+    block table (paged)."""
+    pos = cache["pos"]
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    if "block_table" in cache:
+        bt = cache["block_table"]                             # (B, nb)
+        ps = _paged_page_size(cache)
+        slot = torch.clamp(pos, max=bt.shape[1] * ps - 1).to(torch.int64)
+        return rows, slot, bt[rows, slot // ps].to(torch.int64), slot % ps
+    slot = torch.clamp(pos, max=cache["slot_pos"].shape[1] - 1
+                       ).to(torch.int64)
+    return rows, slot, rows, slot
+
+
+def save_step_writes(cache: Dict) -> Dict:
+    """Copies of everything a decode step over this layer's ``cache``
+    overwrites: each row's K/V at its write slot (packed4: the whole
+    byte, both nibbles), the int8/int4 scales there, the unpaged
+    ``slot_pos`` entry, and the ``pos`` tensor itself (a step rebinds
+    it). :func:`restore_step_writes` puts them back bit for bit, so a
+    shadow decode (the drift monitor's reference pass) leaves the cache
+    as it found it."""
+    rows, slot, wrow, wslot = _step_write_index(cache)
+    kv_slot = wslot // 2 if cache["k"].dtype == torch.uint8 else wslot
+    saved = {"pos": cache["pos"], "index": (rows, slot, wrow, wslot, kv_slot)}
+    for key in ("k", "v"):
+        saved[key] = cache[key][wrow, :, kv_slot].clone()
+    for key in ("k_scale", "v_scale"):
+        if key in cache:
+            saved[key] = cache[key][wrow, :, wslot].clone()
+    if "slot_pos" in cache:
+        saved["slot_pos"] = cache["slot_pos"][rows, slot].clone()
+    return saved
+
+
+def restore_step_writes(cache: Dict, saved: Dict) -> None:
+    """Undo a decode step over ``cache`` from :func:`save_step_writes`'s
+    copies, in place."""
+    rows, slot, wrow, wslot, kv_slot = saved["index"]
+    for key in ("k", "v"):
+        cache[key][wrow, :, kv_slot] = saved[key]
+    for key in ("k_scale", "v_scale"):
+        if key in saved:
+            cache[key][wrow, :, wslot] = saved[key]
+    if "slot_pos" in saved:
+        cache["slot_pos"][rows, slot] = saved["slot_pos"]
+    cache["pos"] = saved["pos"]
+
+
 def attention_step(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
                    cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step, x: (B, 1, D). Writes each row's token into its
@@ -253,19 +305,11 @@ def attention_step(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
     hd = cfg.head_dim_
     pos = cache["pos"]                                        # (B,) int32
     q, k, v = _qkv(ctx, p, x, cfg, pos[:, None])
-    rows = torch.arange(b, device=x.device)
+    rows, slot, wrow, wslot = _step_write_index(cache)
     paged = "block_table" in cache
     if paged:
         bt = cache["block_table"]                             # (B, nb)
-        ps = _paged_page_size(cache)
-        nslots = bt.shape[1] * ps
-        slot = torch.clamp(pos, max=nslots - 1).to(torch.int64)
-        wrow = bt[rows, slot // ps].to(torch.int64)           # physical page
-        wslot = slot % ps
-    else:
-        slots = cache["slot_pos"].shape[1]
-        slot = torch.clamp(pos, max=slots - 1).to(torch.int64)
-        wrow, wslot = rows, slot
+        nslots = bt.shape[1] * _paged_page_size(cache)
     packed4 = cache["k"].dtype == torch.uint8
     if "k_scale" in cache:
         qmax = 7 if packed4 else 127

@@ -49,11 +49,11 @@ def fixed_gamma_scale(rank: int, k: int, gamma: float,
 
 def _quantize_matrix(name: str, w: torch.Tensor, cfg: PTQConfig,
                      gen: torch.Generator, container: str,
-                     stats: Optional[CalibStats] = None
+                     stats: Optional[CalibStats] = None, recorder=None
                      ) -> Tuple[dict, LayerReport]:
     """Decompose one (m, n) matrix into the Q + LR container's buffers
     (``"int8"`` codes or ``"packed4"`` nibbles)."""
-    dec, rep = quantize_layer(name, w, cfg, gen, stats)
+    dec, rep = quantize_layer(name, w, cfg, gen, stats, recorder=recorder)
     packed = cfg.quantizer().quantize(dec.q)
     store = {"codes": packed.codes}
     if container == "packed4":
@@ -62,16 +62,20 @@ def _quantize_matrix(name: str, w: torch.Tensor, cfg: PTQConfig,
         store = {"packed": pack_codes_4bit(packed.codes)}
     elif container != "int8":
         raise ValueError(f"unknown container {container!r} (int8 | packed4)")
-    return dict(scale=torch.exp2(packed.exponents.float()), l=dec.l.float(),
-                r=dec.r.float(),
-                gscale=fixed_gamma_scale(dec.rank, dec.k, 0.1, w.device),
-                **store), rep
+    out = dict(scale=torch.exp2(packed.exponents.float()), l=dec.l.float(),
+               r=dec.r.float(),
+               gscale=fixed_gamma_scale(dec.rank, dec.k, 0.1, w.device),
+               **store)
+    if recorder is not None:
+        recorder.attach_container(name, out, container)
+    return out, rep
 
 
 def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
                           progress: Optional[Callable[[LayerReport], None]] = None,
                           *, stats: Optional[Dict[str, CalibStats]] = None,
-                          device="cuda") -> Tuple[LM, List[LayerReport]]:
+                          recorder=None, device="cuda"
+                          ) -> Tuple[LM, List[LayerReport]]:
     """Quantize ``model`` in place on ``device`` (where it must already
     live) and return it with one report per matrix. Each matrix draws its
     sketches from its own generator, seeded by ``cfg.seed`` and the
@@ -79,7 +83,8 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
     is quantized under ``cfg.scaling`` of its layer's statistics, and
     each layer's entries are deleted from ``stats`` once its matrices are
     replaced (a full-width model's Σxxᵀ run to GBs): pass a copy to keep
-    them."""
+    them. ``recorder`` (duck-typed, see :mod:`repro_torch.obs.quant`)
+    captures a quality record and the container's bytes per matrix."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model lives on {model.device}, not on {dev}")
@@ -98,7 +103,8 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
                                f"(quantize_model_params deletes each "
                                f"layer's entries; pass a copy to reuse them)")
             st = stats[key]
-        bufs, rep = _quantize_matrix(name, w, cfg, gen, container, st)
+        bufs, rep = _quantize_matrix(name, w, cfg, gen, container, st,
+                                     recorder=recorder)
         reports.append(rep)
         if progress is not None:
             progress(rep)

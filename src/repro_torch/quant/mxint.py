@@ -49,6 +49,11 @@ class MXIntQuantizer:
     bits: int = 3
     block_size: int = 32
 
+    @property
+    def effective_bits(self) -> float:
+        """Bits a weight including the shared 8-bit block exponent."""
+        return self.bits + 8.0 / self.block_size
+
     def quantize(self, w: torch.Tensor) -> MXIntPacked:
         if w.ndim != 2:
             raise ValueError(f"MXInt expects 2-D weights, got {tuple(w.shape)}")

@@ -31,6 +31,17 @@ base alone (``Ctx(draft=True)``: every ``QLinear`` at rank 0), then one
 Q + LR model, and the drafts it agrees with are emitted. Greedy output
 is token-identical to plain decode.
 
+Observability, as in the JAX engine: ``stats()`` / ``metrics()`` /
+``prometheus()`` are one snapshot of a ``MetricsRegistry``
+(``serve.telemetry``) that the scheduler, page pool and prefix cache
+publish into; ``ServeConfig(telemetry=True)`` adds request and step
+tracing (``write_trace``), latency and phase histograms and per-entry
+dispatch accounting; ``sanitize=True`` audits the slot/page state after
+every step (``serve.sanitizer``); ``drift_monitor=True`` compares a
+sample of decode steps' logits against a reference lowering of the same
+weights (``drift_ref_fused``, default the dequantize-then-matmul path),
+leaving tokens and the cache bit for bit as they would be without it.
+
 ``fused="auto"`` (the default) runs every quantized projection through
 K1/K2 (an MoE model's int8 expert stacks through K6) and attention
 through K3/K4 (paged: K5 for decode, K4 for each chunk) on a CUDA
@@ -58,10 +69,10 @@ use, ``generate()`` for a batch of requests under either scheduler.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import math
 import time
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,6 +80,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.constraints import validate_page_size
+from repro_torch.models.attention import (restore_step_writes,
+                                          save_step_writes)
 from repro_torch.models.linear import Ctx, QLinear
 from repro_torch.models.transformer import (LM, decode_step, init_cache,
                                             prefill, prefill_chunk,
@@ -76,10 +89,13 @@ from repro_torch.models.transformer import (LM, decode_step, init_cache,
 from repro_torch.serve.pages import PagedKVCache, PagePool
 from repro_torch.serve.prefix import RadixPrefixCache
 from repro_torch.serve.sampling import (TOP_LOGPROBS, SamplingParams,
-                                        lane_seed, lanes_to, sample_tokens)
+                                        lane_seed, sample_tokens)
+from repro_torch.serve.sanitizer import Sanitizer
 from repro_torch.serve.scheduler import (ContinuousScheduler, SchedulerStats,
                                          StepBudget)
 from repro_torch.serve.slots import KV_DTYPES, SlotKVCache, SlotState
+from repro_torch.serve.telemetry import (NULL_TELEMETRY, MetricsRegistry,
+                                         Telemetry, log_buckets, named_scope)
 
 COMPUTE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -121,6 +137,29 @@ class ServeConfig:
     # lanes only (sampled lanes decode per token), token-identical
     spec_k: int = 4                  # tokens scored per verify chunk
     # (the last token + spec_k - 1 drafts); >= 2
+    # --- telemetry (serve.telemetry) ---
+    telemetry: bool = False          # request/step tracing + latency
+    # histograms + dispatch accounting; the metrics registry itself is
+    # always live (stats()/metrics()/prometheus() are one snapshot)
+    trace_sync: bool = False         # torch.cuda.synchronize after each
+    # device dispatch, so device time lands in the phase that launched it
+    profile_dir: Optional[str] = None  # arm torch.profiler capture here
+    profile_steps: int = 20          # engine steps to capture when armed
+    # --- runtime invariant sanitizer (serve.sanitizer) ---
+    sanitize: bool = False           # audit page refcounts, block tables,
+    # pos/slot_pos and int4 alignment after every step(); read-only
+    # (token-identical) but host-syncing: smokes and debugging
+    # --- accuracy-drift monitor ---
+    drift_monitor: bool = False      # sampled shadow comparison of the
+    # serving logits against a reference lowering of the same quantized
+    # model: per-lane KL / top-1 agreement / max-|Δlogit| histograms +
+    # NaN/inf guard counters. Token- and cache-identical; costs one
+    # extra decode pass per sampled step
+    drift_sample_rate: float = 0.05  # fraction of plain decode steps
+    # compared (deterministic in the step counter); 1.0 = every step
+    drift_ref_fused: str = "off"     # fused mode of the reference
+    # lowering (auto | on | off); "off" = dequantize-then-matmul, the
+    # path the kernels are held against
 
 
 @dataclasses.dataclass
@@ -160,24 +199,6 @@ class _PrefillJob:
     matched_tokens: int              # prefix-cache tokens skipped
     prepaid: bool = False            # this step's chunk already charged
     # to the token budget at admission (don't double-charge)
-
-
-class Phases:
-    """Host wall time per engine phase. ``phase("transfer")`` fences the
-    only places the step loop waits for the device: copying sampled
-    tokens (and logprobs, drafts and verify targets) to the host."""
-
-    def __init__(self):
-        self.seconds: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.seconds[name] = (self.seconds.get(name, 0.0)
-                                  + time.perf_counter() - t0)
 
 
 def _has_lowrank(model: LM) -> bool:
@@ -225,10 +246,41 @@ class Engine:
                 raise ValueError(
                     f"spec_k={sc.spec_k} must be >= 2 — one Q-only draft "
                     f"token plus the verify model's own next token")
+        if sc.drift_ref_fused not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown drift_ref_fused {sc.drift_ref_fused!r}")
+        if sc.drift_monitor:
+            if not continuous:
+                raise ValueError("drift_monitor shadows the continuous "
+                                 "engine's decode dispatch — it needs "
+                                 "scheduler='continuous'")
+            if not 0.0 < sc.drift_sample_rate <= 1.0:
+                raise ValueError(
+                    f"drift_sample_rate={sc.drift_sample_rate} must be "
+                    f"in (0, 1]")
+        if sc.sanitize and not continuous:
+            raise ValueError("sanitize=True audits the continuous "
+                             "engine's slot/page state — it needs "
+                             "scheduler='continuous'")
         self.model, self.cfg, self.sc = model, cfg, sc
         self.ctx = Ctx(compute_dtype=COMPUTE_DTYPES[sc.compute_dtype],
                        fused=sc.fused)
         self._dctx = dataclasses.replace(self.ctx, draft=True)
+        # the drift monitor's reference lowering of the same weights
+        self._rctx = dataclasses.replace(self.ctx, fused=sc.drift_ref_fused)
+        self._drift_every = (max(1, round(1.0 / sc.drift_sample_rate))
+                             if sc.drift_monitor else 0)
+        self._drift_step = 0
+        # the registry is always live (stats()/metrics()/prometheus() are
+        # snapshots of it); the recorder — tracing, phase histograms,
+        # dispatch accounting — is the no-op singleton unless asked for
+        self.registry = MetricsRegistry()
+        if sc.telemetry or sc.profile_dir:
+            self.tel = Telemetry(registry=self.registry, sync=sc.trace_sync,
+                                 profile_dir=sc.profile_dir,
+                                 profile_steps=sc.profile_steps)
+        else:
+            self.tel = NULL_TELEMETRY
         # the verify writes full-model K/V over the drafts' only when the
         # draft differs from the model (see verify_chunk)
         self._spec_store = _has_lowrank(model)
@@ -287,9 +339,21 @@ class Engine:
         self.pool: Optional[PagePool] = None
         self.prefix: Optional[RadixPrefixCache] = None
         self._prefill_jobs: Dict[int, _PrefillJob] = {}
-        self.tel = Phases()
-        self._reset_spec_counters()
+        self._h_accept = self.registry.histogram(
+            "spec_accept_per_round",
+            "accepted draft tokens per lane per speculative round")
+        self._h_drift_kl = self.registry.histogram(
+            "drift_kl",
+            "per-lane KL(serving ‖ reference) at drift-sampled steps",
+            buckets=log_buckets(1e-12, 100.0, 2))
+        self._h_drift_delta = self.registry.histogram(
+            "drift_logit_delta",
+            "per-lane max |Δlogit| vs the reference lowering at "
+            "drift-sampled steps",
+            buckets=log_buckets(1e-12, 100.0, 2))
+        self._reset_counters()
         self._bucket_stats = SchedulerStats(n_slots=b)
+        self._san = Sanitizer() if sc.sanitize else None
         if continuous:
             self._reset()
 
@@ -335,28 +399,37 @@ class Engine:
         self._prompt_tokens_total = 0
         self._prefix_hit_tokens = 0
 
-    def _reset_spec_counters(self) -> None:
+    def _reset_counters(self) -> None:
+        """The speculative and drift-monitor tallies (published always,
+        zeros when the mode is off)."""
         self._spec_rounds = 0
         self._spec_draft_tokens = 0
         self._spec_accepted_tokens = 0
-        # accepted drafts per lane per round: entry j counts the lanes
-        # that accepted j drafts (plain ints)
-        self._spec_accept_hist = [0] * self.sc.spec_k
+        self._drift_checks = 0
+        self._drift_agree = 0
+        self._drift_nonfinite = 0
+        self._guard_oob = 0
 
-    def _reset_stats(self) -> None:
-        """A fresh measurement window: counters and phase times, not the
-        scheduler, the cache or the prefix tree."""
+    def reset_stats(self) -> None:
+        """Start a fresh measurement window — histograms, counters,
+        pool/prefix stats, trace — without touching scheduler state, the
+        cache or the prefix tree. ``generate()`` calls this; callers
+        driving ``submit()``/``step()`` directly call it between runs."""
         n = self.sc.decode_batch
         if self.sched is not None:
             self.sched.stats = SchedulerStats(n_slots=n)
         self._bucket_stats = SchedulerStats(n_slots=n)
-        self.tel = Phases()
-        self._reset_spec_counters()
+        self._reset_counters()
         if self.sc.paged:
             self.pool.reset_stats()
             if self.prefix is not None:
                 self.prefix.reset_stats()
             self._reset_paged_counters()
+        # histogram samples reset even with telemetry off (the acceptance
+        # and drift histograms are registry-resident either way); the
+        # per-entry dispatch accounting survives: it describes the session
+        self.registry.reset_histograms()
+        self.tel.reset_run()
 
     def _to_device(self, t: torch.Tensor) -> torch.Tensor:
         """A host tensor on the engine's device; to a card from pinned
@@ -452,19 +525,33 @@ class Engine:
             self.on_token(state.uid, int(token), info)
         return done
 
-    def _first_token(self, slot: int, state: SlotState, tok: torch.Tensor,
-                     lpd) -> List[Result]:
-        """Record a request's first token (its prefill's sample) and
-        retire it if that already finishes it."""
-        with self.tel.phase("transfer"):
+    @staticmethod
+    def _read_first(tok: torch.Tensor, lpd) -> tuple:
+        """A prefill's sampled token (and logprob rows) on the host: the
+        admission must read it to schedule the lane."""
+        with named_scope("first_token"):
             first = tok[0, 0].item()
             lp_host = [t[0].tolist() for t in lpd] if lpd is not None \
                 else None
+        return first, lp_host
+
+    def _first_token(self, slot: int, state: SlotState, first: int,
+                     lp_host) -> List[Result]:
+        """Record a request's first token (its prefill's sample) and
+        retire it if that already finishes it."""
         self._tok[slot, 0] = first
         info = self._lp_entry(state, *lp_host) if lp_host else None
-        if self._record(slot, first, info):
+        done = self._record(slot, first, info)
+        self.tel.request_first_token(state.uid)
+        if done:
             return [self._finish(slot)]
         return []
+
+    def _sync(self) -> None:
+        """The ``trace_sync`` fence: device time stays in the phase that
+        launched it instead of the next host transfer."""
+        if self.tel.sync and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def _validate(self, req: Request) -> None:
@@ -483,18 +570,21 @@ class Engine:
                 f"max_pages_per_request={self.sc.max_pages_per_request} page "
                 f"quota ({self.page_size} slots/page) with no decode budget "
                 f"left")
+        # the messages are the JAX engine's: the HTTP frontend returns them
+        # in its error envelopes
         if plen >= self.sc.max_len:
             raise ValueError(f"request {req.uid}: prompt length {plen} "
                              f"leaves no decode budget within max_len="
-                             f"{self.sc.max_len}")
+                             f"{self.sc.max_len} — raise ServeConfig.max_len "
+                             f"or shorten the prompt")
         if self.sc.scheduler == "continuous" and not self.sc.paged \
                 and plen > self.prefill_len:
             # the paged engine has no such cap: chunked prefill feeds any
             # prompt < max_len through the one chunk width
             raise ValueError(f"request {req.uid}: prompt length {plen} "
-                             f"exceeds prefill_len={self.prefill_len} "
-                             f"(ServeConfig(paged=True) lifts this via "
-                             f"chunked prefill)")
+                             f"exceeds the compiled prefill shape prefill_len="
+                             f"{self.prefill_len} (ServeConfig(paged=True) "
+                             f"lifts this via chunked prefill)")
 
     def _need_continuous(self, what: str) -> None:
         if self.sc.scheduler != "continuous":
@@ -509,6 +599,7 @@ class Engine:
         req.params = self._resolve(req)
         req.t_submit = req.t_submit or time.perf_counter()
         self.sched.submit(req)
+        self.tel.request_queued(req.uid)
         return req.uid
 
     # ------------------------------------------------------------------
@@ -560,6 +651,7 @@ class Engine:
         budget.take(cost)
         slot = self.sched.admit(state)
         self._set_lane(slot, state)
+        self.tel.request_admitted(req.uid)
         row = matched + fresh
         self._row_pages[slot] = row
         self.slots.set_row(slot, row + [self._parked[slot]] * (nb - len(row)),
@@ -585,18 +677,23 @@ class Engine:
             job.req.prompt[start:start + length], dtype=np.int64))
         final = start + length >= eff
         t0 = time.perf_counter()
-        logits, self.slots.cache = prefill_chunk(
-            self.ctx, self.model, tokens.to(self.device), self.slots.cache,
-            slot, start, length)
-        if final:
-            tok, lpd = self._sample(
-                logits, self._lanes_for(job.state, 0),
-                job.state.sampling.logprobs is not None)
+        with self.tel.entry("prefill_chunk", (1, c)):
+            logits, self.slots.cache = prefill_chunk(
+                self.ctx, self.model, tokens.to(self.device),
+                self.slots.cache, slot, start, length)
+            if final:
+                first, lp_host = self._read_first(*self._sample(
+                    logits, self._lanes_for(job.state, 0),
+                    job.state.sampling.logprobs is not None))
+            else:
+                self._sync()
+        t1 = time.perf_counter()
+        job.state.t_prefill += t1 - t0
+        self.tel.request_prefill(job.req.uid, start // c, t0, t1)
         job.next = start + length
         self._prefill_chunks += 1
         self._prefill_tokens_computed += length
         if not final:
-            job.state.t_prefill += time.perf_counter() - t0
             return []
         del self._prefill_jobs[slot]
         if self.prefix is not None:
@@ -606,12 +703,9 @@ class Engine:
                                self._row_pages[slot][:eff // self.page_size])
         if job.state.budget <= 0:
             # max_new_tokens=0: the first token is dropped, as unpaged
-            job.state.t_prefill += time.perf_counter() - t0
             job.state.finish_reason = "length"
             return [self._finish(slot)]
-        done = self._first_token(slot, job.state, tok, lpd)
-        job.state.t_prefill += time.perf_counter() - t0
-        return done
+        return self._first_token(slot, job.state, first, lp_host)
 
     def _admit_one(self, budget: StepBudget) -> Optional[List[Result]]:
         """Admit the next queued request into a free slot (if any):
@@ -627,6 +721,7 @@ class Engine:
             return None
         req, state = self.sched.next_admission()
         state.seed = lane_seed(state.sampling.seed, self._base_seed, req.uid)
+        self.tel.request_admitted(req.uid)
         state.budget = min(state.budget, self.sc.max_len - state.prompt_len)
         prompts = torch.zeros((1, self.prefill_len), dtype=torch.int64)
         prompts[0, :state.prompt_len] = torch.from_numpy(
@@ -634,25 +729,26 @@ class Engine:
         lengths = torch.tensor([state.prompt_len], dtype=torch.int32,
                                device=self.device)
         t0 = time.perf_counter()
-        with self.tel.phase("prefill"):
+        with self.tel.entry("prefill", tuple(prompts.shape)):
             logits, pf_cache = prefill(self.ctx, self.model,
                                        prompts.to(self.device),
                                        self.slots.prefill_cache,
                                        lengths=lengths)
-            tok, lpd = self._sample(logits, self._lanes_for(state, 0),
-                                    state.sampling.logprobs is not None)
+            first, lp_host = self._read_first(*self._sample(
+                logits, self._lanes_for(state, 0),
+                state.sampling.logprobs is not None))
+        t1 = time.perf_counter()
+        self.tel.request_prefill(req.uid, 0, t0, t1)
         slot = self.sched.admit(state)
         self._set_lane(slot, state)
+        state.t_prefill = t1 - t0
         if state.budget <= 0:
             # max_new_tokens=0: the prefill token is dropped and the slot
             # frees on the same step
-            state.t_prefill = time.perf_counter() - t0
             state.finish_reason = "length"
             return [self._finish(slot)]
         self.slots.admit(pf_cache, slot)
-        done = self._first_token(slot, state, tok, lpd)
-        state.t_prefill = time.perf_counter() - t0
-        return done
+        return self._first_token(slot, state, first, lp_host)
 
     def _finish(self, slot: int) -> Result:
         state = self.sched.retire(slot)
@@ -666,14 +762,17 @@ class Engine:
                                0)
         now = time.perf_counter()
         ft = state.t_first_token or None
+        decode_s = now - ft if ft else None
+        ttft_s = ft - state.t_submit if ft and state.t_submit else None
+        latency_s = now - state.t_submit if state.t_submit else None
+        self.tel.request_retired(state.uid, len(state.tokens), ttft_s,
+                                 latency_s, decode_s)
         return Result(
             uid=state.uid,
             tokens=np.fromiter(state.tokens, dtype=np.int32,
                                count=len(state.tokens)),
-            prefill_s=state.t_prefill or None,
-            decode_s=now - ft if ft else None,
-            ttft_s=ft - state.t_submit if ft and state.t_submit else None,
-            latency_s=now - state.t_submit if state.t_submit else None,
+            prefill_s=state.t_prefill or None, decode_s=decode_s,
+            ttft_s=ttft_s, latency_s=latency_s,
             finish_reason=state.finish_reason)
 
     def abort(self, uid: int) -> Optional[Result]:
@@ -691,6 +790,7 @@ class Engine:
             if req.uid == uid:
                 del self.sched.queue[i]
                 self.sched.stats.aborted += 1
+                self.tel.request_retired(uid, 0, None, None, None)
                 return Result(uid=uid, tokens=np.zeros((0,), np.int32),
                               finish_reason="abort")
         for slot, state in list(self.sched.table.active.items()):
@@ -711,9 +811,11 @@ class Engine:
         one speculative round — over the decoding slots. Returns the
         requests finished now."""
         self._need_continuous("step()")
+        tel = self.tel
+        tel.step_begin()
         finished: List[Result] = []
         paged = self.sc.paged
-        with self.tel.phase("budget"):
+        with tel.phase("budget"):
             # charge the lanes already decoding (active minus mid-
             # prefill): they run regardless
             budget = self.sched.begin_step(self.sched.table.n_active
@@ -721,7 +823,7 @@ class Engine:
             if paged and self.sc.free_watermark > 0.0:
                 self.pool.ensure_free(
                     int(self.sc.free_watermark * self.pool.n_pages))
-        with self.tel.phase("admission"):
+        with tel.phase("admission"):
             while True:
                 done = self._admit_one(budget)
                 if done is None:
@@ -732,7 +834,7 @@ class Engine:
             # first, each charged at its padded width (+1 when the final
             # chunk promotes the slot to decode this step); jobs the
             # budget cannot cover resume on a later step
-            with self.tel.phase("prefill"):
+            with tel.phase("prefill"):
                 jobs = sorted(self._prefill_jobs.items(),
                               key=lambda kv: kv[1].state.t_admit)
                 for slot, job in jobs:
@@ -749,22 +851,33 @@ class Engine:
         decoding = [s for s in self.sched.table.active_slots()
                     if s not in self._prefill_jobs]
         if not decoding:
+            tel.step_end(0)
+            self._sanitize()
             return finished
         k_round = (self._spec_k_for(decoding, budget)
                    if self.sc.speculative else 0)
         if k_round:
             finished.extend(self._spec_round(decoding, k_round))
             self.sched.note_decode_step(len(decoding))
+            tel.step_end(len(decoding))
+            self._sanitize()
             return finished
-        with self.tel.phase("decode"):
+        # drift monitor: the reference pass runs over the pre-step cache
+        # and leaves it as it found it, before the serving pass writes
+        ref = self._drift_reference() if self._drift_due() else None
+        with tel.phase("decode"), tel.entry("decode", tuple(self._tok.shape)):
             logits, self.slots.cache = decode_step(self.ctx, self.model,
                                                    self._tok, self.slots.cache)
             self._tok, lpd = self._sample(logits, self._decode_lanes(),
                                           self._want_lp)
+            self._sync()
         self.sched.note_decode_step(len(decoding))
-        with self.tel.phase("transfer"):
+        with tel.phase("transfer"):
             toks = self._tok[:, 0].tolist()
             lp_host = [t.tolist() for t in lpd] if lpd is not None else None
+        self._host_guard(toks, decoding)
+        if ref is not None:
+            self._observe_drift(logits[:, -1].float(), ref, decoding)
         active = self.sched.table.active
         for slot in decoding:
             info = None
@@ -773,7 +886,78 @@ class Engine:
                                       lp_host[1][slot], lp_host[2][slot])
             if self._record(slot, toks[slot], info):
                 finished.append(self._finish(slot))
+        tel.step_end(len(decoding))
+        self._sanitize()
         return finished
+
+    def _sanitize(self) -> None:
+        """Post-step invariant audit (``ServeConfig(sanitize=True)``):
+        raises :class:`~repro_torch.serve.sanitizer.SanitizerError` when
+        the host bookkeeping and the device state disagree. Read-only."""
+        if self._san is not None:
+            self._san.check(self)
+
+    # ------------------------------------------------------------------
+    # Accuracy-drift monitor (ServeConfig(drift_monitor=True))
+    # ------------------------------------------------------------------
+    def _drift_due(self) -> bool:
+        """Deterministic sampling cadence over plain decode steps: the
+        decision depends only on the step counter, never on tokens."""
+        if not self._drift_every:
+            return False
+        due = self._drift_step % self._drift_every == 0
+        self._drift_step += 1
+        return due
+
+    def _drift_reference(self) -> torch.Tensor:
+        """(B, V) f32 logits of this step's decode under the reference
+        lowering (``drift_ref_fused``), over the pre-step cache. The port's
+        decode writes the cache in place, so every tensor the pass writes
+        is copied first and put back after it, bit for bit: the serving
+        pass that follows finds the cache as it would without the
+        monitor."""
+        saved = [save_step_writes(layer) for layer in self.slots.cache]
+        logits, _ = decode_step(self._rctx, self.model, self._tok,
+                                self.slots.cache)
+        for layer, sv in zip(self.slots.cache, saved):
+            restore_step_writes(layer, sv)
+        return logits[:, -1].float()
+
+    def _observe_drift(self, s: torch.Tensor, r: torch.Tensor,
+                       decoding: List[int]) -> None:
+        """Fold this step's per-lane divergence of the serving logits
+        ``s`` from the reference ``r`` into the registry: KL(serving ‖
+        reference), argmax agreement, max |Δlogit| and the non-finite
+        element count."""
+        logp_s = torch.log_softmax(s, dim=-1)
+        logp_r = torch.log_softmax(r, dim=-1)
+        kl = torch.sum(torch.exp(logp_s) * (logp_s - logp_r), dim=-1)
+        agree = torch.argmax(s, dim=-1) == torch.argmax(r, dim=-1)
+        delta = torch.amax(torch.abs(s - r), dim=-1)
+        bad = (torch.sum(~torch.isfinite(s), dim=-1)
+               + torch.sum(~torch.isfinite(r), dim=-1))
+        with named_scope("drift_probe"):
+            # the probe's sync is the sampled monitoring cost, not part of
+            # the serving step's transfer
+            kl, agree, delta, bad = torch.stack(
+                [kl, agree.float(), delta, bad.float()]).tolist()
+        for slot in decoding:
+            self._drift_checks += 1
+            self._drift_agree += int(agree[slot])
+            self._drift_nonfinite += int(bad[slot])
+            if math.isfinite(kl[slot]):
+                # a tiny negative KL is f32 round-off: clamp it into the
+                # histogram's domain
+                self._h_drift_kl.observe(max(kl[slot], 0.0))
+            if math.isfinite(delta[slot]):
+                self._h_drift_delta.observe(delta[slot])
+
+    def _host_guard(self, toks: List[int], decoding: List[int]) -> None:
+        """Sanity count over the tokens just sampled: a token outside
+        [0, vocab) means the logits went bad upstream. Host arithmetic
+        on the transferred tokens."""
+        self._guard_oob += sum(1 for s in decoding
+                               if not 0 <= toks[s] < self.cfg.vocab)
 
     # ------------------------------------------------------------------
     # Self-speculative decoding: Q-only draft, full Q+LR verify
@@ -851,7 +1035,9 @@ class Engine:
         p0 = {s: states[s].prompt_len + len(states[s].tokens) - 1
               for s in decoding}
         lanes = self._decode_lanes()
-        with self.tel.phase("decode"):
+        tel = self.tel
+        with tel.phase("decode"), \
+                tel.entry("draft", (k - 1,) + tuple(self._tok.shape)):
             tok, drafts = self._tok, []
             for _ in range(k - 1):
                 logits, self.slots.cache = decode_step(
@@ -862,18 +1048,21 @@ class Engine:
             if k < sc.spec_k:
                 fed_all = torch.nn.functional.pad(fed_all,
                                                   (0, sc.spec_k - k))
+            self._sync()
         verify = {}
-        with self.tel.phase("verify"):
+        with tel.phase("verify"):
             for s in decoding:
                 st = states[s]
-                logits, self.slots.cache = verify_chunk(
-                    self.ctx, self.model, fed_all[s:s + 1], self.slots.cache,
-                    s, p0[s], k, store=self._spec_store)
-                lg = logits[0].float()
-                tv = sample_tokens(lg, *self._verify_lane(st))
-                verify[s] = (tv, _logprobs(lg, tv)
-                             if st.sampling.logprobs is not None else None)
-        with self.tel.phase("transfer"):
+                with tel.entry("verify", (1, sc.spec_k)):
+                    logits, self.slots.cache = verify_chunk(
+                        self.ctx, self.model, fed_all[s:s + 1],
+                        self.slots.cache, s, p0[s], k, store=self._spec_store)
+                    lg = logits[0].float()
+                    tv = sample_tokens(lg, *self._verify_lane(st))
+                    verify[s] = (tv, _logprobs(lg, tv)
+                                 if st.sampling.logprobs is not None
+                                 else None)
+        with tel.phase("transfer"):
             fed_host = fed_all.tolist()
             hosted = {s: (tv.tolist(),
                           [t.tolist() for t in lpd] if lpd is not None
@@ -897,7 +1086,7 @@ class Engine:
             while n_acc < k and draft[n_acc - 1] == tgt[n_acc - 1]:
                 n_acc += 1
             n_accepted += n_acc - 1
-            self._spec_accept_hist[n_acc - 1] += 1
+            self._h_accept.observe(n_acc - 1)
             if n_acc < k:
                 # a rejected draft would be proposed again next round
                 # (drafting is deterministic): the correction must come
@@ -924,7 +1113,7 @@ class Engine:
             else:
                 mask[s] = True
                 newpos[s] = p0[s] + rec
-        with self.tel.phase("verify"):
+        with tel.phase("verify"):
             self._tok = self._to_device(
                 torch.tensor(tok_host, dtype=torch.int64)[:, None])
             self._rewind(mask, newpos)
@@ -1067,46 +1256,136 @@ class Engine:
             self._validate(r)
             r.params = self._resolve(r)
             r.t_submit = now
-        self._reset_stats()
+        self.reset_stats()
         if self.sc.scheduler == "bucketed":
             return self._generate_bucketed(requests, seed)
         self._base_seed = seed
         for r in requests:
             self.submit(r)
-        return self.drain()
+        out = self.drain()
+        self.tel.stop_profiler()     # a short run may never reach
+        # profile_steps; do not leave the capture open
+        return out
 
-    def stats(self) -> Dict[str, float]:
-        """Scheduler counters and host phase seconds under the JAX
-        engine's names (the bucketed baseline counts admissions and
-        retirements too); the speculative counters always (zeros when
-        the mode is off), with ``spec_accept_hist`` (entry j: lanes that
-        accepted j drafts in a round); under the paged cache also the
-        chunked-prefill, prefix-cache and page-pool counters."""
+    def warmup(self) -> None:
+        """Serve one dummy request so that kernel builds and first
+        launches (prefill, decode; draft and verify under speculative
+        mode) leave the measured window; counters reset afterwards, so
+        the dummy never shows in ``stats()``."""
+        if self.sc.scheduler != "continuous":
+            return
+        # speculative: spec_k + 1 tokens cover one full-k round plus a
+        # clamped one for the leftover token
+        mnt = self.sc.spec_k + 1 if self.sc.speculative else 2
+        self.submit(Request(uid=-1, prompt=np.zeros((1,), np.int32),
+                            max_new_tokens=mnt))
+        while self.sched.has_work:
+            self.step()
+        if self.sc.speculative:
+            # each clamped k's draft span, and the plain decode a rejection
+            # falls back to, on the idle lanes: their writes land in the
+            # lanes' own (unpaged) rows or parked pages, which admission
+            # resets
+            lanes = self._decode_lanes()
+            for kk in range(2, self.sc.spec_k + 1):
+                tok = self._tok
+                for _ in range(kk - 1):
+                    logits, self.slots.cache = decode_step(
+                        self._dctx, self.model, tok, self.slots.cache)
+                    tok, _ = self._sample(logits, lanes, False)
+            logits, self.slots.cache = decode_step(
+                self.ctx, self.model, self._tok, self.slots.cache)
+            self._sample(logits, lanes, False)
+        self.reset_stats()
+
+    def _collect(self) -> MetricsRegistry:
+        """Publish every live component's series into the registry and
+        return it: the one collection path behind ``stats()``,
+        ``metrics()`` and ``prometheus()``. Both schedulers emit the same
+        common keys; the paged engine adds the page-pool, prefix-cache
+        and chunked-prefill series, an enabled recorder the latency and
+        phase histograms and the per-entry dispatch accounting."""
+        reg = self.registry
         s = (self._bucket_stats if self.sc.scheduler == "bucketed"
              else self.sched.stats)
-        out = {"admitted": s.admitted, "retired": s.retired,
-               "eos_retired": s.eos_retired, "aborted": s.aborted,
-               "decode_steps": s.decode_steps,
-               "decode_slot_steps": s.decode_slot_steps,
-               "occupancy": round(s.occupancy, 4),
-               "budget_deferred_admissions": s.budget_deferred_admissions,
-               "budget_capped_chunks": s.budget_capped_chunks}
-        drafted = self._spec_draft_tokens
-        out.update(spec_rounds=self._spec_rounds,
-                   spec_draft_tokens=drafted,
-                   spec_accepted_tokens=self._spec_accepted_tokens,
-                   spec_acceptance_rate=round(
-                       self._spec_accepted_tokens / drafted, 4)
-                   if drafted else 0.0,
-                   spec_accept_hist=list(self._spec_accept_hist))
+        s.publish(reg)
         if self.sc.paged:
-            hit, total = self._prefix_hit_tokens, self._prompt_tokens_total
-            out.update(self.pool.stats())
+            self.pool.publish(reg)
             if self.prefix is not None:
-                out.update(self.prefix.stats())
-            out.update(prefill_chunks=self._prefill_chunks,
-                       prefill_tokens_computed=self._prefill_tokens_computed,
-                       prompt_tokens_total=total, prefix_hit_tokens=hit,
-                       prefix_hit_rate=round(hit / total, 4) if total else 0.0)
-        out.update({f"{k}_s": v for k, v in sorted(self.tel.seconds.items())})
+                self.prefix.publish(reg)
+            hit = self._prefix_hit_tokens
+            total = self._prompt_tokens_total
+            reg.counter("prefill_chunks", "chunked-prefill dispatches"
+                        ).set(self._prefill_chunks)
+            reg.counter("prefill_tokens_computed",
+                        "prompt tokens actually prefilled"
+                        ).set(self._prefill_tokens_computed)
+            reg.counter("prompt_tokens_total", "prompt tokens submitted"
+                        ).set(total)
+            reg.counter("prefix_hit_tokens",
+                        "prompt tokens served from the prefix cache"
+                        ).set(hit)
+            reg.gauge("prefix_hit_rate", "prefix_hit_tokens / "
+                      "prompt_tokens_total"
+                      ).set(round(hit / total, 4) if total else 0.0)
+        # the speculative and drift series are part of the uniform key set
+        # (zeros when the mode is off)
+        reg.counter("spec_rounds", "self-speculative rounds executed"
+                    ).set(self._spec_rounds)
+        reg.counter("spec_draft_tokens", "Q-only draft tokens proposed"
+                    ).set(self._spec_draft_tokens)
+        reg.counter("spec_accepted_tokens",
+                    "draft tokens accepted by the Q+LR verify"
+                    ).set(self._spec_accepted_tokens)
+        reg.gauge("spec_acceptance_rate",
+                  "spec_accepted_tokens / spec_draft_tokens").set(
+            round(self._spec_accepted_tokens / self._spec_draft_tokens, 4)
+            if self._spec_draft_tokens else 0.0)
+        reg.counter("drift_checks", "per-lane shadow comparisons executed"
+                    ).set(self._drift_checks)
+        reg.counter("drift_top1_agree",
+                    "shadow comparisons whose argmax matched the "
+                    "reference lowering").set(self._drift_agree)
+        reg.counter("drift_nonfinite",
+                    "non-finite logit elements seen by the drift probe"
+                    ).set(self._drift_nonfinite)
+        reg.counter("guard_token_oob",
+                    "sampled tokens outside [0, vocab) — upstream "
+                    "logit corruption").set(self._guard_oob)
+        reg.gauge("drift_top1_agreement_rate",
+                  "drift_top1_agree / drift_checks").set(
+            round(self._drift_agree / self._drift_checks, 4)
+            if self._drift_checks else 1.0)
+        self.tel.publish()
+        return reg
+
+    def stats(self) -> Dict[str, float]:
+        """One registry snapshot, key for key with the JAX engine's:
+        ``admitted``/``retired``/``eos_retired``/``aborted``/
+        ``decode_steps``/``occupancy`` and the budget counters in every
+        mode, the speculative and drift series always (the
+        ``spec_accept_per_round``, ``drift_kl`` and ``drift_logit_delta``
+        histograms nested as summaries), the page-pool, prefix and chunk
+        series under the paged cache, and under telemetry the
+        ``step_<phase>_seconds`` and latency histograms and the per-entry
+        dispatch accounting."""
+        return self._collect().snapshot()
+
+    # ``metrics()`` is the serving-convention alias
+    metrics = stats
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition of the same registry snapshot."""
+        return self._collect().prometheus()
+
+    def write_trace(self, path: str, jsonl_path: Optional[str] = None) -> str:
+        """Export the Chrome trace-event JSON (Perfetto-loadable); with
+        ``jsonl_path``, also the JSONL event stream. Needs
+        ``ServeConfig(telemetry=True)``."""
+        if not self.tel.enabled:
+            raise RuntimeError("trace export needs ServeConfig("
+                               "telemetry=True)")
+        out = self.tel.tracer.write_chrome(path)
+        if jsonl_path:
+            self.tel.tracer.write_jsonl(jsonl_path)
         return out

@@ -189,6 +189,24 @@ class PagePool:
                 "watermark_evictions": self.watermark_evictions,
                 "page_allocs": self.allocated}
 
+    def publish(self, reg) -> None:
+        """Publish the page-pool series into a telemetry registry (names
+        match the ``stats()`` keys)."""
+        reg.gauge("pages_total", "physical pages in the pool"
+                  ).set(self.n_pages)
+        reg.gauge("pages_free", "virgin pages on the free list"
+                  ).set(self.n_free)
+        reg.gauge("pages_cold", "refcount-0 prefix-retained pages"
+                  ).set(self.n_cold)
+        reg.gauge("pages_hot", "pages owned by live requests"
+                  ).set(self.n_hot)
+        reg.counter("evictions", "cold prefix pages reclaimed under "
+                    "pressure").set(self.evictions)
+        reg.counter("watermark_evictions", "cold prefix pages reclaimed "
+                    "ahead of demand by the free watermark"
+                    ).set(self.watermark_evictions)
+        reg.counter("page_allocs", "pages handed out").set(self.allocated)
+
     def reset_stats(self) -> None:
         self.evictions = 0
         self.watermark_evictions = 0

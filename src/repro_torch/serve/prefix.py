@@ -154,6 +154,20 @@ class RadixPrefixCache:
                 "prefix_cached_blocks": self.n_blocks,
                 "prefix_inserted_blocks": self.inserted_blocks}
 
+    def publish(self, reg) -> None:
+        """Publish the prefix-cache series into a telemetry registry
+        (names match the ``stats()`` keys)."""
+        reg.counter("prefix_queries", "prefix-cache match walks"
+                    ).set(self.queries)
+        reg.counter("prefix_hit_blocks", "blocks served from the tree"
+                    ).set(self.hit_blocks)
+        reg.counter("prefix_miss_blocks", "full blocks walked but absent"
+                    ).set(self.miss_blocks)
+        reg.gauge("prefix_cached_blocks", "blocks currently in the tree"
+                  ).set(self.n_blocks)
+        reg.counter("prefix_inserted_blocks", "blocks registered"
+                    ).set(self.inserted_blocks)
+
     def reset_stats(self) -> None:
         self.queries = self.hit_blocks = 0
         self.miss_blocks = self.inserted_blocks = 0

@@ -48,6 +48,31 @@ class SchedulerStats:
             return 0.0
         return self.decode_slot_steps / (self.decode_steps * self.n_slots)
 
+    def publish(self, reg) -> None:
+        """Publish the scheduler series into a telemetry
+        ``MetricsRegistry``: the key set every scheduler mode emits (the
+        budget counters too, zeros when ``max_step_tokens`` is off)."""
+        reg.counter("admitted", "requests admitted to decode lanes"
+                    ).set(self.admitted)
+        reg.counter("retired", "requests retired").set(self.retired)
+        reg.counter("eos_retired", "requests retired early by EOS"
+                    ).set(self.eos_retired)
+        reg.counter("aborted", "requests cancelled via Engine.abort()"
+                    ).set(self.aborted)
+        reg.counter("decode_steps", "decode dispatches"
+                    ).set(self.decode_steps)
+        reg.counter("decode_slot_steps",
+                    "decode steps x active lanes (useful work)"
+                    ).set(self.decode_slot_steps)
+        reg.counter("budget_deferred_admissions",
+                    "admissions deferred by the token budget"
+                    ).set(self.budget_deferred_admissions)
+        reg.counter("budget_capped_chunks",
+                    "prefill chunks deferred by the token budget"
+                    ).set(self.budget_capped_chunks)
+        reg.gauge("occupancy", "mean fraction of decode lanes doing "
+                  "useful work").set(round(self.occupancy, 4))
+
 
 class StepBudget:
     """One engine step's token ledger. ``limit=None`` is unbounded (every

@@ -184,10 +184,11 @@ def test_spec_matches_jax_engine(request, which, kv, paged):
     js, ts = jeng.stats(), eng.stats()
     assert [ts[k] for k in SPEC_COUNTERS] == [js[k] for k in SPEC_COUNTERS]
     assert ts["spec_rounds"] >= 1
-    # one histogram entry a lane a round
-    assert sum(ts["spec_accept_hist"]) >= ts["spec_rounds"]
-    assert sum(j * n for j, n in enumerate(ts["spec_accept_hist"])) \
-        == ts["spec_accepted_tokens"]
+    # one histogram observation a lane a round, of its accepted drafts
+    hist = ts["spec_accept_per_round"]
+    assert hist["count"] >= ts["spec_rounds"]
+    assert hist["sum"] == ts["spec_accepted_tokens"]
+    assert hist["count"] == js["spec_accept_per_round"]["count"]
 
 
 def test_spec_moe_matches_plain_and_jax():
