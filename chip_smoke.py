@@ -20,7 +20,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    (rows past a count must come out exactly 0); K7 bit for bit at every
    matrix shape of both SRR passes, an N below a multiple of 128 and an
    N % 4 != 0, with an f32 → int8 ``copy_`` of the same bytes timed
-   beside it): max error against a stated tolerance,
+   beside it); for phase "dense", K3 and K5 at chatglm3-6b's group (KV 2,
+   G 16, bf16 and int8 KV) and minitron-4b's (KV 8, G 3), head_dim 128,
+   K1 at 4096×256, 13696×4096 and 5120×27392 and K7 at 13696×4096 and
+   27392×5120: max error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
    layers finds them cold) and the bound (K1/K2/K6: the function's
@@ -98,8 +101,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    scaled_err(qer) ≤ scaled_err(w-only) and scaled_err(srr-joint) ≤
    scaled_err(srr) (each · (1 + 1e-5)); the held-out ``lm_loss`` of the fp
    model and of each method through the kernels and ``fused="off"``;
-6. the MoE main path at full width: ``init_lm`` of deepseek-moe-16b (all
-   28 layers, seed 0) → calibration as in phase 4 → qera-exact SRR
+6. the MoE main path at full width: ``init_lm`` of deepseek-moe-16b (its
+   first ``MOE_LAYERS`` = 8 of 28 layers, the dense lead-in and 7 MoE
+   layers, seed 0; cut so that phase "dense" fits the script's time) →
+   calibration as in phase 4 → qera-exact SRR
    ``quantize_model_params`` (routed experts under the identity; each
    layer's statistics released once it is quantized; rank 16, 3-bit
    MXINT, int8 container; K7 quantizes every matrix, its launches read
@@ -119,7 +124,21 @@ Phases (each prints its own lines; any failure exits non-zero):
    time by stage (the ``srr.*`` and ``mxint.*`` ranges of ``core/api.py``,
    ``core/srr.py`` and ``quant/mxint.py``) and by kernel, the device's busy share, host
    ms a matrix profiled and in the timed pass, and K7's device total over
-   the timed pass from its launches × phase 3's time at each shape.
+   the timed pass from its launches × phase 3's time at each shape;
+7. "dense": chatglm3-6b (half RoPE, QKV bias, G = 16) and minitron-4b (G =
+   3, vocabulary 256,000) at full width and depth, qwen1.5-32b (QKV bias,
+   θ = 10⁶) at full width and 4 of its 64 layers (131 GiB in f32 at full
+   depth): ``init_lm`` (seed 0; ``init_lm`` makes the QKV biases zero, so
+   they are filled from a seeded generator first, and the bias path
+   carries real values) → calibration as in phase 4 → qera-exact SRR (K7's
+   launches read around the pass; chatglm's scalings built inside the
+   pass, the others' ahead and timed apart) → phase 4's unpaged serving
+   (K1–K4 launched, K5 not; profiled decode steps) and, for chatglm and
+   minitron, phase 4b's paged serving (K5 launched, K3 not); minitron's
+   sampler on the card against the CPU at V = 256,000 bit for bit; a
+   150-token prompt's prefill logits through the kernels against
+   ``fused="off"`` and against the model moved to the CPU (plain
+   versions), each within 1e-3 · max|logit|.
 
 The last lines are the nvidia-smi line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -128,7 +147,8 @@ per kernel, and ``{"ok": true, "device": {...}}``.
 
 times phase 3's Q+LR cases (K1 at its main, router and dense lead-in
 shapes, K2 at both M = 256 shapes, K6 at all five), its K3, K4 and K5
-cases and K7's thirteen, of the tree at PARENT_ROOT (an unpacked ``git
+cases (with the dense variants' G = 16 and G = 3 where the tree has them)
+and K7's thirteen, of the tree at PARENT_ROOT (an unpacked ``git
 archive``) and of this one on one card, in the order parent, change,
 change, parent, and prints one line per case
 (``build/compare_kernels.json`` holds them).
@@ -257,17 +277,19 @@ def check_qlr(dev, m: int, k: int, n: int, rank: int, packed: bool) -> dict:
 
 
 def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
-                 ragged: bool = False) -> dict:
+                 ragged: bool = False, g: int = 1) -> dict:
     """K3 over a full cache (every row valid up to slot s - 1) or, with
     ``ragged``, at phase 4's serving occupancy: row i holds 150 + 132·i/7
-    valid slots (150–282) and the slots past them carry k_pos = -1."""
+    valid slots (150–282) and the slots past them carry k_pos = -1. ``g``
+    query heads a KV head; the yardstick is SDPA over the KV heads
+    expanded to the query heads (expanded before it is timed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.quant.mxint import pack_codes_4bit, unpack_codes_4bit
 
     gen = torch.Generator(device=dev).manual_seed(s)
-    q = torch.randn((b, kvh, 1, hd), generator=gen, device=dev)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
     kf = torch.randn((b, kvh, s, hd), generator=gen, device=dev)
     vf = torch.randn((b, kvh, s, hd), generator=gen, device=dev)
     ks = vs = None
@@ -304,6 +326,9 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
         kc, vc = (unpack_codes_4bit(k), unpack_codes_4bit(v)) \
             if kind == "int4" else (k, v)
         kd, vd, qd = kc.float() * ks[..., None], vc.float() * vs[..., None], q
+    # query heads of a group side by side, each KV head repeated for them
+    qd = qd.reshape(b, kvh * g, 1, hd)
+    kd, vd = kd.repeat_interleave(g, 1), vd.repeat_interleave(g, 1)
     per_copy = tensor_bytes(k, v, ks, vs)
     n_copies = copies_for(per_copy)
     sets = [(q, k.clone(), v.clone(), None if ks is None else ks.clone(),
@@ -321,9 +346,9 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
         slot_bytes += 2 * kvh * 4
     nbytes = valid * slot_bytes + tensor_bytes(q, q_pos, k_pos) \
         + q.numel() * 4
-    ops = 2 * 2 * valid * kvh * hd
+    ops = 2 * 2 * valid * kvh * g * hd
     b_ms, b_by = bound_ms(nbytes, ops, "float32")
-    row = dict(name="K3 flash_decode", shape=f"B={b} KV={kvh} G=1 S={s} "
+    row = dict(name="K3 flash_decode", shape=f"B={b} KV={kvh} G={g} S={s} "
                f"hd={hd} {kind}" + (" rows 150-282" if ragged else ""),
                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
@@ -373,16 +398,17 @@ def check_flash(dev, h=32, s=256, hd=96) -> dict:
 
 
 def check_paged(dev, kind: str, b=8, kvh=32, hd=96, ps=16, nb=32,
-                pages=296) -> dict:
+                pages=296, g: int = 1) -> dict:
     """K5 on the paged serving shape: a pool of ``pages`` pages, each row
-    a shuffled table of ``nb`` distinct pages, ragged positions."""
+    a shuffled table of ``nb`` distinct pages, ragged positions, ``g``
+    query heads a KV head (the note's SDPA over the KV heads expanded)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.quant.mxint import pack_codes_4bit, unpack_codes_4bit
 
     gen = torch.Generator(device=dev).manual_seed(pages)
-    q = torch.randn((b, kvh, 1, hd), generator=gen, device=dev)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
     kf = torch.randn((pages, kvh, ps, hd), generator=gen, device=dev)
     vf = torch.randn((pages, kvh, ps, hd), generator=gen, device=dev)
     ks = vs = None
@@ -418,8 +444,10 @@ def check_paged(dev, kind: str, b=8, kvh=32, hd=96, ps=16, nb=32,
             kd = kd.float() * dk.gather_pages(ks_, bt)[..., None]
             vd = vd.float() * dk.gather_pages(vs_, bt)[..., None]
         mask = (k_pos <= q_pos[:, None])[:, None, None, :]
-        return F.scaled_dot_product_attention(q_.to(kd.dtype), kd, vd,
-                                              attn_mask=mask)
+        return F.scaled_dot_product_attention(
+            q_.to(kd.dtype).reshape(b, kvh * g, 1, hd),
+            kd.repeat_interleave(g, 1), vd.repeat_interleave(g, 1),
+            attn_mask=mask)
 
     got, want = kernel(q, k, v, ks, vs), plain(q, k, v, ks, vs)
     torch.cuda.synchronize()
@@ -441,10 +469,10 @@ def check_paged(dev, kind: str, b=8, kvh=32, hd=96, ps=16, nb=32,
     nbytes = valid * slot_bytes + tensor_bytes(q, bt, q_pos, k_pos) \
         + q.numel() * 4
     walked = b * nb * ps * slot_bytes
-    ops = 2 * 2 * valid * kvh * hd
+    ops = 2 * 2 * valid * kvh * g * hd
     b_ms, b_by = bound_ms(nbytes, ops, "float32")
     return dict(name="K5 flash_decode_paged",
-                shape=f"B={b} KV={kvh} G=1 hd={hd} ps={ps} nb={nb} "
+                shape=f"B={b} KV={kvh} G={g} hd={hd} ps={ps} nb={nb} "
                       f"P={pages} {kind}",
                 max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
                 plain_ms=t_plain, library_ms=None, bound_ms=b_ms,
@@ -625,6 +653,13 @@ K7_SHAPES = ((3072, 3072), (3072, 8192), (8192, 3072), (2048, 2048),
              (2048, 64), (2048, 1408), (1408, 2048), (2048, 2816),
              (2816, 2048), (2048, 10944), (10944, 2048), (2048, 1000),
              (2048, 1002))
+# phase "dense": K3/K5 at chatglm3-6b's group (KV 2, G 16) and
+# minitron-4b's (KV 8, G 3), head_dim 128, as (KV, G, cache kind); K1 at
+# chatglm's wk/wv and down and qwen1.5-32b's gate/up; K7 at chatglm's and
+# qwen's down
+DENSE_DECODE = ((2, 16, "bf16"), (8, 3, "bf16"), (2, 16, "int8"))
+DENSE_QLR = ((4096, 256), (13696, 4096), (5120, 27392))
+DENSE_K7 = ((13696, 4096), (27392, 5120))
 
 
 def phase_kernels(dev) -> list:
@@ -661,6 +696,15 @@ def phase_kernels(dev) -> list:
             rows.append(check_qlr_batched(dev, 64, m, k, n, 16))
     rows.append(check_qlr_batched(dev, 64, 8, 2048, 1408, 16, top_k=6))
     for m, n in K7_SHAPES:
+        rows.append(check_quantize(dev, m, n))
+    # phase "dense": the wide groups (K3, K5), its projections (K1) and
+    # its widest matrices (K7)
+    for kvh, g, kind in DENSE_DECODE:
+        rows.append(check_decode(dev, kind, kvh=kvh, hd=128, g=g))
+        rows.append(check_paged(dev, kind, kvh=kvh, hd=128, g=g))
+    for k, n in DENSE_QLR:
+        rows.append(check_qlr(dev, 8, k, n, 16, False))
+    for m, n in DENSE_K7:
         rows.append(check_quantize(dev, m, n))
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms"
@@ -1177,7 +1221,7 @@ SURFACE_LANES = [(0.0, 1.0, 0), (0.7, 1.0, 0), (0.7, 0.9, 0), (0.7, 1.0, 40),
                  (1.3, 0.5, 5)]
 
 
-def check_sampler(dev, model, cfg) -> dict:
+def check_sampler(dev, model, cfg, tag: str = "surface") -> dict:
     """``sample_tokens`` on the card against the same function on the CPU
     over the logits (8, V) of one real decode step, and the threefry bits
     of 8 seeds × 4 indices × V, bit for bit across the two devices."""
@@ -1220,7 +1264,7 @@ def check_sampler(dev, model, cfg) -> dict:
                uniforms_equal=bool(torch.equal(unif_cpu.view(torch.int32),
                                                unif_dev.view(torch.int32))),
                n_bits=bits_cpu.numel(), mixed=mixed, greedy=greedy)
-    log("surface", f"sampler over logits {tuple(lg.shape)} of a decode step: "
+    log(tag, f"sampler over logits {tuple(lg.shape)} of a decode step: "
         f"card tokens {got}, CPU tokens {want}; threefry bits of 8 seeds × 4 "
         f"indices × {cfg.vocab} equal across devices: {out['bits_equal']} "
         f"(uniforms {out['uniforms_equal']}); a call, mixed lanes: "
@@ -2206,6 +2250,12 @@ def routing_flips(log_a: list, log_b: list) -> int:
     return flips
 
 
+# deepseek-moe-16b's layers in phase 6 (of 28): the dense lead-in and 7
+# MoE layers, every width as published; the whole depth took 227 s of
+# the script's time, which phase "dense" now needs
+MOE_LAYERS = 8
+
+
 def phase_moe(dev, k7_ms=None) -> dict:
     """Phase 6: deepseek-moe-16b at full width, init → calibration →
     qera-exact SRR (K7) → serve."""
@@ -2217,7 +2267,8 @@ def phase_moe(dev, k7_ms=None) -> dict:
     from repro_torch.models.quantize import quantize_model_params
     from repro_torch.serve import Engine, ServeConfig
 
-    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              n_layers=MOE_LAYERS)
     gib = 2.0 ** 30
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2342,6 +2393,216 @@ def phase_moe(dev, k7_ms=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase "dense": chatglm3-6b, minitron-4b, qwen1.5-32b at full width
+# ---------------------------------------------------------------------------
+# (arch, layers run: None for the published depth, paged run too, build
+# the scalings ahead of the pass). qwen1.5-32b's 64 layers are 131 GiB in
+# f32; 4 of its layers (2.1 GB each, plus a 3.0 GB Σxxᵀ for down's
+# 27,392-wide input) fit beside the embedding and head. chatglm3-6b's
+# scalings are built inside the pass, one layer at a time: built ahead,
+# S and S⁻¹ of its 112 moment sets (2 × 26 GB) would not fit beside the
+# f32 model and Σxxᵀ.
+DENSE_RUNS = (("chatglm3-6b", None, True, False),
+              ("minitron-4b", None, True, True),
+              ("qwen1.5-32b", 4, False, True))
+# the QKV biases filled before calibration: N(0, BIAS_STD²) from a seed
+BIAS_STD = 0.1
+
+
+def fill_qkv_biases(model, seed: int) -> int:
+    """Fill the zero wq/wk/wv biases ``init_lm`` gives a ``qkv_bias``
+    config with seeded values, so the bias path carries real numbers;
+    returns how many were filled."""
+    import torch
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    n = 0
+    for blk in model.blocks:
+        for p in (blk.mixer.wq, blk.mixer.wk, blk.mixer.wv):
+            if p.b is not None:
+                p.b.normal_(0.0, BIAS_STD, generator=gen)
+                n += 1
+    return n
+
+
+def dense_model(dev, cfg, tag: str, ahead: bool) -> tuple:
+    """``init_lm`` (seed 0), biases filled (seed 11) → calibration (phase
+    4's batches) → qera-exact SRR (rank 16, 3-bit MXINT, int8 container),
+    with K7's launches read around the pass; the scalings built ahead and
+    timed apart when ``ahead``, else inside the pass, each layer's
+    released with its statistics. Returns (model, stats of the pass)."""
+    import torch
+    from repro_torch.core.api import PTQConfig
+    from repro_torch.models import init_lm
+    from repro_torch.models.quantize import quantize_model_params
+
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, 0, device=dev)
+    biases = fill_qkv_biases(model, 11)
+    torch.cuda.synchronize()
+    log(tag, f"init_lm {cfg.name}: {cfg.n_layers} layers d_model "
+        f"{cfg.d_model} heads {cfg.n_heads} kv {cfg.n_kv_heads} (G "
+        f"{cfg.n_heads // cfg.n_kv_heads}) head_dim {cfg.head_dim_} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab} rope {cfg.rope_kind} θ "
+        f"{cfg.rope_theta:g} in {time.perf_counter() - t0:.2f} s; f32 "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB; {biases} QKV biases "
+        f"filled")
+    stats, t_calib = calibrate(dev, cfg, model, tag)
+    t_scaling = build_scalings(stats) if ahead else None
+    reset_counts()
+    t0 = time.perf_counter()
+    model, reports = quantize_model_params(
+        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
+                         seed=0), container="int8", stats=stats, device=dev)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    ptq_counts = launch_counts()
+    require(not stats, "the pass left calibration statistics behind")
+    peak = torch.cuda.max_memory_allocated() / gib
+    mean_k = sum(r.k_star for r in reports) / len(reports)
+    log(tag, ("qera-exact scalings built ahead in "
+              f"{t_scaling:.2f} s; " if ahead else
+              "qera-exact scalings built in the pass; ")
+        + f"SRR quantized {len(reports)} matrices in {t_quant:.2f} s (rank "
+        f"16, 3-bit MXINT b32, mean k* {mean_k:.2f}); K7 launches "
+        f"{ptq_counts['K7']}; peak memory of init + calibration + PTQ "
+        f"{peak:.2f} GiB; int8 model "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB")
+    require(ptq_counts["K7"] >= 2 * len(reports),
+            f"the PTQ pass did not quantize through K7: {ptq_counts}")
+    require(all(blk.mixer.wk.b is not None for blk in model.blocks)
+            == cfg.qkv_bias, "the pass dropped a QKV bias")
+    return model, dict(calibration_s=t_calib, scaling_s=t_scaling,
+                       quantize_s=t_quant, peak_gib=peak, mean_k=mean_k,
+                       matrices=len(reports), ptq_counts=ptq_counts)
+
+
+def serve_dense(dev, cfg, model, tag: str, paged: bool) -> dict:
+    """Phase 4's serving (8 prompts of 150–250 tokens, 8 lanes, bf16 KV)
+    or, ``paged``, phase 4b's (16 prompts sharing a 256-token prefix,
+    pages of 16, a 520-token step budget), with the launch counts read
+    around the run; unpaged, then profiled decode steps."""
+    import torch
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import Engine
+
+    sc = paged_serve_config() if paged else main_serve_config()
+    warm = shared_prefix_requests(cfg, 2, seed=7) if paged else \
+        make_requests(cfg, 2, seed=1, lengths=[40, 60])
+    serve(Engine(model, cfg, sc, device=dev), warm)
+    eng = Engine(model, cfg, sc, device=dev)
+    reqs = shared_prefix_requests(cfg, 16, seed=6) if paged else \
+        make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    reset_counts()
+    results, steps, wall = serve(eng, reqs)
+    counts = launch_counts()
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_s for r in results]
+    step_ms = 1e3 * sum(steps) / len(steps)
+    st = eng.stats()
+    log(tag, f"{'paged' if paged else 'unpaged'}: served {len(results)} "
+        f"requests, {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s;"
+        f" TTFT first {1e3 * min(ttft):.1f} ms mean "
+        f"{1e3 * sum(ttft) / len(ttft):.1f} ms max {1e3 * max(ttft):.1f} ms; "
+        f"decode step {step_ms:.2f} ms over {len(steps)} decode-only steps"
+        + (f"; prefix hit rate {st['prefix_hit_rate']:.4f}" if paged else ""))
+    log(tag, f"kernel launches in the run: {counts}")
+    require(len(results) == len(reqs)
+            and all(len(r.tokens) == 32 for r in results),
+            f"expected {len(reqs)} requests × 32 tokens, got "
+            f"{[len(r.tokens) for r in results]}")
+    require(all(0 <= t < cfg.vocab for r in results for t in r.tokens),
+            "a token outside the vocabulary")
+    path = ("K1", "K2", "K4", "K5") if paged else ("K1", "K2", "K3", "K4")
+    require(all(counts[k] > 0 for k in path),
+            f"a kernel of the path never launched: {counts}")
+    require(counts["K3" if paged else "K5"] == 0,
+            f"the other decode kernel launched: {counts}")
+    out = dict(counts=counts, tok_s=n_tok / wall, step_ms=step_ms,
+               decode_steps=len(steps), ttft_ms=[1e3 * t for t in ttft])
+    if paged:
+        require(st["prefix_hit_tokens"] > 0, "the prefix cache served no "
+                "prompt token")
+        out["prefix_hit_rate"] = st["prefix_hit_rate"]
+    else:
+        out["profile"] = profile_decode(
+            eng, cfg, make_requests(cfg, 8, seed=4, lengths=MAIN_LENGTHS),
+            tag=tag)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_logits(dev, cfg, model, tag: str) -> dict:
+    """A 150-token prompt's prefill logits through the kernels against
+    ``fused="off"`` on the card and against the CPU (the model moved
+    there last: the plain versions at full width)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import Ctx, init_cache, prefill
+
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab, 150)
+
+    def run(fused: str, d) -> torch.Tensor:
+        tokens = torch.from_numpy(prompt).long()[None].to(d)
+        n = torch.tensor([150], dtype=torch.int32, device=d)
+        return prefill(Ctx(fused=fused), model, tokens,
+                       init_cache(cfg, 1, 256, torch.bfloat16, d),
+                       lengths=n)[0].float().cpu()
+
+    logit = {"auto": run("auto", dev), "off": run("off", dev)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.to("cpu")
+    logit["cpu"] = run("auto", torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    scale = float(logit["off"].abs().max())
+    tol = 1e-3 * max(1.0, scale)
+    err_off = float((logit["auto"] - logit["off"]).abs().max())
+    err_cpu = float((logit["auto"] - logit["cpu"]).abs().max())
+    log(tag, f"prefill logits (150 tokens), kernels vs fused=off: max |Δ| "
+        f"{err_off:.3e}; vs the CPU (plain versions, {t_cpu:.1f} s): max "
+        f"|Δ| {err_cpu:.3e} (max |logit| {scale:.3f}, tol {tol:.3e})")
+    require(bool(torch.isfinite(logit["auto"]).all()), "non-finite logits")
+    require(err_off <= tol, "the kernel path disagrees with fused=off")
+    require(err_cpu <= tol, "card and CPU logits disagree")
+    return dict(logit_err_off=err_off, logit_err_cpu=err_cpu,
+                max_logit=scale, cpu_s=t_cpu)
+
+
+def phase_dense(dev) -> dict:
+    """Phase "dense": each of ``DENSE_RUNS`` at full width through
+    :func:`dense_model`, :func:`serve_dense` (unpaged, then paged where
+    listed), minitron-4b's sampler at V = 256,000 (``check_sampler``),
+    and :func:`dense_logits`; the model is dropped before the next."""
+    import torch
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, layers, paged, ahead in DENSE_RUNS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        tag = f"dense {arch}"
+        model, run = dense_model(dev, cfg, tag, ahead)
+        run["unpaged"] = serve_dense(dev, cfg, model, tag, False)
+        if paged:
+            run["paged"] = serve_dense(dev, cfg, model, tag, True)
+        if arch == "minitron-4b":
+            run["sampler"] = check_sampler(dev, model, cfg, tag)
+        run.update(dense_logits(dev, cfg, model, tag))
+        run["layers"] = cfg.n_layers
+        del model
+        torch.cuda.empty_cache()
+        run["seconds"] = time.perf_counter() - t0
+        log(tag, f"took {run['seconds']:.1f} s")
+        out[arch] = run
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3's kernels of two trees, in turns on one card
 # ---------------------------------------------------------------------------
 _COMPARE_ROWS = """
@@ -2370,6 +2631,12 @@ if "ragged" in inspect.signature(cs.check_decode).parameters:
 rows += [cs.check_flash(dev), cs.check_flash(dev, h=16, hd=128),
          cs.check_flash_chunk(dev)]
 rows += [cs.check_paged(dev, kind) for kind in ("bf16", "int8", "int4")]
+# K3/K5 at the dense variants' groups (G = 16 and 3), where the tree has
+# them
+if "g" in inspect.signature(cs.check_decode).parameters:
+    for kvh, g, kind in cs.DENSE_DECODE:
+        rows.append(cs.check_decode(dev, kind, kvh=kvh, hd=128, g=g))
+        rows.append(cs.check_paged(dev, kind, kvh=kvh, hd=128, g=g))
 # K7 at every shape of the SRR pass, a narrow last strip and N % 4 != 0
 rows += [cs.check_quantize(dev, m, n) for m, n in K7_SHAPES]
 print("ROWS " + json.dumps(rows))
@@ -2491,6 +2758,9 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_run = phase_moe(dev, k7_ms)
     log("moe", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dense_run = phase_dense(dev)
+    log("dense", f"phase took {time.perf_counter() - t0:.1f} s")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -2498,7 +2768,7 @@ def main() -> int:
                    "main_path": main_run, "paged_path": paged_run,
                    "surface": surface_run, "frontend": frontend_run,
                    "ptq": ptq_run,
-                   "moe_path": moe_run}, fh, indent=1)
+                   "moe_path": moe_run, "dense": dense_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",
@@ -2522,18 +2792,45 @@ def main() -> int:
              "K7": ("K7 mxint_quantize", "M=2048 N=1408 bits=3",
                     "src/repro_torch/kernels/csrc/mxint_quantize.cu",
                     "src/repro/kernels/mxint_quantize.py:38")}
+    # launches: K1–K4 from the unpaged main path (phase 4), K5 from the
+    # paged one (phase 4b), K6 from the MoE one (phase 6) and K7 from its
+    # PTQ pass, each read around its own run; the dense variants' rows
+    # from their own arch's serving run or PTQ pass in phase "dense"
+    runs = [(key, key, {"K5": paged_run["counts"], "K6": moe_run["counts"],
+                        "K7": moe_run["ptq_counts"]}.get(key,
+                                                         main_run["counts"]))
+            for key in picks]
+    glm, mini = dense_run["chatglm3-6b"], dense_run["minitron-4b"]
+    qwen = dense_run["qwen1.5-32b"]
+    for kvh, g, kind in DENSE_DECODE[:2]:
+        arch = glm if g == 16 else mini
+        picks[f"K3 G{g}"] = ("K3 flash_decode",
+                             f"B=8 KV={kvh} G={g} S=512 hd=128 {kind}",
+                             *picks["K3"][2:])
+        picks[f"K5 G{g}"] = ("K5 flash_decode_paged",
+                             f"B=8 KV={kvh} G={g} hd=128 ps=16 nb=32 P=296 "
+                             f"{kind}", *picks["K5"][2:])
+        runs += [(f"K3 G{g}", "K3", arch["unpaged"]["counts"]),
+                 (f"K5 G{g}", "K5", arch["paged"]["counts"])]
+    for k, n in DENSE_QLR:
+        key = f"K1 {k}x{n}"
+        picks[key] = ("K1 qlr_fused_matmul", f"M=8 K={k} N={n} r=16 int8",
+                      *picks["K1"][2:])
+        runs.append((key, "K1", (qwen if n == 27392 else glm)["unpaged"]
+                     ["counts"]))
+    for m, n in DENSE_K7:
+        key = f"K7 {m}x{n}"
+        picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
+                      *picks["K7"][2:])
+        runs.append((key, "K7", (qwen if m == 27392 else glm)["ptq_counts"]))
     kernels = []
-    for key, (kname, shape, source, replaces) in picks.items():
+    for key, kernel, counts in runs:
+        kname, shape, source, replaces = picks[key]
         row = next(r for r in rows if r["name"] == kname
                    and r["shape"] == shape)
-        # launches: K1–K4 from the unpaged main path (phase 4), K5 from
-        # the paged one (phase 4b), K6 from the MoE one (phase 6) and K7
-        # from its PTQ pass, each read around its own run
-        counts = {"K5": paged_run["counts"], "K6": moe_run["counts"],
-                  "K7": moe_run["ptq_counts"]}.get(key, main_run["counts"])
         entry = {"name": f"{kname} ({shape})", "route": "cuda",
                  "source": source, "replaces": replaces,
-                 "launches": counts[key],
+                 "launches": counts[kernel],
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],

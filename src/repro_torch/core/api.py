@@ -74,7 +74,8 @@ class CalibStats:
         if kind == "qera-exact":
             if self.autocorr is None:
                 raise ValueError("qera-exact needs autocorrelation moments")
-            return autocorr_scaling_from_moments(self.autocorr / n)
+            return autocorr_scaling_from_moments(self.autocorr / n,
+                                                 rows=self.count)
         raise ValueError(f"unknown scaling kind {kind!r}")
 
 

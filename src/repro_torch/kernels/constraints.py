@@ -72,8 +72,12 @@ ATTN_HEAD_DIM_ALIGN = 8
 # double-buffered in shared memory.
 ATTN_Q_TILE = 64
 ATTN_K_TILE = 64
-# K3 keeps one accumulator per query head of a KV group in registers.
-DECODE_MAX_GROUP = 8
+# K3/K5 take up to DECODE_MAX_GROUP query heads a KV head (chatglm3-6b:
+# 16). A block keeps one accumulator per query head in registers for at
+# most DECODE_BLOCK_GROUP heads, so a wider group is split across
+# ceil(G / DECODE_BLOCK_GROUP) blocks, each reading the head's K/V.
+DECODE_MAX_GROUP = 16
+DECODE_BLOCK_GROUP = 8
 # K3/K4/K5 copy K/V rows into shared memory in 16-byte (f32/bf16) or
 # 8-byte (int8/packed4) chunks: the tensors' base address must be 16-byte
 # aligned (a fresh allocation is; a view at an odd offset may not be).

@@ -20,15 +20,21 @@
 // enough loads in flight, not the tensor cores.
 //
 // Design (flash-decoding):
-// - The slot axis is split across blocks: grid (KV, B, splits), 128
-//   threads a block, each split a run of whole 32-slot tiles (at most 16).
-//   The host picks the split count from B·KV, S and the SM count for about
-//   four blocks per SM (kernels/decode_attention.py:decode_splits): at
-//   phi3's decode (B·KV = 256, S = 512) 3 splits of 6 tiles, 768 blocks,
-//   5.8 per SM of 132; at deepseek-moe-16b's (B·KV = 128) 4 splits of 4
-//   tiles, 512 blocks, 3.9 per SM. A split writes f32 partials (m, l,
+// - The slot axis is split across blocks: grid (KV · group blocks, B,
+//   splits), 128 threads a block, each split a run of whole 32-slot tiles
+//   (at most 16). A block holds accumulators for at most kBlockG = 8 query
+//   heads, so a KV head whose group is wider (chatglm3-6b: G = 16) takes
+//   ceil(G / 8) blocks, each over its own heads and reading the head's K/V
+//   again (the second read of a decode-size cache comes from L2); G <= 8
+//   takes one. The host picks the split count from B·KV·ceil(G / 8), S and
+//   the SM count for about four blocks per SM
+//   (kernels/decode_attention.py:decode_splits): at phi3's decode (B·KV =
+//   256, S = 512) 3 splits of 6 tiles, 768 blocks, 5.8 per SM of 132; at
+//   deepseek-moe-16b's (B·KV = 128) 4 splits of 4 tiles, 512 blocks, 3.9
+//   per SM; at chatglm3-6b's (B·KV = 16, G = 16: 32 rows) 16 splits of
+//   one tile, 512 blocks. A split writes f32 partials (m, l,
 //   acc[G, hd]) to scratch that the wrapper allocates; a second kernel,
-//   decode_combine_kernel, merges the splits of each (b, h) in split order
+//   decode_combine_kernel, merges the splits of each (b, h, g) in split order
 //   (deterministic, no atomics). With one split the kernel normalizes and
 //   writes the output itself, and no combine runs.
 // - Dead work is skipped from the positions. A first pass reads the
@@ -54,11 +60,16 @@
 //   shuffles; P·V gives each lane the columns lane, lane + 32, ..., so
 //   hd = 96 keeps all 32 lanes busy, with each slot's probability
 //   broadcast from its quad by a shuffle.
-// - Accumulators are sized by a template bound on G: MHA models (G = 1,
-//   both phi3 and deepseek-moe-16b) take 56–64 registers, any G up to 8
-//   94–104, none spilling, per `nvcc -Xptxas -v` (CUDA 12.8); static
-//   shared memory 2,144 / 2,368 bytes; dynamic 27 KB for bf16 at hd 96
-//   (seven blocks per SM), 35 KB at hd 128; the combine 32 registers.
+// - Accumulators are sized by a template bound on a block's heads: MHA
+//   models (G = 1, phi3, deepseek-moe-16b and qwen1.5-32b) take 56–64
+//   registers, up to 8 heads a block 93–114, none spilling but the
+//   8-head instances over an f32 cache (44 bytes), per `nvcc -Xptxas -v`
+//   (CUDA 12.8); static shared memory 2,144 / 2,368 bytes;
+//   dynamic 27 KB for bf16 at hd 96 (seven blocks per SM), 35 KB at hd
+//   128; the combine 32 registers. Doubling the bound to 16 heads would
+//   double a lane's accumulators (4 × 16 floats) and the merge buffer for
+//   every G > 1, at the risk of spills under __launch_bounds__; splitting
+//   the group across blocks keeps the bound at 8.
 //
 // The limits below repeat src/repro_torch/kernels/constraints.py.
 #include <cfloat>
@@ -73,7 +84,8 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTileS = 32;          // constraints.DECODE_TILE_SLOTS
 constexpr int kMaxSplitTiles = 16;  // constraints.DECODE_MAX_SPLIT_TILES
 constexpr int kMaxHd = 128;         // constraints.ATTN_MAX_HEAD_DIM
-constexpr int kMaxG = 8;            // constraints.DECODE_MAX_GROUP
+constexpr int kMaxG = 16;           // constraints.DECODE_MAX_GROUP
+constexpr int kBlockG = 8;          // constraints.DECODE_BLOCK_GROUP
 constexpr int kRowPad = 16;         // bytes after each stored row in a tile
 constexpr int kStages = 2;          // tiles in flight: this one and the next
 constexpr int kSubS = kTileS / kWarps;   // slots of a tile one warp owns
@@ -108,7 +120,8 @@ __host__ __device__ inline int tile_bytes(int hd) {
 }
 // Dynamic shared memory: the K and V tiles [kStages][tile] each (a warp
 // owns kSubS slots of each tile; the area is reused by the final merge of
-// the warps, [kWarps][G][hd] f32), then q [G][hd] in f32.
+// the warps, [kWarps][G][hd] f32), then q [G][hd] in f32; G is the most
+// query heads a block holds, min(group, kBlockG).
 template <int KV>
 __host__ __device__ inline int tiles_bytes(int hd, int G) {
   const int tiles = 2 * kStages * tile_bytes<KV>(hd);
@@ -213,9 +226,10 @@ __device__ __forceinline__ float read_col(const unsigned char* tile,
 // S counts a row's logical slots (nb * page when PAGED). Unpaged, slot j of
 // (b, h) is flat slot bh * S + j; paged, it is (pg * KVH + h) * page +
 // j % page with pg = block_table[b * nb + j / page].
-// MG: the query heads a KV head's accumulators are sized for (1, or
-// kMaxG for any G up to it): MHA models (G = 1) keep 4 registers of
-// accumulators a lane instead of 32.
+// MG: the query heads a block's accumulators are sized for (1 for G = 1,
+// else kBlockG): MHA models keep 4 registers of accumulators a lane
+// instead of 32. blockIdx.x = h · ceil(G / MG) + c: block c of KV head h
+// takes query heads c·MG .. min(G, c·MG + MG) − 1 of the group.
 template <typename QT, int KV, bool PAGED, int MG>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
@@ -237,7 +251,13 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   __shared__ unsigned ok_s[kMaxSplitTiles];       // valid-slot mask per tile
   __shared__ int row_s[kMaxSplitTiles * kTileS];  // flat slot of valid slots
 
-  const int h = blockIdx.x;
+  // MG = 1 is launched only for G = 1: one block a KV head, all of its
+  // heads (the expressions below reduce to G and 0 there)
+  const int gblocks = MG == 1 ? 1 : (G + MG - 1) / MG;
+  const int h = blockIdx.x / gblocks;
+  const int g0 = (blockIdx.x % gblocks) * MG;     // this block's first head
+  const int GS = MG == 1 ? G : min(G, MG);        // heads of the smem layout
+  const int GB = MG == 1 ? G : min(GS, G - g0);   // heads of this block
   const int b = blockIdx.y;
   const int split = blockIdx.z, splits = gridDim.z;
   const size_t bh = static_cast<size_t>(b) * KVH + h;
@@ -249,7 +269,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   const int n_tiles = min(split_tiles, (S - s0 + kTileS - 1) / kTileS);
   const int stride = tile_stride<KV>(hd);
   const int sub_bytes = kSubRows * stride;      // a warp's share of a tile
-  float* qs = reinterpret_cast<float*>(smem + tiles_bytes<KV>(hd, G));
+  float* qs = reinterpret_cast<float*>(smem + tiles_bytes<KV>(hd, GS));
 
   for (int t = warp; t < n_tiles; t += kWarps) {
     const int j = s0 + t * kTileS + lane;
@@ -271,8 +291,8 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
     const unsigned mask = __ballot_sync(0xffffffffu, ok);
     if (lane == 0) ok_s[t] = mask;
   }
-  for (int i = threadIdx.x; i < G * hd; i += kThreads)
-    qs[i] = to_f32(q[bh * G * hd + i]);
+  for (int i = threadIdx.x; i < GB * hd; i += kThreads)
+    qs[i] = to_f32(q[(bh * G + g0) * hd + i]);
   __syncthreads();
 
   // From here each warp is an independent flash-decode over its kSubS
@@ -360,7 +380,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
           read_cols<KV>(kt, stride, sl, w, x);
 #pragma unroll
           for (int g = 0; g < MG; ++g) {
-            if (g < G) {
+            if (g < GB) {
               const float4* q4 =
                   reinterpret_cast<const float4*>(qs + g * hd + w * K::kVec);
 #pragma unroll
@@ -382,7 +402,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
       // quad; lanes own columns lane, lane + 32, ...
 #pragma unroll
       for (int g = 0; g < MG; ++g) {
-        if (g < G) {
+        if (g < GB) {
           float sg = s[g];
           sg += __shfl_xor_sync(0xffffffffu, sg, 1);
           sg += __shfl_xor_sync(0xffffffffu, sg, 2);
@@ -425,14 +445,14 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   // merge the warps in order (through the now idle tile buffers), then
   // write the output (one split) or this split's partial
   __syncthreads();
-  float* red = reinterpret_cast<float*>(smem);   // [kWarps][G][hd]
+  float* red = reinterpret_cast<float*>(smem);   // [kWarps][GS][hd]
 #pragma unroll
   for (int g = 0; g < MG; ++g) {
-    if (g < G) {
+    if (g < GB) {
 #pragma unroll
       for (int i = 0; i < kCols; ++i)
         if (lane + 32 * i < hd)
-          red[(warp * G + g) * hd + lane + 32 * i] = acc[g][i];
+          red[(warp * GS + g) * hd + lane + 32 * i] = acc[g][i];
       if (lane == 0) {
         wm_s[warp][g] = m[g];
         wl_s[warp][g] = l[g];
@@ -441,7 +461,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   }
   __syncthreads();
   const size_t pidx = bh * splits + split;
-  for (int i = threadIdx.x; i < G * hd; i += kThreads) {
+  for (int i = threadIdx.x; i < GB * hd; i += kThreads) {
     const int g = i / hd, d = i % hd;
     float mx = kNegInf;
 #pragma unroll
@@ -451,22 +471,26 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
     for (int w = 0; w < kWarps; ++w) {
       const float c = expf(wm_s[w][g] - mx);   // an empty warp has l = 0
       lsum += wl_s[w][g] * c;
-      a += red[(w * G + g) * hd + d] * c;
+      a += red[(w * GS + g) * hd + d] * c;
     }
+    const int gq = g0 + g;                       // the head in the group
     if (splits == 1) {
-      out[(bh * G + g) * hd + d] = from_f32<QT>(lsum > 0.f ? a / lsum : 0.f);
+      out[(bh * G + gq) * hd + d] = from_f32<QT>(lsum > 0.f ? a / lsum : 0.f);
     } else {
-      acc_part[(pidx * G + g) * hd + d] = a;
+      acc_part[(pidx * G + gq) * hd + d] = a;
       if (d == 0) {
-        m_part[pidx * G + g] = mx;
-        l_part[pidx * G + g] = lsum;
+        m_part[pidx * G + gq] = mx;
+        l_part[pidx * G + gq] = lsum;
       }
     }
   }
 }
 
-// Merge the splits of each (b, h): out = Σ_s acc_s·e^(m_s − M) /
+// Merge the splits of each (b, h, g): out = Σ_s acc_s·e^(m_s − M) /
 // Σ_s l_s·e^(m_s − M), in split order; zeros when every split is empty.
+// Grid (B·KVH, G), a thread a head-dim column: a wide group (chatglm3-6b:
+// 16 heads over 16 splits) spreads over G times more blocks than a block
+// a KV head would give it.
 template <typename QT>
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* __restrict__ m_part,
@@ -474,8 +498,8 @@ decode_combine_kernel(const float* __restrict__ m_part,
                       const float* __restrict__ acc_part, QT* __restrict__ out,
                       int G, int hd, int splits) {
   const size_t bh = blockIdx.x;
-  for (int i = threadIdx.x; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i % hd;
+  const int g = blockIdx.y;
+  for (int d = threadIdx.x; d < hd; d += kThreads) {
     float mx = kNegInf;
     for (int s = 0; s < splits; ++s)
       mx = fmaxf(mx, m_part[(bh * splits + s) * G + g]);
@@ -498,7 +522,7 @@ int launch_groups(const QT* q, const void* k, const void* v, const float* ks,
                 QT* out, float* m_part, float* l_part, float* acc_part, int B,
                 int KVH, int G, int S, int nb, int page, int hd, int window,
                 int splits, int split_tiles, float scale, cudaStream_t s) {
-  const size_t smem = smem_bytes<KV>(hd, G);
+  const size_t smem = smem_bytes<KV>(hd, G < MG ? G : MG);
   if (smem > static_cast<size_t>(kSmemMax) - 4 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   static size_t opted = 44 * 1024;   // under the default with the static part
@@ -509,13 +533,13 @@ int launch_groups(const QT* q, const void* k, const void* v, const float* ks,
     if (e != cudaSuccess) return static_cast<int>(e);
     opted = smem;
   }
-  const dim3 grid(KVH, B, splits);
+  const dim3 grid(KVH * ((G + MG - 1) / MG), B, splits);
   flash_decode_kernel<QT, KV, PAGED, MG><<<grid, kThreads, smem, s>>>(
       q, k, v, ks, vs, qp, kp, bt, out, m_part, l_part, acc_part, KVH, G, S,
       nb, page, hd, window, split_tiles, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  decode_combine_kernel<QT><<<B * KVH, kThreads, 0, s>>>(
+  decode_combine_kernel<QT><<<dim3(B * KVH, G), kThreads, 0, s>>>(
       m_part, l_part, acc_part, out, G, hd, splits);
   return static_cast<int>(cudaGetLastError());
 }
@@ -531,10 +555,10 @@ int launch_kind(const QT* q, const void* k, const void* v, const float* ks,
                                         m_part, l_part, acc_part, B, KVH, G,
                                         S, nb, page, hd, window, splits,
                                         split_tiles, scale, s)
-      : launch_groups<QT, KV, PAGED, kMaxG>(q, k, v, ks, vs, qp, kp, bt, out,
-                                            m_part, l_part, acc_part, B, KVH,
-                                            G, S, nb, page, hd, window, splits,
-                                            split_tiles, scale, s);
+      : launch_groups<QT, KV, PAGED, kBlockG>(q, k, v, ks, vs, qp, kp, bt,
+                                              out, m_part, l_part, acc_part, B,
+                                              KVH, G, S, nb, page, hd, window,
+                                              splits, split_tiles, scale, s);
 }
 
 template <typename QT, bool PAGED>

@@ -18,7 +18,9 @@ block size).
 On the card the slot axis is split across blocks (flash-decoding):
 :func:`decode_splits` picks the split count, each split leaves f32
 partials ``(m, l, acc)`` in scratch this module allocates, and a second
-kernel merges them as :func:`combine_splits_plain` does. The launch
+kernel merges them as :func:`combine_splits_plain` does. A group of more
+than ``DECODE_BLOCK_GROUP`` query heads a KV head is split across
+:func:`group_blocks` blocks too, each over its own heads. The launch
 counts stay one per wrapper call.
 
 Paged (``block_table`` given): k/v are page pools ``(P, KV, ps, hd)``
@@ -34,6 +36,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.constraints import (CUDA_MAX_GRID_YZ,
+                                             DECODE_BLOCK_GROUP,
                                              DECODE_BLOCKS_PER_SM,
                                              DECODE_MAX_GROUP,
                                              DECODE_MAX_SPLIT_TILES,
@@ -94,11 +97,18 @@ def combine_splits_plain(m: torch.Tensor, l: torch.Tensor,
     return torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
 
 
+def group_blocks(g: int) -> int:
+    """Blocks a KV head's group of ``g`` query heads takes: each holds
+    accumulators for at most ``DECODE_BLOCK_GROUP`` heads."""
+    return -(-g // DECODE_BLOCK_GROUP)
+
+
 def decode_splits(rows: int, slots: int, sm_count: int) -> Tuple[int, int]:
-    """(splits, tiles per split) for ``rows`` = B·KV blocks over ``slots``
-    logical slots: about ``DECODE_BLOCKS_PER_SM`` blocks per SM, at most
-    ``DECODE_MAX_SPLIT_TILES`` tiles a split, whole tiles only, and never
-    more splits than tiles (so no split is shorter than one tile)."""
+    """(splits, tiles per split) for ``rows`` = B·KV·:func:`group_blocks`
+    blocks over ``slots`` logical slots: about ``DECODE_BLOCKS_PER_SM``
+    blocks per SM, at most ``DECODE_MAX_SPLIT_TILES`` tiles a split, whole
+    tiles only, and never more splits than tiles (so no split is shorter
+    than one tile)."""
     tiles = -(-slots // DECODE_TILE_SLOTS)
     want = -(-DECODE_BLOCKS_PER_SM * sm_count // rows)
     splits = max(1, min(want, tiles), -(-tiles // DECODE_MAX_SPLIT_TILES))
@@ -112,7 +122,7 @@ def _scratch(q: torch.Tensor, slots: int) -> tuple:
     launch, the scratch goes back to the caching allocator in stream
     order, so the kernels still own it while they run."""
     b, kvh, g, hd = q.shape
-    splits, per = decode_splits(b * kvh, slots,
+    splits, per = decode_splits(b * kvh * group_blocks(g), slots,
                                 _build.sm_count(q.device.index or 0))
     if splits > CUDA_MAX_GRID_YZ:
         raise ValueError(f"{slots} slots need {splits} splits, over the grid "

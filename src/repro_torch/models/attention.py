@@ -138,8 +138,8 @@ def _qkv(ctx: Ctx, p: Attention, x: torch.Tensor, cfg: ModelConfig,
     q = linear(ctx, p.wq, x, "attn.wq").reshape(b, s, cfg.n_heads, hd)
     k = linear(ctx, p.wk, x, "attn.wk").reshape(b, s, cfg.n_kv_heads, hd)
     v = linear(ctx, p.wv, x, "attn.wv").reshape(b, s, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_kind)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_kind)
     g = cfg.n_heads // cfg.n_kv_heads
     return q.reshape(b, s, cfg.n_kv_heads, g, hd), k, v
 

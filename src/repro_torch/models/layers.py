@@ -1,5 +1,5 @@
-"""Shared building blocks: RMSNorm, full RoPE, the SwiGLU MLP, the
-embedding and the chunked cross-entropy (port of
+"""Shared building blocks: RMSNorm, RoPE (full or half), the SwiGLU
+MLP, the embedding and the chunked cross-entropy (port of
 ``repro/models/layers.py``, the parts the dense decoder uses)."""
 from __future__ import annotations
 
@@ -28,20 +28,29 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Full rotary embedding of all head dims, interleaved pairs.
-    x: (B, S, H, D); positions: (B, S) or (S,)."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               kind: str = "full") -> torch.Tensor:
+    """Rotary embedding in interleaved pairs. x: (B, S, H, D); positions:
+    (B, S) or (S,). kind: full — rotate all D dims; half — the first D/2
+    only, with frequencies over D/2 (the JAX package's ChatGLM 2d-RoPE
+    layout), the rest passed through; none — passthrough."""
+    if kind == "none":
+        return x
+    d = x.shape[-1]
+    rot_d = d if kind == "full" else d // 2
+    freqs = rope_frequencies(rot_d, theta, x.device)
     if positions.ndim == 1:
         positions = positions[None, :]
-    ang = positions[..., None].float() * freqs           # (B, S, D/2)
+    ang = positions[..., None].float() * freqs           # (B, S, rot_d/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    xr = x.float()
+    xr = x[..., :rot_d].float()
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
-    rotated = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return rotated.reshape(xr.shape).to(x.dtype)
+    rotated = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(xr.shape)
+    if rot_d < d:
+        rotated = torch.cat([rotated, x[..., rot_d:].float()], dim=-1)
+    return rotated.to(x.dtype)
 
 
 class MLP(nn.Module):

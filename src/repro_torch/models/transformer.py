@@ -34,19 +34,21 @@ AUX_WEIGHT = 0.01  # MoE load-balance loss coefficient
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves full-attention RoPE/SwiGLU/RMSNorm GQA decoders,
     dense or MoE (routed + shared experts after ``first_dense`` dense
-    layers); raise for anything else rather than run it wrongly."""
+    layers), with full or half RoPE and optional QKV biases; raise for
+    anything else rather than run it wrongly."""
     moe_ok = not cfg.moe or (cfg.n_routed > 0 and 0 < cfg.top_k <= cfg.n_routed
                              and cfg.d_expert > 0)
     ok = (set(cfg.block_pattern) == {"attn"} and cfg.attn_kind == "gqa"
           and moe_ok and (cfg.moe or not cfg.first_dense)
           and not cfg.is_encoder_decoder and not cfg.n_vision_tokens
-          and cfg.rope_kind == "full" and cfg.act == "swiglu"
+          and cfg.rope_kind in ("full", "half") and cfg.act == "swiglu"
           and cfg.norm == "rmsnorm" and cfg.d_ff > 0)
     if not ok:
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA decoders (dense or MoE) with "
-            f"full RoPE, SwiGLU and RMSNorm only (block_pattern="
-            f"{cfg.block_pattern}, attn_kind={cfg.attn_kind!r}, moe={cfg.moe})")
+            f"full or half RoPE, SwiGLU and RMSNorm only (block_pattern="
+            f"{cfg.block_pattern}, attn_kind={cfg.attn_kind!r}, "
+            f"rope_kind={cfg.rope_kind!r}, moe={cfg.moe})")
 
 
 class Block(nn.Module):
@@ -93,19 +95,25 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     """Random f32 model from ``seed`` with the JAX package's init scales
     (``transformer.init_lm``); the numbers differ from JAX's, since the
     generators differ. An MoE config gets ``first_dense`` dense layers of
-    width ``d_ff``, then MoE blocks."""
+    width ``d_ff``, then MoE blocks; ``cfg.qkv_bias`` gives wq/wk/wv a
+    zero bias, as JAX's ``init_linear(..., bias=True)`` does."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, hd, ff = cfg.d_model, cfg.head_dim_, cfg.d_ff
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     ones = lambda: torch.ones((d,), device=dev)  # noqa: E731
+
+    def qkv(n: int) -> FpLinear:
+        p = init_linear(gen, d, n, d ** -0.5, dev)
+        if cfg.qkv_bias:
+            p.b = torch.zeros((n,), device=dev)
+        return p
+
     blocks = []
     for i in range(cfg.n_layers):
         mixer = attn.Attention(
-            init_linear(gen, d, qd, d ** -0.5, dev),
-            init_linear(gen, d, kvd, d ** -0.5, dev),
-            init_linear(gen, d, kvd, d ** -0.5, dev),
+            qkv(qd), qkv(kvd), qkv(kvd),
             init_linear(gen, qd, d, 1.0 / (qd ** 0.5 * (2 * cfg.n_layers) ** 0.5),
                         dev))
         if cfg.uses_moe_at(i):

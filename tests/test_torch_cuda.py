@@ -1,7 +1,8 @@
 """Card-only checks of the CUDA kernels (skip without a card): each
 kernel against its plain version on the card (K5 on a shuffled block
 table, K4 also at the chunk shape and where whole key tiles are dead,
-K3/K4 also at head_dim 128, K3/K5 across split boundaries, K6 over an
+K3/K4 also at head_dim 128, K3/K5 across split boundaries and at groups
+of up to 16 query heads a KV head, K6 over an
 expert stack with and without counts, K7 bit for bit), and each wrapper
 raising on input the kernel does not take.
 
@@ -18,7 +19,8 @@ from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import mxint_matmul as mk
 from repro_torch.kernels import mxint_quantize as kq
-from repro_torch.kernels.constraints import (DECODE_TILE_SLOTS,
+from repro_torch.kernels.constraints import (DECODE_MAX_GROUP,
+                                             DECODE_TILE_SLOTS,
                                              QLR_FUSED_MAX_ROWS)
 from repro_torch.quant.mxint import MXIntQuantizer, pack_codes_4bit
 
@@ -230,7 +232,8 @@ def _paged(dev, kind, b=4, kvh=4, g=2, hd=96, ps=16, nb=8, pages=40, seed=0):
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "int4"])
-@pytest.mark.parametrize("g,window", [(1, 0), (2, 0), (2, 30)])
+@pytest.mark.parametrize("g,window", [(1, 0), (2, 0), (2, 30), (3, 0),
+                                      (16, 30)])
 def test_flash_decode_paged_matches_plain(dev, kind, g, window):
     q, k, v, q_pos, k_pos, bt, ks, vs = _paged(dev, kind, g=g)
     want = dk.decode_attention_paged_plain(q, k, v, q_pos, k_pos, bt, ks, vs,
@@ -277,6 +280,9 @@ def test_flash_decode_wrapper_raises(dev):
     q, k, v, q_pos, k_pos, ks, vs = _cache(dev, "int8")
     with pytest.raises(ValueError):
         dk.flash_decode(q, k, v, q_pos, k_pos)           # scales missing
+    wide = q[:, :, :1].expand(-1, -1, DECODE_MAX_GROUP + 1, -1).contiguous()
+    with pytest.raises(ValueError, match="exceeds"):     # G over the cap
+        dk.flash_decode(wide, k, v, q_pos, k_pos, ks, vs)
     with pytest.raises(TypeError):
         dk.flash_decode(q.half(), k, v, q_pos, k_pos, ks, vs)
     with pytest.raises(ValueError):
@@ -536,19 +542,22 @@ def _to_pages(x, bt, ps):
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "int4"])
 @pytest.mark.parametrize("g,hd,window", [(1, 96, 0), (8, 128, 0),
-                                         (8, 128, 40)])
+                                         (8, 128, 40), (3, 128, 0),
+                                         (12, 128, 40), (16, 128, 0)])
 def test_flash_decode_split_boundaries(dev, kind, g, hd, window):
     """K3 and K5 with the slot axis split across blocks: rows whose valid
     slots end at a split boundary, one slot past it, a whole tile before
     it, and a row with no valid slot (exact zeros); S = 304 is a multiple
-    of neither the tile nor the split; G = 8 (DECODE_MAX_GROUP) at hd 128,
-    windows, int8/int4 scales on rows with skipped tiles."""
+    of neither the tile nor the split; G = 8 (one block's heads) at hd
+    128, G = 12 and 16 (DECODE_MAX_GROUP: a KV head's group over two
+    blocks, 8 + 4 and 8 + 8 heads), G = 3 (not a power of two), windows,
+    int8/int4 scales on rows with skipped tiles."""
     b, kvh, ps, nb = 4, 16, 16, 19
     s = ps * nb
     q, k, v, _, _, ks, vs = _cache(dev, kind, b=b, kvh=kvh, g=g, s=s, hd=hd,
                                    seed=g + hd + window)
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, per = dk.decode_splits(b * kvh, s, sm)
+    splits, per = dk.decode_splits(b * kvh * dk.group_blocks(g), s, sm)
     assert splits > 1
     edge = per * DECODE_TILE_SLOTS                  # end of split 0
     q_pos = torch.tensor([edge - 1, edge, edge - 1 - DECODE_TILE_SLOTS, s],
@@ -588,3 +597,25 @@ def test_flash_decode_one_split(dev):
     assert dk.decode_splits(64 * 32, 256, sm)[0] == 1
     _close(dk.decode_attention_op(q, k, v, q_pos, k_pos),
            dk.decode_attention_plain(q, k, v, q_pos, k_pos), 1e-4)
+
+
+def test_wide_autocorr_takes_the_range_route(dev, monkeypatch):
+    """Past the card's eigh width (lowered here to 96) qera-exact takes R's
+    range when R averages fewer samples than its width, and raises when
+    it does not; the result matches an f64 eigh of the same R within the
+    f32 result's rounding (1e-6 of each matrix's largest entry)."""
+    from repro_torch.core import scaling as sc
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((40, 128), generator=gen, device=dev)
+    r = x.T @ x / 40
+    r64 = 0.5 * (r.double() + r.double().T)
+    evals, evecs = torch.linalg.eigh(r64)
+    half = torch.maximum(evals, 1e-4 * evals[-1]).sqrt()
+    monkeypatch.setattr(sc, "EIGH_MAX_WIDTH", 96)
+    got = sc.autocorr_scaling_from_moments(r, rows=40)
+    for mine, exact in ((got.dense, (evecs * half) @ evecs.T),
+                        (got.dense_inv, (evecs / half) @ evecs.T)):
+        scale = float(exact.abs().max())
+        assert float((mine.double() - exact).abs().max()) <= 1e-6 * scale
+    with pytest.raises(ValueError, match="range route"):
+        sc.autocorr_scaling_from_moments(r, rows=128)
