@@ -23,7 +23,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    beside it); for phase "dense", K3 and K5 at chatglm3-6b's group (KV 2,
    G 16, bf16 and int8 KV) and minitron-4b's (KV 8, G 3), head_dim 128,
    K1 at 4096×256, 13696×4096 and 5120×27392 and K7 at 13696×4096 and
-   27392×5120: max error against a stated tolerance,
+   27392×5120; for phase "mla", K3's latent instance at B=8, one KV head,
+   G 16, head_dim 576 with V the first 512 columns of K's rows, bf16 and
+   f32, scale 1/√192 (yardstick: masked SDPA with ``scale=``, the KV head
+   expanded): max error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
    layers finds them cold) and the bound (K1/K2/K6: the function's
@@ -138,17 +141,31 @@ Phases (each prints its own lines; any failure exits non-zero):
    sampler on the card against the CPU at V = 256,000 bit for bit; a
    150-token prompt's prefill logits through the kernels against
    ``fused="off"`` and against the model moved to the CPU (plain
-   versions), each within 1e-3 · max|logit|.
+   versions), each within 1e-3 · max|logit|;
+8. "mla": deepseek-v2-lite-16b (MLA over the MoE) at full width and 8 of
+   its 27 layers (``MLA_LAYERS``): ``init_lm`` (seed 0) → calibration as
+   in phase 4 → the scalings built ahead (timed) → qera-exact SRR (K7's
+   launches read around the pass) → phase 4's unpaged serving with bf16
+   latents (K3 launched exactly decode steps × layers times at the
+   576-wide latent head, K4 and K5 never: MLA prefill is plain masked
+   softmax attention), profiled decode steps, the int8-KV engine (JAX's float
+   rule: bf16 latents, the same tokens), and a 150-token prompt's prefill
+   logits and one decode step's logits over 8 lanes (K3 on the path)
+   through the kernels against ``fused="off"`` under one routing, each
+   within 1e-3 · max|logit|.
 
-The last lines are the nvidia-smi line, one JSON object with a record
+In a directory that holds this script and nothing else of the
+repository it exits 1, without a card 2. The last lines are the nvidia-smi line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --compare PARENT_ROOT
 
 times phase 3's Q+LR cases (K1 at its main, router and dense lead-in
-shapes, K2 at both M = 256 shapes, K6 at all five), its K3, K4 and K5
-cases (with the dense variants' G = 16 and G = 3 where the tree has them)
-and K7's thirteen, of the tree at PARENT_ROOT (an unpacked ``git
+shapes, K2 at both M = 256 shapes, K1/K2 at the MLA projections, K6 at
+all five), its K3, K4 and K5 cases (K5 also at deepseek-moe's KV 16, hd
+128; with the dense variants' G = 16 and G = 3 and K3's latent rows
+where the tree has them) and K7's sixteen, of the tree at PARENT_ROOT
+(an unpacked ``git
 archive``) and of this one on one card, in the order parent, change,
 change, parent, and prints one line per case
 (``build/compare_kernels.json`` holds them).
@@ -356,6 +373,62 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
     if ragged:
         row["walked_bound_ms"] = b * s * slot_bytes / HBM_BYTES_PER_S * 1e3
     return row
+
+
+def check_decode_latent(dev, kind: str, b=8, s=512, h=16, r=512, pe=64,
+                        hd=128) -> dict:
+    """K3's latent instance at MLA's decode shape (deepseek-v2-lite-16b):
+    q (B, 1, H, r + pe) f32 as ``mla_step`` gives it, the latent cache
+    (B, S, r + pe) in ``kind`` with every slot valid, K its rows and V
+    their first r columns (one tensor), the score scale 1/√(hd + pe). The
+    yardstick: SDPA with ``scale=`` and a mask, the KV head expanded to the
+    H query heads (expanded before it is timed), Ev = r."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    gen = torch.Generator(device=dev).manual_seed(s + r)
+    q = torch.randn((b, 1, h, r + pe), generator=gen, device=dev)
+    lat = torch.randn((b, s, r + pe), generator=gen, device=dev).to(dt)
+    q_pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+    scale = (hd + pe) ** -0.5
+
+    def kernel(q_, lat_):
+        return dk.flash_decode(q_, lat_[:, None], lat_[:, None, :, :r],
+                               q_pos, k_pos, scale=scale)
+
+    def plain(q_, lat_):
+        return dk.decode_attention_plain(q_, lat_[:, None],
+                                         lat_[:, None, :, :r], q_pos, k_pos,
+                                         scale=scale)
+
+    got, want = kernel(q, lat), plain(q, lat)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    n_copies = copies_for(tensor_bytes(lat))
+    sets = [(q, lat.clone()) for _ in range(n_copies)]
+    qd = q.reshape(b, h, 1, r + pe).to(dt)
+    mask = (k_pos >= 0)[:, None, None, :]
+    dense = [(qd, lat[:, None].expand(b, h, s, r + pe).contiguous(),
+              lat[:, None, :, :r].expand(b, h, s, r).contiguous())
+             for _ in range(n_copies)]
+    t_kernel, host = time_ms(kernel, sets)
+    t_plain, _ = time_ms(plain, sets)
+    t_lib, _ = time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, attn_mask=mask, scale=scale), dense)
+    # bytes: each latent row once (V is its first r columns), q, the
+    # positions and the f32 output
+    nbytes = tensor_bytes(lat, q, q_pos, k_pos) + b * h * r * 4
+    ops = 2 * b * h * s * (r + pe) + 2 * b * h * s * r
+    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    return dict(name="K3 flash_decode",
+                shape=f"B={b} KV=1 G={h} S={s} hd={r + pe} dv={r} {kind}",
+                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
+                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def check_flash(dev, h=32, s=256, hd=96) -> dict:
@@ -660,6 +733,16 @@ K7_SHAPES = ((3072, 3072), (3072, 8192), (8192, 3072), (2048, 2048),
 DENSE_DECODE = ((2, 16, "bf16"), (8, 3, "bf16"), (2, 16, "int8"))
 DENSE_QLR = ((4096, 256), (13696, 4096), (5120, 27392))
 DENSE_K7 = ((13696, 4096), (27392, 5120))
+# phase "mla": the latent cache kinds K3's latent instance is timed at;
+# K1 (decode rows) and K2 (prefill rows) at deepseek-v2-lite-16b's MLA
+# projections w_q 2048×3072, w_dkv 2048×512, wo 2048×2048 and (prefill
+# only: decode folds them into the absorbed einsums) w_uk/w_uv 512×2048;
+# K7 at the ones no other phase quantizes
+MLA_LATENT_KINDS = ("bf16", "f32")
+MLA_QLR = ((8, 2048, 3072), (8, 2048, 512), (8, 2048, 2048),
+           (256, 2048, 3072), (256, 2048, 512), (256, 2048, 2048),
+           (256, 512, 2048))
+MLA_K7 = ((2048, 3072), (2048, 512), (512, 2048))
 
 
 def phase_kernels(dev) -> list:
@@ -705,6 +788,15 @@ def phase_kernels(dev) -> list:
     for k, n in DENSE_QLR:
         rows.append(check_qlr(dev, 8, k, n, 16, False))
     for m, n in DENSE_K7:
+        rows.append(check_quantize(dev, m, n))
+    # phase "mla": K3's latent instance (head dim 576, V its first 512
+    # columns, G = 16 over one KV head, scale 1/√192), K1/K2 at the MLA
+    # projections and K7 at the SRR pass's new shapes
+    for kind in MLA_LATENT_KINDS:
+        rows.append(check_decode_latent(dev, kind))
+    for m, k, n in MLA_QLR:
+        rows.append(check_qlr(dev, m, k, n, 16, False))
+    for m, n in MLA_K7:
         rows.append(check_quantize(dev, m, n))
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms"
@@ -2603,6 +2695,193 @@ def phase_dense(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase "mla": deepseek-v2-lite-16b at full width
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite-16b's layers in phase "mla" (of 27): the dense lead-in
+# and 7 MoE layers, every width as published (the f32 model at full depth
+# is about 63 GB; 8 layers keep the phase near phase 6's time)
+MLA_LAYERS = 8
+
+
+def mla_decode_logits(dev, cfg, model, reqs) -> dict:
+    """One decode step's logits over 8 prefilled lanes through the kernels
+    (K3 at the latent head, K1, K6) against ``fused="off"`` (the two-einsum
+    latent form, dequantize-then-matmul) on copies of one cache, under one
+    routing (the ``fused="off"`` run replays the kernel run's choices)."""
+    import torch
+    from repro_torch.models import Ctx, decode_step, init_cache, prefill
+
+    width = max(len(r.prompt) for r in reqs)
+    tokens = torch.zeros((len(reqs), width), dtype=torch.long)
+    for i, r in enumerate(reqs):
+        tokens[i, :len(r.prompt)] = torch.from_numpy(r.prompt).long()
+    n = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32,
+                     device=dev)
+    logits, cache = prefill(Ctx(), model, tokens.to(dev),
+                            init_cache(cfg, len(reqs), 512, torch.bfloat16,
+                                       dev), lengths=n)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    route = []
+    out = {}
+    for fused in ("auto", "off"):
+        ctx = Ctx(fused=fused, route_log=route) if fused == "auto" else \
+            Ctx(fused=fused, route_replay=iter(route))
+        step_cache = [{k: v.clone() for k, v in c.items()} for c in cache]
+        out[fused] = decode_step(ctx, model, tok, step_cache)[0].float()
+    scale = float(out["off"].abs().max())
+    err = float((out["auto"] - out["off"]).abs().max())
+    require(bool(torch.isfinite(out["auto"]).all()), "non-finite logits")
+    return dict(err=err, scale=scale, routed_layers=len(route))
+
+
+def phase_mla(dev) -> dict:
+    """Phase "mla": deepseek-v2-lite-16b (MLA over the MoE, its first
+    ``MLA_LAYERS`` layers at full width) → calibration as in phase 4 →
+    qera-exact SRR (rank 16, 3-bit MXINT, int8; scalings built ahead and
+    timed apart) → phase 4's unpaged serving with bf16 latents (K3 at the
+    latent head exactly decode steps × layers times, K4 never), profiled
+    decode steps, the int8-KV engine (bf16 latents: the same tokens), and
+    prefill and one decode step's logits through the kernels against
+    ``fused="off"`` under one routing."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import PTQConfig
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, init_cache, init_lm, prefill
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serve import Engine
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=MLA_LAYERS)
+    tag = "mla"
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    log(tag, f"init_lm {cfg.name}: {cfg.n_layers} layers ({cfg.first_dense} "
+        f"dense, d_ff {cfg.d_ff}) d_model {cfg.d_model} heads {cfg.n_heads} "
+        f"head_dim {cfg.head_dim_} MLA kv_lora_rank {cfg.kv_lora_rank} "
+        f"rope_head_dim {cfg.rope_head_dim} (latent head "
+        f"{cfg.kv_lora_rank + cfg.rope_head_dim}) experts {cfg.n_routed} "
+        f"routed + {cfg.n_shared} shared top-{cfg.top_k} d_expert "
+        f"{cfg.d_expert} vocab {cfg.vocab} in {time.perf_counter() - t0:.2f}"
+        f" s; f32 {torch.cuda.memory_allocated() / gib:.2f} GiB")
+    stats, t_calib = calibrate(dev, cfg, model, tag)
+    t_scaling = build_scalings(stats)
+    reset_counts()
+    t0 = time.perf_counter()
+    model, reports = quantize_model_params(
+        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
+                         seed=0), container="int8", stats=stats, device=dev)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    ptq_counts = launch_counts()
+    require(not stats, "the pass left calibration statistics behind")
+    peak = torch.cuda.max_memory_allocated() / gib
+    mean_k = sum(r.k_star for r in reports) / len(reports)
+    attn = [r for r in reports if ".mixer." in r.name]
+    log(tag, f"calibration {t_calib:.2f} s; qera-exact scalings built ahead "
+        f"in {t_scaling:.2f} s; SRR quantized {len(reports)} matrices "
+        f"({len(attn)} MLA projections) in {t_quant:.2f} s (rank 16, 3-bit "
+        f"MXINT b32, mean k* {mean_k:.2f}); K7 launches {ptq_counts['K7']}; "
+        f"peak memory of init + calibration + PTQ {peak:.2f} GiB; int8 "
+        f"model {torch.cuda.memory_allocated() / gib:.2f} GiB")
+    require(len(attn) == 6 * cfg.n_layers,
+            f"expected 6 MLA projections a layer, got {len(attn)}")
+    require(ptq_counts["K7"] >= 2 * len(reports),
+            f"the PTQ pass did not quantize through K7: {ptq_counts}")
+
+    sc = main_serve_config()
+    serve(Engine(model, cfg, sc, device=dev),
+          make_requests(cfg, 2, seed=1, lengths=[40, 60]))     # warm-up
+    eng = Engine(model, cfg, sc, device=dev)
+    reqs = make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results, steps, wall = serve(eng, reqs)
+    counts = launch_counts()
+    n_steps = eng.sched.stats.decode_steps
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_s for r in results]
+    step_ms = 1e3 * sum(steps) / len(steps)
+    log(tag, f"served {len(results)} requests, {n_tok} tokens in {wall:.3f} "
+        f"s: {n_tok / wall:.1f} tok/s; TTFT first {1e3 * min(ttft):.1f} ms "
+        f"mean {1e3 * sum(ttft) / len(ttft):.1f} ms max "
+        f"{1e3 * max(ttft):.1f} ms; decode step {step_ms:.2f} ms over "
+        f"{len(steps)} decode-only steps ({n_steps} decode steps in all); "
+        f"peak memory while serving "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    log(tag, f"kernel launches in the run: {counts}")
+    require(len(results) == 8 and all(len(r.tokens) == 32 for r in results),
+            f"expected 8 requests × 32 tokens, got "
+            f"{[len(r.tokens) for r in results]}")
+    require(all(0 <= t < cfg.vocab for r in results for t in r.tokens),
+            "a token outside the vocabulary")
+    require(counts["K3"] == n_steps * cfg.n_layers,
+            f"K3 launched {counts['K3']} times, not {n_steps} decode steps "
+            f"× {cfg.n_layers} layers")
+    require(counts["K4"] == 0 and counts["K5"] == 0,
+            f"MLA prefill or decode launched K4/K5: {counts}")
+    require(all(counts[k] > 0 for k in ("K1", "K2", "K6")),
+            f"a kernel of the path never launched: {counts}")
+    prof = profile_decode(eng, cfg, make_requests(cfg, 8, seed=4,
+                                                  lengths=MAIN_LENGTHS),
+                          tag=tag)
+    del eng
+
+    # int8 KV: JAX's float rule keeps the latents in bf16, so the tokens
+    # are the bf16 engine's
+    eng8 = Engine(model, cfg, main_serve_config(kv_dtype="int8"), device=dev)
+    results8, _, _ = serve(eng8, make_requests(cfg, 8, seed=0,
+                                               lengths=MAIN_LENGTHS))
+    same = sum(a.tokens.tolist() == b.tokens.tolist()
+               for a, b in zip(results, results8))
+    log(tag, f"int8 KV engine (bf16 latents): {same}/8 requests' tokens "
+        f"equal the bf16 engine's; latent cache dtype "
+        f"{eng8.slots.cache[0]['lat'].dtype}")
+    require(same == 8, "the int8-KV engine's tokens differ from bf16's")
+    del eng8
+
+    # prefill logits, kernels vs fused="off", under one routing
+    tokens = torch.from_numpy(reqs[0].prompt).long()[None].to(dev)
+    n = torch.tensor([tokens.shape[1]], dtype=torch.int32, device=dev)
+    route = []
+    logit = {}
+    for fused in ("auto", "off"):
+        ctx = Ctx(fused=fused, route_log=route) if fused == "auto" else \
+            Ctx(fused=fused, route_replay=iter(route))
+        logit[fused] = prefill(ctx, model, tokens,
+                               init_cache(cfg, 1, 512, torch.bfloat16, dev),
+                               lengths=n)[0].float()
+    scale = float(logit["off"].abs().max())
+    err = float((logit["auto"] - logit["off"]).abs().max())
+    require(bool(torch.isfinite(logit["auto"]).all()), "non-finite logits")
+    log(tag, f"prefill logits ({tokens.shape[1]} tokens), kernels vs "
+        f"fused=off under the kernel run's routing: max |Δ| {err:.3e} (max "
+        f"|logit| {scale:.3f}, tol {1e-3 * max(1.0, scale):.3e})")
+    require(err <= 1e-3 * max(1.0, scale), "the MLA kernel path disagrees "
+            "with fused=off at prefill")
+    step = mla_decode_logits(dev, cfg, model, reqs)
+    log(tag, f"one decode step's logits (8 lanes, K3 at the latent head), "
+        f"kernels vs fused=off under one routing: max |Δ| {step['err']:.3e} "
+        f"(max |logit| {step['scale']:.3f}, tol "
+        f"{1e-3 * max(1.0, step['scale']):.3e})")
+    require(step["err"] <= 1e-3 * max(1.0, step["scale"]),
+            "the MLA kernel path disagrees with fused=off at decode")
+    del model
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ptq_counts=ptq_counts, decode_steps=n_steps,
+                tok_s=n_tok / wall, step_ms=step_ms,
+                ttft_ms=[1e3 * t for t in ttft], calibration_s=t_calib,
+                scaling_s=t_scaling, quantize_s=t_quant, peak_gib=peak,
+                matrices=len(reports), mean_k=mean_k, profile=prof,
+                prefill_logit_err=err, prefill_max_logit=scale,
+                decode_logit_err=step["err"],
+                decode_max_logit=step["scale"])
+
+
+# ---------------------------------------------------------------------------
 # phase 3's kernels of two trees, in turns on one card
 # ---------------------------------------------------------------------------
 _COMPARE_ROWS = """
@@ -2620,6 +2899,8 @@ rows = [cs.check_qlr(dev, m, k, n, 16, False)
         for m, k, n in ((8, 3072, 8192), (8, 2048, 64), (8, 2048, 10944),
                         (8, 10944, 2048), (256, 3072, 8192),
                         (256, 3072, 3072), (256, 2048, 64))]
+# K1/K2 at the MLA projections
+rows += [cs.check_qlr(dev, m, k, n, 16, False) for m, k, n in MLA_QLR]
 rows += [cs.check_qlr_batched(dev, 64, m, k, n, 16) for m in (8, 30)
          for k, n in ((2048, 1408), (1408, 2048))]
 if "top_k" in inspect.signature(cs.check_qlr_batched).parameters:
@@ -2631,12 +2912,18 @@ if "ragged" in inspect.signature(cs.check_decode).parameters:
 rows += [cs.check_flash(dev), cs.check_flash(dev, h=16, hd=128),
          cs.check_flash_chunk(dev)]
 rows += [cs.check_paged(dev, kind) for kind in ("bf16", "int8", "int4")]
+# K5 at deepseek-moe-16b's head (KV 16, hd 128)
+rows.append(cs.check_paged(dev, "bf16", kvh=16, hd=128))
 # K3/K5 at the dense variants' groups (G = 16 and 3), where the tree has
 # them
 if "g" in inspect.signature(cs.check_decode).parameters:
     for kvh, g, kind in cs.DENSE_DECODE:
         rows.append(cs.check_decode(dev, kind, kvh=kvh, hd=128, g=g))
         rows.append(cs.check_paged(dev, kind, kvh=kvh, hd=128, g=g))
+# K3's latent instance (MLA), where the tree has it
+if hasattr(cs, "check_decode_latent"):
+    rows += [cs.check_decode_latent(dev, kind)
+             for kind in cs.MLA_LATENT_KINDS]
 # K7 at every shape of the SRR pass, a narrow last strip and N % 4 != 0
 rows += [cs.check_quantize(dev, m, n) for m, n in K7_SHAPES]
 print("ROWS " + json.dumps(rows))
@@ -2645,8 +2932,9 @@ print("ROWS " + json.dumps(rows))
 
 def compare_kernels(parent: str) -> int:
     """Phase 3's Q+LR cases (K1 at its main, router and dense lead-in
-    shapes, K2 at both M = 256 shapes and the router's prefill rows, K6
-    at its four full-occupancy shapes and, where the tree has it, the
+    shapes, K2 at both M = 256 shapes and the router's prefill rows, K1
+    and K2 at the MLA projections, K6 at its four full-occupancy shapes
+    and, where the tree has it, the
     serving occupancy), its K3, K4 and K5 cases and K7's, from the tree at
     ``parent`` and from this one, in the order parent, change, change,
     parent, each turn in a process of its own (each tree builds its
@@ -2657,7 +2945,9 @@ def compare_kernels(parent: str) -> int:
              ("change", ROOT), ("parent", os.path.abspath(parent))]
     runs = []
     for who, root in turns:
-        script = _COMPARE_ROWS.replace("K7_SHAPES", repr(K7_SHAPES))
+        script = _COMPARE_ROWS.replace(
+            "K7_SHAPES", repr(K7_SHAPES + MLA_K7)).replace(
+            "MLA_QLR", repr(MLA_QLR))
         proc = subprocess.run([sys.executable, "-c", script, root],
                               capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines()
@@ -2701,6 +2991,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}: the "
+              f"script drives the port from a checkout of the repository",
+              file=sys.stderr)
+        return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
 
@@ -2761,6 +3056,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dense_run = phase_dense(dev)
     log("dense", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mla_run = phase_mla(dev)
+    log("mla", f"phase took {time.perf_counter() - t0:.1f} s")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -2768,7 +3066,8 @@ def main() -> int:
                    "main_path": main_run, "paged_path": paged_run,
                    "surface": surface_run, "frontend": frontend_run,
                    "ptq": ptq_run,
-                   "moe_path": moe_run, "dense": dense_run}, fh, indent=1)
+                   "moe_path": moe_run, "dense": dense_run,
+                   "mla": mla_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",
@@ -2823,6 +3122,23 @@ def main() -> int:
         picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
                       *picks["K7"][2:])
         runs.append((key, "K7", (qwen if m == 27392 else glm)["ptq_counts"]))
+    # K3's latent instance, served by phase "mla" with bf16 latents (the
+    # f32 row stays in build/chip_smoke.json: no phase serves f32 latents)
+    picks["K3 latent"] = ("K3 flash_decode",
+                          "B=8 KV=1 G=16 S=512 hd=576 dv=512 bf16",
+                          *picks["K3"][2:])
+    runs.append(("K3 latent", "K3", mla_run["counts"]))
+    for m, k, n in MLA_QLR:
+        kernel = "K1" if m <= 128 else "K2"
+        key = f"{kernel} mla {m}x{k}x{n}"
+        picks[key] = (picks[kernel][0], f"M={m} K={k} N={n} r=16 int8",
+                      *picks[kernel][2:])
+        runs.append((key, kernel, mla_run["counts"]))
+    for m, n in MLA_K7:
+        key = f"K7 mla {m}x{n}"
+        picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
+                      *picks["K7"][2:])
+        runs.append((key, "K7", mla_run["ptq_counts"]))
     kernels = []
     for key, kernel, counts in runs:
         kname, shape, source, replaces = picks[key]

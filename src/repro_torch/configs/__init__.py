@@ -6,12 +6,14 @@ package's ``repro.configs`` lists the rest of the zoo.
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.chatglm3_6b import CONFIG as _chatglm3
 from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek_moe
+from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek_v2
 from repro_torch.configs.minitron_4b import CONFIG as _minitron
 from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
 from repro_torch.configs.qwen1_5_32b import CONFIG as _qwen1_5
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in (_phi3, _deepseek_moe, _chatglm3, _minitron, _qwen1_5)}
+    c.name: c for c in (_phi3, _deepseek_moe, _chatglm3, _minitron, _qwen1_5,
+                        _deepseek_v2)}
 
 
 def get_config(name: str) -> ModelConfig:

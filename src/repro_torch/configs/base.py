@@ -1,9 +1,10 @@
 """Architecture configuration: the port's copy of ``repro.configs.base``.
 
 One :class:`ModelConfig` describes every family the JAX package
-supports; the port serves the dense GQA decoder and its MoE variant
-(DeepSeek-style: dense lead-in layers, then routed + shared experts);
-``models.transformer`` rejects the other block kinds. ``reduced()``
+supports; the port serves the dense GQA decoder, its MoE variant
+(DeepSeek-style: dense lead-in layers, then routed + shared experts) and
+MLA attention over either FFN; ``models.transformer`` rejects the other
+block kinds. ``reduced()``
 shrinks a config to smoke-test size while preserving the family
 structure, exactly as the JAX package does, so parity tests build the
 same shapes on both sides.

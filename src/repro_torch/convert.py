@@ -13,6 +13,10 @@ needs no JAX. It handles:
   * the three linear schemas: fp ``{"w"[, "b"]}``, quant ``{"codes",
     "scale", "l", "r"[, "gscale", "b"]}`` and packed4 ``{"packed", ...}``,
     keeping MXINT padding rows (``codes`` may have more rows than ``l``);
+  * a block's mixer: GQA ``{"wq", "wk", "wv", "wo"}`` or MLA ``{"w_dkv",
+    "w_kpe", "w_uk", "w_uv", "wo", "ckv_norm"}`` with ``w_q`` or the
+    q-LoRA ``w_dq``/``q_norm``/``w_uq`` (``repro/models/attention.py::
+    init_mla``), each projection in any of the three schemas;
   * a block's FFN: ``mlp`` (SwiGLU; the dense ``prefix`` lead-in layers
     of an MoE config carry it too) or ``moe`` — ``router``, ``experts``
     (the three schemas with a leading expert axis: in ``groups`` a leaf
@@ -28,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import Attention
+from repro_torch.models.attention import MLA, Attention
 from repro_torch.models.layers import MLP, RMSNorm
 from repro_torch.models.linear import FpLinear, QLinear
 from repro_torch.models.moe import MoE
@@ -67,13 +71,22 @@ def _ffn(d: Dict[str, Any], device):
                _mlp(m["shared"], device) if "shared" in m else None)
 
 
+def _mla(mx: Dict[str, Any], device) -> MLA:
+    q = {n: _linear(mx[n], device) for n in ("w_q", "w_dq", "w_uq")
+         if n in mx}
+    if "q_norm" in mx:
+        q["q_norm"] = RMSNorm(_tensor(mx["q_norm"]["g"], device))
+    return MLA(*(_linear(mx[n], device)
+                 for n in ("w_dkv", "w_kpe", "w_uk", "w_uv", "wo")),
+               RMSNorm(_tensor(mx["ckv_norm"]["g"], device)), **q)
+
+
 def _block(d: Dict[str, Any], device) -> Block:
     mx = d["mixer"]
-    return Block(
-        RMSNorm(_tensor(d["norm1"]["g"], device)),
-        Attention(*(_linear(mx[n], device) for n in ("wq", "wk", "wv", "wo"))),
-        RMSNorm(_tensor(d["norm2"]["g"], device)),
-        _ffn(d, device))
+    mixer = _mla(mx, device) if "w_dkv" in mx else \
+        Attention(*(_linear(mx[n], device) for n in ("wq", "wk", "wv", "wo")))
+    return Block(RMSNorm(_tensor(d["norm1"]["g"], device)), mixer,
+                 RMSNorm(_tensor(d["norm2"]["g"], device)), _ffn(d, device))
 
 
 def _unstack(tree: Any, i: int) -> Any:

@@ -78,6 +78,18 @@ ATTN_K_TILE = 64
 # ceil(G / DECODE_BLOCK_GROUP) blocks, each reading the head's K/V.
 DECODE_MAX_GROUP = 16
 DECODE_BLOCK_GROUP = 8
+# K3 at MLA's latent head (deepseek-v2-lite-16b: kv_lora_rank 512 +
+# rope_head_dim 64 = 576, one KV head, G = H = 16): a head wider than
+# ATTN_MAX_HEAD_DIM, up to DECODE_MAX_HEAD_DIM, takes K3's latent
+# instance — f32/bf16 cache, unpaged, V the first dv <=
+# DECODE_LATENT_MAX_DV columns of K's rows (one tensor, read in place),
+# DECODE_LATENT_BLOCK_GROUP query heads a block (16 accumulators a head a
+# lane), about DECODE_LATENT_BLOCKS_PER_SM blocks an SM (its shared
+# memory fits two: one tile stage in f32, two in bf16). K4 and K5 stay at ATTN_MAX_HEAD_DIM.
+DECODE_MAX_HEAD_DIM = 576
+DECODE_LATENT_MAX_DV = 512
+DECODE_LATENT_BLOCK_GROUP = 4
+DECODE_LATENT_BLOCKS_PER_SM = 2
 # K3/K4/K5 copy K/V rows into shared memory in 16-byte (f32/bf16) or
 # 8-byte (int8/packed4) chunks: the tensors' base address must be 16-byte
 # aligned (a fresh allocation is; a view at an odd offset may not be).
@@ -141,3 +153,11 @@ def check_head_dim(hd: int) -> None:
         raise ValueError(
             f"head_dim={hd} unsupported: the attention kernels take at most "
             f"{ATTN_MAX_HEAD_DIM} and a multiple of {ATTN_HEAD_DIM_ALIGN}")
+
+
+def check_decode_head_dim(hd: int) -> None:
+    """K3's limit: K4's, or the latent instance's wider head."""
+    if hd > DECODE_MAX_HEAD_DIM or hd % ATTN_HEAD_DIM_ALIGN:
+        raise ValueError(
+            f"head_dim={hd} unsupported: K3 takes at most "
+            f"{DECODE_MAX_HEAD_DIM} and a multiple of {ATTN_HEAD_DIM_ALIGN}")

@@ -71,6 +71,33 @@
 //   every G > 1, at the risk of spills under __launch_bounds__; splitting
 //   the group across blocks keeps the bound at 8.
 //
+// The latent instance (LAT): MLA's absorbed decode (deepseek-v2-lite-16b)
+// scores one query a head against the latent cache, KV = 1, G = H = 16,
+// at head dim kv_lora_rank + rope_head_dim = 576, with the caller's score
+// scale (1/sqrt(192)), and V is the first dv = 512 columns of the same
+// rows (the repo's JAX package pads the latent to 576 and passes it as a
+// second tensor). A head wider than kMaxHd takes it; f32/bf16 caches
+// only, unpaged. What changes against the instances above:
+// - V is read from K's tile: one buffer of tiles instead of K and V's
+//   two, so a bf16 block takes 82 KB of shared memory (kStages = 2 tiles
+//   of 36.5 KB, 9 KB of q). An f32 tile is 73 KB: two stages would take
+//   157 KB and leave one block an SM, so the f32 instance keeps one
+//   stage (82 KB; a warp's next tile is copied after its current one is
+//   done, and the SM's other block covers the wait).
+// - A stored row is 72 (bf16) or 144 (f32) 16-byte chunks, more than a
+//   warp's 32 lanes: each lane copies chunks lane, lane + 32, ... of
+//   every valid row of its warp.
+// - A lane owns P·V columns lane, lane + 32, ... < dv: 16 a head. A block
+//   holds kLatentBlockG = 4 heads (64 accumulator floats a lane), so the
+//   group of 16 takes 4 blocks, each reading the rows again (from L2:
+//   the whole cache is 4.7 MB at B = 8, S = 512 in bf16).
+// - Each slot's value column is read from shared memory once and applied
+//   to the block's 4 heads (probabilities of every head first, then P·V).
+// - The host aims at 2 blocks per SM (kernels/decode_attention.py:
+//   decode_splits), since a third does not fit beside two in shared
+//   memory: at B = 8, S = 512, 8 splits of 2 tiles, 256 blocks, and a
+//   combine over 8 partials of 512 columns a head.
+//
 // The limits below repeat src/repro_torch/kernels/constraints.py.
 #include <cfloat>
 #include <cuda_bf16.h>
@@ -84,6 +111,9 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTileS = 32;          // constraints.DECODE_TILE_SLOTS
 constexpr int kMaxSplitTiles = 16;  // constraints.DECODE_MAX_SPLIT_TILES
 constexpr int kMaxHd = 128;         // constraints.ATTN_MAX_HEAD_DIM
+constexpr int kMaxLatentHd = 576;   // constraints.DECODE_MAX_HEAD_DIM
+constexpr int kMaxLatentDv = 512;   // constraints.DECODE_LATENT_MAX_DV
+constexpr int kLatentBlockG = 4;    // constraints.DECODE_LATENT_BLOCK_GROUP
 constexpr int kMaxG = 16;           // constraints.DECODE_MAX_GROUP
 constexpr int kBlockG = 8;          // constraints.DECODE_BLOCK_GROUP
 constexpr int kRowPad = 16;         // bytes after each stored row in a tile
@@ -110,6 +140,12 @@ template <> struct Kind<kPacked4> {
   static constexpr int kElt = 1, kCp = 8, kVec = 8, kSlots = 2;
 };
 
+// Tiles in flight a warp: kStages, one in the f32 latent instance (above).
+template <int KV, bool LAT>
+__host__ __device__ constexpr int stages() {
+  return LAT && KV == kF32 ? 1 : kStages;
+}
+
 template <int KV>
 __host__ __device__ inline int tile_stride(int hd) {
   return hd * Kind<KV>::kElt + kRowPad;
@@ -118,19 +154,21 @@ template <int KV>
 __host__ __device__ inline int tile_bytes(int hd) {
   return kTileS / Kind<KV>::kSlots * tile_stride<KV>(hd);
 }
-// Dynamic shared memory: the K and V tiles [kStages][tile] each (a warp
-// owns kSubS slots of each tile; the area is reused by the final merge of
-// the warps, [kWarps][G][hd] f32), then q [G][hd] in f32; G is the most
-// query heads a block holds, min(group, kBlockG).
-template <int KV>
-__host__ __device__ inline int tiles_bytes(int hd, int G) {
-  const int tiles = 2 * kStages * tile_bytes<KV>(hd);
-  const int red = kWarps * G * hd * 4;
+// Dynamic shared memory: the K and V tiles [stages][tile] each (LAT: the
+// K tiles alone; a warp owns kSubS slots of each tile; the area is reused
+// by the final merge of the warps, [kWarps][G][dv] f32), then q [G][hd] in
+// f32; G is the most query heads a block holds, min(group, kBlockG) (LAT:
+// kLatentBlockG); dv is hd but in the latent instance.
+template <int KV, bool LAT = false>
+__host__ __device__ inline int tiles_bytes(int hd, int G, int dv) {
+  const int tiles = (LAT ? 1 : 2) * stages<KV, LAT>() * tile_bytes<KV>(hd);
+  const int red = kWarps * G * (LAT ? dv : hd) * 4;
   return tiles > red ? tiles : red;
 }
-template <int KV>
-inline size_t smem_bytes(int hd, int G) {
-  return tiles_bytes<KV>(hd, G) + static_cast<size_t>(G) * hd * sizeof(float);
+template <int KV, bool LAT>
+inline size_t smem_bytes(int hd, int G, int dv) {
+  return tiles_bytes<KV, LAT>(hd, G, dv)
+      + static_cast<size_t>(G) * hd * sizeof(float);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -227,10 +265,12 @@ __device__ __forceinline__ float read_col(const unsigned char* tile,
 // (b, h) is flat slot bh * S + j; paged, it is (pg * KVH + h) * page +
 // j % page with pg = block_table[b * nb + j / page].
 // MG: the query heads a block's accumulators are sized for (1 for G = 1,
-// else kBlockG): MHA models keep 4 registers of accumulators a lane
-// instead of 32. blockIdx.x = h · ceil(G / MG) + c: block c of KV head h
-// takes query heads c·MG .. min(G, c·MG + MG) − 1 of the group.
-template <typename QT, int KV, bool PAGED, int MG>
+// else kBlockG; kLatentBlockG in the latent instance): MHA models keep 4
+// registers of accumulators a lane instead of 32. blockIdx.x = h ·
+// ceil(G / MG) + c: block c of KV head h takes query heads c·MG ..
+// min(G, c·MG + MG) − 1 of the group. LAT: the latent instance (header);
+// dv < hd columns of V, read from K's rows, and out (B, KVH, G, dv).
+template <typename QT, int KV, bool PAGED, int MG, bool LAT>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
                     const void* __restrict__ v,
@@ -242,10 +282,15 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
                     float* __restrict__ m_part, float* __restrict__ l_part,
                     float* __restrict__ acc_part, int KVH, int G, int S,
                     int nb, int page, int hd, int window, int split_tiles,
-                    float scale) {
+                    float scale, int dv) {
   using K = Kind<KV>;
+  static_assert(!LAT || (K::kSlots == 1 && !PAGED),
+                "the latent instance reads float rows, unpaged");
   constexpr int kSubRows = kSubS / K::kSlots;   // stored rows a warp owns
-  constexpr int kCols = kMaxHd / 32;            // P·V columns a lane owns
+  // P·V columns a lane owns
+  constexpr int kCols = (LAT ? kMaxLatentDv : kMaxHd) / 32;
+  const int DV = LAT ? dv : hd;                 // V columns (LAT: K's first)
+  constexpr int NS = stages<KV, LAT>();
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float wm_s[kWarps][MG], wl_s[kWarps][MG];
   __shared__ unsigned ok_s[kMaxSplitTiles];       // valid-slot mask per tile
@@ -269,7 +314,8 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   const int n_tiles = min(split_tiles, (S - s0 + kTileS - 1) / kTileS);
   const int stride = tile_stride<KV>(hd);
   const int sub_bytes = kSubRows * stride;      // a warp's share of a tile
-  float* qs = reinterpret_cast<float*>(smem + tiles_bytes<KV>(hd, GS));
+  float* qs = reinterpret_cast<float*>(smem + tiles_bytes<KV, LAT>(hd, GS,
+                                                                   dv));
 
   for (int t = warp; t < n_tiles; t += kWarps) {
     const int j = s0 + t * kTileS + lane;
@@ -306,7 +352,8 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
     return t;
   };
   unsigned char* kw = smem + warp * sub_bytes;                   // stage 0
-  unsigned char* vw = smem + kStages * kWarps * sub_bytes + warp * sub_bytes;
+  unsigned char* vw = LAT ? kw   // V: the first DV columns of K's rows
+      : smem + kStages * kWarps * sub_bytes + warp * sub_bytes;
   // this warp's valid rows of tile t into stage st (packed4: the byte
   // rows of the pairs with a valid slot)
   // a lane copies chunk lc of stored rows lr, lr + rows_per_pass, ...
@@ -318,6 +365,19 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   const char* vg = static_cast<const char*>(v);
   auto load = [&](int t, int st) {
     const unsigned mask = wmask(t);
+    if constexpr (LAT) {
+      // a row is per_row > 32 chunks: every lane copies chunks lane,
+      // lane + 32, ... of each valid row (the mask is the warp's own)
+      for (int r = 0; r < kSubRows; ++r) {
+        if (!((mask >> r) & 1u)) continue;
+        const size_t off = static_cast<size_t>(
+            row_s[t * kTileS + warp * kSubS + r]) * hd * K::kElt;
+        const int so = st * kWarps * sub_bytes + r * stride;
+        for (int c = lane; c < per_row; c += 32)
+          cp_async<K::kCp>(kw + so + c * K::kCp, kg + off + c * K::kCp);
+      }
+      return;
+    }
     for (int r = lr; r < kSubRows && lr < rows_per_pass; r += rows_per_pass) {
       const unsigned bits =
           (mask >> (r * K::kSlots)) & (K::kSlots == 2 ? 3u : 1u);
@@ -344,11 +404,11 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
 
   int t = next_live(0);
   if (t < n_tiles) {
-    // kStages - 1 live tiles ahead; one cp.async group per tile (empty
-    // past the last), so "all but the newest kStages - 1 groups" is the
-    // tile about to be computed
+    // NS - 1 live tiles ahead; one cp.async group per tile (empty past
+    // the last), so "all but the newest NS - 1 groups" is the tile about
+    // to be computed
     int ahead = t;
-    for (int st = 0; st < kStages - 1; ++st) {
+    for (int st = 0; st < NS - 1; ++st) {
       if (ahead < n_tiles) {
         load(ahead, st);
         ahead = next_live(ahead + 1);
@@ -358,11 +418,11 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
     int st = 0;
     while (t < n_tiles) {
       if (ahead < n_tiles) {   // into the stage the last tile used
-        load(ahead, (st + kStages - 1) % kStages);
+        load(ahead, (st + NS - 1) % NS);
         ahead = next_live(ahead + 1);
       }
       cp_async_commit();
-      cp_async_wait<kStages - 1>();
+      cp_async_wait<NS - 1>();
       __syncwarp();
       const unsigned mask = wmask(t);
       const unsigned char* kt = kw + st * kWarps * sub_bytes;
@@ -400,9 +460,57 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
 
       // online softmax over the warp's slots, P·V with p from the slot's
       // quad; lanes own columns lane, lane + 32, ...
+      if constexpr (LAT) {
+        // every head's probabilities first, then each value column read
+        // once for the block's heads
+        float pg[MG];
+#pragma unroll
+        for (int g = 0; g < MG; ++g) {
+          pg[g] = 0.f;
+          if (g < GB) {
+            float sg = s[g];
+            sg += __shfl_xor_sync(0xffffffffu, sg, 1);
+            sg += __shfl_xor_sync(0xffffffffu, sg, 2);
+            sg = ok ? sg * ksc : kNegInf;
+            float mx = sg;
+            for (int o = 4; o < 32; o <<= 1)
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+            const float m_new = fmaxf(m[g], mx);   // real: a slot is valid
+            const float p = ok ? expf(sg - m_new) : 0.f;
+            float sum = p;
+            for (int o = 4; o < 32; o <<= 1)
+              sum += __shfl_xor_sync(0xffffffffu, sum, o);
+            const float corr = expf(m[g] - m_new);
+            m[g] = m_new;
+            l[g] = l[g] * corr + sum;
+            pg[g] = p;
+#pragma unroll
+            for (int i = 0; i < kCols; ++i) acc[g][i] *= corr;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kSubS; ++j) {
+          if ((mask >> j) & 1u) {                 // the same for the warp
+            float pj[MG];
+#pragma unroll
+            for (int g = 0; g < MG; ++g)
+              pj[g] = __shfl_sync(0xffffffffu, pg[g], 4 * j);
+#pragma unroll
+            for (int i = 0; i < kCols; ++i) {
+              const int c = lane + 32 * i;
+              if (c < DV) {
+                const float vv = read_col<KV>(vt, stride, j, c);
+#pragma unroll
+                for (int g = 0; g < MG; ++g)
+                  if (g < GB) acc[g][i] = fmaf(pj[g], vv, acc[g][i]);
+              }
+            }
+          }
+        }
+      }
 #pragma unroll
       for (int g = 0; g < MG; ++g) {
-        if (g < GB) {
+        if (!LAT && g < GB) {
           float sg = s[g];
           sg += __shfl_xor_sync(0xffffffffu, sg, 1);
           sg += __shfl_xor_sync(0xffffffffu, sg, 2);
@@ -428,7 +536,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
 #pragma unroll
               for (int i = 0; i < kCols; ++i) {
                 const int c = lane + 32 * i;
-                if (c < hd)
+                if (c < DV)
                   acc[g][i] = fmaf(pj, read_col<KV>(vt, stride, j, c),
                                    acc[g][i]);
               }
@@ -437,7 +545,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
         }
       }
       __syncwarp();   // the next iteration refills this stage
-      st = (st + 1) % kStages;
+      st = (st + 1) % NS;
       t = next_live(t + 1);
     }
   }
@@ -445,14 +553,14 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   // merge the warps in order (through the now idle tile buffers), then
   // write the output (one split) or this split's partial
   __syncthreads();
-  float* red = reinterpret_cast<float*>(smem);   // [kWarps][GS][hd]
+  float* red = reinterpret_cast<float*>(smem);   // [kWarps][GS][DV]
 #pragma unroll
   for (int g = 0; g < MG; ++g) {
     if (g < GB) {
 #pragma unroll
       for (int i = 0; i < kCols; ++i)
-        if (lane + 32 * i < hd)
-          red[(warp * GS + g) * hd + lane + 32 * i] = acc[g][i];
+        if (lane + 32 * i < DV)
+          red[(warp * GS + g) * DV + lane + 32 * i] = acc[g][i];
       if (lane == 0) {
         wm_s[warp][g] = m[g];
         wl_s[warp][g] = l[g];
@@ -461,8 +569,8 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   }
   __syncthreads();
   const size_t pidx = bh * splits + split;
-  for (int i = threadIdx.x; i < GB * hd; i += kThreads) {
-    const int g = i / hd, d = i % hd;
+  for (int i = threadIdx.x; i < GB * DV; i += kThreads) {
+    const int g = i / DV, d = i % DV;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm_s[w][g]);
@@ -471,13 +579,13 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
     for (int w = 0; w < kWarps; ++w) {
       const float c = expf(wm_s[w][g] - mx);   // an empty warp has l = 0
       lsum += wl_s[w][g] * c;
-      a += red[(w * GS + g) * hd + d] * c;
+      a += red[(w * GS + g) * DV + d] * c;
     }
     const int gq = g0 + g;                       // the head in the group
     if (splits == 1) {
-      out[(bh * G + gq) * hd + d] = from_f32<QT>(lsum > 0.f ? a / lsum : 0.f);
+      out[(bh * G + gq) * DV + d] = from_f32<QT>(lsum > 0.f ? a / lsum : 0.f);
     } else {
-      acc_part[(pidx * G + gq) * hd + d] = a;
+      acc_part[(pidx * G + gq) * DV + d] = a;
       if (d == 0) {
         m_part[pidx * G + gq] = mx;
         l_part[pidx * G + gq] = lsum;
@@ -516,31 +624,32 @@ decode_combine_kernel(const float* __restrict__ m_part,
   }
 }
 
-template <typename QT, int KV, bool PAGED, int MG>
+template <typename QT, int KV, bool PAGED, int MG, bool LAT = false>
 int launch_groups(const QT* q, const void* k, const void* v, const float* ks,
                 const float* vs, const int* qp, const int* kp, const int* bt,
                 QT* out, float* m_part, float* l_part, float* acc_part, int B,
                 int KVH, int G, int S, int nb, int page, int hd, int window,
-                int splits, int split_tiles, float scale, cudaStream_t s) {
-  const size_t smem = smem_bytes<KV>(hd, G < MG ? G : MG);
+                int splits, int split_tiles, float scale, int dv,
+                cudaStream_t s) {
+  const size_t smem = smem_bytes<KV, LAT>(hd, G < MG ? G : MG, dv);
   if (smem > static_cast<size_t>(kSmemMax) - 4 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   static size_t opted = 44 * 1024;   // under the default with the static part
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<QT, KV, PAGED, MG>,
+        flash_decode_kernel<QT, KV, PAGED, MG, LAT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     opted = smem;
   }
   const dim3 grid(KVH * ((G + MG - 1) / MG), B, splits);
-  flash_decode_kernel<QT, KV, PAGED, MG><<<grid, kThreads, smem, s>>>(
+  flash_decode_kernel<QT, KV, PAGED, MG, LAT><<<grid, kThreads, smem, s>>>(
       q, k, v, ks, vs, qp, kp, bt, out, m_part, l_part, acc_part, KVH, G, S,
-      nb, page, hd, window, split_tiles, scale);
+      nb, page, hd, window, split_tiles, scale, dv);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   decode_combine_kernel<QT><<<dim3(B * KVH, G), kThreads, 0, s>>>(
-      m_part, l_part, acc_part, out, G, hd, splits);
+      m_part, l_part, acc_part, out, G, LAT ? dv : hd, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -549,16 +658,25 @@ int launch_kind(const QT* q, const void* k, const void* v, const float* ks,
                 const float* vs, const int* qp, const int* kp, const int* bt,
                 QT* out, float* m_part, float* l_part, float* acc_part, int B,
                 int KVH, int G, int S, int nb, int page, int hd, int window,
-                int splits, int split_tiles, float scale, cudaStream_t s) {
+                int splits, int split_tiles, float scale, int dv,
+                cudaStream_t s) {
+  if (hd > kMaxHd) {             // the latent instance (checked in launch_q)
+    if constexpr ((KV == kF32 || KV == kBF16) && !PAGED)
+      return launch_groups<QT, KV, false, kLatentBlockG, true>(
+          q, k, v, ks, vs, qp, kp, bt, out, m_part, l_part, acc_part, B, KVH,
+          G, S, nb, page, hd, window, splits, split_tiles, scale, dv, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return G == 1
       ? launch_groups<QT, KV, PAGED, 1>(q, k, v, ks, vs, qp, kp, bt, out,
                                         m_part, l_part, acc_part, B, KVH, G,
                                         S, nb, page, hd, window, splits,
-                                        split_tiles, scale, s)
+                                        split_tiles, scale, hd, s)
       : launch_groups<QT, KV, PAGED, kBlockG>(q, k, v, ks, vs, qp, kp, bt,
                                               out, m_part, l_part, acc_part, B,
                                               KVH, G, S, nb, page, hd, window,
-                                              splits, split_tiles, scale, s);
+                                              splits, split_tiles, scale, hd,
+                                              s);
 }
 
 template <typename QT, bool PAGED>
@@ -566,10 +684,18 @@ int launch_q(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* q_pos, const void* k_pos,
              const void* block_table, void* out, void* m_part, void* l_part,
              void* acc_part, int B, int KVH, int G, int S, int nb, int ps,
-             int hd, int window, int splits, int split_tiles, float scale,
-             int kv_kind, cudaStream_t stream) {
+             int hd, int dv, int window, int splits, int split_tiles,
+             float scale, int kv_kind, cudaStream_t stream) {
   if (split_tiles < 1 || split_tiles > kMaxSplitTiles || splits < 1
       || (splits - 1) * split_tiles * kTileS >= S || G > kMaxG)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // hd <= kMaxHd: V as wide as K; wider: the latent instance, V K's first
+  // dv <= kMaxLatentDv columns, float kinds, unpaged
+  const bool latent = hd > kMaxHd;
+  if (hd > kMaxLatentHd || dv < 1
+      || (latent ? dv > kMaxLatentDv || dv > hd || PAGED
+                       || (kv_kind != kF32 && kv_kind != kBF16)
+                 : dv != hd))
     return static_cast<int>(cudaErrorInvalidValue);
   const QT* qq = static_cast<const QT*>(q);
   QT* oo = static_cast<QT*>(out);
@@ -586,7 +712,7 @@ int launch_q(const void* q, const void* k, const void* v, const void* ks,
     return launch_kind<QT, KIND, PAGED>(qq, k, v, kss, vss, qp, kp, bt, oo,  \
                                         mp, lp, ap, B, KVH, G, S, nb, ps, hd, \
                                         window, splits, split_tiles, scale,  \
-                                        stream);
+                                        dv, stream);
   switch (kv_kind) {
     REPRO_DECODE_CASE(kF32)
     REPRO_DECODE_CASE(kBF16)
@@ -600,29 +726,32 @@ int launch_q(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// q, out (B, KVH, G, hd) f32/bf16 (q_bf16); k, v per kv_kind (0 f32, 1 bf16,
-// 2 int8, 3 packed4 (B, KVH, S/2, hd) uint8); k_scale, v_scale (B, KVH, S)
-// f32 or null; q_pos (B,) and k_pos (B, S) int32. S counts logical slots.
+// q (B, KVH, G, hd), out (B, KVH, G, dv) f32/bf16 (q_bf16); k, v per
+// kv_kind (0 f32, 1 bf16, 2 int8, 3 packed4 (B, KVH, S/2, hd) uint8);
+// k_scale, v_scale (B, KVH, S) f32 or null; q_pos (B,) and k_pos (B, S)
+// int32. S counts logical slots. dv = hd, or, for hd > 128 (the latent
+// instance: f32/bf16), dv <= 512 and v = k (its rows' first dv columns).
 // The slot axis runs in `splits` blocks of `split_tiles` 32-slot tiles;
 // with splits > 1, m_part, l_part (B, KVH, splits, G) and acc_part
-// (B, KVH, splits, G, hd) f32 are scratch for the combine (null otherwise).
+// (B, KVH, splits, G, dv) f32 are scratch for the combine (null otherwise).
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale,
                                    const void* q_pos, const void* k_pos,
                                    void* out, void* m_part, void* l_part,
                                    void* acc_part, int B, int KVH, int G,
-                                   int S, int hd, int window, int kv_kind,
-                                   int q_bf16, int splits, int split_tiles,
-                                   float scale, void* stream) {
+                                   int S, int hd, int dv, int window,
+                                   int kv_kind, int q_bf16, int splits,
+                                   int split_tiles, float scale,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return q_bf16
       ? launch_q<__nv_bfloat16, false>(q, k, v, k_scale, v_scale, q_pos, k_pos,
                                        nullptr, out, m_part, l_part, acc_part,
-                                       B, KVH, G, S, 0, 1, hd, window, splits,
-                                       split_tiles, scale, kv_kind, s)
+                                       B, KVH, G, S, 0, 1, hd, dv, window,
+                                       splits, split_tiles, scale, kv_kind, s)
       : launch_q<float, false>(q, k, v, k_scale, v_scale, q_pos, k_pos,
                                nullptr, out, m_part, l_part, acc_part, B, KVH,
-                               G, S, 0, 1, hd, window, splits, split_tiles,
+                               G, S, 0, 1, hd, dv, window, splits, split_tiles,
                                scale, kv_kind, s);
 }
 
@@ -642,10 +771,10 @@ extern "C" int flash_decode_paged_launch(
       ? launch_q<__nv_bfloat16, true>(q, k, v, k_scale, v_scale, q_pos, k_pos,
                                       block_table, out, m_part, l_part,
                                       acc_part, B, KVH, G, nb * ps, nb, ps, hd,
-                                      window, splits, split_tiles, scale,
+                                      hd, window, splits, split_tiles, scale,
                                       kv_kind, s)
       : launch_q<float, true>(q, k, v, k_scale, v_scale, q_pos, k_pos,
                               block_table, out, m_part, l_part, acc_part, B,
-                              KVH, G, nb * ps, nb, ps, hd, window, splits,
+                              KVH, G, nb * ps, nb, ps, hd, hd, window, splits,
                               split_tiles, scale, kv_kind, s);
 }

@@ -23,6 +23,13 @@ than ``DECODE_BLOCK_GROUP`` query heads a KV head is split across
 :func:`group_blocks` blocks too, each over its own heads. The launch
 counts stay one per wrapper call.
 
+The latent head (MLA's absorbed decode: head dim r + pe = 576 over one
+KV head, ``scale`` 1/√(hd + pe)): a head wider than 128 takes K3's
+latent instance, which reads an f32 or bf16 cache whose V is K's first
+dv ≤ 512 columns — ``v`` must be the view ``k[..., :dv]`` of the same
+storage, so each row is loaded once — and returns (B, KV, G, dv). A
+group there takes ``DECODE_LATENT_BLOCK_GROUP`` heads a block.
+
 Paged (``block_table`` given): k/v are page pools ``(P, KV, ps, hd)``
 (packed4 ``(P, KV, ps/2, hd)`` uint8), the scales ``(P, KV, ps)``, and
 row b's logical slot j lives in page ``block_table[b, j // ps]``, row
@@ -35,13 +42,19 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.constraints import (CUDA_MAX_GRID_YZ,
+from repro_torch.kernels.constraints import (ATTN_HEAD_DIM_ALIGN,
+                                             ATTN_MAX_HEAD_DIM,
+                                             CUDA_MAX_GRID_YZ,
                                              DECODE_BLOCK_GROUP,
                                              DECODE_BLOCKS_PER_SM,
+                                             DECODE_LATENT_BLOCK_GROUP,
+                                             DECODE_LATENT_BLOCKS_PER_SM,
+                                             DECODE_LATENT_MAX_DV,
                                              DECODE_MAX_GROUP,
                                              DECODE_MAX_SPLIT_TILES,
                                              DECODE_TILE_SLOTS, KV_PTR_ALIGN,
                                              PACKED4_ALIGN, check_head_dim,
+                                             check_decode_head_dim,
                                              validate_page_size)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
@@ -60,7 +73,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            v_scale: Optional[torch.Tensor] = None,
                            window: int = 0,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of K3: q (B, KV, G, hd) → (B, KV, G, hd) in q.dtype."""
+    """Plain version of K3: q (B, KV, G, hd) → (B, KV, G, dv) in q.dtype,
+    where v (B, KV, S, dv) may be narrower than k (the latent head)."""
     hd = q.shape[-1]
     if k.dtype == torch.uint8:      # packed4: two slots per byte on axis -2
         k, v = unpack_codes_4bit(k), unpack_codes_4bit(v)
@@ -97,33 +111,42 @@ def combine_splits_plain(m: torch.Tensor, l: torch.Tensor,
     return torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
 
 
-def group_blocks(g: int) -> int:
+def group_blocks(g: int, hd: int = 0) -> int:
     """Blocks a KV head's group of ``g`` query heads takes: each holds
-    accumulators for at most ``DECODE_BLOCK_GROUP`` heads."""
-    return -(-g // DECODE_BLOCK_GROUP)
+    accumulators for at most ``DECODE_BLOCK_GROUP`` heads
+    (``DECODE_LATENT_BLOCK_GROUP`` at a head dim ``hd`` wider than 128)."""
+    per = DECODE_LATENT_BLOCK_GROUP if hd > ATTN_MAX_HEAD_DIM \
+        else DECODE_BLOCK_GROUP
+    return -(-g // per)
 
 
-def decode_splits(rows: int, slots: int, sm_count: int) -> Tuple[int, int]:
+def decode_splits(rows: int, slots: int, sm_count: int,
+                  per_sm: int = DECODE_BLOCKS_PER_SM) -> Tuple[int, int]:
     """(splits, tiles per split) for ``rows`` = B·KV·:func:`group_blocks`
-    blocks over ``slots`` logical slots: about ``DECODE_BLOCKS_PER_SM``
-    blocks per SM, at most ``DECODE_MAX_SPLIT_TILES`` tiles a split, whole
-    tiles only, and never more splits than tiles (so no split is shorter
-    than one tile)."""
+    blocks over ``slots`` logical slots: about ``per_sm`` blocks per SM
+    (``DECODE_BLOCKS_PER_SM``; the latent instance's shared memory holds
+    ``DECODE_LATENT_BLOCKS_PER_SM``), at most ``DECODE_MAX_SPLIT_TILES``
+    tiles a split, whole tiles only, and never more splits than tiles (so
+    no split is shorter than one tile)."""
     tiles = -(-slots // DECODE_TILE_SLOTS)
-    want = -(-DECODE_BLOCKS_PER_SM * sm_count // rows)
+    want = -(-per_sm * sm_count // rows)
     splits = max(1, min(want, tiles), -(-tiles // DECODE_MAX_SPLIT_TILES))
     per = -(-tiles // splits)
     return -(-tiles // per), per
 
 
-def _scratch(q: torch.Tensor, slots: int) -> tuple:
-    """(splits, tiles per split, m, l, acc) for q's device: the split plan
-    and the combine's f32 scratch, None with one split. Freed after the
-    launch, the scratch goes back to the caching allocator in stream
-    order, so the kernels still own it while they run."""
+def _scratch(q: torch.Tensor, slots: int, dv: int) -> tuple:
+    """(splits, tiles per split, m, l, acc) for q's device and ``dv``
+    output columns: the split plan and the combine's f32 scratch, None
+    with one split. Freed after the launch, the scratch goes back to the
+    caching allocator in stream order, so the kernels still own it while
+    they run."""
     b, kvh, g, hd = q.shape
-    splits, per = decode_splits(b * kvh * group_blocks(g), slots,
-                                _build.sm_count(q.device.index or 0))
+    latent = hd > ATTN_MAX_HEAD_DIM
+    splits, per = decode_splits(
+        b * kvh * group_blocks(g, hd), slots,
+        _build.sm_count(q.device.index or 0),
+        DECODE_LATENT_BLOCKS_PER_SM if latent else DECODE_BLOCKS_PER_SM)
     if splits > CUDA_MAX_GRID_YZ:
         raise ValueError(f"{slots} slots need {splits} splits, over the grid "
                          f"limit {CUDA_MAX_GRID_YZ}")
@@ -131,7 +154,7 @@ def _scratch(q: torch.Tensor, slots: int) -> tuple:
         return splits, per, None, None, None
     m = torch.empty((b, kvh, splits, g), dtype=torch.float32, device=q.device)
     return (splits, per, m, torch.empty_like(m),
-            torch.empty((b, kvh, splits, g, hd), dtype=torch.float32,
+            torch.empty((b, kvh, splits, g, dv), dtype=torch.float32,
                         device=q.device))
 
 
@@ -174,6 +197,42 @@ def _check_decode_args(q, k, v, k_scale, v_scale, rows: int,
                                  f", got {t.dtype} {tuple(t.shape)}")
 
 
+def _check_latent_args(q, k, v, k_scale, v_scale, rows: int,
+                       slots: int) -> int:
+    """K3's latent instance (a head wider than ``ATTN_MAX_HEAD_DIM``): an
+    f32/bf16 cache ``k`` (rows, KV, slots, hd), contiguous, and ``v`` the
+    view of its first dv columns (same storage, same strides, dv at most
+    ``DECODE_LATENT_MAX_DV`` and a multiple of 8). Returns dv."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"the latent head takes an f32 or bf16 cache, got "
+                        f"{k.dtype}/{v.dtype}")
+    if k_scale is not None or v_scale is not None:
+        raise ValueError("the latent head takes no k/v scales")
+    _, kvh, g, hd = q.shape
+    check_decode_head_dim(hd)
+    if g > DECODE_MAX_GROUP:
+        raise ValueError(f"G={g} query heads per KV head exceeds "
+                         f"{DECODE_MAX_GROUP}")
+    if k.shape != (rows, kvh, slots, hd) or not k.is_contiguous():
+        raise ValueError(f"k {tuple(k.shape)} must be a contiguous "
+                         f"{(rows, kvh, slots, hd)} cache")
+    dv = v.shape[-1]
+    if (v.shape[:-1] != k.shape[:-1] or v.stride() != k.stride()
+            or v.data_ptr() != k.data_ptr()
+            or dv > min(hd, DECODE_LATENT_MAX_DV) or dv % ATTN_HEAD_DIM_ALIGN):
+        raise ValueError(
+            f"at head dim {hd} v must be k's first dv columns (k[..., :dv], "
+            f"dv <= {DECODE_LATENT_MAX_DV}, a multiple of "
+            f"{ATTN_HEAD_DIM_ALIGN}), got v {tuple(v.shape)} strides "
+            f"{v.stride()}")
+    if k.data_ptr() % KV_PTR_ALIGN:
+        raise ValueError(f"k must start {KV_PTR_ALIGN}-byte aligned (the "
+                         f"kernel loads rows as vectors)")
+    return dv
+
+
 def _check_rows(rows: int) -> None:
     """The kernel keeps each valid slot's flat row as a 32-bit int."""
     if rows >= 2 ** 31:
@@ -192,28 +251,36 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None, window: int = 0,
                  scale: Optional[float] = None) -> torch.Tensor:
-    """Launch K3; raises on anything the kernel does not take."""
+    """Launch K3; raises on anything the kernel does not take. A head
+    wider than 128 takes the latent instance (module docstring), whose
+    output has ``v``'s dv columns."""
     b, kvh, g, hd = q.shape
     packed = k.dtype == torch.uint8
     s_len = k.shape[2] * (2 if packed else 1)
-    _check_decode_args(q, k, v, k_scale, v_scale, b, s_len)
+    latent = hd > ATTN_MAX_HEAD_DIM
+    if latent:
+        dv = _check_latent_args(q, k, v, k_scale, v_scale, b, s_len)
+    else:
+        _check_decode_args(q, k, v, k_scale, v_scale, b, s_len)
+        dv = hd
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
     if q_pos.shape != (b,) or k_pos.shape != (b, s_len):
         raise ValueError(f"q_pos {tuple(q_pos.shape)} / k_pos "
                          f"{tuple(k_pos.shape)} must be ({b},) / ({b}, {s_len})")
-    _check_on_one_device("flash_decode", q, k, v, q_pos, k_pos, k_scale,
-                         v_scale)
+    # the latent head's v is a strided view of k (checked above)
+    _check_on_one_device("flash_decode", q, k, None if latent else v, q_pos,
+                         k_pos, k_scale, v_scale)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     _check_rows(b * kvh * s_len)
-    out = torch.empty_like(q)
-    splits, per, m_p, l_p, acc_p = _scratch(q, s_len)
-    fn = _build.function("decode_attention", "flash_decode_launch", 11, 10, 1)
+    out = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
+    splits, per, m_p, l_p, acc_p = _scratch(q, s_len, dv)
+    fn = _build.function("decode_attention", "flash_decode_launch", 11, 11, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
              _ptr(v_scale), q_pos.data_ptr(), k_pos.data_ptr(),
              out.data_ptr(), _ptr(m_p), _ptr(l_p), _ptr(acc_p),
-             b, kvh, g, s_len, hd, window, _KV_KIND[k.dtype],
+             b, kvh, g, s_len, hd, dv, window, _KV_KIND[k.dtype],
              int(q.dtype == torch.bfloat16), splits, per, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode_launch (K3)")
@@ -286,7 +353,7 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / (hd ** 0.5)
     _check_rows(n_pages * kvh * ps)
     out = torch.empty_like(q)
-    splits, per, m_p, l_p, acc_p = _scratch(q, nb * ps)
+    splits, per, m_p, l_p, acc_p = _scratch(q, nb * ps, hd)
     fn = _build.function("decode_attention", "flash_decode_paged_launch", 12,
                          11, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
@@ -310,7 +377,9 @@ def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> torch.Tensor:
     """Single-query attention over the slot cache, or over the page pools
     through ``block_table``: the plain version for CPU tensors, K3 (K5
-    when paged) for CUDA tensors. ``scale`` overrides 1/√hd."""
+    when paged) for CUDA tensors. ``scale`` overrides 1/√hd. At a head
+    wider than 128 (unpaged) ``v`` may be ``k``'s first dv columns, and
+    the output has dv."""
     if block_table is not None:
         if q.device.type == "cpu":
             return decode_attention_paged_plain(q, k, v, q_pos, k_pos,

@@ -1,5 +1,6 @@
-"""GQA attention over the head-major slot cache (port of the full-
-attention parts of ``repro/models/attention.py``).
+"""GQA attention over the head-major slot cache, and MLA over its latent
+cache (port of the full-attention and MLA parts of
+``repro/models/attention.py``).
 
 Cache per layer (unpaged, full attention):
   ``k``/``v``  (B, KV, S, hd) in f32 or bf16, int8 codes, or the packed4
@@ -17,6 +18,16 @@ Cache per layer (paged, ``init_attn_cache(pages=, page_size=)``):
                ``block_table[b, j // ps]``, row ``j % ps``;
   ``pos``      (B,) int32.
 There is no slot map: logical slot j of a row holds position j.
+
+Cache per MLA layer (``init_mla_cache``):
+  ``lat``      (B, S, r + pe) f32 or bf16 — each token's normed latent
+               ``ckv`` (its first r columns) and its RoPE'd shared key
+               ``kpe`` (the last pe), in one row;
+  ``pos``      (B,) int32.
+Slot j holds position j. The JAX package keeps ``ckv`` and ``kpe`` in two
+tensors and concatenates them (and pads ``ckv`` to r + pe) for its decode
+kernel on every step; one row per token lets K3 read the row once as the
+key and its first r columns as the value, in place.
 
 Rows decode independently: each writes at its own slot and masks against
 its own slot map. Unlike the JAX package, whose caches are immutable
@@ -37,8 +48,8 @@ from repro_torch.kernels.decode_attention import (NEG_INF, decode_attention_op,
                                                   gather_pages)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.models.layers import apply_rope
-from repro_torch.models.linear import Ctx, fused_mode, linear
+from repro_torch.models.layers import RMSNorm, apply_rope, rmsnorm
+from repro_torch.models.linear import Ctx, fused_mode, linear, weight_of
 from repro_torch.quant.mxint import pack_codes_4bit, unpack_codes_4bit
 
 INT4 = "int4"   # kv-cache dtype sentinel: packed4 nibble container
@@ -263,9 +274,14 @@ def save_step_writes(cache: Dict) -> Dict:
     overwrites: each row's K/V at its write slot (packed4: the whole
     byte, both nibbles), the int8/int4 scales there, the unpaged
     ``slot_pos`` entry, and the ``pos`` tensor itself (a step rebinds
-    it). :func:`restore_step_writes` puts them back bit for bit, so a
-    shadow decode (the drift monitor's reference pass) leaves the cache
-    as it found it."""
+    it); of an MLA cache, each row's latent row at its write slot.
+    :func:`restore_step_writes` puts them back bit for bit, so a shadow
+    decode (the drift monitor's reference pass) leaves the cache as it
+    found it."""
+    if "lat" in cache:
+        rows, slot = _latent_write_index(cache)
+        return {"pos": cache["pos"], "index": (rows, slot),
+                "lat": cache["lat"][rows, slot].clone()}
     rows, slot, wrow, wslot = _step_write_index(cache)
     kv_slot = wslot // 2 if cache["k"].dtype == torch.uint8 else wslot
     saved = {"pos": cache["pos"], "index": (rows, slot, wrow, wslot, kv_slot)}
@@ -282,6 +298,11 @@ def save_step_writes(cache: Dict) -> Dict:
 def restore_step_writes(cache: Dict, saved: Dict) -> None:
     """Undo a decode step over ``cache`` from :func:`save_step_writes`'s
     copies, in place."""
+    if "lat" in cache:
+        rows, slot = saved["index"]
+        cache["lat"][rows, slot] = saved["lat"]
+        cache["pos"] = saved["pos"]
+        return
     rows, slot, wrow, wslot, kv_slot = saved["index"]
     for key in ("k", "v"):
         cache[key][wrow, :, kv_slot] = saved[key]
@@ -478,4 +499,186 @@ def attention_chunk(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
     else:
         out = flash_attention(q, kk, vv, positions, k_pos)
     y = linear(ctx, p.wo, out.reshape(1, c, cfg.n_heads * hd))
+    return y, cache
+
+
+# ==========================================================================
+# MLA: multi-head latent attention (DeepSeek-V2)
+# ==========================================================================
+class MLA(nn.Module):
+    """MLA's projections (``repro/models/attention.py::init_mla``):
+    ``w_dkv`` (d, r) with ``ckv_norm``, ``w_kpe`` (d, pe), ``w_uk`` and
+    ``w_uv`` (r, H·hd), ``wo`` (H·hd, d), and either ``w_q`` (d,
+    H·(hd + pe)) or the q-LoRA trio ``w_dq`` (d, q_lora), ``q_norm``,
+    ``w_uq`` (q_lora, H·(hd + pe))."""
+
+    def __init__(self, w_dkv: nn.Module, w_kpe: nn.Module, w_uk: nn.Module,
+                 w_uv: nn.Module, wo: nn.Module, ckv_norm: RMSNorm, *,
+                 w_q: Optional[nn.Module] = None,
+                 w_dq: Optional[nn.Module] = None,
+                 q_norm: Optional[RMSNorm] = None,
+                 w_uq: Optional[nn.Module] = None):
+        super().__init__()
+        if (w_q is None) == (w_dq is None) \
+                or (w_dq is None) != (w_uq is None) \
+                or (w_dq is None) != (q_norm is None):
+            raise ValueError("MLA takes w_q or the q-LoRA trio w_dq / "
+                             "q_norm / w_uq")
+        self.w_dkv, self.w_kpe, self.w_uk, self.w_uv = w_dkv, w_kpe, w_uk, w_uv
+        self.wo, self.ckv_norm = wo, ckv_norm
+        self.w_q, self.w_dq, self.q_norm, self.w_uq = w_q, w_dq, q_norm, w_uq
+
+
+# the projections of an MLA mixer, in the order a forward pass runs them
+MLA_PROJECTIONS = ("w_q", "w_dq", "w_uq", "w_dkv", "w_kpe", "w_uk", "w_uv",
+                   "wo")
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    """Zeroed latent rows (module docstring) for ``batch`` rows of
+    ``max_len`` slots, in the float ``dtype``."""
+    return {"lat": torch.zeros((batch, max_len,
+                                cfg.kv_lora_rank + cfg.rope_head_dim),
+                               dtype=dtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _mla_q(ctx: Ctx, p: MLA, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor):
+    """(q_nope (B, S, H, hd), q_pe (B, S, H, pe) with full RoPE)."""
+    b, s, _ = x.shape
+    hd, pe, h = cfg.head_dim_, cfg.rope_head_dim, cfg.n_heads
+    if p.w_q is None:
+        cq = rmsnorm(p.q_norm, linear(ctx, p.w_dq, x, "attn.w_dq"))
+        q = linear(ctx, p.w_uq, cq, "attn.w_uq")
+    else:
+        q = linear(ctx, p.w_q, x, "attn.w_q")
+    q = q.reshape(b, s, h, hd + pe)
+    return q[..., :hd], apply_rope(q[..., hd:], positions, cfg.rope_theta,
+                                   "full")
+
+
+def _mla_compress(ctx: Ctx, p: MLA, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor):
+    """(ckv (B, S, r) RMS-normed, kpe (B, S, pe) with full RoPE): what the
+    latent cache stores of each token."""
+    ckv = rmsnorm(p.ckv_norm, linear(ctx, p.w_dkv, x, "attn.w_dkv"))
+    kpe = linear(ctx, p.w_kpe, x, "attn.w_kpe")
+    kpe = apply_rope(kpe[:, :, None, :], positions, cfg.rope_theta, "full")
+    return ckv, kpe[:, :, 0, :]
+
+
+def mla_seq(ctx: Ctx, p: MLA, x: torch.Tensor, cfg: ModelConfig,
+            cache: Optional[Dict] = None,
+            lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Prefill / training MLA: K and V expanded per head from the latent
+    (``w_uk``/``w_uv``), the shared ``kpe`` broadcast over the heads, and
+    plain masked softmax attention as MHA (KV = H, G = 1) at head dim hd +
+    pe, V hd wide (the JAX package runs its plain ``blockwise_attention``
+    there, V zero-padded to hd + pe and sliced back, which changes
+    nothing; no kernel: K4 takes at most 128).
+    With a cache: a fresh latent tensor whose rows ``0..S-1`` hold the
+    prefilled tokens (a pad token's row too; the decode mask keeps it
+    invisible until overwritten), and ``pos = lengths``."""
+    b, s, _ = x.shape
+    hd, pe, h, r = cfg.head_dim_, cfg.rope_head_dim, cfg.n_heads, \
+        cfg.kv_lora_rank
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    q_nope, q_pe = _mla_q(ctx, p, x, cfg, positions)
+    ckv, kpe = _mla_compress(ctx, p, x, cfg, positions)
+    k_nope = linear(ctx, p.w_uk, ckv, "attn.w_uk").reshape(b, s, h, hd)
+    v = linear(ctx, p.w_uv, ckv, "attn.w_uv").reshape(b, s, h, hd)
+    k = torch.cat([k_nope, kpe[:, :, None, :].expand(b, s, h, pe)
+                   .to(k_nope.dtype)], dim=-1)
+    q = torch.cat([q_nope, q_pe], dim=-1).reshape(b, s, h, 1, hd + pe)
+    out = flash_attention_plain(q, k, v, positions, positions)
+    y = linear(ctx, p.wo, out.reshape(b, s, h * hd), "attn.wo")
+    if cache is not None:
+        lat = cache["lat"]
+        if s > lat.shape[1]:
+            raise ValueError(f"prefill of {s} tokens exceeds the cache's "
+                             f"{lat.shape[1]} slots")
+        rows = torch.cat([ckv, kpe.to(ckv.dtype)], dim=-1).to(lat.dtype)
+        cache = dict(cache)
+        cache["lat"] = torch.cat([rows, lat[:, s:]], dim=1)
+        cache["pos"] = (torch.full((b,), s, dtype=torch.int32,
+                                   device=x.device) if lengths is None
+                        else lengths.to(torch.int32))
+    return y, cache
+
+
+def absorb_mla_weights(p: MLA) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense up-projections ``(W_uk, W_uv)`` (r, H·hd) in f32 that
+    :func:`mla_step` folds q and the attention output through: dequant(Q)
+    + L·R of a quantized mixer, computed once (the engine keeps them in
+    ``Ctx.absorbed``) instead of on every step."""
+    return weight_of(p.w_uk, torch.float32), weight_of(p.w_uv, torch.float32)
+
+
+def _latent_write_index(cache: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows, slot) a decode step over an MLA cache writes: each row's
+    ``pos``, held to the last slot (a row at or past it writes nothing;
+    see :func:`mla_step`)."""
+    pos = cache["pos"]
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return rows, torch.clamp(pos, max=cache["lat"].shape[1] - 1).to(
+        torch.int64)
+
+
+def mla_step(ctx: Ctx, p: MLA, x: torch.Tensor, cache: Dict,
+             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One absorbed MLA decode step, x (B, 1, D): scores and values in the
+    r-wide latent space, q folded through W_uk and the output through
+    W_uv (from ``ctx.absorbed`` when the engine built them, else
+    materialized here). Each row writes its token's latent row at its own
+    ``pos``, in place; a row whose ``pos`` is at or past the last slot
+    writes nothing, as JAX's scatter drops it (masked on the device, no
+    host read), and still attends over every slot.
+
+    The kernel route (``fused`` auto/on) is JAX's ``fused="kernel"``
+    form: one K3 call with KV = 1, G = H, head dim r + pe, the score
+    scale 1/√(hd + pe), K the latent rows and V their first r columns
+    (a view: K3 reads each row once). ``fused="off"`` keeps JAX's
+    two-einsum form."""
+    b = x.shape[0]
+    hd, pe, h, r = cfg.head_dim_, cfg.rope_head_dim, cfg.n_heads, \
+        cfg.kv_lora_rank
+    pos = cache["pos"]
+    positions = pos[:, None]
+    q_nope, q_pe = _mla_q(ctx, p, x, cfg, positions)        # (B, 1, H, ·)
+    ckv_t, kpe_t = _mla_compress(ctx, p, x, cfg, positions)
+    lat = cache["lat"]
+    smax = lat.shape[1]
+    rows, slot = _latent_write_index(cache)
+    new = torch.cat([ckv_t, kpe_t.to(ckv_t.dtype)], dim=-1)[:, 0]
+    lat[rows, slot] = torch.where((pos < smax)[:, None], new.to(lat.dtype),
+                                  lat[rows, slot])
+
+    absorbed = ctx.absorbed.get(p) if ctx.absorbed is not None else None
+    w_uk, w_uv = absorbed if absorbed is not None else absorb_mla_weights(p)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(),
+                         w_uk.float().reshape(r, h, hd))     # (B, 1, H, r)
+    scale = 1.0 / ((hd + pe) ** 0.5)
+    if fused_mode(ctx) == "kernel":
+        q_cat = torch.cat([q_lat, q_pe.float()], dim=-1)     # (B, 1, H, r+pe)
+        k_pos = torch.arange(smax, dtype=torch.int32,
+                             device=x.device).expand(b, smax)
+        out_lat = decode_attention_op(q_cat, lat[:, None],
+                                      lat[:, None, :, :r], pos, k_pos,
+                                      scale=scale)           # (B, 1, H, r)
+    else:
+        ckv, kpe = lat[..., :r].float(), lat[..., r:].float()
+        scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+                  + torch.einsum("bqhp,bsp->bhqs", q_pe.float(), kpe))
+        scores = scores * scale
+        mask = torch.arange(smax, device=x.device)[None, :] <= pos[:, None]
+        scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+        out_lat = torch.einsum("bhqs,bsr->bqhr",
+                               torch.softmax(scores, dim=-1), ckv)
+    out = torch.einsum("bqhr,rhd->bqhd", out_lat.float(),
+                       w_uv.float().reshape(r, h, hd))
+    y = linear(ctx, p.wo, out.reshape(b, 1, h * hd).to(x.dtype), "attn.wo")
+    cache["pos"] = pos + 1
     return y, cache

@@ -70,6 +70,10 @@ class Ctx:
     route_replay: Optional[Iterator[torch.Tensor]] = None
     # each MoE layer appends its load-balance term (``lm_loss``)
     aux_log: Optional[List[torch.Tensor]] = None
+    # MLA decode's dense up-projections, {mixer: (W_uk, W_uv)} f32, built
+    # once per engine (``models.attention.absorb_mla_weights``); a mixer
+    # not in it materializes them in the step
+    absorbed: Optional[Dict[nn.Module, tuple]] = None
     tap: Optional[Dict[str, CalibStats]] = None   # calibration capture
     prefix: str = ""                              # per-layer tap namespace
     autocorr: bool = True                         # capture Σxxᵀ moments
@@ -142,6 +146,18 @@ def dequant_weight(p: QLinear, dtype) -> torch.Tensor:
     codes = unpack_codes_4bit(p.packed) if p.packed is not None else p.codes
     w = dequant_blockwise(codes, p.scale, dtype)
     return w[..., : p.l.shape[-2], :]
+
+
+def weight_of(p: nn.Module, dtype) -> torch.Tensor:
+    """The matrix ``W ≈ dequant(Q) + L·R`` of any projection (``w`` of an
+    ``FpLinear``), as ``repro/models/linear.py::weight_of``: where an
+    algorithm needs the matrix itself (MLA's absorbed decode)."""
+    if isinstance(p, FpLinear):
+        return p.w.to(dtype)
+    w = dequant_weight(p, dtype)
+    if p.l.shape[-1] > 0:
+        w = w + p.l.to(dtype) @ p.r.to(dtype)
+    return w
 
 
 def _fused_qlr(p: QLinear, x: torch.Tensor, l: torch.Tensor,

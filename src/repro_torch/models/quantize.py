@@ -3,8 +3,10 @@ with its Q + LR ``QLinear`` (port of ``repro/models/quantize.py``
 ``quantize_model_params`` for the int8 and packed4 containers), by the
 method and scaling of a :class:`~repro_torch.core.api.PTQConfig`.
 
-Policy, as in the JAX package: the seven projections of each block are
-quantized — in an MoE block the attention projections, the router, the
+Policy, as in the JAX package: every projection of each block is
+quantized — the attention projections (GQA's four, or MLA's six:
+``w_q`` or ``w_dq``/``w_uq``, ``w_dkv``, ``w_kpe``, ``w_uk``, ``w_uv``,
+``wo``), the SwiGLU three or, in an MoE block, the router, the
 shared experts' three and every (expert, projection) matrix of the
 routed stacks, each with its own k* and its own generator, stacked back
 into the expert container; the embedding, the LM head and the norms stay
@@ -14,10 +16,12 @@ are released as soon as it is replaced, so the f32 model's footprint
 only shrinks during the pass.
 
 Calibration statistics (``data.calibration``) are looked up by each
-matrix's own layer: ``L<i>.attn.wq`` … ``L<i>..down``, ``L<i>.moe.router``,
-``L<i>.moe.shared.up`` …. The JAX pass looks them up with an empty layer
-hint, so every scanned layer there takes layer 0's statistics (ROADMAP
-§3); here each layer takes its own. Routed experts record no tap (their
+matrix's own layer: ``L<i>.attn.wq`` … ``L<i>..down``, ``L<i>.attn.w_dkv``
+…, ``L<i>.moe.router``, ``L<i>.moe.shared.up`` …. The JAX pass looks them
+up with an empty layer hint, so every scanned layer there takes layer 0's
+statistics (ROADMAP §3; its MLA names, absent from its role table, fall
+to ``L0.attn.<name>`` by its suffix match); here each layer takes its
+own. Routed experts record no tap (their
 input is the dispatch buffer), so they take the identity scaling, as in
 JAX.
 """
@@ -30,6 +34,7 @@ import torch
 from repro_torch.core.api import (CalibStats, LayerReport, PTQConfig,
                                   quantize_layer)
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import MLA, MLA_PROJECTIONS
 from repro_torch.models.linear import QLinear
 from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import LM
@@ -129,7 +134,10 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
 
     for i, blk in enumerate(model.blocks):
         layer = f"L{i}."
-        projections(blk.mixer, f"blocks.{i}.mixer", ATTENTION, layer + "attn.")
+        mixer = ([n for n in MLA_PROJECTIONS
+                  if getattr(blk.mixer, n) is not None]
+                 if isinstance(blk.mixer, MLA) else ATTENTION)
+        projections(blk.mixer, f"blocks.{i}.mixer", mixer, layer + "attn.")
         if isinstance(blk.mlp, MoE):
             pre = f"blocks.{i}.mlp"
             projections(blk.mlp, pre, ("router",), layer + "moe.")

@@ -1,5 +1,5 @@
 """Decoder: config → init / forward / prefill / decode (port of the
-full-attention parts of ``repro/models/transformer.py``).
+full-attention and MLA parts of ``repro/models/transformer.py``).
 
 The JAX package folds depth into a ``lax.scan`` over stacked params; here
 the layers are an ``nn.ModuleList`` walked by a Python loop, and the
@@ -7,10 +7,13 @@ cache is a list with one dict per layer (see ``models.attention``).
 Each block's FFN is a SwiGLU :class:`~repro_torch.models.layers.MLP` or,
 past the config's ``first_dense`` lead-in layers of an MoE config, an
 :class:`~repro_torch.models.moe.MoE`; :func:`ffn` applies either, for
-prefill, chunks and decode alike. Embeddings and the LM head stay full
-precision by PTQ policy. :func:`lm_loss` is the calibration pass's
-forward (and the training objective): token cross-entropy plus the MoE
-load-balance term.
+prefill, chunks and decode alike. Each block's mixer is GQA
+(:class:`~repro_torch.models.attention.Attention`) or, for an
+``attn_kind="mla"`` config, MLA (:class:`~repro_torch.models.attention.MLA`,
+over a latent cache; no paged cache and no chunked prefill, as in the JAX
+package). Embeddings and the LM head stay full precision by PTQ policy.
+:func:`lm_loss` is the calibration pass's forward (and the training
+objective): token cross-entropy plus the MoE load-balance term.
 """
 from __future__ import annotations
 
@@ -32,21 +35,26 @@ AUX_WEIGHT = 0.01  # MoE load-balance loss coefficient
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves full-attention RoPE/SwiGLU/RMSNorm GQA decoders,
-    dense or MoE (routed + shared experts after ``first_dense`` dense
-    layers), with full or half RoPE and optional QKV biases; raise for
-    anything else rather than run it wrongly."""
+    """The port serves full-attention RoPE/SwiGLU/RMSNorm decoders, dense
+    or MoE (routed + shared experts after ``first_dense`` dense layers),
+    with GQA (full or half RoPE, optional QKV biases) or MLA attention (a
+    latent of ``kv_lora_rank`` and a shared RoPE key of ``rope_head_dim``,
+    full RoPE whatever ``rope_kind`` says, as in the JAX package); raise
+    for anything else rather than run it wrongly."""
     moe_ok = not cfg.moe or (cfg.n_routed > 0 and 0 < cfg.top_k <= cfg.n_routed
                              and cfg.d_expert > 0)
-    ok = (set(cfg.block_pattern) == {"attn"} and cfg.attn_kind == "gqa"
+    attn_ok = cfg.attn_kind == "gqa" or (
+        cfg.attn_kind == "mla" and cfg.kv_lora_rank > 0
+        and cfg.rope_head_dim > 0 and cfg.rope_head_dim % 2 == 0)
+    ok = (set(cfg.block_pattern) == {"attn"} and attn_ok
           and moe_ok and (cfg.moe or not cfg.first_dense)
           and not cfg.is_encoder_decoder and not cfg.n_vision_tokens
           and cfg.rope_kind in ("full", "half") and cfg.act == "swiglu"
           and cfg.norm == "rmsnorm" and cfg.d_ff > 0)
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves GQA decoders (dense or MoE) with "
-            f"full or half RoPE, SwiGLU and RMSNorm only (block_pattern="
+            f"{cfg.name}: the port serves GQA or MLA decoders (dense or MoE)"
+            f" with full or half RoPE, SwiGLU and RMSNorm only (block_pattern="
             f"{cfg.block_pattern}, attn_kind={cfg.attn_kind!r}, "
             f"rope_kind={cfg.rope_kind!r}, moe={cfg.moe})")
 
@@ -55,8 +63,8 @@ class Block(nn.Module):
     """``mlp`` is the block's FFN: a SwiGLU :class:`MLP` or an
     :class:`MoE`."""
 
-    def __init__(self, norm1: RMSNorm, mixer: attn.Attention, norm2: RMSNorm,
-                 mlp_: Union[MLP, MoE]):
+    def __init__(self, norm1: RMSNorm, mixer: Union[attn.Attention, attn.MLA],
+                 norm2: RMSNorm, mlp_: Union[MLP, MoE]):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.mlp = norm1, mixer, norm2, mlp_
 
@@ -96,7 +104,8 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     (``transformer.init_lm``); the numbers differ from JAX's, since the
     generators differ. An MoE config gets ``first_dense`` dense layers of
     width ``d_ff``, then MoE blocks; ``cfg.qkv_bias`` gives wq/wk/wv a
-    zero bias, as JAX's ``init_linear(..., bias=True)`` does."""
+    zero bias, as JAX's ``init_linear(..., bias=True)`` does; an MLA
+    config gets MLA mixers (``init_mla``'s scales)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -110,12 +119,29 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
             p.b = torch.zeros((n,), device=dev)
         return p
 
+    def wo() -> FpLinear:
+        return init_linear(gen, qd, d,
+                           1.0 / (qd ** 0.5 * (2 * cfg.n_layers) ** 0.5), dev)
+
+    def mla() -> attn.MLA:
+        r, pe, ql = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.q_lora_rank
+        qw = cfg.n_heads * (hd + pe)
+        if ql:
+            q = dict(w_dq=init_linear(gen, d, ql, d ** -0.5, dev),
+                     w_uq=init_linear(gen, ql, qw, ql ** -0.5, dev),
+                     q_norm=RMSNorm(torch.ones((ql,), device=dev)))
+        else:
+            q = dict(w_q=init_linear(gen, d, qw, d ** -0.5, dev))
+        return attn.MLA(init_linear(gen, d, r, d ** -0.5, dev),
+                        init_linear(gen, d, pe, d ** -0.5, dev),
+                        init_linear(gen, r, qd, r ** -0.5, dev),
+                        init_linear(gen, r, qd, r ** -0.5, dev), wo(),
+                        RMSNorm(torch.ones((r,), device=dev)), **q)
+
     blocks = []
     for i in range(cfg.n_layers):
-        mixer = attn.Attention(
-            qkv(qd), qkv(kvd), qkv(kvd),
-            init_linear(gen, qd, d, 1.0 / (qd ** 0.5 * (2 * cfg.n_layers) ** 0.5),
-                        dev))
+        mixer = mla() if cfg.attn_kind == "mla" else attn.Attention(
+            qkv(qd), qkv(kvd), qkv(kvd), wo())
         if cfg.uses_moe_at(i):
             mlp_ = init_moe(gen, cfg, dev)
         else:
@@ -137,7 +163,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     ``torch.int8``, or ``"int4"``). ``pages``/``page_size`` switch every
     layer to the paged layout: its own page pools and its own copy of
     the block table and positions (``serve.pages`` keeps the copies
-    equal)."""
+    equal). An MLA config's layers get the latent cache, in a float type
+    as JAX's rule has it (int8/int4 → bf16 latents), and no paged
+    layout."""
+    if cfg.attn_kind == "mla":
+        if pages is not None:
+            raise ValueError(
+                f"paged KV cache supports full GQA attention layers only, "
+                f"got kind='attn' (attn_kind={cfg.attn_kind!r}) — recurrent "
+                f"states and MLA latents have no block-granular sharing story")
+        fdtype = torch.bfloat16 if dtype in (torch.int8, attn.INT4) else dtype
+        return [attn.init_mla_cache(cfg, batch, max_len, fdtype, device)
+                for _ in range(cfg.n_layers)]
     return [attn.init_attn_cache(cfg, batch, max_len, dtype, device,
                                  pages=pages, page_size=page_size)
             for _ in range(cfg.n_layers)]
@@ -161,9 +198,11 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
     for i, blk in enumerate(model.blocks):
         if ctx.tap is not None:
             ctx.prefix = f"L{i}."
-        y, c = attn.attention_seq(ctx, blk.mixer, rmsnorm(blk.norm1, x), cfg,
-                                  cache=cache[i] if cache is not None else None,
-                                  lengths=lengths)
+        seq = attn.mla_seq if isinstance(blk.mixer, attn.MLA) \
+            else attn.attention_seq
+        y, c = seq(ctx, blk.mixer, rmsnorm(blk.norm1, x), cfg,
+                   cache=cache[i] if cache is not None else None,
+                   lengths=lengths)
         x = x + y
         x = x + ffn(ctx, blk, x, cfg)
         if new_cache is not None:
@@ -209,6 +248,10 @@ def _chunk_stack(ctx: Ctx, model: LM, tokens: torch.Tensor,
     (1, C, D). :func:`prefill_chunk` and :func:`verify_chunk` differ only
     in the positions they push through the LM head."""
     cfg = model.cfg
+    if cfg.attn_kind == "mla":
+        raise ValueError(f"chunked prefill needs full GQA attention layers, "
+                         f"got attn_kind={cfg.attn_kind!r}: MLA latents have "
+                         f"no chunked path")
     x = embed(model.embed, tokens, ctx.compute_dtype)
     for blk, c in zip(model.blocks, cache):
         y, _ = attn.attention_chunk(ctx, blk.mixer, rmsnorm(blk.norm1, x), c,
@@ -263,8 +306,9 @@ def decode_step(ctx: Ctx, model: LM, token: torch.Tensor,
     cfg = model.cfg
     x = embed(model.embed, token, ctx.compute_dtype)
     for blk, c in zip(model.blocks, cache):
-        y, _ = attn.attention_step(ctx, blk.mixer, rmsnorm(blk.norm1, x), c,
-                                   cfg)
+        step = attn.mla_step if isinstance(blk.mixer, attn.MLA) \
+            else attn.attention_step
+        y, _ = step(ctx, blk.mixer, rmsnorm(blk.norm1, x), c, cfg)
         x = x + y
         x = x + ffn(ctx, blk, x, cfg)
     x = rmsnorm(model.final_norm, x)

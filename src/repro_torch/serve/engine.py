@@ -24,6 +24,11 @@ in ``prefill_len``-wide chunks, one per engine step, interleaved with
 the other lanes' decode. ``max_step_tokens`` arms the token-budget step
 scheduler (``serve.scheduler.StepBudget``) under either cache.
 
+An MLA model (``attn_kind="mla"``) serves over its latent cache with the
+absorbed decode: its dense W_uk/W_uv are built once per engine, and its
+decode attention runs through K3 at the latent head. As in the JAX
+engine it takes neither the paged cache nor speculative decoding.
+
 ``ServeConfig(speculative=True)`` decodes greedy lanes
 self-speculatively: ``spec_k - 1`` draft steps through the quantized
 base alone (``Ctx(draft=True)``: every ``QLinear`` at rank 0), then one
@@ -80,7 +85,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.constraints import validate_page_size
-from repro_torch.models.attention import (restore_step_writes,
+from repro_torch.models.attention import (absorb_mla_weights,
+                                          restore_step_writes,
                                           save_step_writes)
 from repro_torch.models.linear import Ctx, QLinear
 from repro_torch.models.transformer import (LM, decode_step, init_cache,
@@ -236,8 +242,17 @@ class Engine:
         if sc.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {sc.compute_dtype!r}")
         continuous = sc.scheduler == "continuous"
-        if sc.paged and not continuous:
-            raise ValueError("paged KV needs scheduler='continuous'")
+        mla = cfg.attn_kind == "mla"
+        if sc.paged:
+            if not continuous:
+                raise ValueError("paged KV needs scheduler='continuous'")
+            if mla:
+                raise ValueError(
+                    f"paged KV cache supports pure full-GQA-attention "
+                    f"stacks (got pattern={cfg.block_pattern}, "
+                    f"attn_kind={cfg.attn_kind!r}): recurrent states, MLA "
+                    f"latents and encoder memories have no block-sharing "
+                    f"story yet")
         if sc.speculative:
             if not continuous:
                 raise ValueError("speculative decoding needs "
@@ -246,6 +261,12 @@ class Engine:
                 raise ValueError(
                     f"spec_k={sc.spec_k} must be >= 2 — one Q-only draft "
                     f"token plus the verify model's own next token")
+            if mla:
+                raise ValueError(
+                    f"speculative decoding verifies through the chunked "
+                    f"attention path and needs a pure full-GQA-attention "
+                    f"decoder (got pattern={cfg.block_pattern}, "
+                    f"attn_kind={cfg.attn_kind!r})")
         if sc.drift_ref_fused not in ("auto", "on", "off"):
             raise ValueError(
                 f"unknown drift_ref_fused {sc.drift_ref_fused!r}")
@@ -263,8 +284,12 @@ class Engine:
                              "engine's slot/page state — it needs "
                              "scheduler='continuous'")
         self.model, self.cfg, self.sc = model, cfg, sc
+        # MLA decode's dense W_uk/W_uv, built once for this engine (JAX's
+        # absorbed_params) and shared by every context
+        absorbed = ({blk.mixer: absorb_mla_weights(blk.mixer)
+                     for blk in model.blocks} if mla else None)
         self.ctx = Ctx(compute_dtype=COMPUTE_DTYPES[sc.compute_dtype],
-                       fused=sc.fused)
+                       fused=sc.fused, absorbed=absorbed)
         self._dctx = dataclasses.replace(self.ctx, draft=True)
         # the drift monitor's reference lowering of the same weights
         self._rctx = dataclasses.replace(self.ctx, fused=sc.drift_ref_fused)

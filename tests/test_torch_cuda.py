@@ -2,7 +2,8 @@
 kernel against its plain version on the card (K5 on a shuffled block
 table, K4 also at the chunk shape and where whole key tiles are dead,
 K3/K4 also at head_dim 128, K3/K5 across split boundaries and at groups
-of up to 16 query heads a KV head, K6 over an
+of up to 16 query heads a KV head, K3 at MLA's latent head (576 wide, V
+its first 512 columns, scale override), K6 over an
 expert stack with and without counts, K7 bit for bit), and each wrapper
 raising on input the kernel does not take.
 
@@ -19,7 +20,8 @@ from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import mxint_matmul as mk
 from repro_torch.kernels import mxint_quantize as kq
-from repro_torch.kernels.constraints import (DECODE_MAX_GROUP,
+from repro_torch.kernels.constraints import (DECODE_LATENT_BLOCKS_PER_SM,
+                                             DECODE_MAX_GROUP,
                                              DECODE_TILE_SLOTS,
                                              QLR_FUSED_MAX_ROWS)
 from repro_torch.quant.mxint import MXIntQuantizer, pack_codes_4bit
@@ -587,6 +589,80 @@ def test_flash_decode_split_boundaries(dev, kind, g, hd, window):
     assert dk.LAUNCHES["flash_decode_paged"] == before + 1
     _close(got, want, 1e-4)
     assert torch.all(got[3] == 0)
+
+
+def _latent(dev, dtype, b, s, seed=0, h=16, r=512, pe=64):
+    """MLA's absorbed decode operands: q (B, 1, H, r + pe) f32, the latent
+    cache (B, S, r + pe) in ``dtype``, K its (B, 1, S, r + pe) view and V
+    the view of its first r columns."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 1, h, r + pe), generator=gen, device=dev)
+    lat = torch.randn((b, s, r + pe), generator=gen, device=dev).to(dtype)
+    return q, lat, lat[:, None], lat[:, None, :, :r]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(8, 512), (8, 304), (3, 96), (128, 64)])
+def test_flash_decode_latent_head_matches_plain(dev, dtype, b, s):
+    """K3's latent instance (MLA decode: one KV head, G = 16, head dim 576,
+    V = the first 512 columns of K's rows, the score scale 1/√192) against
+    its plain version: ragged rows, a row at its last slot, one past it
+    (every slot valid, as JAX's dropped write leaves it), one with no
+    valid slot (exact zeros); S = 304 is a multiple of neither the tile
+    nor the split, and B·4 = 512 blocks at S = 64 fill the card in one
+    split (no combine)."""
+    q, lat, k, v = _latent(dev, dtype, b, s, seed=b + s)
+    q_pos = (torch.arange(b, device=dev, dtype=torch.int32) * 37) % s
+    q_pos[0] = s - 1
+    q_pos[-1] = s + 3
+    k_pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+    empty = 1 if b > 2 else 0
+    k_pos[empty] = -1
+    scale = 192 ** -0.5
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = dk.decode_splits(b * dk.group_blocks(16, 576), s, sm,
+                              DECODE_LATENT_BLOCKS_PER_SM)[0]
+    assert (splits == 1) == (b == 128)
+    want = dk.decode_attention_plain(q, k, v, q_pos, k_pos, scale=scale)
+    before = dk.LAUNCHES["flash_decode"]
+    got = dk.decode_attention_op(q, k, v, q_pos, k_pos, scale=scale)
+    assert dk.LAUNCHES["flash_decode"] == before + 1
+    assert got.shape == (b, 1, 16, 512) and got.dtype == torch.float32
+    _close(got, want, 1e-4)
+    assert torch.all(got[empty] == 0)
+    # the same cache with the default scale differs: the override is read
+    other = dk.decode_attention_op(q, k, v, q_pos, k_pos)
+    assert float((other - got).abs().max()) > 1e-3
+
+
+def test_flash_decode_latent_wrapper_raises(dev):
+    """Only V = k[..., :dv] (dv <= 512) of an f32/bf16 cache, unpaged, at
+    most 576 wide; K4 and K5 keep their 128 cap."""
+    q, lat, k, v = _latent(dev, torch.bfloat16, 2, 64)
+    q_pos = torch.tensor([10, 63], dtype=torch.int32, device=dev)
+    k_pos = torch.arange(64, dtype=torch.int32, device=dev).repeat(2, 1)
+    with pytest.raises(ValueError):                  # V a tensor of its own
+        dk.flash_decode(q, k, v.contiguous(), q_pos, k_pos)
+    with pytest.raises(ValueError):                  # dv = 576 > 512
+        dk.flash_decode(q, k, k, q_pos, k_pos)
+    with pytest.raises(ValueError):                  # V not K's first columns
+        dk.flash_decode(q, k, k[..., 64:], q_pos, k_pos)
+    codes = torch.zeros(k.shape, dtype=torch.int8, device=dev)
+    sc = torch.ones(k.shape[:3], device=dev)
+    with pytest.raises(TypeError):                   # int8 latents
+        dk.flash_decode(q, codes, codes[..., :512], q_pos, k_pos, sc, sc)
+    with pytest.raises(ValueError):                  # wider than 576
+        wide = torch.zeros((2, 1, 64, 640), dtype=torch.bfloat16, device=dev)
+        dk.flash_decode(torch.zeros((2, 1, 16, 640), device=dev), wide,
+                        wide[..., :512], q_pos, k_pos)
+    bt = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    pool = torch.zeros((4, 1, 16, 576), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):                  # K5 stays at 128
+        dk.flash_decode_paged(q, pool, pool, q_pos, k_pos, bt)
+    with pytest.raises(ValueError):                  # K4 stays at 128
+        x = torch.zeros((1, 8, 1, 1, 192), device=dev)
+        pos = torch.arange(8, dtype=torch.int32, device=dev)
+        fk.flash_attention(x, x[:, :, :, 0], x[:, :, :, 0], pos, pos)
 
 
 def test_flash_decode_one_split(dev):
