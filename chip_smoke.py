@@ -26,7 +26,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    27392×5120; for phase "mla", K3's latent instance at B=8, one KV head,
    G 16, head_dim 576 with V the first 512 columns of K's rows, bf16 and
    f32, scale 1/√192 (yardstick: masked SDPA with ``scale=``, the KV head
-   expanded): max error against a stated tolerance,
+   expanded); for phase "hybrid", K3 at head_dim 256 (B=8, one KV head, G
+   16) in bf16 at the serving rows, f32, int8 and int4, K3 on a wrapped
+   2048-slot ring (positions 952–2999 out of slot order, window 2048), K4
+   at head_dim 256 (16 heads over one KV head: S 256 f32 and bf16, S 2100
+   under the 2048 window), K1/K2 at 4096×4096, 4096×12288, 12288×4096 and
+   K7 at those and 4096×256: max error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
    layers finds them cold) and the bound (K1/K2/K6: the function's
@@ -129,9 +134,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    ms a matrix profiled and in the timed pass, and K7's device total over
    the timed pass from its launches × phase 3's time at each shape;
 7. "dense": chatglm3-6b (half RoPE, QKV bias, G = 16) and minitron-4b (G =
-   3, vocabulary 256,000) at full width and depth, qwen1.5-32b (QKV bias,
-   θ = 10⁶) at full width and 4 of its 64 layers (131 GiB in f32 at full
-   depth): ``init_lm`` (seed 0; ``init_lm`` makes the QKV biases zero, so
+   3, vocabulary 256,000) at full width and 8 of their 28 and 32 layers
+   (``DENSE_RUNS``; at full depth the phase took a quarter of the
+   script), qwen1.5-32b (QKV bias, θ = 10⁶) at full width and 4 of its 64
+   layers (131 GiB in f32 at full depth): ``init_lm`` (seed 0; ``init_lm`` makes the QKV biases zero, so
    they are filled from a seeded generator first, and the bias path
    carries real values) → calibration as in phase 4 → qera-exact SRR (K7's
    launches read around the pass; chatglm's scalings built inside the
@@ -152,7 +158,22 @@ Phases (each prints its own lines; any failure exits non-zero):
    rule: bf16 latents, the same tokens), and a 150-token prompt's prefill
    logits and one decode step's logits over 8 lanes (K3 on the path)
    through the kernels against ``fused="off"`` under one routing, each
-   within 1e-3 · max|logit|.
+   within 1e-3 · max|logit|;
+9. "hybrid": recurrentgemma-9b (RG-LRU blocks and sliding-window
+   attention) at full width and 8 of its 38 layers (``HYBRID_LAYERS``:
+   two (rglru, rglru, local) periods and the (rglru, rglru) remainder):
+   ``init_lm`` (seed 0) → calibration as in phase 4 → the scalings built
+   ahead (timed) → qera-exact SRR → (a) phase 4's unpaged serving with
+   bf16 KV (the 512-slot ring does not wrap; every launch count exactly
+   as the layout gives it: K1 a projection a decode step, K2 a projection
+   a prefill, K3 a local layer a step, K4 a local layer a prefill, K5 and
+   K6 never), profiled decode steps; (c) the same with int8 KV (the same
+   tokens); the drift probe leaving the hybrid cache bit for bit;
+   ``paged``/``speculative`` refused; (b) prompts of 2100 and 2080
+   tokens in a 2304-slot cache (the 2048-slot ring wraps, K4 under the
+   live window); the prefill logits of (a) and (b) and one decode step's
+   logits after the wrap through the kernels against ``fused="off"``,
+   each within 1e-3 · max|logit|.
 
 In a directory that holds this script and nothing else of the
 repository it exits 1, without a card 2. The last lines are the nvidia-smi line, one JSON object with a record
@@ -163,8 +184,9 @@ per kernel, and ``{"ok": true, "device": {...}}``.
 times phase 3's Q+LR cases (K1 at its main, router and dense lead-in
 shapes, K2 at both M = 256 shapes, K1/K2 at the MLA projections, K6 at
 all five), its K3, K4 and K5 cases (K5 also at deepseek-moe's KV 16, hd
-128; with the dense variants' G = 16 and G = 3 and K3's latent rows
-where the tree has them) and K7's sixteen, of the tree at PARENT_ROOT
+128; with the dense variants' G = 16 and G = 3, K3's latent rows and
+the head-dim-256 K3/K4 rows where the tree has them) and K7's sixteen,
+of the tree at PARENT_ROOT
 (an unpacked ``git
 archive``) and of this one on one card, in the order parent, change,
 change, parent, and prints one line per case
@@ -294,12 +316,15 @@ def check_qlr(dev, m: int, k: int, n: int, rank: int, packed: bool) -> dict:
 
 
 def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
-                 ragged: bool = False, g: int = 1) -> dict:
+                 ragged: bool = False, g: int = 1, ring: int = 0) -> dict:
     """K3 over a full cache (every row valid up to slot s - 1) or, with
     ``ragged``, at phase 4's serving occupancy: row i holds 150 + 132·i/7
     valid slots (150–282) and the slots past them carry k_pos = -1. ``g``
     query heads a KV head; the yardstick is SDPA over the KV heads
-    expanded to the query heads (expanded before it is timed)."""
+    expanded to the query heads (expanded before it is timed). ``ring``:
+    a local layer's wrapped ring of s slots under a window of s, every
+    row at q_pos ``ring`` − 1, slot j holding the position p ≡ j (mod s)
+    in ``ring`` − s .. ``ring`` − 1 (not in slot order)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
@@ -312,6 +337,8 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
     ks = vs = None
     if kind == "bf16":
         k, v = kf.bfloat16(), vf.bfloat16()
+    elif kind == "f32":
+        k, v = kf, vf
     else:
         qmax = 127 if kind == "int8" else 7
         ks = kf.abs().amax(-1).clamp_min(1e-8) / qmax
@@ -321,16 +348,26 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
         if kind == "int4":
             k, v = pack_codes_4bit(k), pack_codes_4bit(v)
     lengths = [150 + (132 * i) // (b - 1) if ragged else s for i in range(b)]
-    q_pos = torch.tensor(lengths, dtype=torch.int32, device=dev) - 1
-    k_pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
-    k_pos = torch.where(k_pos <= q_pos[:, None], k_pos, -1)
-    mask = (k_pos >= 0)[:, None, None, :]
+    window = s if ring else 0
+    if ring:
+        j = torch.arange(s, dtype=torch.int32, device=dev)
+        k_pos = (j + s * ((ring - 1 - j) // s)).repeat(b, 1)
+        q_pos = torch.full((b,), ring - 1, dtype=torch.int32, device=dev)
+    else:
+        q_pos = torch.tensor(lengths, dtype=torch.int32, device=dev) - 1
+        k_pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+        k_pos = torch.where(k_pos <= q_pos[:, None], k_pos, -1)
+    ok = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    if window:
+        ok &= q_pos[:, None] - k_pos < window
+    mask = ok[:, None, None, :]
 
     def kernel(q_, k_, v_, ks_, vs_):
-        return dk.flash_decode(q_, k_, v_, q_pos, k_pos, ks_, vs_)
+        return dk.flash_decode(q_, k_, v_, q_pos, k_pos, ks_, vs_, window)
 
     def plain(q_, k_, v_, ks_, vs_):
-        return dk.decode_attention_plain(q_, k_, v_, q_pos, k_pos, ks_, vs_)
+        return dk.decode_attention_plain(q_, k_, v_, q_pos, k_pos, ks_, vs_,
+                                         window)
 
     got, want = kernel(q, k, v, ks, vs), plain(q, k, v, ks, vs)
     torch.cuda.synchronize()
@@ -339,6 +376,8 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
     # the yardstick: SDPA on the dense (dequantized) cache
     if kind == "bf16":
         kd, vd, qd = k, v, q.bfloat16()
+    elif kind == "f32":
+        kd, vd, qd = k, v, q
     else:
         kc, vc = (unpack_codes_4bit(k), unpack_codes_4bit(v)) \
             if kind == "int4" else (k, v)
@@ -354,10 +393,10 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
     t_kernel, host = time_ms(kernel, sets)
     t_plain, _ = time_ms(plain, sets)
     t_lib, _ = time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
-        a, b_, c, attn_mask=mask if ragged else None), dense)
+        a, b_, c, attn_mask=mask if ragged or ring else None), dense)
     # bytes: the K/V rows (and scales) of the valid slots, the positions,
     # q and the output; "walked": every slot of every row
-    valid = sum(lengths)
+    valid = int(ok.sum())
     slot_bytes = 2 * kvh * hd * k.element_size() / (2 if kind == "int4" else 1)
     if ks is not None:
         slot_bytes += 2 * kvh * 4
@@ -366,7 +405,8 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
     ops = 2 * 2 * valid * kvh * g * hd
     b_ms, b_by = bound_ms(nbytes, ops, "float32")
     row = dict(name="K3 flash_decode", shape=f"B={b} KV={kvh} G={g} S={s} "
-               f"hd={hd} {kind}" + (" rows 150-282" if ragged else ""),
+               f"hd={hd} {kind}" + (" rows 150-282" if ragged else "")
+               + (f" ring {ring - s}-{ring - 1} window {s}" if ring else ""),
                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
                bound_by=b_by)
@@ -397,7 +437,7 @@ def check_decode_latent(dev, kind: str, b=8, s=512, h=16, r=512, pe=64,
 
     def kernel(q_, lat_):
         return dk.flash_decode(q_, lat_[:, None], lat_[:, None, :, :r],
-                               q_pos, k_pos, scale=scale)
+                               q_pos, k_pos, scale=scale, latent=True)
 
     def plain(q_, lat_):
         return dk.decode_attention_plain(q_, lat_[:, None],
@@ -431,43 +471,62 @@ def check_decode_latent(dev, kind: str, b=8, s=512, h=16, r=512, pe=64,
                 bound_by=b_by)
 
 
-def check_flash(dev, h=32, s=256, hd=96) -> dict:
+def check_flash(dev, h=32, s=256, hd=96, g: int = 1, dtype: str = "f32",
+                window: int = 0) -> dict:
+    """K4 over a causal prefill of ``s`` tokens: ``h`` query heads, ``g``
+    of them a KV head, an optional window; f32 (tolerance 1e-4 of the
+    output scale) or bf16 (one bf16 ulp of it). The yardstick is SDPA
+    with the KV heads expanded to the query heads (expanded before it is
+    timed) and, under a window, its boolean mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
 
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    kvh = h // g
     gen = torch.Generator(device=dev).manual_seed(hd)
-    q = torch.randn((1, s, h, 1, hd), generator=gen, device=dev)
-    k = torch.randn((1, s, h, hd), generator=gen, device=dev)
-    v = torch.randn((1, s, h, hd), generator=gen, device=dev)
+    q = torch.randn((1, s, kvh, g, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((1, s, kvh, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((1, s, kvh, hd), generator=gen, device=dev).to(dt)
     pos = torch.arange(s, dtype=torch.int32, device=dev)
 
     def kernel(q_, k_, v_):
-        return fk.flash_attention_cuda(q_, k_, v_, pos, pos)
+        return fk.flash_attention_cuda(q_, k_, v_, pos, pos, window=window)
 
     def plain(q_, k_, v_):
-        return fk.flash_attention_plain(q_, k_, v_, pos, pos)
+        return fk.flash_attention_plain(q_, k_, v_, pos, pos, window=window)
 
     got, want = kernel(q, k, v), plain(q, k, v)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    tol = (1e-4 if dtype == "f32" else 2 ** -8) \
+        * max(1.0, float(want.float().abs().max()))
     n_copies = copies_for(tensor_bytes(q, k, v))
     sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n_copies)]
-    heads = [tuple(t.reshape(1, s, h, hd).transpose(1, 2).contiguous()
-                   for t in st) for st in sets]
+    heads = [(st[0].reshape(1, s, h, hd).transpose(1, 2).contiguous(),
+              *(t.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+                for t in st[1:])) for st in sets]
+    i = torch.arange(s, device=dev)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window) \
+        if window else None
     t_kernel, host = time_ms(kernel, sets)
     t_plain, _ = time_ms(plain, sets)
     t_lib, _ = time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
-        a, b_, c, is_causal=True), heads)
-    nbytes = 4 * tensor_bytes(q) + 2 * s * 4
-    pairs = s * (s + 1) // 2                  # causal: keys at or before
+        a, b_, c, is_causal=mask is None, attn_mask=mask), heads)
+    nbytes = 2 * tensor_bytes(q) + 2 * tensor_bytes(k) + 2 * s * 4
+    # causal: keys at or before; a window keeps the last ``window`` of them
+    pairs = sum(min(r + 1, window) for r in range(s)) if window \
+        else s * (s + 1) // 2
     ops = 2 * 2 * h * pairs * hd
-    b_ms, b_by = bound_ms(nbytes, ops, "float32")
-    return dict(name="K4 flash_attention", shape=f"H={h} S={s} hd={hd} "
-                f"causal f32", max_abs_err=err, tol=tol, ms=t_kernel,
-                host_ms=host, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                bound_by=b_by)
+    b_ms, b_by = bound_ms(nbytes, ops, "float32" if dtype == "f32"
+                          else "bfloat16")
+    shape = (f"H={h} S={s} hd={hd} causal f32"
+             if (g, dtype, window) == (1, "f32", 0) else
+             f"H={h} KV={kvh} S={s} hd={hd} causal {dtype}"
+             + (f" window {window}" if window else ""))
+    return dict(name="K4 flash_attention", shape=shape, max_abs_err=err,
+                tol=tol, ms=t_kernel, host_ms=host, plain_ms=t_plain,
+                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_paged(dev, kind: str, b=8, kvh=32, hd=96, ps=16, nb=32,
@@ -743,6 +802,22 @@ MLA_QLR = ((8, 2048, 3072), (8, 2048, 512), (8, 2048, 2048),
            (256, 2048, 3072), (256, 2048, 512), (256, 2048, 2048),
            (256, 512, 2048))
 MLA_K7 = ((2048, 3072), (2048, 512), (512, 2048))
+# phase "hybrid" (recurrentgemma-9b): K3 at the local layers' decode (B=8,
+# one KV head, G 16, head dim 256) in the four cache kinds, bf16 at the
+# serving rows; K3 on run (b)'s wrapped 2048-slot ring (positions
+# 952–2999, q_pos 2999, window 2048); K4 at the local prefill (16 heads
+# over one KV head of 256, S 256 f32/bf16, and S 2100 under the window);
+# K1 (decode rows) and K2 (prefill rows) at its projections: the RG-LRU
+# w_gate/w_branch/w_a/w_x/w_out and the local wq/wo 4096×4096, the MLP's
+# gate/up 4096×12288 and down 12288×4096; K7 at those and at wk/wv
+# 4096×256
+HYBRID_DECODE = (("bf16", True), ("f32", False), ("int8", False),
+                 ("int4", False))
+HYBRID_RING = 3000
+HYBRID_FLASH = ((256, "f32", 0), (256, "bf16", 0), (2100, "f32", 2048))
+HYBRID_QLR = ((8, 4096, 4096), (8, 4096, 12288), (8, 12288, 4096),
+              (256, 4096, 4096), (256, 4096, 12288), (256, 12288, 4096))
+HYBRID_K7 = ((4096, 4096), (4096, 256), (4096, 12288), (12288, 4096))
 
 
 def phase_kernels(dev) -> list:
@@ -797,6 +872,20 @@ def phase_kernels(dev) -> list:
     for m, k, n in MLA_QLR:
         rows.append(check_qlr(dev, m, k, n, 16, False))
     for m, n in MLA_K7:
+        rows.append(check_quantize(dev, m, n))
+    # phase "hybrid": K3 and K4 at head dim 256 (one KV head, G = 16), K3
+    # on a wrapped ring, K1/K2/K7 at recurrentgemma-9b's projections
+    for kind, ragged in HYBRID_DECODE:
+        rows.append(check_decode(dev, kind, kvh=1, hd=256, g=16,
+                                 ragged=ragged))
+    rows.append(check_decode(dev, "bf16", b=2, kvh=1, s=2048, hd=256, g=16,
+                             ring=HYBRID_RING))
+    for s_len, dtype, window in HYBRID_FLASH:
+        rows.append(check_flash(dev, h=16, s=s_len, hd=256, g=16,
+                                dtype=dtype, window=window))
+    for m, k, n in HYBRID_QLR:
+        rows.append(check_qlr(dev, m, k, n, 16, False))
+    for m, n in HYBRID_K7:
         rows.append(check_quantize(dev, m, n))
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms"
@@ -2488,14 +2577,17 @@ def phase_moe(dev, k7_ms=None) -> dict:
 # phase "dense": chatglm3-6b, minitron-4b, qwen1.5-32b at full width
 # ---------------------------------------------------------------------------
 # (arch, layers run: None for the published depth, paged run too, build
-# the scalings ahead of the pass). qwen1.5-32b's 64 layers are 131 GiB in
+# the scalings ahead of the pass). chatglm3-6b and minitron-4b run 8 of
+# their 28 and 32 layers: at full depth the phase took 240–256 s of the
+# script's 1200 s limit, and every width, and so every kernel shape, is
+# the same at 8. qwen1.5-32b's 64 layers are 131 GiB in
 # f32; 4 of its layers (2.1 GB each, plus a 3.0 GB Σxxᵀ for down's
 # 27,392-wide input) fit beside the embedding and head. chatglm3-6b's
-# scalings are built inside the pass, one layer at a time: built ahead,
-# S and S⁻¹ of its 112 moment sets (2 × 26 GB) would not fit beside the
-# f32 model and Σxxᵀ.
-DENSE_RUNS = (("chatglm3-6b", None, True, False),
-              ("minitron-4b", None, True, True),
+# scalings are built inside the pass, one layer at a time, as at its
+# full depth, where S and S⁻¹ of its 112 moment sets (2 × 26 GB) would
+# not fit beside the f32 model and Σxxᵀ.
+DENSE_RUNS = (("chatglm3-6b", 8, True, False),
+              ("minitron-4b", 8, True, True),
               ("qwen1.5-32b", 4, False, True))
 # the QKV biases filled before calibration: N(0, BIAS_STD²) from a seed
 BIAS_STD = 0.1
@@ -2882,6 +2974,257 @@ def phase_mla(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase "hybrid": recurrentgemma-9b at full width
+# ---------------------------------------------------------------------------
+# recurrentgemma-9b's layers in phase "hybrid" (of 38): two (rglru, rglru,
+# local) periods and the (rglru, rglru) remainder, every width as
+# published. At full depth the f32 model is 41.8 GB and its Σxxᵀ about
+# 32 GB, which with the pass's working set does not fit the 80 GB card.
+HYBRID_LAYERS = 8
+# run (b): two prompts past the 2048-token window, in a 2304-slot cache
+RING_LENGTHS = (2100, 2080)
+
+
+def hybrid_model(dev, cfg, tag: str) -> tuple:
+    """``init_lm`` (seed 0) → calibration (phase 4's batches) → the
+    qera-exact scalings built ahead (timed) → SRR (rank 16, 3-bit MXINT,
+    int8 container) with K7's launches read around the pass. Returns
+    (model, stats of the pass)."""
+    import torch
+    from repro_torch.core.api import PTQConfig
+    from repro_torch.models import init_lm
+    from repro_torch.models.quantize import quantize_model_params
+
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    log(tag, f"init_lm {cfg.name}: {cfg.n_layers} layers "
+        f"{[blk.kind for blk in model.blocks]} d_model {cfg.d_model} d_rnn "
+        f"{cfg.d_rnn_} conv {cfg.conv_width} heads {cfg.n_heads} kv "
+        f"{cfg.n_kv_heads} head_dim {cfg.head_dim_} window {cfg.window} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab} in {time.perf_counter() - t0:.2f} s; "
+        f"f32 {torch.cuda.memory_allocated() / gib:.2f} GiB")
+    stats, t_calib = calibrate(dev, cfg, model, tag)
+    t_scaling = build_scalings(stats)
+    reset_counts()
+    t0 = time.perf_counter()
+    model, reports = quantize_model_params(
+        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
+                         seed=0), container="int8", stats=stats, device=dev)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    ptq_counts = launch_counts()
+    require(not stats, "the pass left calibration statistics behind")
+    peak = torch.cuda.max_memory_allocated() / gib
+    mean_k = sum(r.k_star for r in reports) / len(reports)
+    log(tag, f"calibration {t_calib:.2f} s; qera-exact scalings built ahead "
+        f"in {t_scaling:.2f} s; SRR quantized {len(reports)} matrices in "
+        f"{t_quant:.2f} s (rank 16, 3-bit MXINT b32, mean k* {mean_k:.2f}); "
+        f"K7 launches {ptq_counts['K7']}; peak memory of init + calibration "
+        f"+ PTQ {peak:.2f} GiB; int8 model "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB")
+    require(ptq_counts["K7"] >= 2 * len(reports),
+            f"the PTQ pass did not quantize through K7: {ptq_counts}")
+    return model, dict(calibration_s=t_calib, scaling_s=t_scaling,
+                       quantize_s=t_quant, peak_gib=peak, mean_k=mean_k,
+                       matrices=len(reports), ptq_counts=ptq_counts)
+
+
+def hybrid_logits(dev, cfg, model, reqs, max_len: int,
+                  step: bool) -> dict:
+    """The prompts' prefill logits (right-padded, ``lengths``) through the
+    kernels against ``fused="off"`` into a bf16 cache of ``max_len``
+    slots and, with ``step``, one decode step's logits over the prefilled
+    lanes (copies of the kernel run's cache) the same way."""
+    import torch
+    from repro_torch.models import Ctx, decode_step, init_cache, prefill
+
+    width = max(len(r.prompt) for r in reqs)
+    tokens = torch.zeros((len(reqs), width), dtype=torch.long)
+    for i, r in enumerate(reqs):
+        tokens[i, :len(r.prompt)] = torch.from_numpy(r.prompt).long()
+    n = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32,
+                     device=dev)
+    logit, cache = {}, None
+    for fused in ("auto", "off"):
+        out, c = prefill(Ctx(fused=fused), model, tokens.to(dev),
+                         init_cache(cfg, len(reqs), max_len, torch.bfloat16,
+                                    dev), lengths=n)
+        logit[fused] = out.float()
+        cache = cache or c
+    res = dict(prefill_err=float((logit["auto"] - logit["off"]).abs().max()),
+               prefill_scale=float(logit["off"].abs().max()))
+    require(bool(torch.isfinite(logit["auto"]).all()), "non-finite logits")
+    if not step:
+        return res
+    ring = next(c["slot_pos"] for c, blk in zip(cache, model.blocks)
+                if blk.kind == "local")
+    res["ring_slots"] = ring.shape[1]
+    res["ring_max_pos"] = int(ring.max())
+    tok = logit["auto"][:, -1].argmax(-1)[:, None]
+    out = {}
+    for fused in ("auto", "off"):
+        step_cache = [{k: v.clone() for k, v in c.items()} for c in cache]
+        out[fused] = decode_step(Ctx(fused=fused), model, tok,
+                                 step_cache)[0].float()
+    require(bool(torch.isfinite(out["auto"]).all()), "non-finite logits")
+    res.update(step_err=float((out["auto"] - out["off"]).abs().max()),
+               step_scale=float(out["off"].abs().max()))
+    return res
+
+
+def phase_hybrid(dev) -> dict:
+    """Phase "hybrid": recurrentgemma-9b (RG-LRU blocks and sliding-window
+    layers) at full width, its first ``HYBRID_LAYERS`` layers →
+    :func:`hybrid_model` → (a) phase 4's unpaged serving, bf16 KV (every
+    projection through K1 at decode and K2 at prefill, the local layers'
+    attention through K3 and K4 at head dim 256; launches exactly as the
+    layout gives them), profiled decode steps; (c) the same with int8 KV
+    (the same tokens); the drift probe leaving the cache bit for bit;
+    ``paged`` and ``speculative`` refused; (b) two prompts of 2100 and 2080
+    tokens in a 2304-slot cache (the 2048-slot ring wraps in the prefill
+    and the decode; K4 under the live window); the prefill logits of (a)
+    and (b) and one decode step's logits after the wrap through the
+    kernels against ``fused="off"``, each within 1e-3 · max|logit|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.linear import QLinear
+    from repro_torch.serve import Engine
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              n_layers=HYBRID_LAYERS)
+    tag = "hybrid"
+    gib = 2.0 ** 30
+    model, run = hybrid_model(dev, cfg, tag)
+    n_local = sum(blk.kind == "local" for blk in model.blocks)
+    n_proj = sum(isinstance(m, QLinear) for m in model.blocks.modules())
+
+    def check_counts(counts, steps: int, prefills: int, what: str) -> None:
+        want = {"K1": steps * n_proj, "K2": prefills * n_proj,
+                "K3": steps * n_local, "K4": prefills * n_local, "K5": 0,
+                "K6": 0}
+        require(all(counts[k] == v for k, v in want.items()),
+                f"{what}: launches {counts}, the layout gives {want} "
+                f"({steps} decode steps, {prefills} prefills)")
+
+    # (a) phase 4's serving, bf16 KV
+    sc = main_serve_config()
+    serve(Engine(model, cfg, sc, device=dev),
+          make_requests(cfg, 2, seed=1, lengths=[40, 60]))     # warm-up
+    eng = Engine(model, cfg, sc, device=dev)
+    reqs = make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results, steps, wall = serve(eng, reqs)
+    counts = launch_counts()
+    n_steps = eng.sched.stats.decode_steps
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_s for r in results]
+    step_ms = 1e3 * sum(steps) / len(steps)
+    log(tag, f"(a) served {len(results)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s: {n_tok / wall:.1f} tok/s; TTFT first "
+        f"{1e3 * min(ttft):.1f} ms mean {1e3 * sum(ttft) / len(ttft):.1f} ms "
+        f"max {1e3 * max(ttft):.1f} ms; decode step {step_ms:.2f} ms over "
+        f"{len(steps)} decode-only steps ({n_steps} decode steps in all); "
+        f"peak memory while serving "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    log(tag, f"(a) kernel launches in the run: {counts} ({n_proj} "
+        f"projections, {n_local} local layers)")
+    require(len(results) == 8 and all(len(r.tokens) == 32 for r in results),
+            f"expected 8 requests × 32 tokens, got "
+            f"{[len(r.tokens) for r in results]}")
+    require(all(0 <= t < cfg.vocab for r in results for t in r.tokens),
+            "a token outside the vocabulary")
+    check_counts(counts, n_steps, eng.sched.stats.admitted, "(a)")
+    prof = profile_decode(eng, cfg, make_requests(cfg, 8, seed=4,
+                                                  lengths=MAIN_LENGTHS),
+                          tag=tag)
+    del eng
+
+    # (c) int8 KV: the local layers' K/V as int8 codes, the RG-LRU
+    # states' conv history in bf16 (as under bf16 KV)
+    eng8 = Engine(model, cfg, main_serve_config(kv_dtype="int8"), device=dev)
+    reset_counts()
+    results8, _, _ = serve(eng8, make_requests(cfg, 8, seed=0,
+                                               lengths=MAIN_LENGTHS))
+    counts8 = launch_counts()
+    bad = hold_tokens(dev, cfg, model, reqs,
+                      [r.tokens.tolist() for r in results8],
+                      [r.tokens.tolist() for r in results],
+                      "hybrid int8 KV vs bf16")
+    log(tag, f"(c) int8 KV engine: {8 - bad}/8 requests' tokens equal the "
+        f"bf16 engine's; local K dtype "
+        f"{eng8.slots.cache[2]['k'].dtype}, conv history "
+        f"{eng8.slots.cache[0]['conv'].dtype}; launches {counts8}")
+    require(bad == 0, "the int8-KV engine's tokens differ from bf16's")
+    check_counts(counts8, eng8.sched.stats.decode_steps,
+                 eng8.sched.stats.admitted, "(c)")
+    del eng8
+
+    changed = probe_leaves_cache(dev, cfg, model, main_serve_config(
+        drift_monitor=True, drift_sample_rate=1.0))
+    log(tag, f"drift probe's reference pass over a live hybrid cache: "
+        f"{changed} tensors changed")
+    require(changed == 0, "the drift probe left the hybrid cache changed")
+    refused = []
+    for kw in (dict(paged=True), dict(speculative=True)):
+        try:
+            Engine(model, cfg, main_serve_config(**kw), device=dev)
+        except ValueError as e:
+            refused.append(str(e).split(" (")[0])
+    log(tag, f"refused: {refused}")
+    require(len(refused) == 2, "a paged or speculative hybrid engine was "
+            "built")
+
+    # (b) the ring wrapping at full width
+    scb = main_serve_config(decode_batch=2, max_len=2304, prefill_len=2112,
+                            max_new_tokens=16)
+    rreqs = make_requests(cfg, 2, seed=2, lengths=list(RING_LENGTHS))
+    engb = Engine(model, cfg, scb, device=dev)
+    reset_counts()
+    resb, stepsb, wallb = serve(engb, rreqs)
+    countsb = launch_counts()
+    ttftb = [r.ttft_s for r in resb]
+    log(tag, f"(b) {len(resb)} requests of {list(RING_LENGTHS)} tokens, "
+        f"{sum(len(r.tokens) for r in resb)} tokens in {wallb:.3f} s; TTFT "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in ttftb)} ms; decode step "
+        f"{1e3 * sum(stepsb) / len(stepsb):.2f} ms; launches {countsb}")
+    require(all(len(r.tokens) == 16 for r in resb),
+            f"expected 2 × 16 tokens, got {[len(r.tokens) for r in resb]}")
+    check_counts(countsb, engb.sched.stats.decode_steps,
+                 engb.sched.stats.admitted, "(b)")
+    del engb
+
+    lg = hybrid_logits(dev, cfg, model, reqs[:1], 512, False)
+    lgb = hybrid_logits(dev, cfg, model, rreqs, 2304, True)
+    gates = [("(a) prefill", lg["prefill_err"], lg["prefill_scale"]),
+             ("(b) prefill", lgb["prefill_err"], lgb["prefill_scale"]),
+             ("(b) decode step after the wrap", lgb["step_err"],
+              lgb["step_scale"])]
+    for what, err, scale in gates:
+        log(tag, f"{what} logits, kernels vs fused=off: max |Δ| {err:.3e} "
+            f"(max |logit| {scale:.3f}, tol {1e-3 * max(1.0, scale):.3e})")
+        require(err <= 1e-3 * max(1.0, scale),
+                f"the hybrid kernel path disagrees with fused=off: {what}")
+    log(tag, f"(b)'s ring: {lgb['ring_slots']} slots holding positions up "
+        f"to {lgb['ring_max_pos']}")
+    require(lgb["ring_max_pos"] >= lgb["ring_slots"], "the ring never "
+            "wrapped")
+    del model
+    torch.cuda.empty_cache()
+    run.update(counts=counts, counts_int8=counts8, counts_ring=countsb,
+               decode_steps=n_steps, tok_s=n_tok / wall, step_ms=step_ms,
+               ttft_ms=[1e3 * t for t in ttft], profile=prof,
+               ring_ttft_ms=[1e3 * t for t in ttftb],
+               ring_step_ms=1e3 * sum(stepsb) / len(stepsb),
+               probe_changed=changed, logits=[lg, lgb])
+    return run
+
+
+# ---------------------------------------------------------------------------
 # phase 3's kernels of two trees, in turns on one card
 # ---------------------------------------------------------------------------
 _COMPARE_ROWS = """
@@ -2924,6 +3267,15 @@ if "g" in inspect.signature(cs.check_decode).parameters:
 if hasattr(cs, "check_decode_latent"):
     rows += [cs.check_decode_latent(dev, kind)
              for kind in cs.MLA_LATENT_KINDS]
+# K3 and K4 at head dim 256 (recurrentgemma-9b), where the tree has them
+if hasattr(cs, "HYBRID_DECODE"):
+    rows += [cs.check_decode(dev, kind, kvh=1, hd=256, g=16, ragged=ragged)
+             for kind, ragged in cs.HYBRID_DECODE]
+    rows.append(cs.check_decode(dev, "bf16", b=2, kvh=1, s=2048, hd=256,
+                                g=16, ring=cs.HYBRID_RING))
+    rows += [cs.check_flash(dev, h=16, s=s_len, hd=256, g=16, dtype=dtype,
+                            window=window)
+             for s_len, dtype, window in cs.HYBRID_FLASH]
 # K7 at every shape of the SRR pass, a narrow last strip and N % 4 != 0
 rows += [cs.check_quantize(dev, m, n) for m, n in K7_SHAPES]
 print("ROWS " + json.dumps(rows))
@@ -3059,6 +3411,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mla_run = phase_mla(dev)
     log("mla", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hybrid_run = phase_hybrid(dev)
+    log("hybrid", f"phase took {time.perf_counter() - t0:.1f} s")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -3067,7 +3422,7 @@ def main() -> int:
                    "surface": surface_run, "frontend": frontend_run,
                    "ptq": ptq_run,
                    "moe_path": moe_run, "dense": dense_run,
-                   "mla": mla_run}, fh, indent=1)
+                   "mla": mla_run, "hybrid": hybrid_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",
@@ -3139,6 +3494,43 @@ def main() -> int:
         picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
                       *picks["K7"][2:])
         runs.append((key, "K7", mla_run["ptq_counts"]))
+    # phase "hybrid": K3 at head dim 256 (bf16 at the serving rows, served
+    # by run (a); int8, by run (c)), on the wrapped ring (run (b)), K4 at
+    # head dim 256 (f32: run (a)'s 256-token prefills, and under the
+    # window: run (b)'s), K1/K2 at its projections (run (a)), K7 at its
+    # matrices (its PTQ pass); the f32/int4 K3 and bf16 K4 rows stay in
+    # build/chip_smoke.json (no run serves them)
+    hyb = {"K3 hd256": ("K3 flash_decode",
+                        "B=8 KV=1 G=16 S=512 hd=256 bf16 rows 150-282",
+                        hybrid_run["counts"]),
+           "K3 hd256 int8": ("K3 flash_decode",
+                             "B=8 KV=1 G=16 S=512 hd=256 int8",
+                             hybrid_run["counts_int8"]),
+           "K3 ring": ("K3 flash_decode",
+                       f"B=2 KV=1 G=16 S=2048 hd=256 bf16 ring "
+                       f"{HYBRID_RING - 2048}-{HYBRID_RING - 1} window 2048",
+                       hybrid_run["counts_ring"]),
+           "K4 hd256": ("K4 flash_attention",
+                        "H=16 KV=1 S=256 hd=256 causal f32",
+                        hybrid_run["counts"]),
+           "K4 window": ("K4 flash_attention",
+                         "H=16 KV=1 S=2100 hd=256 causal f32 window 2048",
+                         hybrid_run["counts_ring"])}
+    for key, (kname, shape, counts) in hyb.items():
+        kernel = kname.split()[0]
+        picks[key] = (kname, shape, *picks[kernel][2:])
+        runs.append((key, kernel, counts))
+    for m, k, n in HYBRID_QLR:
+        kernel = "K1" if m <= 128 else "K2"
+        key = f"{kernel} hybrid {m}x{k}x{n}"
+        picks[key] = (picks[kernel][0], f"M={m} K={k} N={n} r=16 int8",
+                      *picks[kernel][2:])
+        runs.append((key, kernel, hybrid_run["counts"]))
+    for m, n in HYBRID_K7:
+        key = f"K7 hybrid {m}x{n}"
+        picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
+                      *picks["K7"][2:])
+        runs.append((key, "K7", hybrid_run["ptq_counts"]))
     kernels = []
     for key, kernel, counts in runs:
         kname, shape, source, replaces = picks[key]

@@ -13,10 +13,14 @@ needs no JAX. It handles:
   * the three linear schemas: fp ``{"w"[, "b"]}``, quant ``{"codes",
     "scale", "l", "r"[, "gscale", "b"]}`` and packed4 ``{"packed", ...}``,
     keeping MXINT padding rows (``codes`` may have more rows than ``l``);
-  * a block's mixer: GQA ``{"wq", "wk", "wv", "wo"}`` or MLA ``{"w_dkv",
-    "w_kpe", "w_uk", "w_uv", "wo", "ckv_norm"}`` with ``w_q`` or the
-    q-LoRA ``w_dq``/``q_norm``/``w_uq`` (``repro/models/attention.py::
-    init_mla``), each projection in any of the three schemas;
+  * a block's mixer: GQA ``{"wq", "wk", "wv", "wo"}`` (full or local
+    attention), MLA ``{"w_dkv", "w_kpe", "w_uk", "w_uv", "wo",
+    "ckv_norm"}`` with ``w_q`` or the q-LoRA ``w_dq``/``q_norm``/``w_uq``
+    (``repro/models/attention.py::init_mla``), or RG-LRU ``{"w_gate",
+    "w_branch", "w_out", "w_a", "w_x", "conv_w", "conv_b", "lam"}``
+    (``repro/models/rglru.py::init_rglru``), each projection in any of
+    the three schemas. A block's kind comes from the config's layout
+    (``models.transformer.kind_at`` of its depth), not from its keys;
   * a block's FFN: ``mlp`` (SwiGLU; the dense ``prefix`` lead-in layers
     of an MoE config carry it too) or ``moe`` — ``router``, ``experts``
     (the three schemas with a leading expert axis: in ``groups`` a leaf
@@ -36,7 +40,8 @@ from repro_torch.models.attention import MLA, Attention
 from repro_torch.models.layers import MLP, RMSNorm
 from repro_torch.models.linear import FpLinear, QLinear
 from repro_torch.models.moe import MoE
-from repro_torch.models.transformer import LM, Block
+from repro_torch.models.rglru import RGLRU, RGLRU_PROJECTIONS
+from repro_torch.models.transformer import LM, Block, kind_at
 
 _DTYPES = {np.dtype(np.float32), np.dtype(np.int8), np.dtype(np.uint8)}
 
@@ -81,12 +86,23 @@ def _mla(mx: Dict[str, Any], device) -> MLA:
                RMSNorm(_tensor(mx["ckv_norm"]["g"], device)), **q)
 
 
-def _block(d: Dict[str, Any], device) -> Block:
+def _rglru(mx: Dict[str, Any], device) -> RGLRU:
+    return RGLRU(*(_linear(mx[n], device) for n in RGLRU_PROJECTIONS),
+                 *(_tensor(mx[n], device) for n in ("conv_w", "conv_b", "lam")))
+
+
+def _block(d: Dict[str, Any], kind: str, device) -> Block:
     mx = d["mixer"]
-    mixer = _mla(mx, device) if "w_dkv" in mx else \
-        Attention(*(_linear(mx[n], device) for n in ("wq", "wk", "wv", "wo")))
+    if kind == "rglru":
+        mixer = _rglru(mx, device)
+    elif "w_dkv" in mx:
+        mixer = _mla(mx, device)
+    else:
+        mixer = Attention(*(_linear(mx[n], device)
+                            for n in ("wq", "wk", "wv", "wo")))
     return Block(RMSNorm(_tensor(d["norm1"]["g"], device)), mixer,
-                 RMSNorm(_tensor(d["norm2"]["g"], device)), _ffn(d, device))
+                 RMSNorm(_tensor(d["norm2"]["g"], device)), _ffn(d, device),
+                 kind)
 
 
 def _unstack(tree: Any, i: int) -> Any:
@@ -106,18 +122,19 @@ def convert_params(tree: Dict[str, Any], cfg: ModelConfig, *,
     """Build the port's :class:`~repro_torch.models.transformer.LM` from a
     JAX parameter tree (numpy leaves), on ``device``."""
     dev = resolve_device(device)
-    blocks: List[Block] = [_block(d, dev) for d in tree.get("prefix", [])]
+    layers: List[Dict[str, Any]] = list(tree.get("prefix", []))
     groups = tree.get("groups") or {}
     period = len(cfg.block_pattern)
     if groups:
         n_groups = _first_leaf(groups["p0"]).shape[0]
         for g in range(n_groups):
             for pos in range(period):
-                blocks.append(_block(_unstack(groups[f"p{pos}"], g), dev))
-    blocks += [_block(d, dev) for d in tree.get("suffix", [])]
-    if len(blocks) != cfg.n_layers:
-        raise ValueError(f"tree holds {len(blocks)} blocks, config "
+                layers.append(_unstack(groups[f"p{pos}"], g))
+    layers += list(tree.get("suffix", []))
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"tree holds {len(layers)} blocks, config "
                          f"{cfg.name} has {cfg.n_layers} layers")
+    blocks = [_block(d, kind_at(cfg, i), dev) for i, d in enumerate(layers)]
     head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
     return LM(cfg, _tensor(tree["embed"]["w"], dev), blocks,
               RMSNorm(_tensor(tree["final_norm"]["g"], dev)), head)

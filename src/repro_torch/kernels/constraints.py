@@ -72,6 +72,18 @@ ATTN_HEAD_DIM_ALIGN = 8
 # double-buffered in shared memory.
 ATTN_Q_TILE = 64
 ATTN_K_TILE = 64
+# K3 (unpaged GQA) and K4 at a wider head, up to ATTN_WIDE_HEAD_DIM
+# (recurrentgemma-9b: hd 256, one KV head, G = 16). K4's wide instance
+# splits the output columns between a row's two warps (each owning
+# ATTN_MAX_HEAD_DIM of them) instead of the key tile, reads Q's fragments
+# from shared memory, and walks ATTN_WIDE_K_TILE-key tiles so that two
+# f32 stages of K and V fit beside the Q tile. K3's wide instance keeps
+# DECODE_BLOCK_GROUP heads a block (64 accumulator floats a lane) and
+# aims at DECODE_WIDE_BLOCKS_PER_SM blocks an SM (its shared memory: 141
+# KB a block in f32, 76 KB in bf16). K5 keeps ATTN_MAX_HEAD_DIM.
+ATTN_WIDE_HEAD_DIM = 256
+ATTN_WIDE_K_TILE = 32
+DECODE_WIDE_BLOCKS_PER_SM = 2
 # K3/K5 take up to DECODE_MAX_GROUP query heads a KV head (chatglm3-6b:
 # 16). A block keeps one accumulator per query head in registers for at
 # most DECODE_BLOCK_GROUP heads, so a wider group is split across
@@ -148,15 +160,17 @@ def validate_page_size(page_size: int, what: str = "page_size") -> None:
             f"must not straddle a page")
 
 
-def check_head_dim(hd: int) -> None:
-    if hd > ATTN_MAX_HEAD_DIM or hd % ATTN_HEAD_DIM_ALIGN:
+def check_head_dim(hd: int, max_hd: int = ATTN_MAX_HEAD_DIM) -> None:
+    """The GQA attention kernels' limit: K5 at ATTN_MAX_HEAD_DIM, K3
+    (unpaged) and K4 at ATTN_WIDE_HEAD_DIM."""
+    if hd > max_hd or hd % ATTN_HEAD_DIM_ALIGN:
         raise ValueError(
-            f"head_dim={hd} unsupported: the attention kernels take at most "
-            f"{ATTN_MAX_HEAD_DIM} and a multiple of {ATTN_HEAD_DIM_ALIGN}")
+            f"head_dim={hd} unsupported: this attention kernel takes at "
+            f"most {max_hd} and a multiple of {ATTN_HEAD_DIM_ALIGN}")
 
 
 def check_decode_head_dim(hd: int) -> None:
-    """K3's limit: K4's, or the latent instance's wider head."""
+    """The limit of K3's latent instance."""
     if hd > DECODE_MAX_HEAD_DIM or hd % ATTN_HEAD_DIM_ALIGN:
         raise ValueError(
             f"head_dim={hd} unsupported: K3 takes at most "

@@ -98,6 +98,32 @@
 //   memory: at B = 8, S = 512, 8 splits of 2 tiles, 256 blocks, and a
 //   combine over 8 partials of 512 columns a head.
 //
+// The wide instance (WIDE): GQA at a head dim past kMaxHd, up to kWideHd =
+// 256 (recurrentgemma-9b's local layers: KV = 1, G = 16, hd 256, a window
+// of 2048 over a ring of slots), f32/bf16/int8/packed4, unpaged, V in its
+// own tensor as wide as K. What changes against the narrow instances:
+// - A lane owns P·V columns lane, lane + 32, ...: 8 a head at hd 256. A
+//   block keeps kBlockG = 8 heads, 64 accumulator floats a lane (the
+//   latent instance's pressure: 4 heads × 16), so the group of 16 takes 2
+//   blocks, each reading the head's K/V once. The other choice, the latent
+//   instance's 4 heads a block with a V pointer and scales of its own,
+//   would take 4 blocks re-reading K/V; 8 heads halve that, and the
+//   instance is a template parameter of the same body.
+// - P·V is the latent instance's shared loop (every head's probability
+//   of a slot first, then each value column read from shared memory once
+//   for the block's heads; the int8/int4 v_scale folds into the
+//   probability), not the per-head loop, which would read each column 8
+//   times.
+// - A tile of 32 rows is 33 KB of K or V in f32 (a 1 KB row is 64 chunks
+//   of 16 bytes, more than a warp's lanes: each lane copies chunks lane,
+//   lane + 32, ... of every valid row, as in the latent instance), 17 KB
+//   in bf16: two stages of K and V take 133 KB in f32 (one block an SM)
+//   and 68 KB in bf16 (two), and the host aims at 2 blocks an SM
+//   (kernels/decode_attention.py:blocks_per_sm). At B = 8, S = 512: 16
+//   rows of blocks, 16 splits of one tile, 256 blocks.
+// - A wrapped ring's valid slots are not in position order: the mask
+//   reads each slot's k_pos, so nothing here depends on the order.
+//
 // The limits below repeat src/repro_torch/kernels/constraints.py.
 #include <cfloat>
 #include <cuda_bf16.h>
@@ -111,6 +137,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTileS = 32;          // constraints.DECODE_TILE_SLOTS
 constexpr int kMaxSplitTiles = 16;  // constraints.DECODE_MAX_SPLIT_TILES
 constexpr int kMaxHd = 128;         // constraints.ATTN_MAX_HEAD_DIM
+constexpr int kWideHd = 256;        // constraints.ATTN_WIDE_HEAD_DIM
 constexpr int kMaxLatentHd = 576;   // constraints.DECODE_MAX_HEAD_DIM
 constexpr int kMaxLatentDv = 512;   // constraints.DECODE_LATENT_MAX_DV
 constexpr int kLatentBlockG = 4;    // constraints.DECODE_LATENT_BLOCK_GROUP
@@ -270,7 +297,8 @@ __device__ __forceinline__ float read_col(const unsigned char* tile,
 // ceil(G / MG) + c: block c of KV head h takes query heads c·MG ..
 // min(G, c·MG + MG) − 1 of the group. LAT: the latent instance (header);
 // dv < hd columns of V, read from K's rows, and out (B, KVH, G, dv).
-template <typename QT, int KV, bool PAGED, int MG, bool LAT>
+// WIDE: the wide GQA instance (header), hd up to kWideHd.
+template <typename QT, int KV, bool PAGED, int MG, bool LAT, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
                     const void* __restrict__ v,
@@ -286,9 +314,16 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   using K = Kind<KV>;
   static_assert(!LAT || (K::kSlots == 1 && !PAGED),
                 "the latent instance reads float rows, unpaged");
+  static_assert(!(LAT && WIDE) && !(WIDE && PAGED),
+                "the wide instance is GQA over the unpaged cache");
   constexpr int kSubRows = kSubS / K::kSlots;   // stored rows a warp owns
   // P·V columns a lane owns
-  constexpr int kCols = (LAT ? kMaxLatentDv : kMaxHd) / 32;
+  constexpr int kCols = (LAT ? kMaxLatentDv : WIDE ? kWideHd : kMaxHd) / 32;
+  // P·V with every head's probabilities first, each value column once
+  constexpr bool kSharedPV = LAT || WIDE;
+  // a stored row is more chunks than a warp has lanes (f32 past 128, and
+  // the latent rows): each lane copies chunks lane, lane + 32, ...
+  constexpr bool kLaneChunks = LAT || (WIDE && K::kSlots == 1);
   const int DV = LAT ? dv : hd;                 // V columns (LAT: K's first)
   constexpr int NS = stages<KV, LAT>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -357,7 +392,8 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   // this warp's valid rows of tile t into stage st (packed4: the byte
   // rows of the pairs with a valid slot)
   // a lane copies chunk lc of stored rows lr, lr + rows_per_pass, ...
-  // (no division in the loop; per_row <= 32: a row is at most 512 bytes)
+  // (no division in the loop; per_row <= 32: a row is at most 512 bytes,
+  // or kLaneChunks)
   const int per_row = hd * K::kElt / K::kCp;
   const int rows_per_pass = 32 / per_row;
   const int lr = lane / per_row, lc = lane % per_row;
@@ -365,16 +401,19 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
   const char* vg = static_cast<const char*>(v);
   auto load = [&](int t, int st) {
     const unsigned mask = wmask(t);
-    if constexpr (LAT) {
-      // a row is per_row > 32 chunks: every lane copies chunks lane,
-      // lane + 32, ... of each valid row (the mask is the warp's own)
+    if constexpr (kLaneChunks) {
+      // every lane copies chunks lane, lane + 32, ... of each valid row
+      // (the mask is the warp's own; LAT: K's rows alone)
       for (int r = 0; r < kSubRows; ++r) {
         if (!((mask >> r) & 1u)) continue;
         const size_t off = static_cast<size_t>(
             row_s[t * kTileS + warp * kSubS + r]) * hd * K::kElt;
         const int so = st * kWarps * sub_bytes + r * stride;
-        for (int c = lane; c < per_row; c += 32)
+        for (int c = lane; c < per_row; c += 32) {
           cp_async<K::kCp>(kw + so + c * K::kCp, kg + off + c * K::kCp);
+          if constexpr (!LAT)
+            cp_async<K::kCp>(vw + so + c * K::kCp, vg + off + c * K::kCp);
+        }
       }
       return;
     }
@@ -460,7 +499,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
 
       // online softmax over the warp's slots, P·V with p from the slot's
       // quad; lanes own columns lane, lane + 32, ...
-      if constexpr (LAT) {
+      if constexpr (kSharedPV) {
         // every head's probabilities first, then each value column read
         // once for the block's heads
         float pg[MG];
@@ -483,7 +522,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
             const float corr = expf(m[g] - m_new);
             m[g] = m_new;
             l[g] = l[g] * corr + sum;
-            pg[g] = p;
+            pg[g] = LAT ? p : p * vsc;   // LAT: no scales
 #pragma unroll
             for (int i = 0; i < kCols; ++i) acc[g][i] *= corr;
           }
@@ -510,7 +549,7 @@ flash_decode_kernel(const QT* __restrict__ q, const void* __restrict__ k,
       }
 #pragma unroll
       for (int g = 0; g < MG; ++g) {
-        if (!LAT && g < GB) {
+        if (!kSharedPV && g < GB) {
           float sg = s[g];
           sg += __shfl_xor_sync(0xffffffffu, sg, 1);
           sg += __shfl_xor_sync(0xffffffffu, sg, 2);
@@ -624,7 +663,8 @@ decode_combine_kernel(const float* __restrict__ m_part,
   }
 }
 
-template <typename QT, int KV, bool PAGED, int MG, bool LAT = false>
+template <typename QT, int KV, bool PAGED, int MG, bool LAT = false,
+          bool WIDE = false>
 int launch_groups(const QT* q, const void* k, const void* v, const float* ks,
                 const float* vs, const int* qp, const int* kp, const int* bt,
                 QT* out, float* m_part, float* l_part, float* acc_part, int B,
@@ -637,13 +677,14 @@ int launch_groups(const QT* q, const void* k, const void* v, const float* ks,
   static size_t opted = 44 * 1024;   // under the default with the static part
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<QT, KV, PAGED, MG, LAT>,
+        flash_decode_kernel<QT, KV, PAGED, MG, LAT, WIDE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     opted = smem;
   }
   const dim3 grid(KVH * ((G + MG - 1) / MG), B, splits);
-  flash_decode_kernel<QT, KV, PAGED, MG, LAT><<<grid, kThreads, smem, s>>>(
+  flash_decode_kernel<QT, KV, PAGED, MG, LAT, WIDE>
+      <<<grid, kThreads, smem, s>>>(
       q, k, v, ks, vs, qp, kp, bt, out, m_part, l_part, acc_part, KVH, G, S,
       nb, page, hd, window, split_tiles, scale, dv);
   cudaError_t e = cudaGetLastError();
@@ -658,13 +699,20 @@ int launch_kind(const QT* q, const void* k, const void* v, const float* ks,
                 const float* vs, const int* qp, const int* kp, const int* bt,
                 QT* out, float* m_part, float* l_part, float* acc_part, int B,
                 int KVH, int G, int S, int nb, int page, int hd, int window,
-                int splits, int split_tiles, float scale, int dv,
+                int splits, int split_tiles, float scale, int dv, bool latent,
                 cudaStream_t s) {
-  if (hd > kMaxHd) {             // the latent instance (checked in launch_q)
+  if (latent) {                  // the latent instance (checked in launch_q)
     if constexpr ((KV == kF32 || KV == kBF16) && !PAGED)
       return launch_groups<QT, KV, false, kLatentBlockG, true>(
           q, k, v, ks, vs, qp, kp, bt, out, m_part, l_part, acc_part, B, KVH,
           G, S, nb, page, hd, window, splits, split_tiles, scale, dv, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (hd > kMaxHd) {             // the wide instance, unpaged
+    if constexpr (!PAGED)
+      return launch_groups<QT, KV, false, kBlockG, false, true>(
+          q, k, v, ks, vs, qp, kp, bt, out, m_part, l_part, acc_part, B, KVH,
+          G, S, nb, page, hd, window, splits, split_tiles, scale, hd, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return G == 1
@@ -684,18 +732,17 @@ int launch_q(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* q_pos, const void* k_pos,
              const void* block_table, void* out, void* m_part, void* l_part,
              void* acc_part, int B, int KVH, int G, int S, int nb, int ps,
-             int hd, int dv, int window, int splits, int split_tiles,
-             float scale, int kv_kind, cudaStream_t stream) {
+             int hd, int dv, bool latent, int window, int splits,
+             int split_tiles, float scale, int kv_kind, cudaStream_t stream) {
   if (split_tiles < 1 || split_tiles > kMaxSplitTiles || splits < 1
       || (splits - 1) * split_tiles * kTileS >= S || G > kMaxG)
     return static_cast<int>(cudaErrorInvalidValue);
-  // hd <= kMaxHd: V as wide as K; wider: the latent instance, V K's first
-  // dv <= kMaxLatentDv columns, float kinds, unpaged
-  const bool latent = hd > kMaxHd;
+  // GQA: V as wide as K, hd <= kMaxHd, or kWideHd unpaged; latent: V K's
+  // first dv <= kMaxLatentDv columns, float kinds, unpaged
   if (hd > kMaxLatentHd || dv < 1
       || (latent ? dv > kMaxLatentDv || dv > hd || PAGED
                        || (kv_kind != kF32 && kv_kind != kBF16)
-                 : dv != hd))
+                 : dv != hd || hd > (PAGED ? kMaxHd : kWideHd)))
     return static_cast<int>(cudaErrorInvalidValue);
   const QT* qq = static_cast<const QT*>(q);
   QT* oo = static_cast<QT*>(out);
@@ -712,7 +759,7 @@ int launch_q(const void* q, const void* k, const void* v, const void* ks,
     return launch_kind<QT, KIND, PAGED>(qq, k, v, kss, vss, qp, kp, bt, oo,  \
                                         mp, lp, ap, B, KVH, G, S, nb, ps, hd, \
                                         window, splits, split_tiles, scale,  \
-                                        dv, stream);
+                                        dv, latent, stream);
   switch (kv_kind) {
     REPRO_DECODE_CASE(kF32)
     REPRO_DECODE_CASE(kBF16)
@@ -729,8 +776,9 @@ int launch_q(const void* q, const void* k, const void* v, const void* ks,
 // q (B, KVH, G, hd), out (B, KVH, G, dv) f32/bf16 (q_bf16); k, v per
 // kv_kind (0 f32, 1 bf16, 2 int8, 3 packed4 (B, KVH, S/2, hd) uint8);
 // k_scale, v_scale (B, KVH, S) f32 or null; q_pos (B,) and k_pos (B, S)
-// int32. S counts logical slots. dv = hd, or, for hd > 128 (the latent
-// instance: f32/bf16), dv <= 512 and v = k (its rows' first dv columns).
+// int32. S counts logical slots. latent = 0: dv = hd <= 256, v its own
+// tensor; latent != 0 (the latent instance: f32/bf16): dv <= 512 and v = k
+// (its rows' first dv columns).
 // The slot axis runs in `splits` blocks of `split_tiles` 32-slot tiles;
 // with splits > 1, m_part, l_part (B, KVH, splits, G) and acc_part
 // (B, KVH, splits, G, dv) f32 are scratch for the combine (null otherwise).
@@ -739,20 +787,21 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* q_pos, const void* k_pos,
                                    void* out, void* m_part, void* l_part,
                                    void* acc_part, int B, int KVH, int G,
-                                   int S, int hd, int dv, int window,
-                                   int kv_kind, int q_bf16, int splits,
-                                   int split_tiles, float scale,
+                                   int S, int hd, int dv, int latent,
+                                   int window, int kv_kind, int q_bf16,
+                                   int splits, int split_tiles, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return q_bf16
       ? launch_q<__nv_bfloat16, false>(q, k, v, k_scale, v_scale, q_pos, k_pos,
                                        nullptr, out, m_part, l_part, acc_part,
-                                       B, KVH, G, S, 0, 1, hd, dv, window,
-                                       splits, split_tiles, scale, kv_kind, s)
+                                       B, KVH, G, S, 0, 1, hd, dv, latent != 0,
+                                       window, splits, split_tiles, scale,
+                                       kv_kind, s)
       : launch_q<float, false>(q, k, v, k_scale, v_scale, q_pos, k_pos,
                                nullptr, out, m_part, l_part, acc_part, B, KVH,
-                               G, S, 0, 1, hd, dv, window, splits, split_tiles,
-                               scale, kv_kind, s);
+                               G, S, 0, 1, hd, dv, latent != 0, window, splits,
+                               split_tiles, scale, kv_kind, s);
 }
 
 // K5. q, out, scratch as above; k, v the page pools (P, KVH, ps, hd) per
@@ -771,10 +820,10 @@ extern "C" int flash_decode_paged_launch(
       ? launch_q<__nv_bfloat16, true>(q, k, v, k_scale, v_scale, q_pos, k_pos,
                                       block_table, out, m_part, l_part,
                                       acc_part, B, KVH, G, nb * ps, nb, ps, hd,
-                                      hd, window, splits, split_tiles, scale,
-                                      kv_kind, s)
+                                      hd, false, window, splits, split_tiles,
+                                      scale, kv_kind, s)
       : launch_q<float, true>(q, k, v, k_scale, v_scale, q_pos, k_pos,
                               block_table, out, m_part, l_part, acc_part, B,
-                              KVH, G, nb * ps, nb, ps, hd, hd, window, splits,
-                              split_tiles, scale, kv_kind, s);
+                              KVH, G, nb * ps, nb, ps, hd, hd, false, window,
+                              splits, split_tiles, scale, kv_kind, s);
 }

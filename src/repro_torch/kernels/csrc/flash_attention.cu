@@ -67,6 +67,23 @@
 //   the first walks 1.
 // - hd is any multiple of 8 up to 128: fragments past hd are zero.
 //
+// The wide instance (WIDE): hd past 128, up to kWideHd = 256
+// (recurrentgemma-9b's local layers: 16 query heads over one KV head, a
+// window of 2048). At 256 the output fragment alone is 128 f32 a lane,
+// f32 Q's fragments another 128, and a 64-key f32 K + V tile pair
+// double-buffered 266 KB, over the 227 KB a block may have. So:
+// - the two warps of a row warp split the output columns instead of the
+//   key tile: each scores all keys of the tile against the full head
+//   (the same scores, computed twice: QKᵀ is half the products) and owns
+//   128 of the output columns, 64 f32 a lane as at hd 128; no end merge;
+// - Q's 64 × hd tile is copied once into shared memory and each k-step's
+//   A fragment read from there (4 values), not held in registers;
+// - key tiles are 32 keys (kWideBK): K and V double-buffered plus Q take
+//   195 KB in f32 (one block an SM) and 98 KB in bf16, at hd 256.
+// The masks, the dead-tile skip (which honours the window, so a long
+// local prefill walks only the tiles within 2048 of its rows) and the
+// numerics (3×TF32, bf16 P as hi + lo) are the narrow instance's.
+//
 // The limits below repeat src/repro_torch/kernels/constraints.py.
 #include <cfloat>
 #include <climits>
@@ -85,6 +102,8 @@ constexpr int kBK = 64;           // constraints.ATTN_K_TILE: keys per tile
 constexpr int kSubK = kBK / kKeyGroups;   // keys of a tile one warp scores
 constexpr int kNT = kSubK / 8;            // its 8-key n-tiles
 constexpr int kMaxHd = 128;       // constraints.ATTN_MAX_HEAD_DIM
+constexpr int kWideHd = 256;      // constraints.ATTN_WIDE_HEAD_DIM
+constexpr int kWideBK = 32;       // constraints.ATTN_WIDE_K_TILE
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may opt in to
 constexpr float kNegInf = -0.7f * FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -177,19 +196,31 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Shared memory: K and V tiles [2][kBK][ld] each (ld = hd + 16 bytes of
-// padding), their k_pos [2][kBK], then one live flag per key tile.
+// The tiling of an instance: keys a tile, keys a warp scores of it, the
+// widest head, and the output columns a warp owns (128 in both).
+template <bool WIDE>
+struct Tiling {
+  static constexpr int kTileK = WIDE ? kWideBK : kBK;
+  static constexpr int kWarpK = WIDE ? kTileK : kSubK;
+  static constexpr int kHd = WIDE ? kWideHd : kMaxHd;
+};
+
+// Shared memory: K and V tiles [2][kTileK][ld] each (ld = hd + 16 bytes of
+// padding), (WIDE) the Q tile [kBQ][ld], the tiles' k_pos [2][kTileK],
+// then one live flag per key tile.
 template <typename T>
 __host__ __device__ constexpr int row_pad() {
   return 16 / static_cast<int>(sizeof(T));
 }
-template <typename T>
+template <typename T, bool WIDE>
 size_t smem_bytes(int hd, int n_tiles) {
-  return (4 * static_cast<size_t>(kBK) * (hd + row_pad<T>())) * sizeof(T)
-      + (2 * kBK + n_tiles) * sizeof(int);
+  constexpr int bk = Tiling<WIDE>::kTileK;
+  return ((4 * static_cast<size_t>(bk) + (WIDE ? kBQ : 0))
+          * (hd + row_pad<T>())) * sizeof(T)
+      + (2 * bk + n_tiles) * sizeof(int);
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ q_pos,
@@ -198,12 +229,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int window, float scale) {
   constexpr bool kBf = sizeof(T) == 2;
   constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // elems a cp.async
+  constexpr int kBK = Tiling<WIDE>::kTileK;     // keys a tile
+  constexpr int kSubK = Tiling<WIDE>::kWarpK;   // keys of a tile a warp scores
+  constexpr int kNT = kSubK / 8;                // its 8-key n-tiles
+  constexpr int kHdMax = Tiling<WIDE>::kHd;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int qlo_s[kWarps], qhi_s[kWarps];
   const int ld = hd + row_pad<T>();
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = ks + 2 * kBK * ld;
-  int* kp_s = reinterpret_cast<int*>(vs + 2 * kBK * ld);
+  T* qs = vs + 2 * kBK * ld;                    // WIDE: the Q tile
+  int* kp_s = reinterpret_cast<int*>(qs + (WIDE ? kBQ * ld : 0));
   int* live = kp_s + 2 * kBK;
 
   const int head = blockIdx.y;                 // b·KV·G + h·G + g
@@ -287,18 +323,33 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   int t = next_live(0);
-  if (t < n_tiles) load_tile(t, 0);
+  if (t < n_tiles) {
+    if constexpr (WIDE) {   // the Q tile joins the first tile's copy group
+      for (int i = threadIdx.x; i < kBQ * per_row; i += kThreads) {
+        const int r = i / per_row, c = (i % per_row) * kChunk;
+        const bool ok = i0 + r < Sq;
+        cp_async16(qs + r * ld + c,
+                   qb + (ok ? static_cast<size_t>(i0 + r) * q_row : 0) + c,
+                   ok);
+      }
+    }
+    load_tile(t, 0);
+  }
 
   // this thread's two query rows and their Q fragments (zero past Sq/hd)
-  const int group = warp / kRowWarps;         // which half of each key tile
+  // group: which half of each key tile (WIDE: which 128 output columns)
+  const int group = warp / kRowWarps;
+  const int koff = WIDE ? 0 : group * kSubK;  // the warp's first key of a tile
+  const int cbase = WIDE ? group * kMaxHd : 0;  // its first output column
   const int r0 = i0 + (warp % kRowWarps) * 16 + gid, r1 = r0 + 8;
   const int qp0 = r0 < Sq ? q_pos[r0] : qhi;
   const int qp1 = r1 < Sq ? q_pos[r1] : qhi;
-  constexpr int kKSteps = kBf ? kMaxHd / 16 : kMaxHd / 8;
-  float qf[kBf ? 1 : kKSteps][4];
-  uint32_t qa[kBf ? kKSteps : 1][4];
+  constexpr int kKSteps = kBf ? kHdMax / 16 : kHdMax / 8;
+  // WIDE reads each step's fragment from the Q tile instead
+  float qf[kBf || WIDE ? 1 : kKSteps][4];
+  uint32_t qa[kBf && !WIDE ? kKSteps : 1][4];
 #pragma unroll
-  for (int st = 0; st < kKSteps; ++st) {
+  for (int st = 0; st < (WIDE ? 0 : kKSteps); ++st) {
     if constexpr (kBf) {
       const int c0 = 16 * st + 2 * tig, c1 = c0 + 8;
       const T* q0 = qb + static_cast<size_t>(r0) * q_row;
@@ -339,9 +390,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     {
-      const T* kt = ks + (buf * kBK + group * kSubK) * ld;
-      const T* vt = vs + (buf * kBK + group * kSubK) * ld;
-      const int* kpt = kp_s + buf * kBK + group * kSubK;
+      const T* kt = ks + (buf * kBK + koff) * ld;
+      const T* vt = vs + (buf * kBK + koff) * ld;
+      const int* kpt = kp_s + buf * kBK + koff;
+      const T* q0s = qs + ((warp % kRowWarps) * 16 + gid) * ld;  // WIDE
+      const T* q1s = q0s + 8 * ld;
 
       // S = Q·Kᵀ: 16 rows × kSubK keys a warp
       float s[kNT][4];
@@ -353,17 +406,39 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int st = 0; st < kKSteps; ++st) {
         if constexpr (kBf) {
           if (16 * st < hd) {
+            uint32_t qw[4];
+            if constexpr (WIDE) {
+              const int c0 = 16 * st + 2 * tig, c1 = c0 + 8;
+              qw[0] = ld32(q0s + c0);
+              qw[1] = ld32(q1s + c0);
+              qw[2] = c1 < hd ? ld32(q0s + c1) : 0u;
+              qw[3] = c1 < hd ? ld32(q1s + c1) : 0u;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) qw[e] = qa[st][e];
+            }
 #pragma unroll
             for (int n = 0; n < kNT; ++n) {
               const T* kr = kt + (8 * n + gid) * ld + 16 * st + 2 * tig;
               const uint32_t bb[2] = {ld32(kr),
                                       16 * st + 8 < hd ? ld32(kr + 8) : 0u};
-              mma_bf16(s[n], qa[st], bb);
+              mma_bf16(s[n], qw, bb);
             }
           }
         } else {
           if (8 * st < hd) {
-            const SplitA a(qf[st]);
+            float qv[4];
+            if constexpr (WIDE) {
+              const int c0 = 8 * st + tig;
+              qv[0] = q0s[c0];
+              qv[1] = q1s[c0];
+              qv[2] = q0s[c0 + 4];
+              qv[3] = q1s[c0 + 4];
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) qv[e] = qf[st][e];
+            }
+            const SplitA a(qv);
 #pragma unroll
             for (int n = 0; n < kNT; ++n) {
               const T* kr = kt + (8 * n + gid) * ld + 8 * st + tig;
@@ -438,10 +513,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             plo[e] = pack_bf16(p8[2 * e] - __bfloat162float(h0),
                                p8[2 * e + 1] - __bfloat162float(h1));
           }
-          const T* v0 = vt + (16 * j + 2 * tig) * ld + gid;
+          const T* v0 = vt + (16 * j + 2 * tig) * ld + cbase + gid;
 #pragma unroll
           for (int dn = 0; dn < kMaxHd / 8; ++dn) {
-            if (8 * dn < hd) {
+            if (cbase + 8 * dn < hd) {
               const T* vr = v0 + 8 * dn;
               const uint32_t bb[2] = {pack_bf16(vr[0], vr[ld]),
                                       pack_bf16(vr[8 * ld], vr[9 * ld])};
@@ -456,10 +531,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           // k index t ↔ key 8j + 2t, k index t + 4 ↔ key 8j + 2t + 1
           const float p4[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
           const SplitA pa(p4);
-          const T* v0 = vt + (8 * j + 2 * tig) * ld + gid;
+          const T* v0 = vt + (8 * j + 2 * tig) * ld + cbase + gid;
 #pragma unroll
           for (int dn = 0; dn < kMaxHd / 8; ++dn) {
-            if (8 * dn < hd) {
+            if (cbase + 8 * dn < hd) {
               const T* vr = v0 + 8 * dn;
               const float bb[2] = {vr[0], vr[ld]};
               mma_3xtf32(o[dn], pa, bb);
@@ -476,55 +551,58 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   // the second key group hands its (m, l, O) to the first through the
-  // idle tile buffers; the first merges and writes the output
-  float* xo = reinterpret_cast<float*>(smem)
-      + (warp % kRowWarps) * 16 * (hd + 2);    // [16 rows][hd | m | l]
-  if (group == 1) {
+  // idle tile buffers; the first merges and writes the output (WIDE: each
+  // warp scored every key, and writes its own columns)
+  if constexpr (!WIDE) {
+    float* xo = reinterpret_cast<float*>(smem)
+        + (warp % kRowWarps) * 16 * (hd + 2);    // [16 rows][hd | m | l]
+    if (group == 1) {
 #pragma unroll
-    for (int dn = 0; dn < kMaxHd / 8; ++dn) {
-      if (8 * dn < hd) {
-        float* x0 = xo + gid * (hd + 2) + 8 * dn + 2 * tig;
-        float* x1 = x0 + 8 * (hd + 2);
-        x0[0] = o[dn][0];
-        x0[1] = o[dn][1];
-        x1[0] = o[dn][2];
-        x1[1] = o[dn][3];
+      for (int dn = 0; dn < kMaxHd / 8; ++dn) {
+        if (8 * dn < hd) {
+          float* x0 = xo + gid * (hd + 2) + 8 * dn + 2 * tig;
+          float* x1 = x0 + 8 * (hd + 2);
+          x0[0] = o[dn][0];
+          x0[1] = o[dn][1];
+          x1[0] = o[dn][2];
+          x1[1] = o[dn][3];
+        }
+      }
+      if (tig == 0) {
+        xo[gid * (hd + 2) + hd] = m0;
+        xo[gid * (hd + 2) + hd + 1] = l0;
+        xo[(gid + 8) * (hd + 2) + hd] = m1;
+        xo[(gid + 8) * (hd + 2) + hd + 1] = l1;
       }
     }
-    if (tig == 0) {
-      xo[gid * (hd + 2) + hd] = m0;
-      xo[gid * (hd + 2) + hd + 1] = l0;
-      xo[(gid + 8) * (hd + 2) + hd] = m1;
-      xo[(gid + 8) * (hd + 2) + hd + 1] = l1;
-    }
-  }
-  __syncthreads();
-  if (group == 1) return;
-  {
-    const float* x0 = xo + gid * (hd + 2);
-    const float* x1 = x0 + 8 * (hd + 2);
-    const float mx0 = fmaxf(m0, x0[hd]), mx1 = fmaxf(m1, x1[hd]);
-    const float a0 = exp2f(m0 - mx0), b0 = exp2f(x0[hd] - mx0);
-    const float a1 = exp2f(m1 - mx1), b1 = exp2f(x1[hd] - mx1);
-    l0 = l0 * a0 + x0[hd + 1] * b0;
-    l1 = l1 * a1 + x1[hd + 1] * b1;
+    __syncthreads();
+    if (group == 1) return;
+    {
+      const float* x0 = xo + gid * (hd + 2);
+      const float* x1 = x0 + 8 * (hd + 2);
+      const float mx0 = fmaxf(m0, x0[hd]), mx1 = fmaxf(m1, x1[hd]);
+      const float a0 = exp2f(m0 - mx0), b0 = exp2f(x0[hd] - mx0);
+      const float a1 = exp2f(m1 - mx1), b1 = exp2f(x1[hd] - mx1);
+      l0 = l0 * a0 + x0[hd + 1] * b0;
+      l1 = l1 * a1 + x1[hd + 1] * b1;
 #pragma unroll
-    for (int dn = 0; dn < kMaxHd / 8; ++dn) {
-      if (8 * dn < hd) {
-        const int c = 8 * dn + 2 * tig;
-        o[dn][0] = o[dn][0] * a0 + x0[c] * b0;
-        o[dn][1] = o[dn][1] * a0 + x0[c + 1] * b0;
-        o[dn][2] = o[dn][2] * a1 + x1[c] * b1;
-        o[dn][3] = o[dn][3] * a1 + x1[c + 1] * b1;
+      for (int dn = 0; dn < kMaxHd / 8; ++dn) {
+        if (8 * dn < hd) {
+          const int c = 8 * dn + 2 * tig;
+          o[dn][0] = o[dn][0] * a0 + x0[c] * b0;
+          o[dn][1] = o[dn][1] * a0 + x0[c + 1] * b0;
+          o[dn][2] = o[dn][2] * a1 + x1[c] * b1;
+          o[dn][3] = o[dn][3] * a1 + x1[c + 1] * b1;
+        }
       }
     }
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   T* o0 = out + static_cast<size_t>(b) * Sq * q_row
-      + (static_cast<size_t>(h) * G + g) * hd + 2 * tig;
+      + (static_cast<size_t>(h) * G + g) * hd + cbase + 2 * tig;
 #pragma unroll
   for (int dn = 0; dn < kMaxHd / 8; ++dn) {
-    if (8 * dn < hd) {
+    if (cbase + 8 * dn < hd) {
       if constexpr (kBf) {
         if (r0 < Sq)
           *reinterpret_cast<uint32_t*>(o0 + r0 * q_row + 8 * dn) =
@@ -544,23 +622,24 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 int launch(const void* q, const void* k, const void* v, const int* qp,
            const int* kp, void* out, int B, int Sq, int Sk, int KVH, int G,
            int hd, int causal, int window, float scale, cudaStream_t s) {
-  const size_t smem = smem_bytes<T>(hd, (Sk + kBK - 1) / kBK);
+  constexpr int bk = Tiling<WIDE>::kTileK;
+  const size_t smem = smem_bytes<T, WIDE>(hd, (Sk + bk - 1) / bk);
   if (smem > static_cast<size_t>(kSmemMax))
     return static_cast<int>(cudaErrorInvalidValue);
   static size_t opted = 48 * 1024;   // the default a launch may use
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        flash_attention_kernel<T, WIDE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     opted = smem;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * KVH * G);
-  flash_attention_kernel<T><<<grid, kThreads, smem, s>>>(
+  flash_attention_kernel<T, WIDE><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), qp, kp, static_cast<T*>(out), Sq, Sk, KVH, G,
       hd, causal, window, scale);
@@ -569,9 +648,22 @@ int launch(const void* q, const void* k, const void* v, const int* qp,
 
 }  // namespace
 
+template <typename T>
+int launch_hd(const void* q, const void* k, const void* v, const int* qp,
+              const int* kp, void* out, int B, int Sq, int Sk, int KVH, int G,
+              int hd, int causal, int window, float scale, cudaStream_t s) {
+  if (hd < 8 || hd % 8 || hd > kWideHd)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return hd > kMaxHd
+      ? launch<T, true>(q, k, v, qp, kp, out, B, Sq, Sk, KVH, G, hd, causal,
+                        window, scale, s)
+      : launch<T, false>(q, k, v, qp, kp, out, B, Sq, Sk, KVH, G, hd, causal,
+                         window, scale, s);
+}
+
 // q, out (B, Sq, KVH, G, hd); k, v (B, Sk, KVH, hd); all f32 or all bf16
 // (bf16 != 0), 16-byte aligned; q_pos (Sq,), k_pos (Sk,) int32 with
-// k_pos = -1 invalid.
+// k_pos = -1 invalid; hd a multiple of 8 up to 256.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* q_pos,
                                       const void* k_pos, void* out, int B,
@@ -581,8 +673,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(k_pos);
-  return bf16 ? launch<__nv_bfloat16>(q, k, v, qp, kp, out, B, Sq, Sk, KVH, G,
-                                      hd, causal, window, scale, s)
-              : launch<float>(q, k, v, qp, kp, out, B, Sq, Sk, KVH, G, hd,
-                              causal, window, scale, s);
+  return bf16 ? launch_hd<__nv_bfloat16>(q, k, v, qp, kp, out, B, Sq, Sk, KVH,
+                                         G, hd, causal, window, scale, s)
+              : launch_hd<float>(q, k, v, qp, kp, out, B, Sq, Sk, KVH, G, hd,
+                                 causal, window, scale, s);
 }

@@ -23,12 +23,18 @@ than ``DECODE_BLOCK_GROUP`` query heads a KV head is split across
 :func:`group_blocks` blocks too, each over its own heads. The launch
 counts stay one per wrapper call.
 
-The latent head (MLA's absorbed decode: head dim r + pe = 576 over one
-KV head, ``scale`` 1/√(hd + pe)): a head wider than 128 takes K3's
-latent instance, which reads an f32 or bf16 cache whose V is K's first
-dv ≤ 512 columns — ``v`` must be the view ``k[..., :dv]`` of the same
-storage, so each row is loaded once — and returns (B, KV, G, dv). A
-group there takes ``DECODE_LATENT_BLOCK_GROUP`` heads a block.
+The route is explicit (``latent=``). The GQA route takes V as wide as K,
+in its own tensor, at a head dim up to 128, or (unpaged) up to 256:
+K3's wide instance (recurrentgemma-9b's local layers: hd 256, one KV
+head, G = 16), 8 heads a block as at 128, aiming at
+``DECODE_WIDE_BLOCKS_PER_SM`` blocks an SM. The latent route (MLA's
+absorbed decode: head dim r + pe = 576 over one KV head, ``scale``
+1/√(hd + pe)) takes K3's latent instance, which reads an f32 or bf16
+cache whose V is K's first dv ≤ 512 columns — ``v`` must be the view
+``k[..., :dv]`` of the same storage, so each row is loaded once — and
+returns (B, KV, G, dv). A group there takes
+``DECODE_LATENT_BLOCK_GROUP`` heads a block. Anything neither route
+takes raises.
 
 Paged (``block_table`` given): k/v are page pools ``(P, KV, ps, hd)``
 (packed4 ``(P, KV, ps/2, hd)`` uint8), the scales ``(P, KV, ps)``, and
@@ -44,6 +50,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.constraints import (ATTN_HEAD_DIM_ALIGN,
                                              ATTN_MAX_HEAD_DIM,
+                                             ATTN_WIDE_HEAD_DIM,
                                              CUDA_MAX_GRID_YZ,
                                              DECODE_BLOCK_GROUP,
                                              DECODE_BLOCKS_PER_SM,
@@ -52,7 +59,9 @@ from repro_torch.kernels.constraints import (ATTN_HEAD_DIM_ALIGN,
                                              DECODE_LATENT_MAX_DV,
                                              DECODE_MAX_GROUP,
                                              DECODE_MAX_SPLIT_TILES,
-                                             DECODE_TILE_SLOTS, KV_PTR_ALIGN,
+                                             DECODE_TILE_SLOTS,
+                                             DECODE_WIDE_BLOCKS_PER_SM,
+                                             KV_PTR_ALIGN,
                                              PACKED4_ALIGN, check_head_dim,
                                              check_decode_head_dim,
                                              validate_page_size)
@@ -111,12 +120,11 @@ def combine_splits_plain(m: torch.Tensor, l: torch.Tensor,
     return torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
 
 
-def group_blocks(g: int, hd: int = 0) -> int:
+def group_blocks(g: int, latent: bool = False) -> int:
     """Blocks a KV head's group of ``g`` query heads takes: each holds
     accumulators for at most ``DECODE_BLOCK_GROUP`` heads
-    (``DECODE_LATENT_BLOCK_GROUP`` at a head dim ``hd`` wider than 128)."""
-    per = DECODE_LATENT_BLOCK_GROUP if hd > ATTN_MAX_HEAD_DIM \
-        else DECODE_BLOCK_GROUP
+    (``DECODE_LATENT_BLOCK_GROUP`` in the latent instance)."""
+    per = DECODE_LATENT_BLOCK_GROUP if latent else DECODE_BLOCK_GROUP
     return -(-g // per)
 
 
@@ -135,18 +143,25 @@ def decode_splits(rows: int, slots: int, sm_count: int,
     return -(-tiles // per), per
 
 
-def _scratch(q: torch.Tensor, slots: int, dv: int) -> tuple:
+def blocks_per_sm(hd: int, latent: bool) -> int:
+    """The blocks an SM the split plan aims at: the latent and the wide
+    instances' shared memory holds fewer than the narrow one's."""
+    if latent:
+        return DECODE_LATENT_BLOCKS_PER_SM
+    return DECODE_WIDE_BLOCKS_PER_SM if hd > ATTN_MAX_HEAD_DIM \
+        else DECODE_BLOCKS_PER_SM
+
+
+def _scratch(q: torch.Tensor, slots: int, dv: int, latent: bool) -> tuple:
     """(splits, tiles per split, m, l, acc) for q's device and ``dv``
     output columns: the split plan and the combine's f32 scratch, None
     with one split. Freed after the launch, the scratch goes back to the
     caching allocator in stream order, so the kernels still own it while
     they run."""
     b, kvh, g, hd = q.shape
-    latent = hd > ATTN_MAX_HEAD_DIM
     splits, per = decode_splits(
-        b * kvh * group_blocks(g, hd), slots,
-        _build.sm_count(q.device.index or 0),
-        DECODE_LATENT_BLOCKS_PER_SM if latent else DECODE_BLOCKS_PER_SM)
+        b * kvh * group_blocks(g, latent), slots,
+        _build.sm_count(q.device.index or 0), blocks_per_sm(hd, latent))
     if splits > CUDA_MAX_GRID_YZ:
         raise ValueError(f"{slots} slots need {splits} splits, over the grid "
                          f"limit {CUDA_MAX_GRID_YZ}")
@@ -163,9 +178,10 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _check_decode_args(q, k, v, k_scale, v_scale, rows: int,
-                       slots: int) -> None:
-    """The checks K3 and K5 share; ``rows`` × ``slots`` is the leading
-    shape of k/v (B × S for K3, P × ps for K5)."""
+                       slots: int, max_hd: int = ATTN_MAX_HEAD_DIM) -> None:
+    """The checks K3's GQA route and K5 share; ``rows`` × ``slots`` is the
+    leading shape of k/v (B × S for K3, P × ps for K5); ``max_hd`` the
+    route's widest head."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype not in _KV_KIND or v.dtype != k.dtype:
@@ -174,7 +190,7 @@ def _check_decode_args(q, k, v, k_scale, v_scale, rows: int,
     _, kvh, g, hd = q.shape
     packed = k.dtype == torch.uint8
     quantized = k.dtype in (torch.int8, torch.uint8)
-    check_head_dim(hd)
+    check_head_dim(hd, max_hd)
     if g > DECODE_MAX_GROUP:
         raise ValueError(f"G={g} query heads per KV head exceeds "
                          f"{DECODE_MAX_GROUP}")
@@ -199,7 +215,7 @@ def _check_decode_args(q, k, v, k_scale, v_scale, rows: int,
 
 def _check_latent_args(q, k, v, k_scale, v_scale, rows: int,
                        slots: int) -> int:
-    """K3's latent instance (a head wider than ``ATTN_MAX_HEAD_DIM``): an
+    """K3's latent instance: an
     f32/bf16 cache ``k`` (rows, KV, slots, hd), contiguous, and ``v`` the
     view of its first dv columns (same storage, same strides, dv at most
     ``DECODE_LATENT_MAX_DV`` and a multiple of 8). Returns dv."""
@@ -250,18 +266,18 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, k_pos: torch.Tensor,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None, window: int = 0,
-                 scale: Optional[float] = None) -> torch.Tensor:
-    """Launch K3; raises on anything the kernel does not take. A head
-    wider than 128 takes the latent instance (module docstring), whose
-    output has ``v``'s dv columns."""
+                 scale: Optional[float] = None,
+                 latent: bool = False) -> torch.Tensor:
+    """Launch K3; raises on anything the kernel does not take. The
+    latent route (module docstring) returns ``v``'s dv columns."""
     b, kvh, g, hd = q.shape
     packed = k.dtype == torch.uint8
     s_len = k.shape[2] * (2 if packed else 1)
-    latent = hd > ATTN_MAX_HEAD_DIM
     if latent:
         dv = _check_latent_args(q, k, v, k_scale, v_scale, b, s_len)
     else:
-        _check_decode_args(q, k, v, k_scale, v_scale, b, s_len)
+        _check_decode_args(q, k, v, k_scale, v_scale, b, s_len,
+                           ATTN_WIDE_HEAD_DIM)
         dv = hd
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
@@ -275,12 +291,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / (hd ** 0.5)
     _check_rows(b * kvh * s_len)
     out = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
-    splits, per, m_p, l_p, acc_p = _scratch(q, s_len, dv)
-    fn = _build.function("decode_attention", "flash_decode_launch", 11, 11, 1)
+    splits, per, m_p, l_p, acc_p = _scratch(q, s_len, dv, latent)
+    fn = _build.function("decode_attention", "flash_decode_launch", 11, 12, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
              _ptr(v_scale), q_pos.data_ptr(), k_pos.data_ptr(),
              out.data_ptr(), _ptr(m_p), _ptr(l_p), _ptr(acc_p),
-             b, kvh, g, s_len, hd, dv, window, _KV_KIND[k.dtype],
+             b, kvh, g, s_len, hd, dv, int(latent), window, _KV_KIND[k.dtype],
              int(q.dtype == torch.bfloat16), splits, per, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode_launch (K3)")
@@ -353,7 +369,7 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / (hd ** 0.5)
     _check_rows(n_pages * kvh * ps)
     out = torch.empty_like(q)
-    splits, per, m_p, l_p, acc_p = _scratch(q, nb * ps, hd)
+    splits, per, m_p, l_p, acc_p = _scratch(q, nb * ps, hd, False)
     fn = _build.function("decode_attention", "flash_decode_paged_launch", 12,
                          11, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
@@ -373,13 +389,13 @@ def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         v_scale: Optional[torch.Tensor] = None,
                         window: int = 0,
                         scale: Optional[float] = None,
-                        block_table: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        block_table: Optional[torch.Tensor] = None,
+                        latent: bool = False) -> torch.Tensor:
     """Single-query attention over the slot cache, or over the page pools
     through ``block_table``: the plain version for CPU tensors, K3 (K5
-    when paged) for CUDA tensors. ``scale`` overrides 1/√hd. At a head
-    wider than 128 (unpaged) ``v`` may be ``k``'s first dv columns, and
-    the output has dv."""
+    when paged) for CUDA tensors. ``scale`` overrides 1/√hd. ``latent``
+    (unpaged) picks K3's route (module docstring): ``v`` is then ``k``'s
+    first dv columns, and the output has dv."""
     if block_table is not None:
         if q.device.type == "cpu":
             return decode_attention_paged_plain(q, k, v, q_pos, k_pos,
@@ -391,4 +407,4 @@ def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_plain(q, k, v, q_pos, k_pos, k_scale,
                                       v_scale, window, scale)
     return flash_decode(q, k, v, q_pos, k_pos, k_scale, v_scale, window,
-                        scale)
+                        scale, latent)

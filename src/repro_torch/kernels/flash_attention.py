@@ -8,14 +8,17 @@ q is ``(B, Sq, KV, G, hd)`` and k, v are ``(B, Sk, KV, hd)``; the kernel
 reads the KV head of query head ``(h, g)`` in place, so K/V are never
 broadcast over G nor transposed in memory. ``q_pos`` (Sq,) and ``k_pos``
 (Sk,) carry explicit positions, ``k_pos = -1`` marking an invalid slot.
-A query row with no valid key is undefined, as in the TPU kernel.
+A query row with no valid key is undefined, as in the TPU kernel. The
+head dim is a multiple of 8 up to 128, or up to 256 through the kernel's
+wide instance (``csrc/flash_attention.cu``'s header).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.constraints import KV_PTR_ALIGN, check_head_dim
+from repro_torch.kernels.constraints import (ATTN_WIDE_HEAD_DIM, KV_PTR_ALIGN,
+                                             check_head_dim)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -51,7 +54,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     b, sq, kvh, g, hd = q.shape
     sk = k.shape[1]
-    check_head_dim(hd)
+    check_head_dim(hd, ATTN_WIDE_HEAD_DIM)
     if k.shape != (b, sk, kvh, hd) or v.shape != k.shape:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")

@@ -1,14 +1,17 @@
-"""GQA attention over the head-major slot cache, and MLA over its latent
-cache (port of the full-attention and MLA parts of
-``repro/models/attention.py``).
+"""GQA attention over the head-major slot cache, full or sliding-window,
+and MLA over its latent cache (port of the full-attention, local and MLA
+parts of ``repro/models/attention.py``).
 
-Cache per layer (unpaged, full attention):
+Cache per layer (unpaged, full attention or a local ring):
   ``k``/``v``  (B, KV, S, hd) in f32 or bf16, int8 codes, or the packed4
                int4 container (B, KV, S/2, hd) uint8 — two slots per byte
                along the slot axis, slot 2j in the low nibble;
   ``k_scale``/``v_scale`` (B, KV, S) f32 for int8/int4;
   ``slot_pos`` (B, S) int32 — the position each slot holds, -1 empty;
   ``pos``      (B,) int32 — the row's next write position.
+A local layer's ring holds S = min(window, max_len) slots (even for
+int4) and writes position p at slot p mod S, so its valid slots are not
+in position order once it wraps; the mask reads ``slot_pos``.
 
 Cache per layer (paged, ``init_attn_cache(pages=, page_size=)``):
   ``k``/``v``  page pools (P, KV, ps, hd), packed4 (P, KV, ps/2, hd) uint8,
@@ -64,12 +67,13 @@ class Attention(nn.Module):
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     device, pages: Optional[int] = None,
-                    page_size: Optional[int] = None
+                    page_size: Optional[int] = None, local: bool = False
                     ) -> Dict[str, torch.Tensor]:
-    """Zeroed head-major pages for ``batch`` rows of ``max_len`` slots.
-    ``dtype=torch.int8`` is the int8 cache (codes + scales), ``"int4"``
-    the packed4 one, whose slot count rounds up to even so byte pairs
-    never straddle the end.
+    """Zeroed head-major pages for ``batch`` rows of ``max_len`` slots
+    (``local``: a ring of ``min(window, max_len)`` slots, position p in
+    slot p mod slots). ``dtype=torch.int8`` is the int8 cache (codes +
+    scales), ``"int4"`` the packed4 one, whose slot count rounds up to
+    even so byte pairs never straddle the end (of the ring too).
 
     ``pages``/``page_size`` select the paged layout (module docstring):
     ``pages`` physical pages of ``page_size`` (even) slots shared by the
@@ -78,6 +82,10 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     packed4 = dtype == INT4
     kv, hd = cfg.n_kv_heads, cfg.head_dim_
     if pages is not None:
+        if local:
+            raise ValueError(
+                "paged KV supports full attention only (a sliding-window "
+                "ring buffer wraps inside blocks, breaking block sharing)")
         validate_page_size(page_size)
         n_blocks = -(-max_len // page_size)
         if packed4:
@@ -97,7 +105,8 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             cache["v_scale"] = torch.zeros((pages, kv, page_size),
                                            device=device)
         return cache
-    slots = max_len + (max_len % 2 if packed4 else 0)
+    slots = min(cfg.window, max_len) if local else max_len
+    slots += slots % 2 if packed4 else 0
     if packed4:
         pshape, pdtype = (batch, kv, slots // 2, hd), torch.uint8
     else:
@@ -202,17 +211,21 @@ def _populate_kv_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
 
 def attention_seq(ctx: Ctx, p: Attention, x: torch.Tensor, cfg: ModelConfig,
                   cache: Optional[Dict] = None,
-                  lengths: Optional[torch.Tensor] = None
+                  lengths: Optional[torch.Tensor] = None, local: bool = False
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Prefill attention over a full (right-padded) sequence; with a
-    cache, populate each row's valid prefix (``lengths``)."""
+    cache, populate each row's valid prefix (``lengths``). ``local``:
+    sliding-window attention (``q − k < cfg.window``) into a ring cache,
+    whose slots keep each row's latest positions."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(ctx, p, x, cfg, positions)
+    window = cfg.window if local else 0
     if fused_mode(ctx) == "off":
-        out = flash_attention_plain(q, k, v, positions, positions)
+        out = flash_attention_plain(q, k, v, positions, positions,
+                                    window=window)
     else:
-        out = flash_attention(q, k, v, positions, positions)
+        out = flash_attention(q, k, v, positions, positions, window=window)
     y = linear(ctx, p.wo, out.reshape(b, s, cfg.n_heads * cfg.head_dim_),
                "attn.wo")
     if cache is not None:
@@ -223,12 +236,16 @@ def attention_seq(ctx: Ctx, p: Attention, x: torch.Tensor, cfg: ModelConfig,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+                     q_pos: torch.Tensor, k_pos: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
     """Single-token attention over a dequantized cache — the
-    ``fused="off"`` baseline. q (B, 1, KV, G, hd); k, v (B, KV, S, hd)."""
+    ``fused="off"`` baseline. q (B, 1, KV, G, hd); k, v (B, KV, S, hd);
+    ``window`` > 0 also masks ``q_pos − k_pos >= window``."""
     hd = q.shape[-1]
     s = torch.einsum("bqkgd,bksd->bkgqs", q.float(), k.float()) / (hd ** 0.5)
     mask = (k_pos >= 0) & (k_pos <= q_pos[:, None])            # (B, S)
+    if window > 0:
+        mask = mask & (q_pos[:, None] - k_pos < window)
     s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(-1)[:, None, None, None, None], p, 0.0)
@@ -252,11 +269,13 @@ def _paged_page_size(cache: Dict) -> int:
     return rows * 2 if cache["k"].dtype == torch.uint8 else rows
 
 
-def _step_write_index(cache: Dict) -> Tuple[torch.Tensor, ...]:
+def _step_write_index(cache: Dict, local: bool = False
+                      ) -> Tuple[torch.Tensor, ...]:
     """Where a decode step over this layer's ``cache`` writes each row's
     token: (rows, logical slot, storage row, storage slot). The storage
     row is the batch row (unpaged) or the physical page through the
-    block table (paged)."""
+    block table (paged). The slot is ``pos`` held to the last slot, or,
+    on a ``local`` ring, ``pos`` mod the (even-rounded) slot count."""
     pos = cache["pos"]
     rows = torch.arange(pos.shape[0], device=pos.device)
     if "block_table" in cache:
@@ -264,25 +283,30 @@ def _step_write_index(cache: Dict) -> Tuple[torch.Tensor, ...]:
         ps = _paged_page_size(cache)
         slot = torch.clamp(pos, max=bt.shape[1] * ps - 1).to(torch.int64)
         return rows, slot, bt[rows, slot // ps].to(torch.int64), slot % ps
-    slot = torch.clamp(pos, max=cache["slot_pos"].shape[1] - 1
-                       ).to(torch.int64)
+    slots = cache["slot_pos"].shape[1]
+    slot = (torch.remainder(pos, slots) if local
+            else torch.clamp(pos, max=slots - 1)).to(torch.int64)
     return rows, slot, rows, slot
 
 
-def save_step_writes(cache: Dict) -> Dict:
+def save_step_writes(cache: Dict, local: bool = False) -> Dict:
     """Copies of everything a decode step over this layer's ``cache``
     overwrites: each row's K/V at its write slot (packed4: the whole
-    byte, both nibbles), the int8/int4 scales there, the unpaged
-    ``slot_pos`` entry, and the ``pos`` tensor itself (a step rebinds
-    it); of an MLA cache, each row's latent row at its write slot.
+    byte, both nibbles; ``local``: the ring slot), the int8/int4 scales
+    there, the unpaged ``slot_pos`` entry, and the ``pos`` tensor itself
+    (a step rebinds it); of an MLA cache, each row's latent row at its
+    write slot; of an RG-LRU state, its ``h``/``conv``/``pos`` tensors
+    themselves (a step rebinds all three and writes into none).
     :func:`restore_step_writes` puts them back bit for bit, so a shadow
     decode (the drift monitor's reference pass) leaves the cache as it
     found it."""
+    if "h" in cache:
+        return {key: cache[key] for key in ("h", "conv", "pos")}
     if "lat" in cache:
         rows, slot = _latent_write_index(cache)
         return {"pos": cache["pos"], "index": (rows, slot),
                 "lat": cache["lat"][rows, slot].clone()}
-    rows, slot, wrow, wslot = _step_write_index(cache)
+    rows, slot, wrow, wslot = _step_write_index(cache, local)
     kv_slot = wslot // 2 if cache["k"].dtype == torch.uint8 else wslot
     saved = {"pos": cache["pos"], "index": (rows, slot, wrow, wslot, kv_slot)}
     for key in ("k", "v"):
@@ -298,6 +322,9 @@ def save_step_writes(cache: Dict) -> Dict:
 def restore_step_writes(cache: Dict, saved: Dict) -> None:
     """Undo a decode step over ``cache`` from :func:`save_step_writes`'s
     copies, in place."""
+    if "h" in cache:
+        cache.update(saved)
+        return
     if "lat" in cache:
         rows, slot = saved["index"]
         cache["lat"][rows, slot] = saved["lat"]
@@ -315,9 +342,12 @@ def restore_step_writes(cache: Dict, saved: Dict) -> None:
 
 
 def attention_step(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
-                   cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+                   cfg: ModelConfig, local: bool = False
+                   ) -> Tuple[torch.Tensor, Dict]:
     """One decode step, x: (B, 1, D). Writes each row's token into its
-    slot in place, then attends over the updated cache. A paged cache
+    slot in place, then attends over the updated cache; ``local``: into
+    its ring slot ``pos mod slots``, attending over ``q − k <
+    cfg.window`` (paged caches are full attention only). A paged cache
     (``block_table`` present) writes at ``(block_table[row, pos // ps],
     pos % ps)`` and attends through the table; every table entry is a
     valid page (a retired row points at its private parked page), so a
@@ -326,8 +356,9 @@ def attention_step(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
     hd = cfg.head_dim_
     pos = cache["pos"]                                        # (B,) int32
     q, k, v = _qkv(ctx, p, x, cfg, pos[:, None])
-    rows, slot, wrow, wslot = _step_write_index(cache)
+    rows, slot, wrow, wslot = _step_write_index(cache, local)
     paged = "block_table" in cache
+    window = cfg.window if local else 0
     if paged:
         bt = cache["block_table"]                             # (B, nb)
         nslots = bt.shape[1] * _paged_page_size(cache)
@@ -361,12 +392,12 @@ def attention_step(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
             kd, vd = _cache_kv(flat, x.dtype)
         else:
             kd, vd = _cache_kv(cache, x.dtype)
-        out = decode_attention(q, kd, vd, pos, spos)
+        out = decode_attention(q, kd, vd, pos, spos, window)
     else:
         out = decode_attention_op(
             q[:, 0], cache["k"], cache["v"], pos, spos.contiguous(),
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-            block_table=block_table)[:, None].to(x.dtype)
+            window=window, block_table=block_table)[:, None].to(x.dtype)
     y = linear(ctx, p.wo, out.reshape(b, 1, cfg.n_heads * hd))
     return y, cache
 
@@ -667,7 +698,7 @@ def mla_step(ctx: Ctx, p: MLA, x: torch.Tensor, cache: Dict,
                              device=x.device).expand(b, smax)
         out_lat = decode_attention_op(q_cat, lat[:, None],
                                       lat[:, None, :, :r], pos, k_pos,
-                                      scale=scale)           # (B, 1, H, r)
+                                      scale=scale, latent=True)  # (B,1,H,r)
     else:
         ckv, kpe = lat[..., :r].float(), lat[..., r:].float()
         scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)

@@ -6,7 +6,10 @@ method and scaling of a :class:`~repro_torch.core.api.PTQConfig`.
 Policy, as in the JAX package: every projection of each block is
 quantized — the attention projections (GQA's four, or MLA's six:
 ``w_q`` or ``w_dq``/``w_uq``, ``w_dkv``, ``w_kpe``, ``w_uk``, ``w_uv``,
-``wo``), the SwiGLU three or, in an MoE block, the router, the
+``wo``), an RG-LRU mixer's five (``w_gate``, ``w_branch``, ``w_out``,
+``w_a``, ``w_x``, biases kept; its ``conv_w``, ``conv_b`` and ``lam``
+stay full precision, as JAX's walk leaves them), the SwiGLU three or,
+in an MoE block, the router, the
 shared experts' three and every (expert, projection) matrix of the
 routed stacks, each with its own k* and its own generator, stacked back
 into the expert container; the embedding, the LM head and the norms stay
@@ -17,11 +20,12 @@ only shrinks during the pass.
 
 Calibration statistics (``data.calibration``) are looked up by each
 matrix's own layer: ``L<i>.attn.wq`` … ``L<i>..down``, ``L<i>.attn.w_dkv``
-…, ``L<i>.moe.router``, ``L<i>.moe.shared.up`` …. The JAX pass looks them
-up with an empty layer hint, so every scanned layer there takes layer 0's
-statistics (ROADMAP §3; its MLA names, absent from its role table, fall
-to ``L0.attn.<name>`` by its suffix match); here each layer takes its
-own. Routed experts record no tap (their
+…, ``L<i>.rglru.w_gate`` …, ``L<i>.moe.router``, ``L<i>.moe.shared.up``
+…. The JAX pass looks them up with an empty layer hint, so every scanned
+layer there takes the first recorded layer's statistics (ROADMAP §3; its
+MLA and RG-LRU names, absent from its role table, fall to the first
+``L<i>.attn.<name>`` / ``L<i>.rglru.<name>`` by its suffix match); here
+each layer takes its own. Routed experts record no tap (their
 input is the dispatch buffer), so they take the identity scaling, as in
 JAX.
 """
@@ -37,6 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import MLA, MLA_PROJECTIONS
 from repro_torch.models.linear import QLinear
 from repro_torch.models.moe import MoE
+from repro_torch.models.rglru import RGLRU, RGLRU_PROJECTIONS
 from repro_torch.models.transformer import LM
 from repro_torch.quant.mxint import pack_codes_4bit
 
@@ -134,10 +139,15 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
 
     for i, blk in enumerate(model.blocks):
         layer = f"L{i}."
-        mixer = ([n for n in MLA_PROJECTIONS
-                  if getattr(blk.mixer, n) is not None]
-                 if isinstance(blk.mixer, MLA) else ATTENTION)
-        projections(blk.mixer, f"blocks.{i}.mixer", mixer, layer + "attn.")
+        if isinstance(blk.mixer, RGLRU):
+            projections(blk.mixer, f"blocks.{i}.mixer", RGLRU_PROJECTIONS,
+                        layer + "rglru.")
+        else:
+            mixer = ([n for n in MLA_PROJECTIONS
+                      if getattr(blk.mixer, n) is not None]
+                     if isinstance(blk.mixer, MLA) else ATTENTION)
+            projections(blk.mixer, f"blocks.{i}.mixer", mixer,
+                        layer + "attn.")
         if isinstance(blk.mlp, MoE):
             pre = f"blocks.{i}.mlp"
             projections(blk.mlp, pre, ("router",), layer + "moe.")

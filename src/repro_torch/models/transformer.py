@@ -1,5 +1,6 @@
 """Decoder: config → init / forward / prefill / decode (port of the
-full-attention and MLA parts of ``repro/models/transformer.py``).
+full-attention, MLA and RG-LRU hybrid parts of
+``repro/models/transformer.py``).
 
 The JAX package folds depth into a ``lax.scan`` over stacked params; here
 the layers are an ``nn.ModuleList`` walked by a Python loop, and the
@@ -11,6 +12,11 @@ prefill, chunks and decode alike. Each block's mixer is GQA
 (:class:`~repro_torch.models.attention.Attention`) or, for an
 ``attn_kind="mla"`` config, MLA (:class:`~repro_torch.models.attention.MLA`,
 over a latent cache; no paged cache and no chunked prefill, as in the JAX
+package). A hybrid config's ``block_pattern`` cycles through the depth
+(recurrentgemma-9b: ``(rglru, rglru, local)``, the remainder at the end):
+each :class:`Block` knows its kind, and its mixer is an
+:class:`~repro_torch.models.rglru.RGLRU` or a sliding-window GQA over a
+ring cache (no paged cache and no chunked prefill, as in the JAX
 package). Embeddings and the LM head stay full precision by PTQ policy.
 :func:`lm_loss` is the calibration pass's forward (and the training
 objective): token cross-entropy plus the MoE load-balance term.
@@ -30,43 +36,66 @@ from repro_torch.models.layers import (MLP, RMSNorm, chunked_softmax_xent,
                                        embed, init_linear, mlp, rmsnorm)
 from repro_torch.models.linear import Ctx, FpLinear, linear
 from repro_torch.models.moe import MoE, init_moe, moe_apply
+from repro_torch.models.rglru import (RGLRU, init_rglru, init_rglru_cache,
+                                      rglru_seq, rglru_step)
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss coefficient
 
 
+MIXER_KINDS = ("attn", "local", "rglru")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves full-attention RoPE/SwiGLU/RMSNorm decoders, dense
-    or MoE (routed + shared experts after ``first_dense`` dense layers),
-    with GQA (full or half RoPE, optional QKV biases) or MLA attention (a
-    latent of ``kv_lora_rank`` and a shared RoPE key of ``rope_head_dim``,
-    full RoPE whatever ``rope_kind`` says, as in the JAX package); raise
-    for anything else rather than run it wrongly."""
+    """The port serves RoPE/SwiGLU/RMSNorm decoders, dense or MoE (routed
+    + shared experts after ``first_dense`` dense layers), with GQA (full
+    or half RoPE, optional QKV biases) or MLA attention (a latent of
+    ``kv_lora_rank`` and a shared RoPE key of ``rope_head_dim``, full
+    RoPE whatever ``rope_kind`` says, as in the JAX package), and GQA
+    hybrids whose ``block_pattern`` mixes full attention, sliding-window
+    (``local``) attention and RG-LRU blocks; raise for anything else
+    (xLSTM blocks, encoder-decoders, vision prefixes) rather than run it
+    wrongly."""
     moe_ok = not cfg.moe or (cfg.n_routed > 0 and 0 < cfg.top_k <= cfg.n_routed
                              and cfg.d_expert > 0)
+    hybrid = set(cfg.block_pattern) != {"attn"}
     attn_ok = cfg.attn_kind == "gqa" or (
-        cfg.attn_kind == "mla" and cfg.kv_lora_rank > 0
+        cfg.attn_kind == "mla" and not hybrid and cfg.kv_lora_rank > 0
         and cfg.rope_head_dim > 0 and cfg.rope_head_dim % 2 == 0)
-    ok = (set(cfg.block_pattern) == {"attn"} and attn_ok
+    ok = (set(cfg.block_pattern) <= set(MIXER_KINDS) and attn_ok
           and moe_ok and (cfg.moe or not cfg.first_dense)
+          and (cfg.conv_width >= 1 or "rglru" not in cfg.block_pattern)
           and not cfg.is_encoder_decoder and not cfg.n_vision_tokens
           and cfg.rope_kind in ("full", "half") and cfg.act == "swiglu"
           and cfg.norm == "rmsnorm" and cfg.d_ff > 0)
     if not ok:
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA or MLA decoders (dense or MoE)"
-            f" with full or half RoPE, SwiGLU and RMSNorm only (block_pattern="
+            f" and GQA hybrids of attn/local/rglru blocks, with full or half "
+            f"RoPE, SwiGLU and RMSNorm only (block_pattern="
             f"{cfg.block_pattern}, attn_kind={cfg.attn_kind!r}, "
             f"rope_kind={cfg.rope_kind!r}, moe={cfg.moe})")
 
 
+def kind_at(cfg: ModelConfig, i: int) -> str:
+    """Layer ``i``'s block kind (``repro/models/transformer.py::_kind_at``):
+    the pattern cycles from the first layer past ``first_dense``, and the
+    lead-in layers take the pattern's first kind."""
+    if i < cfg.first_dense:
+        return cfg.block_pattern[0]
+    return cfg.block_pattern[(i - cfg.first_dense) % len(cfg.block_pattern)]
+
+
 class Block(nn.Module):
-    """``mlp`` is the block's FFN: a SwiGLU :class:`MLP` or an
+    """``kind`` is the mixer's block kind (``attn``, ``local`` or
+    ``rglru``); ``mlp`` is the block's FFN: a SwiGLU :class:`MLP` or an
     :class:`MoE`."""
 
-    def __init__(self, norm1: RMSNorm, mixer: Union[attn.Attention, attn.MLA],
-                 norm2: RMSNorm, mlp_: Union[MLP, MoE]):
+    def __init__(self, norm1: RMSNorm,
+                 mixer: Union[attn.Attention, attn.MLA, RGLRU],
+                 norm2: RMSNorm, mlp_: Union[MLP, MoE], kind: str):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.mlp = norm1, mixer, norm2, mlp_
+        self.kind = kind
 
 
 def ffn(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig
@@ -88,6 +117,10 @@ class LM(nn.Module):
                  lm_head: Optional[FpLinear]):
         super().__init__()
         check_supported(cfg)
+        kinds = [kind_at(cfg, i) for i in range(cfg.n_layers)]
+        if [blk.kind for blk in blocks] != kinds:
+            raise ValueError(f"block kinds {[blk.kind for blk in blocks]} do "
+                             f"not follow {cfg.name}'s layout {kinds}")
         self.cfg = cfg
         self.register_buffer("embed", embed_w)
         self.blocks = nn.ModuleList(blocks)
@@ -105,7 +138,8 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     generators differ. An MoE config gets ``first_dense`` dense layers of
     width ``d_ff``, then MoE blocks; ``cfg.qkv_bias`` gives wq/wk/wv a
     zero bias, as JAX's ``init_linear(..., bias=True)`` does; an MLA
-    config gets MLA mixers (``init_mla``'s scales)."""
+    config gets MLA mixers (``init_mla``'s scales); an ``rglru`` layer an
+    RG-LRU mixer (``init_rglru``'s)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -140,15 +174,21 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
 
     blocks = []
     for i in range(cfg.n_layers):
-        mixer = mla() if cfg.attn_kind == "mla" else attn.Attention(
-            qkv(qd), qkv(kvd), qkv(kvd), wo())
+        kind = kind_at(cfg, i)
+        if kind == "rglru":
+            mixer = init_rglru(gen, cfg, dev)
+        elif cfg.attn_kind == "mla":
+            mixer = mla()
+        else:
+            mixer = attn.Attention(qkv(qd), qkv(kvd), qkv(kvd), wo())
         if cfg.uses_moe_at(i):
             mlp_ = init_moe(gen, cfg, dev)
         else:
             mlp_ = MLP(init_linear(gen, d, ff, d ** -0.5, dev),
                        init_linear(gen, d, ff, d ** -0.5, dev),
                        init_linear(gen, ff, d, ff ** -0.5, dev))
-        blocks.append(Block(RMSNorm(ones()), mixer, RMSNorm(ones()), mlp_))
+        blocks.append(Block(RMSNorm(ones()), mixer, RMSNorm(ones()), mlp_,
+                            kind))
     embed_w = torch.randn((cfg.vocab, d), generator=gen, device=dev) * 0.02
     head = None if cfg.tie_embeddings else init_linear(gen, d, cfg.vocab,
                                                         d ** -0.5, dev)
@@ -163,21 +203,57 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     ``torch.int8``, or ``"int4"``). ``pages``/``page_size`` switch every
     layer to the paged layout: its own page pools and its own copy of
     the block table and positions (``serve.pages`` keeps the copies
-    equal). An MLA config's layers get the latent cache, in a float type
-    as JAX's rule has it (int8/int4 → bf16 latents), and no paged
-    layout."""
-    if cfg.attn_kind == "mla":
-        if pages is not None:
-            raise ValueError(
-                f"paged KV cache supports full GQA attention layers only, "
-                f"got kind='attn' (attn_kind={cfg.attn_kind!r}) — recurrent "
-                f"states and MLA latents have no block-granular sharing story")
-        fdtype = torch.bfloat16 if dtype in (torch.int8, attn.INT4) else dtype
-        return [attn.init_mla_cache(cfg, batch, max_len, fdtype, device)
-                for _ in range(cfg.n_layers)]
-    return [attn.init_attn_cache(cfg, batch, max_len, dtype, device,
-                                 pages=pages, page_size=page_size)
-            for _ in range(cfg.n_layers)]
+    equal). A ``local`` layer gets a ring of ``min(window, max_len)``
+    slots. An MLA layer's latent cache and an RG-LRU layer's state stay
+    in a float type as JAX's rule has it (int8/int4 → bf16), and neither
+    takes the paged layout (nor does a ring)."""
+    kinds = [kind_at(cfg, i) for i in range(cfg.n_layers)]
+    if pages is not None:
+        for kind in kinds:
+            if not (kind == "attn" and cfg.attn_kind != "mla"):
+                raise ValueError(
+                    f"paged KV cache supports full GQA attention layers only, "
+                    f"got kind={kind!r} (attn_kind={cfg.attn_kind!r}) — "
+                    f"recurrent states and MLA latents have no "
+                    f"block-granular sharing story")
+    fdtype = torch.bfloat16 if dtype in (torch.int8, attn.INT4) else dtype
+    out = []
+    for kind in kinds:
+        if kind == "rglru":
+            out.append(init_rglru_cache(cfg, batch, fdtype, device))
+        elif kind == "attn" and cfg.attn_kind == "mla":
+            out.append(attn.init_mla_cache(cfg, batch, max_len, fdtype,
+                                           device))
+        else:
+            out.append(attn.init_attn_cache(cfg, batch, max_len, dtype,
+                                            device, pages=pages,
+                                            page_size=page_size,
+                                            local=kind == "local"))
+    return out
+
+
+def _mix_seq(ctx: Ctx, blk: Block, h: torch.Tensor, cfg: ModelConfig,
+             cache: Optional[Dict], lengths: Optional[torch.Tensor]):
+    """The block's mixer over a full sequence (prefill / calibration)."""
+    if blk.kind == "rglru":
+        return rglru_seq(ctx, blk.mixer, h, cfg, cache=cache, lengths=lengths)
+    if isinstance(blk.mixer, attn.MLA):
+        return attn.mla_seq(ctx, blk.mixer, h, cfg, cache=cache,
+                            lengths=lengths)
+    return attn.attention_seq(ctx, blk.mixer, h, cfg, cache=cache,
+                              lengths=lengths, local=blk.kind == "local")
+
+
+def _mix_step(ctx: Ctx, blk: Block, h: torch.Tensor, cache: Dict,
+              cfg: ModelConfig):
+    """The block's mixer for one decode step, its cache updated in
+    place."""
+    if blk.kind == "rglru":
+        return rglru_step(ctx, blk.mixer, h, cache, cfg)
+    if isinstance(blk.mixer, attn.MLA):
+        return attn.mla_step(ctx, blk.mixer, h, cache, cfg)
+    return attn.attention_step(ctx, blk.mixer, h, cache, cfg,
+                               local=blk.kind == "local")
 
 
 def _head(ctx: Ctx, model: LM, x: torch.Tensor) -> torch.Tensor:
@@ -198,11 +274,8 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
     for i, blk in enumerate(model.blocks):
         if ctx.tap is not None:
             ctx.prefix = f"L{i}."
-        seq = attn.mla_seq if isinstance(blk.mixer, attn.MLA) \
-            else attn.attention_seq
-        y, c = seq(ctx, blk.mixer, rmsnorm(blk.norm1, x), cfg,
-                   cache=cache[i] if cache is not None else None,
-                   lengths=lengths)
+        y, c = _mix_seq(ctx, blk, rmsnorm(blk.norm1, x), cfg,
+                        cache[i] if cache is not None else None, lengths)
         x = x + y
         x = x + ffn(ctx, blk, x, cfg)
         if new_cache is not None:
@@ -252,6 +325,10 @@ def _chunk_stack(ctx: Ctx, model: LM, tokens: torch.Tensor,
         raise ValueError(f"chunked prefill needs full GQA attention layers, "
                          f"got attn_kind={cfg.attn_kind!r}: MLA latents have "
                          f"no chunked path")
+    for blk in model.blocks:
+        if blk.kind != "attn":
+            raise ValueError(f"chunked prefill needs full-attention layers, "
+                             f"got kind={blk.kind!r}")
     x = embed(model.embed, tokens, ctx.compute_dtype)
     for blk, c in zip(model.blocks, cache):
         y, _ = attn.attention_chunk(ctx, blk.mixer, rmsnorm(blk.norm1, x), c,
@@ -306,9 +383,7 @@ def decode_step(ctx: Ctx, model: LM, token: torch.Tensor,
     cfg = model.cfg
     x = embed(model.embed, token, ctx.compute_dtype)
     for blk, c in zip(model.blocks, cache):
-        step = attn.mla_step if isinstance(blk.mixer, attn.MLA) \
-            else attn.attention_step
-        y, _ = step(ctx, blk.mixer, rmsnorm(blk.norm1, x), c, cfg)
+        y, _ = _mix_step(ctx, blk, rmsnorm(blk.norm1, x), c, cfg)
         x = x + y
         x = x + ffn(ctx, blk, x, cfg)
     x = rmsnorm(model.final_norm, x)

@@ -26,8 +26,11 @@ scheduler (``serve.scheduler.StepBudget``) under either cache.
 
 An MLA model (``attn_kind="mla"``) serves over its latent cache with the
 absorbed decode: its dense W_uk/W_uv are built once per engine, and its
-decode attention runs through K3 at the latent head. As in the JAX
-engine it takes neither the paged cache nor speculative decoding.
+decode attention runs through K3 at the latent head. A hybrid model
+(``block_pattern`` with ``rglru``/``local`` blocks: recurrentgemma-9b)
+serves its RG-LRU states and sliding-window rings from the same slot
+cache. As in the JAX engine neither takes the paged cache nor
+speculative decoding: both are for pure full-GQA-attention stacks.
 
 ``ServeConfig(speculative=True)`` decodes greedy lanes
 self-speculatively: ``spec_k - 1`` draft steps through the quantized
@@ -243,10 +246,14 @@ class Engine:
             raise ValueError(f"unknown compute_dtype {sc.compute_dtype!r}")
         continuous = sc.scheduler == "continuous"
         mla = cfg.attn_kind == "mla"
+        # the paged cache and the chunked verify need every layer full GQA
+        # attention, as the JAX engine's guards have it
+        not_gqa = (any(k != "attn" for k in cfg.block_pattern) or mla
+                   or cfg.is_encoder_decoder or bool(cfg.n_vision_tokens))
         if sc.paged:
             if not continuous:
                 raise ValueError("paged KV needs scheduler='continuous'")
-            if mla:
+            if not_gqa:
                 raise ValueError(
                     f"paged KV cache supports pure full-GQA-attention "
                     f"stacks (got pattern={cfg.block_pattern}, "
@@ -261,7 +268,7 @@ class Engine:
                 raise ValueError(
                     f"spec_k={sc.spec_k} must be >= 2 — one Q-only draft "
                     f"token plus the verify model's own next token")
-            if mla:
+            if not_gqa:
                 raise ValueError(
                     f"speculative decoding verifies through the chunked "
                     f"attention path and needs a pure full-GQA-attention "
@@ -941,7 +948,8 @@ class Engine:
         is copied first and put back after it, bit for bit: the serving
         pass that follows finds the cache as it would without the
         monitor."""
-        saved = [save_step_writes(layer) for layer in self.slots.cache]
+        saved = [save_step_writes(layer, blk.kind == "local")
+                 for layer, blk in zip(self.slots.cache, self.model.blocks)]
         logits, _ = decode_step(self._rctx, self.model, self._tok,
                                 self.slots.cache)
         for layer, sv in zip(self.slots.cache, saved):

@@ -23,10 +23,14 @@ host bookkeeping against the device state it mirrors after every
     frontier, which the lockstep decode of the other lanes breaks in any
     step that follows a non-final chunk with a decode: a false alarm.)
   * **packed4 alignment** (``int4-align``) — packed4 cache leaves hold
-    ``page_size / 2`` (or ``max_len / 2``) byte rows on the slot axis.
+    ``page_size / 2`` (or, unpaged, half the layer's even-rounded slot
+    count: ``max_len``, or ``min(window, max_len)`` on a local ring) byte
+    rows on the slot axis.
 
 The port's cache is a list of per-layer dicts (``models.attention``),
-each layer with its own copy of the block table and positions. Reads
+each layer with its own copy of the block table and positions; an
+RG-LRU layer holds a ``pos`` and no K/V, so the ``pos`` checks read every
+layer and the K/V checks the layers with ``k``. Reads
 only — a sanitized engine is token-identical to a bare one — but each
 check copies the small block-table/pos tensors to the host, so it is a
 smoke/debug tool. Violations raise :class:`SanitizerError` naming the
@@ -51,11 +55,18 @@ def _fail(invariant: str, msg: str) -> None:
     raise SanitizerError(f"[sanitize:{invariant}] {msg}")
 
 
-def _attn_layers(cache) -> Iterator[Tuple[str, Dict]]:
+def _pos_layers(cache) -> Iterator[Tuple[str, Dict]]:
     """(path, layer dict) for every cache layer that carries a write
-    position."""
+    position (attention, MLA and RG-LRU layers alike)."""
     for i, layer in enumerate(cache):
         if "pos" in layer:
+            yield f"layers[{i}]", layer
+
+
+def _attn_layers(cache) -> Iterator[Tuple[str, Dict]]:
+    """(path, layer dict) for every cache layer that holds K/V pages."""
+    for i, layer in enumerate(cache):
+        if "k" in layer:
             yield f"layers[{i}]", layer
 
 
@@ -189,7 +200,7 @@ class Sanitizer:
     def _check_pos(self, engine) -> None:
         active = engine.sched.table.active
         jobs = engine._prefill_jobs if engine.sc.paged else {}
-        for path, layer in _attn_layers(engine.slots.cache):
+        for path, layer in _pos_layers(engine.slots.cache):
             pos = _host(layer["pos"])
             for slot, state in active.items():
                 if slot in jobs:
@@ -231,11 +242,20 @@ class Sanitizer:
     # ------------------------------------------------------------------
     def _check_packed4(self, engine) -> None:
         sc = engine.sc
-        span = engine.page_size if sc.paged else sc.max_len + sc.max_len % 2
-        if span % PACKED4_ALIGN:
-            _fail("int4-align", f"slot span {span} is not nibble-pair "
-                                f"aligned")
-        for path, layer in _attn_layers(engine.slots.cache):
+        for i, layer in enumerate(engine.slots.cache):
+            if "k" not in layer:
+                continue
+            path = f"layers[{i}]"
+            if sc.paged:
+                span = engine.page_size
+            else:
+                span = (min(engine.cfg.window, sc.max_len)
+                        if engine.model.blocks[i].kind == "local"
+                        else sc.max_len)
+                span += span % 2
+            if span % PACKED4_ALIGN:
+                _fail("int4-align", f"slot span {span} is not nibble-pair "
+                                    f"aligned")
             for leaf in ("k", "v"):
                 arr = layer.get(leaf)
                 if arr is None or arr.dtype != torch.uint8:

@@ -3,7 +3,9 @@ kernel against its plain version on the card (K5 on a shuffled block
 table, K4 also at the chunk shape and where whole key tiles are dead,
 K3/K4 also at head_dim 128, K3/K5 across split boundaries and at groups
 of up to 16 query heads a KV head, K3 at MLA's latent head (576 wide, V
-its first 512 columns, scale override), K6 over an
+its first 512 columns, scale override), K3 and K4 at head dim 256
+(recurrentgemma-9b's local layers: one KV head, G = 16; K3 over the four
+cache types and a wrapped ring, K4 under a window), K6 over an
 expert stack with and without counts, K7 bit for bit), and each wrapper
 raising on input the kernel does not take.
 
@@ -620,48 +622,136 @@ def test_flash_decode_latent_head_matches_plain(dev, dtype, b, s):
     k_pos[empty] = -1
     scale = 192 ** -0.5
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = dk.decode_splits(b * dk.group_blocks(16, 576), s, sm,
+    splits = dk.decode_splits(b * dk.group_blocks(16, latent=True), s, sm,
                               DECODE_LATENT_BLOCKS_PER_SM)[0]
     assert (splits == 1) == (b == 128)
     want = dk.decode_attention_plain(q, k, v, q_pos, k_pos, scale=scale)
     before = dk.LAUNCHES["flash_decode"]
-    got = dk.decode_attention_op(q, k, v, q_pos, k_pos, scale=scale)
+    got = dk.decode_attention_op(q, k, v, q_pos, k_pos, scale=scale,
+                                 latent=True)
     assert dk.LAUNCHES["flash_decode"] == before + 1
     assert got.shape == (b, 1, 16, 512) and got.dtype == torch.float32
     _close(got, want, 1e-4)
     assert torch.all(got[empty] == 0)
     # the same cache with the default scale differs: the override is read
-    other = dk.decode_attention_op(q, k, v, q_pos, k_pos)
+    other = dk.decode_attention_op(q, k, v, q_pos, k_pos, latent=True)
     assert float((other - got).abs().max()) > 1e-3
 
 
 def test_flash_decode_latent_wrapper_raises(dev):
-    """Only V = k[..., :dv] (dv <= 512) of an f32/bf16 cache, unpaged, at
-    most 576 wide; K4 and K5 keep their 128 cap."""
+    """The latent route takes only V = k[..., :dv] (dv <= 512) of an
+    f32/bf16 cache, unpaged, at most 576 wide; K5 keeps its 128 cap and
+    K4 its 256."""
     q, lat, k, v = _latent(dev, torch.bfloat16, 2, 64)
     q_pos = torch.tensor([10, 63], dtype=torch.int32, device=dev)
     k_pos = torch.arange(64, dtype=torch.int32, device=dev).repeat(2, 1)
     with pytest.raises(ValueError):                  # V a tensor of its own
-        dk.flash_decode(q, k, v.contiguous(), q_pos, k_pos)
+        dk.flash_decode(q, k, v.contiguous(), q_pos, k_pos, latent=True)
     with pytest.raises(ValueError):                  # dv = 576 > 512
-        dk.flash_decode(q, k, k, q_pos, k_pos)
+        dk.flash_decode(q, k, k, q_pos, k_pos, latent=True)
     with pytest.raises(ValueError):                  # V not K's first columns
-        dk.flash_decode(q, k, k[..., 64:], q_pos, k_pos)
+        dk.flash_decode(q, k, k[..., 64:], q_pos, k_pos, latent=True)
     codes = torch.zeros(k.shape, dtype=torch.int8, device=dev)
     sc = torch.ones(k.shape[:3], device=dev)
     with pytest.raises(TypeError):                   # int8 latents
-        dk.flash_decode(q, codes, codes[..., :512], q_pos, k_pos, sc, sc)
+        dk.flash_decode(q, codes, codes[..., :512], q_pos, k_pos, sc, sc,
+                        latent=True)
     with pytest.raises(ValueError):                  # wider than 576
         wide = torch.zeros((2, 1, 64, 640), dtype=torch.bfloat16, device=dev)
         dk.flash_decode(torch.zeros((2, 1, 16, 640), device=dev), wide,
-                        wide[..., :512], q_pos, k_pos)
+                        wide[..., :512], q_pos, k_pos, latent=True)
     bt = torch.zeros((2, 4), dtype=torch.int32, device=dev)
     pool = torch.zeros((4, 1, 16, 576), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):                  # K5 stays at 128
         dk.flash_decode_paged(q, pool, pool, q_pos, k_pos, bt)
-    with pytest.raises(ValueError):                  # K4 stays at 128
-        x = torch.zeros((1, 8, 1, 1, 192), device=dev)
+    with pytest.raises(ValueError):                  # K4 stops at 256
+        x = torch.zeros((1, 8, 1, 1, 264), device=dev)
         pos = torch.arange(8, dtype=torch.int32, device=dev)
+        fk.flash_attention(x, x[:, :, :, 0], x[:, :, :, 0], pos, pos)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "int4"])
+def test_flash_decode_head_dim_256(dev, kind):
+    """K3's wide instance (recurrentgemma-9b's local decode: one KV head,
+    G = 16, hd 256, window 2048) over ragged rows of a 512-slot cache,
+    a row at its last slot and a row with no valid slot (zeros)."""
+    b, s = 8, 512
+    q, k, v, _, _, ks, vs = _cache(dev, kind, b=b, kvh=1, g=16, s=s, hd=256,
+                                   seed=256)
+    q_pos = torch.arange(b, device=dev, dtype=torch.int32) * 19 + 150
+    q_pos[0] = s - 1
+    k_pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+    k_pos[3] = -1
+    want = dk.decode_attention_plain(q, k, v, q_pos, k_pos, ks, vs, 2048)
+    before = dk.LAUNCHES["flash_decode"]
+    got = dk.decode_attention_op(q, k, v, q_pos, k_pos, k_scale=ks,
+                                 v_scale=vs, window=2048)
+    assert dk.LAUNCHES["flash_decode"] == before + 1
+    assert got.shape == (b, 1, 16, 256)
+    _close(got, want, 1e-4)
+    assert torch.all(got[3] == 0)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_flash_decode_wrapped_ring(dev, kind):
+    """A local layer's 2048-slot ring after it wrapped: slot j holds the
+    position p ≡ j (mod 2048) in 952..2999, so valid slots are out of
+    position order; every row at q_pos 2999, under the window of 2048
+    (every slot valid) and of 700 (most tiles dead, the live ones not in
+    slot order)."""
+    b, s = 3, 2048
+    q, k, v, _, _, ks, vs = _cache(dev, kind, b=b, kvh=1, g=16, s=s, hd=256,
+                                   seed=7)
+    j = torch.arange(s, dtype=torch.int32, device=dev)
+    ring = j + s * ((2999 - j) // s)
+    assert int(ring.min()) == 952 and int(ring.max()) == 2999
+    k_pos = ring.repeat(b, 1)
+    q_pos = torch.full((b,), 2999, dtype=torch.int32, device=dev)
+    for window in (2048, 700):
+        want = dk.decode_attention_plain(q, k, v, q_pos, k_pos, ks, vs,
+                                         window)
+        got = dk.decode_attention_op(q, k, v, q_pos, k_pos, k_scale=ks,
+                                     v_scale=vs, window=window)
+        _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window", [(256, 0), (2100, 2048), (300, 40)])
+def test_flash_attention_head_dim_256(dev, dtype, s, window):
+    """K4's wide instance at recurrentgemma-9b's local prefill: 16 query
+    heads over one KV head of 256, causal, under its 2048 window past
+    the window, and a short window (dead key tiles)."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn((1, s, 1, 16, 256), generator=gen, device=dev).to(dtype)
+    k = torch.randn((1, s, 1, 256), generator=gen, device=dev).to(dtype)
+    v = torch.randn((1, s, 1, 256), generator=gen, device=dev).to(dtype)
+    pos = torch.arange(s, device=dev, dtype=torch.int32)
+    want = fk.flash_attention_plain(q, k, v, pos, pos, True, window)
+    before = fk.LAUNCHES["flash_attention"]
+    got = fk.flash_attention(q, k, v, pos, pos, causal=True, window=window)
+    assert fk.LAUNCHES["flash_attention"] == before + 1
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2 ** -8)
+
+
+def test_head_dim_256_wrappers_raise(dev):
+    """At hd 256 the latent route asked for needs V to be K's view; K5
+    keeps 128; K3's GQA route and K4 stop at 256."""
+    q, k, v, q_pos, k_pos, _, _ = _cache(dev, "bf16", b=3, kvh=1, g=16,
+                                         s=64, hd=256)
+    with pytest.raises(ValueError):
+        dk.flash_decode(q, k, v, q_pos, k_pos, latent=True)
+    with pytest.raises(ValueError):
+        dk.flash_decode(torch.zeros((3, 1, 16, 264), device=dev),
+                        torch.zeros((3, 1, 64, 264), device=dev),
+                        torch.zeros((3, 1, 64, 264), device=dev), q_pos,
+                        k_pos)
+    bt = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    pool = torch.zeros((4, 1, 16, 256), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        dk.flash_decode_paged(q, pool, pool, q_pos, k_pos, bt)
+    x = torch.zeros((1, 8, 1, 1, 264), device=dev)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
         fk.flash_attention(x, x[:, :, :, 0], x[:, :, :, 0], pos, pos)
 
 

@@ -585,9 +585,9 @@ def _latent_args(hd=24, dv=16, dtype=torch.float32):
 @pytest.mark.parametrize("case", ["v_copy", "v_offset", "dv_over_512",
                                   "int8", "scales", "over_576", "g17"])
 def test_latent_wrapper_raises_before_launch(case):
-    """K3's wrapper at a head wider than 128 takes only V = k[..., :dv]
-    (dv ≤ 512) of a float cache with no scales, at most 576 wide, G ≤ 16;
-    it raises on the rest before anything reaches the card."""
+    """K3's latent route takes only V = k[..., :dv] (dv ≤ 512) of a float
+    cache with no scales, at most 576 wide, G ≤ 16; it raises on the rest
+    before anything reaches the card."""
     hd = 640 if case == "over_576" else 576
     q, k, v, q_pos, k_pos = _latent_args(hd, 512)
     ks = vs = None
@@ -606,7 +606,8 @@ def test_latent_wrapper_raises_before_launch(case):
     elif case == "g17":
         q = torch.zeros((2, 1, 17, hd))
     with pytest.raises(err):
-        dk.flash_decode(q, k, v, q_pos, k_pos, ks, vs, scale=0.1)
+        dk.flash_decode(q, k, v, q_pos, k_pos, ks, vs, scale=0.1,
+                        latent=True)
 
 
 def test_latent_plain_version_and_group_blocks():
@@ -623,4 +624,4 @@ def test_latent_plain_version_and_group_blocks():
                                   k_pos, scale=0.125)
     assert out.shape == (2, 1, 16, 32)
     torch.testing.assert_close(out, full[..., :32], rtol=0, atol=1e-6)
-    assert dk.group_blocks(16, 576) == 4 and dk.group_blocks(16, 128) == 2
+    assert dk.group_blocks(16, latent=True) == 4 and dk.group_blocks(16) == 2
