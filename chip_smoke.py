@@ -31,7 +31,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    2048-slot ring (positions 952–2999 out of slot order, window 2048), K4
    at head_dim 256 (16 heads over one KV head: S 256 f32 and bf16, S 2100
    under the 2048 window), K1/K2 at 4096×4096, 4096×12288, 12288×4096 and
-   K7 at those and 4096×256: max error against a stated tolerance,
+   K7 at those and 4096×256; for phase "xlstm", K1/K2 at xlstm-125m's
+   eight projection shapes (``w_if`` 1536×8 at rank 4) and at the reduced
+   sLSTM FFN's N = 85 (widened to 88 by the launchers), K7 at 768×1536,
+   1536×1536, 1536×8 and 1024×768: max error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
    layers finds them cold) and the bound (K1/K2/K6: the function's
@@ -173,7 +176,21 @@ Phases (each prints its own lines; any failure exits non-zero):
    tokens in a 2304-slot cache (the 2048-slot ring wraps, K4 under the
    live window); the prefill logits of (a) and (b) and one decode step's
    logits after the wrap through the kernels against ``fused="off"``,
-   each within 1e-3 · max|logit|.
+   each within 1e-3 · max|logit|;
+10. "xlstm": xlstm-125m (mLSTM and sLSTM blocks, LayerNorm, no RoPE) at
+   full width and all 12 layers: ``init_lm`` (seed 0; the ``w_if`` and
+   ``w_gates`` biases filled from seed 13) → calibration as in phase 4 →
+   the scalings built ahead (timed) → qera-exact SRR (66 matrices, K7's
+   launches read around the pass) → (a) phase 4's unpaged serving with
+   bf16 KV (K1 exactly 66 × decode steps, K2 66 × prefills, K3–K6
+   never), profiled decode steps; (c) int8 KV (the states f32 either
+   way: the same tokens); the drift probe leaving every state tensor bit
+   for bit; ``paged``/``speculative`` refused; (b) prompts of 2048 and
+   2000 tokens with ``max_len`` 2304 (the parallel form over 8 chunks),
+   a lane's state bytes equal to (a)'s (14,266,512); the prefill logits
+   of (a) and (b) and one decode step's logits after (b)'s prefill
+   through the kernels against ``fused="off"``, each within 1e-3 ·
+   max|logit|.
 
 In a directory that holds this script and nothing else of the
 repository it exits 1, without a card 2. The last lines are the nvidia-smi line, one JSON object with a record
@@ -185,7 +202,8 @@ times phase 3's Q+LR cases (K1 at its main, router and dense lead-in
 shapes, K2 at both M = 256 shapes, K1/K2 at the MLA projections, K6 at
 all five), its K3, K4 and K5 cases (K5 also at deepseek-moe's KV 16, hd
 128; with the dense variants' G = 16 and G = 3, K3's latent rows and
-the head-dim-256 K3/K4 rows where the tree has them) and K7's sixteen,
+the head-dim-256 K3/K4 rows and K1/K2 at xlstm-125m's shapes where the
+tree has them) and K7's at every SRR pass shape,
 of the tree at PARENT_ROOT
 (an unpacked ``git
 archive``) and of this one on one card, in the order parent, change,
@@ -818,6 +836,17 @@ HYBRID_FLASH = ((256, "f32", 0), (256, "bf16", 0), (2100, "f32", 2048))
 HYBRID_QLR = ((8, 4096, 4096), (8, 4096, 12288), (8, 12288, 4096),
               (256, 4096, 4096), (256, 4096, 12288), (256, 12288, 4096))
 HYBRID_K7 = ((4096, 4096), (4096, 256), (4096, 12288), (12288, 4096))
+# phase "xlstm" (xlstm-125m): K1 (decode rows) and K2 (prefill rows) at
+# its eight projection shapes, as (K, N, rank): up/up_gate 768×1536,
+# wq/wk/wv 1536×1536, w_if 1536×8 at rank 4 (rank_for: N < 32), down
+# 1536×768, w_gates 768×3072, w_out 768×768, ffn_up 768×1024, ffn_down
+# 1024×768; and the reduced sLSTM FFN's 64×85 (an N the launchers widen
+# to 88); K7 at the pass's new shapes
+XLSTM_QLR = ((768, 1536, 16), (1536, 1536, 16), (1536, 8, 4),
+             (1536, 768, 16), (768, 3072, 16), (768, 768, 16),
+             (768, 1024, 16), (1024, 768, 16))
+XLSTM_RAGGED = (64, 85, 16)
+XLSTM_K7 = ((768, 1536), (1536, 1536), (1536, 8), (1024, 768))
 
 
 def phase_kernels(dev) -> list:
@@ -886,6 +915,13 @@ def phase_kernels(dev) -> list:
     for m, k, n in HYBRID_QLR:
         rows.append(check_qlr(dev, m, k, n, 16, False))
     for m, n in HYBRID_K7:
+        rows.append(check_quantize(dev, m, n))
+    # phase "xlstm": K1/K2 at xlstm-125m's projections (w_if at rank 4, 8
+    # columns), at an N that is not a multiple of 4, and K7 at its matrices
+    for m in (8, 256):
+        for k, n, rank in XLSTM_QLR + (XLSTM_RAGGED,):
+            rows.append(check_qlr(dev, m, k, n, rank, False))
+    for m, n in XLSTM_K7:
         rows.append(check_quantize(dev, m, n))
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms"
@@ -2985,11 +3021,13 @@ HYBRID_LAYERS = 8
 RING_LENGTHS = (2100, 2080)
 
 
-def hybrid_model(dev, cfg, tag: str) -> tuple:
-    """``init_lm`` (seed 0) → calibration (phase 4's batches) → the
-    qera-exact scalings built ahead (timed) → SRR (rank 16, 3-bit MXINT,
-    int8 container) with K7's launches read around the pass. Returns
-    (model, stats of the pass)."""
+def family_model(dev, cfg, tag: str, prepare=None) -> tuple:
+    """``init_lm`` (seed 0) → ``prepare(model)`` where given (it fills
+    biases and returns a note for the log) → calibration (phase 4's
+    batches) → the qera-exact scalings built ahead (timed) → SRR (rank
+    16, 3-bit MXINT, int8 container) with K7's launches read around the
+    pass. Phases "hybrid" and "xlstm" share it. Returns (model, stats of
+    the pass)."""
     import torch
     from repro_torch.core.api import PTQConfig
     from repro_torch.models import init_lm
@@ -2999,13 +3037,17 @@ def hybrid_model(dev, cfg, tag: str) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_lm(cfg, 0, device=dev)
+    note = prepare(model) if prepare is not None else ""
     torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in model.buffers())
     log(tag, f"init_lm {cfg.name}: {cfg.n_layers} layers "
         f"{[blk.kind for blk in model.blocks]} d_model {cfg.d_model} d_rnn "
         f"{cfg.d_rnn_} conv {cfg.conv_width} heads {cfg.n_heads} kv "
         f"{cfg.n_kv_heads} head_dim {cfg.head_dim_} window {cfg.window} d_ff "
-        f"{cfg.d_ff} vocab {cfg.vocab} in {time.perf_counter() - t0:.2f} s; "
-        f"f32 {torch.cuda.memory_allocated() / gib:.2f} GiB")
+        f"{cfg.d_ff} vocab {cfg.vocab} norm {cfg.norm} in "
+        f"{time.perf_counter() - t0:.2f} s; {n_params / 1e6:.1f} M "
+        f"parameters, f32 {torch.cuda.memory_allocated() / gib:.2f} GiB"
+        + (f"; {note}" if note else ""))
     stats, t_calib = calibrate(dev, cfg, model, tag)
     t_scaling = build_scalings(stats)
     reset_counts()
@@ -3032,12 +3074,13 @@ def hybrid_model(dev, cfg, tag: str) -> tuple:
                        matrices=len(reports), ptq_counts=ptq_counts)
 
 
-def hybrid_logits(dev, cfg, model, reqs, max_len: int,
+def family_logits(dev, cfg, model, reqs, max_len: int,
                   step: bool) -> dict:
     """The prompts' prefill logits (right-padded, ``lengths``) through the
     kernels against ``fused="off"`` into a bf16 cache of ``max_len``
     slots and, with ``step``, one decode step's logits over the prefilled
-    lanes (copies of the kernel run's cache) the same way."""
+    lanes (copies of the kernel run's cache) the same way (and, where the
+    model has local layers, the ring's slots and largest position)."""
     import torch
     from repro_torch.models import Ctx, decode_step, init_cache, prefill
 
@@ -3059,10 +3102,11 @@ def hybrid_logits(dev, cfg, model, reqs, max_len: int,
     require(bool(torch.isfinite(logit["auto"]).all()), "non-finite logits")
     if not step:
         return res
-    ring = next(c["slot_pos"] for c, blk in zip(cache, model.blocks)
-                if blk.kind == "local")
-    res["ring_slots"] = ring.shape[1]
-    res["ring_max_pos"] = int(ring.max())
+    ring = next((c["slot_pos"] for c, blk in zip(cache, model.blocks)
+                 if blk.kind == "local"), None)
+    if ring is not None:
+        res["ring_slots"] = ring.shape[1]
+        res["ring_max_pos"] = int(ring.max())
     tok = logit["auto"][:, -1].argmax(-1)[:, None]
     out = {}
     for fused in ("auto", "off"):
@@ -3078,7 +3122,7 @@ def hybrid_logits(dev, cfg, model, reqs, max_len: int,
 def phase_hybrid(dev) -> dict:
     """Phase "hybrid": recurrentgemma-9b (RG-LRU blocks and sliding-window
     layers) at full width, its first ``HYBRID_LAYERS`` layers →
-    :func:`hybrid_model` → (a) phase 4's unpaged serving, bf16 KV (every
+    :func:`family_model` → (a) phase 4's unpaged serving, bf16 KV (every
     projection through K1 at decode and K2 at prefill, the local layers'
     attention through K3 and K4 at head dim 256; launches exactly as the
     layout gives them), profiled decode steps; (c) the same with int8 KV
@@ -3098,7 +3142,7 @@ def phase_hybrid(dev) -> dict:
                               n_layers=HYBRID_LAYERS)
     tag = "hybrid"
     gib = 2.0 ** 30
-    model, run = hybrid_model(dev, cfg, tag)
+    model, run = family_model(dev, cfg, tag)
     n_local = sum(blk.kind == "local" for blk in model.blocks)
     n_proj = sum(isinstance(m, QLinear) for m in model.blocks.modules())
 
@@ -3198,8 +3242,8 @@ def phase_hybrid(dev) -> dict:
                  engb.sched.stats.admitted, "(b)")
     del engb
 
-    lg = hybrid_logits(dev, cfg, model, reqs[:1], 512, False)
-    lgb = hybrid_logits(dev, cfg, model, rreqs, 2304, True)
+    lg = family_logits(dev, cfg, model, reqs[:1], 512, False)
+    lgb = family_logits(dev, cfg, model, rreqs, 2304, True)
     gates = [("(a) prefill", lg["prefill_err"], lg["prefill_scale"]),
              ("(b) prefill", lgb["prefill_err"], lgb["prefill_scale"]),
              ("(b) decode step after the wrap", lgb["step_err"],
@@ -3221,6 +3265,194 @@ def phase_hybrid(dev) -> dict:
                ring_ttft_ms=[1e3 * t for t in ttftb],
                ring_step_ms=1e3 * sum(stepsb) / len(stepsb),
                probe_changed=changed, logits=[lg, lgb])
+    return run
+
+
+# run (b): two prompts of 2048 and 2000 tokens in a 2304-slot cache, the
+# mLSTM's parallel form over 8 chunks of 256
+XLSTM_LENGTHS = (2048, 2000)
+# a lane's state at full width with JAX's dtypes: 6 mLSTM layers of C
+# (4·384²), n (4·384), m (4) f32 and pos int32, 6 sLSTM layers of c, n, h,
+# m (4·768) f32 and pos, whatever the context
+XLSTM_LANE_BYTES = 6 * 4 * (4 * 384 ** 2 + 4 * 384 + 4 + 1) \
+    + 6 * 4 * (4 * 768 + 1)
+
+
+def fill_xlstm_biases(model, seed: int) -> str:
+    """Fill the zero ``w_if`` (mLSTM) and ``w_gates`` (sLSTM) biases
+    ``init_lm`` gives with N(0, BIAS_STD²) from a seed, so the bias path
+    carries real values."""
+    import torch
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    for blk in model.blocks:
+        p = blk.mixer.w_if if blk.kind == "mlstm" else blk.mixer.w_gates
+        p.b.normal_(0.0, BIAS_STD, generator=gen)
+    return f"{len(model.blocks)} w_if / w_gates biases filled"
+
+
+def lane_bytes(eng) -> int:
+    """Bytes of the engine's live cache a lane holds."""
+    return sum(t.numel() * t.element_size() for layer in eng.slots.cache
+               for t in layer.values()) // eng.sc.decode_batch
+
+
+def phase_xlstm(dev) -> dict:
+    """Phase "xlstm": xlstm-125m (mLSTM and sLSTM blocks, LayerNorm, no
+    RoPE) at full width and all 12 layers → :func:`family_model` (the
+    ``w_if``/``w_gates`` biases filled from seed 13) → (a) phase 4's
+    unpaged serving, bf16 KV (every one of the 66 projections through K1
+    at decode and K2 at prefill, nothing else launched), profiled decode
+    steps; (c) the same with int8 KV (the states f32 either way: the same
+    tokens); the drift probe leaving every state tensor bit for bit;
+    ``paged`` and ``speculative`` refused; (b) prompts of 2048 and 2000
+    tokens with ``max_len`` 2304 (the parallel form over 8 chunks), a
+    lane's state bytes equal to (a)'s; the prefill logits of (a) and (b)
+    and one decode step's logits after (b)'s prefill through the kernels
+    against ``fused="off"``, each within 1e-3 · max|logit|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.linear import QLinear
+    from repro_torch.serve import Engine
+
+    cfg = get_config("xlstm-125m")
+    tag = "xlstm"
+    gib = 2.0 ** 30
+    model, run = family_model(dev, cfg, tag,
+                              prepare=lambda m: fill_xlstm_biases(m, 13))
+    n_proj = sum(isinstance(m, QLinear) for m in model.blocks.modules())
+    w_if = model.blocks[0].mixer.w_if
+    log(tag, f"{n_proj} quantized projections; w_if {tuple(w_if.codes.shape)}"
+        f" at rank {w_if.r.shape[0]}")
+    require(n_proj == 66 and w_if.r.shape == (4, 8),
+            f"expected 66 projections and w_if at rank 4, got {n_proj}, "
+            f"{tuple(w_if.r.shape)}")
+
+    def check_counts(counts, steps: int, prefills: int, what: str) -> None:
+        want = {"K1": steps * n_proj, "K2": prefills * n_proj, "K3": 0,
+                "K4": 0, "K5": 0, "K6": 0}
+        require(all(counts[k] == v for k, v in want.items()),
+                f"{what}: launches {counts}, the layout gives {want} "
+                f"({steps} decode steps, {prefills} prefills)")
+
+    # (a) phase 4's serving, bf16 KV
+    sc = main_serve_config()
+    serve(Engine(model, cfg, sc, device=dev),
+          make_requests(cfg, 2, seed=1, lengths=[40, 60]))     # warm-up
+    eng = Engine(model, cfg, sc, device=dev)
+    reqs = make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results, steps, wall = serve(eng, reqs)
+    counts = launch_counts()
+    n_steps = eng.sched.stats.decode_steps
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_s for r in results]
+    step_ms = 1e3 * sum(steps) / len(steps)
+    state_a = lane_bytes(eng)
+    log(tag, f"(a) served {len(results)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s: {n_tok / wall:.1f} tok/s; TTFT first "
+        f"{1e3 * min(ttft):.1f} ms mean {1e3 * sum(ttft) / len(ttft):.1f} ms "
+        f"max {1e3 * max(ttft):.1f} ms; decode step {step_ms:.2f} ms over "
+        f"{len(steps)} decode-only steps ({n_steps} decode steps in all); "
+        f"peak memory while serving "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB; state "
+        f"{state_a:,} bytes a lane")
+    log(tag, f"(a) kernel launches in the run: {counts} ({n_proj} "
+        f"projections)")
+    require(len(results) == 8 and all(len(r.tokens) == 32 for r in results),
+            f"expected 8 requests × 32 tokens, got "
+            f"{[len(r.tokens) for r in results]}")
+    require(all(0 <= t < cfg.vocab for r in results for t in r.tokens),
+            "a token outside the vocabulary")
+    require(state_a == XLSTM_LANE_BYTES, f"a lane holds {state_a} bytes of "
+            f"state, JAX's dtypes give {XLSTM_LANE_BYTES}")
+    check_counts(counts, n_steps, eng.sched.stats.admitted, "(a)")
+    prof = profile_decode(eng, cfg, make_requests(cfg, 8, seed=4,
+                                                  lengths=MAIN_LENGTHS),
+                          tag=tag)
+    del eng
+
+    # (c) int8 KV: the mLSTM and sLSTM states stay f32
+    eng8 = Engine(model, cfg, main_serve_config(kv_dtype="int8"), device=dev)
+    reset_counts()
+    results8, _, _ = serve(eng8, make_requests(cfg, 8, seed=0,
+                                               lengths=MAIN_LENGTHS))
+    counts8 = launch_counts()
+    bad = hold_tokens(dev, cfg, model, reqs,
+                      [r.tokens.tolist() for r in results8],
+                      [r.tokens.tolist() for r in results],
+                      "xlstm int8 KV vs bf16")
+    dtypes = sorted({str(t.dtype) for layer in eng8.slots.cache
+                     for t in layer.values()})
+    log(tag, f"(c) int8 KV engine: {8 - bad}/8 requests' tokens equal the "
+        f"bf16 engine's; state dtypes {dtypes}; launches {counts8}")
+    require(bad == 0, "the int8-KV engine's tokens differ from bf16's")
+    require(dtypes == ["torch.float32", "torch.int32"],
+            f"xLSTM states under int8 KV: {dtypes}")
+    check_counts(counts8, eng8.sched.stats.decode_steps,
+                 eng8.sched.stats.admitted, "(c)")
+    del eng8
+
+    changed = probe_leaves_cache(dev, cfg, model, main_serve_config(
+        drift_monitor=True, drift_sample_rate=1.0))
+    log(tag, f"drift probe's reference pass over live xLSTM states: "
+        f"{changed} tensors changed")
+    require(changed == 0, "the drift probe left the xLSTM states changed")
+    refused = []
+    for kw in (dict(paged=True), dict(speculative=True)):
+        try:
+            Engine(model, cfg, main_serve_config(**kw), device=dev)
+        except ValueError as e:
+            refused.append(str(e).split(" (")[0])
+    log(tag, f"refused: {refused}")
+    require(len(refused) == 2, "a paged or speculative xLSTM engine was "
+            "built")
+
+    # (b) 2048- and 2000-token prompts: the parallel form over 8 chunks
+    scb = main_serve_config(decode_batch=2, max_len=2304, prefill_len=2048,
+                            max_new_tokens=16)
+    breqs = make_requests(cfg, 2, seed=2, lengths=list(XLSTM_LENGTHS))
+    engb = Engine(model, cfg, scb, device=dev)
+    reset_counts()
+    resb, stepsb, wallb = serve(engb, breqs)
+    countsb = launch_counts()
+    ttftb = [r.ttft_s for r in resb]
+    state_b = lane_bytes(engb)
+    log(tag, f"(b) {len(resb)} requests of {list(XLSTM_LENGTHS)} tokens, "
+        f"{sum(len(r.tokens) for r in resb)} tokens in {wallb:.3f} s; TTFT "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in ttftb)} ms; decode step "
+        f"{1e3 * sum(stepsb) / len(stepsb):.2f} ms; launches {countsb}; "
+        f"state {state_b:,} bytes a lane (max_len 2304; (a): {state_a:,} at "
+        f"512)")
+    require(all(len(r.tokens) == 16 for r in resb),
+            f"expected 2 × 16 tokens, got {[len(r.tokens) for r in resb]}")
+    require(state_b == state_a, "a lane's state grew with the context")
+    check_counts(countsb, engb.sched.stats.decode_steps,
+                 engb.sched.stats.admitted, "(b)")
+    del engb
+
+    t0 = time.perf_counter()
+    lg = family_logits(dev, cfg, model, reqs[:1], 512, False)
+    lgb = family_logits(dev, cfg, model, breqs, 2304, True)
+    gates = [("(a) prefill", lg["prefill_err"], lg["prefill_scale"]),
+             ("(b) prefill", lgb["prefill_err"], lgb["prefill_scale"]),
+             ("(b) decode step after the prefill", lgb["step_err"],
+              lgb["step_scale"])]
+    for what, err, scale in gates:
+        log(tag, f"{what} logits, kernels vs fused=off: max |Δ| {err:.3e} "
+            f"(max |logit| {scale:.3f}, tol {1e-3 * max(1.0, scale):.3e})")
+        require(err <= 1e-3 * max(1.0, scale),
+                f"the xLSTM kernel path disagrees with fused=off: {what}")
+    log(tag, f"logit checks took {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    run.update(counts=counts, counts_int8=counts8, counts_long=countsb,
+               decode_steps=n_steps, tok_s=n_tok / wall, step_ms=step_ms,
+               ttft_ms=[1e3 * t for t in ttft], profile=prof,
+               long_ttft_ms=[1e3 * t for t in ttftb],
+               long_step_ms=1e3 * sum(stepsb) / len(stepsb),
+               lane_bytes=state_a, probe_changed=changed, logits=[lg, lgb])
     return run
 
 
@@ -3276,6 +3508,14 @@ if hasattr(cs, "HYBRID_DECODE"):
     rows += [cs.check_flash(dev, h=16, s=s_len, hd=256, g=16, dtype=dtype,
                             window=window)
              for s_len, dtype, window in cs.HYBRID_FLASH]
+# K1/K2 at xlstm-125m's projections, where the tree has them (the N % 4
+# != 0 case only where the launchers widen it)
+if hasattr(cs, "XLSTM_QLR"):
+    from repro_torch.kernels import mxint_matmul as mk
+    cases = cs.XLSTM_QLR + ((cs.XLSTM_RAGGED,)
+                            if hasattr(mk, "pad_cols") else ())
+    rows += [cs.check_qlr(dev, m, k, n, r, False) for m in (8, 256)
+             for k, n, r in cases]
 # K7 at every shape of the SRR pass, a narrow last strip and N % 4 != 0
 rows += [cs.check_quantize(dev, m, n) for m, n in K7_SHAPES]
 print("ROWS " + json.dumps(rows))
@@ -3298,7 +3538,7 @@ def compare_kernels(parent: str) -> int:
     runs = []
     for who, root in turns:
         script = _COMPARE_ROWS.replace(
-            "K7_SHAPES", repr(K7_SHAPES + MLA_K7)).replace(
+            "K7_SHAPES", repr(K7_SHAPES + MLA_K7 + XLSTM_K7)).replace(
             "MLA_QLR", repr(MLA_QLR))
         proc = subprocess.run([sys.executable, "-c", script, root],
                               capture_output=True, text=True)
@@ -3414,6 +3654,9 @@ def main() -> int:
     t0 = time.perf_counter()
     hybrid_run = phase_hybrid(dev)
     log("hybrid", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    xlstm_run = phase_xlstm(dev)
+    log("xlstm", f"phase took {time.perf_counter() - t0:.1f} s")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -3422,7 +3665,8 @@ def main() -> int:
                    "surface": surface_run, "frontend": frontend_run,
                    "ptq": ptq_run,
                    "moe_path": moe_run, "dense": dense_run,
-                   "mla": mla_run, "hybrid": hybrid_run}, fh, indent=1)
+                   "mla": mla_run, "hybrid": hybrid_run,
+                   "xlstm": xlstm_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",
@@ -3531,6 +3775,22 @@ def main() -> int:
         picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
                       *picks["K7"][2:])
         runs.append((key, "K7", hybrid_run["ptq_counts"]))
+    # phase "xlstm": K1/K2 at its projections and at N = 85 (run (a)'s
+    # counts: 66 a decode step, 66 a prefill), K7 at its matrices (its
+    # PTQ pass)
+    for m in (8, 256):
+        kernel = "K1" if m <= 128 else "K2"
+        for k, n, rank in XLSTM_QLR + (XLSTM_RAGGED,):
+            key = f"{kernel} xlstm {m}x{k}x{n}"
+            picks[key] = (picks[kernel][0],
+                          f"M={m} K={k} N={n} r={rank} int8",
+                          *picks[kernel][2:])
+            runs.append((key, kernel, xlstm_run["counts"]))
+    for m, n in XLSTM_K7:
+        key = f"K7 xlstm {m}x{n}"
+        picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
+                      *picks["K7"][2:])
+        runs.append((key, "K7", xlstm_run["ptq_counts"]))
     kernels = []
     for key, kernel, counts in runs:
         kname, shape, source, replaces = picks[key]

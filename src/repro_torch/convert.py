@@ -18,9 +18,14 @@ needs no JAX. It handles:
     "ckv_norm"}`` with ``w_q`` or the q-LoRA ``w_dq``/``q_norm``/``w_uq``
     (``repro/models/attention.py::init_mla``), or RG-LRU ``{"w_gate",
     "w_branch", "w_out", "w_a", "w_x", "conv_w", "conv_b", "lam"}``
-    (``repro/models/rglru.py::init_rglru``), each projection in any of
-    the three schemas. A block's kind comes from the config's layout
-    (``models.transformer.kind_at`` of its depth), not from its keys;
+    (``repro/models/rglru.py::init_rglru``), mLSTM ``{"up", "up_gate",
+    "wq", "wk", "wv", "w_if", "down"}`` or sLSTM ``{"w_gates",
+    "r_gates", "w_out", "ffn_up", "ffn_down"}`` (``repro/models/
+    xlstm.py``; ``r_gates`` a raw f32 tensor, kept as it is), each
+    projection in any of the three schemas. A block's kind comes from the
+    config's layout (``models.transformer.kind_at`` of its depth), not
+    from its keys; an xLSTM block has no ``norm2`` and no FFN;
+  * norms: ``{"g"}`` (RMSNorm) or ``{"g", "b"}`` (LayerNorm);
   * a block's FFN: ``mlp`` (SwiGLU; the dense ``prefix`` lead-in layers
     of an MoE config carry it too) or ``moe`` — ``router``, ``experts``
     (the three schemas with a leading expert axis: in ``groups`` a leaf
@@ -37,11 +42,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import MLA, Attention
-from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.models.layers import MLP, LayerNorm, RMSNorm
 from repro_torch.models.linear import FpLinear, QLinear
 from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU, RGLRU_PROJECTIONS
 from repro_torch.models.transformer import LM, Block, kind_at
+from repro_torch.models.xlstm import (MLSTM, MLSTM_PROJECTIONS, SLSTM,
+                                      SLSTM_PROJECTIONS)
 
 _DTYPES = {np.dtype(np.float32), np.dtype(np.int8), np.dtype(np.uint8)}
 
@@ -91,8 +98,23 @@ def _rglru(mx: Dict[str, Any], device) -> RGLRU:
                  *(_tensor(mx[n], device) for n in ("conv_w", "conv_b", "lam")))
 
 
+def _norm(d: Dict[str, Any], device):
+    g = _tensor(d["g"], device)
+    return LayerNorm(g, _tensor(d["b"], device)) if "b" in d else RMSNorm(g)
+
+
 def _block(d: Dict[str, Any], kind: str, device) -> Block:
     mx = d["mixer"]
+    if kind == "mlstm":
+        return Block(_norm(d["norm1"], device),
+                     MLSTM(*(_linear(mx[n], device)
+                             for n in MLSTM_PROJECTIONS)), None, None, kind)
+    if kind == "slstm":
+        w_gates, w_out, ffn_up, ffn_down = (_linear(mx[n], device)
+                                            for n in SLSTM_PROJECTIONS)
+        return Block(_norm(d["norm1"], device),
+                     SLSTM(w_gates, _tensor(mx["r_gates"], device), w_out,
+                           ffn_up, ffn_down), None, None, kind)
     if kind == "rglru":
         mixer = _rglru(mx, device)
     elif "w_dkv" in mx:
@@ -100,9 +122,8 @@ def _block(d: Dict[str, Any], kind: str, device) -> Block:
     else:
         mixer = Attention(*(_linear(mx[n], device)
                             for n in ("wq", "wk", "wv", "wo")))
-    return Block(RMSNorm(_tensor(d["norm1"]["g"], device)), mixer,
-                 RMSNorm(_tensor(d["norm2"]["g"], device)), _ffn(d, device),
-                 kind)
+    return Block(_norm(d["norm1"], device), mixer, _norm(d["norm2"], device),
+                 _ffn(d, device), kind)
 
 
 def _unstack(tree: Any, i: int) -> Any:
@@ -137,4 +158,4 @@ def convert_params(tree: Dict[str, Any], cfg: ModelConfig, *,
     blocks = [_block(d, kind_at(cfg, i), dev) for i, d in enumerate(layers)]
     head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
     return LM(cfg, _tensor(tree["embed"]["w"], dev), blocks,
-              RMSNorm(_tensor(tree["final_norm"]["g"], dev)), head)
+              _norm(tree["final_norm"], dev), head)

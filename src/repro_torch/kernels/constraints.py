@@ -22,6 +22,7 @@ PACKED4_ALIGN = 2
 # --- K1/K2/K6 (kernels/csrc/mxint_matmul.cu, qlr_tc_body) ----------------
 # Output columns come in groups of four: the scale rows are read as
 # 16-byte vectors, and K6 writes an empty tile's zeros as 16-byte vectors.
+# K1/K2's launchers widen another N to the next multiple (pad_cols).
 QLR_COL_VEC = 4
 # Largest low-rank width: x·L runs as at most four 16-rank mma tiles.
 QLR_MAX_RANK = 64

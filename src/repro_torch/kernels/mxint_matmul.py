@@ -14,7 +14,10 @@ accumulated in the kernel) when there are at most
 ``QLR_FUSED_MAX_ROWS`` rows and K2 (x·L precomputed by one small
 ``torch.matmul``) otherwise, or raises on an input the kernels do not
 take. ``codes`` is the int8 container ``(K, N)`` or the packed4 uint8
-container ``(K/2, N)``, which the kernels unpack in registers. K1 and K2
+container ``(K/2, N)``, which the kernels unpack in registers; any N, as
+the JAX entry pads N to its tile: a width that is not a multiple of
+``QLR_COL_VEC`` runs on copies widened to one (:func:`pad_cols`), which
+no full-width model's projections need. K1 and K2
 are one tensor-core kernel launched once a call; :func:`qlr_plan` picks
 its tile and its split of K. The kernels build each weight as
 ``code · scale`` in bf16, exact for MXINT's power-of-two scales.
@@ -160,11 +163,30 @@ def _check(x, codes, scale, l, r, rank_rows: int) -> tuple[int, int, int]:
     return k, n, rank
 
 
+def pad_cols(codes: torch.Tensor, scale: torch.Tensor,
+             r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``codes``, ``scale`` and ``r`` widened to the next multiple of
+    ``QLR_COL_VEC`` output columns (codes and R with zeros, the scale with
+    ones), so that the kernels' 4- and 16-byte row copies stay aligned; a
+    width already a multiple passes through uncopied. The padded columns
+    compute zeros, which the launchers slice off."""
+    pad = -codes.shape[1] % QLR_COL_VEC
+    if not pad:
+        return codes, scale, r
+    widen = torch.nn.functional.pad
+    return widen(codes, (0, pad)), widen(scale, (0, pad), value=1.0), \
+        widen(r, (0, pad))
+
+
 def qlr_fused_matmul(x: torch.Tensor, codes: torch.Tensor,
                      scale: torch.Tensor, l: torch.Tensor,
                      r: torch.Tensor) -> torch.Tensor:
     """Launch K1 on ``x (M, K)``: y (M, N) f32, x·L accumulated in the
-    kernel's pass over K."""
+    kernel's pass over K. Any N: a width that is not a multiple of
+    ``QLR_COL_VEC`` runs padded (:func:`pad_cols`)."""
+    n_out = codes.shape[1]
+    codes, scale, r = pad_cols(codes, scale, r)
     k, n, rank = _check(x, codes, scale, l, r, rank_rows=x.shape[-1])
     m = x.shape[0]
     tile, splits, per = qlr_plan(m, k, n)
@@ -176,13 +198,15 @@ def qlr_fused_matmul(x: torch.Tensor, codes: torch.Tensor,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "qlr_fused_launch (K1)")
     LAUNCHES["qlr_fused"] += 1
-    return y
+    return y[:, :n_out]
 
 
 def qlr_xl_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                   xl: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Launch K2 on ``x (M, K)`` with the precomputed sliver ``xl = x·L``
-    (M, rank) f32: y (M, N) f32."""
+    (M, rank) f32: y (M, N) f32, any N as K1."""
+    n_out = codes.shape[1]
+    codes, scale, r = pad_cols(codes, scale, r)
     k, n, rank = _check(x, codes, scale, xl, r, rank_rows=x.shape[0])
     m = x.shape[0]
     tile, splits, per = qlr_plan(m, k, n)
@@ -194,7 +218,7 @@ def qlr_xl_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "qlr_launch (K2)")
     LAUNCHES["qlr"] += 1
-    return y
+    return y[:, :n_out]
 
 
 def qlr_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,

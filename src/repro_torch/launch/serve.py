@@ -8,9 +8,10 @@ on the card by default (``--device cuda``; ``--device cpu`` runs the
 kernels' plain versions).
 ``--arch`` picks a registered architecture (``phi3-mini-3.8b``,
 ``chatglm3-6b``, ``minitron-4b`` and ``qwen1.5-32b``, dense,
-``deepseek-moe-16b``, MoE, ``deepseek-v2-lite-16b``, MLA over MoE, or
-``recurrentgemma-9b``, RG-LRU blocks and sliding-window attention; the
-last two take neither ``--paged`` nor ``--spec-k``); ``--full`` serves it at its published
+``deepseek-moe-16b``, MoE, ``deepseek-v2-lite-16b``, MLA over MoE,
+``recurrentgemma-9b``, RG-LRU blocks and sliding-window attention, or
+``xlstm-125m``, mLSTM and sLSTM blocks; the last three take neither
+``--paged`` nor ``--spec-k``); ``--full`` serves it at its published
 size instead of its ``.reduced()`` smoke-test size. ``--paged`` serves from the paged KV
 cache with prefix reuse and chunked prefill; ``--scheduler bucketed``
 through the bucketed baseline. ``--temperature``/``--top-p``/``--top-k``

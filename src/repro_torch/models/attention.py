@@ -295,13 +295,14 @@ def save_step_writes(cache: Dict, local: bool = False) -> Dict:
     byte, both nibbles; ``local``: the ring slot), the int8/int4 scales
     there, the unpaged ``slot_pos`` entry, and the ``pos`` tensor itself
     (a step rebinds it); of an MLA cache, each row's latent row at its
-    write slot; of an RG-LRU state, its ``h``/``conv``/``pos`` tensors
-    themselves (a step rebinds all three and writes into none).
-    :func:`restore_step_writes` puts them back bit for bit, so a shadow
-    decode (the drift monitor's reference pass) leaves the cache as it
-    found it."""
-    if "h" in cache:
-        return {key: cache[key] for key in ("h", "conv", "pos")}
+    write slot; of a recurrent state (RG-LRU ``h``/``conv``/``pos``,
+    mLSTM ``C``/``n``/``m``/``pos``, sLSTM ``c``/``n``/``h``/``m``/
+    ``pos``), its tensors themselves (a step rebinds every one and writes
+    into none). :func:`restore_step_writes` puts them back bit for bit,
+    so a shadow decode (the drift monitor's reference pass) leaves the
+    cache as it found it."""
+    if "k" not in cache and "lat" not in cache:
+        return dict(cache)
     if "lat" in cache:
         rows, slot = _latent_write_index(cache)
         return {"pos": cache["pos"], "index": (rows, slot),
@@ -322,7 +323,7 @@ def save_step_writes(cache: Dict, local: bool = False) -> Dict:
 def restore_step_writes(cache: Dict, saved: Dict) -> None:
     """Undo a decode step over ``cache`` from :func:`save_step_writes`'s
     copies, in place."""
-    if "h" in cache:
+    if "k" not in cache and "lat" not in cache:
         cache.update(saved)
         return
     if "lat" in cache:

@@ -1,6 +1,6 @@
-"""Shared building blocks: RMSNorm, RoPE (full or half), the SwiGLU
-MLP, the embedding and the chunked cross-entropy (port of
-``repro/models/layers.py``, the parts the dense decoder uses)."""
+"""Shared building blocks: RMSNorm and LayerNorm, RoPE (full or half),
+the SwiGLU MLP, the embedding and the chunked cross-entropy (port of
+``repro/models/layers.py``, the parts the decoders use)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,6 +21,40 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     y = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
     return (y * p.g.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm's gain ``g`` and shift ``b`` (JAX's ``init_norm(kind=
+    "layernorm")``)."""
+
+    def __init__(self, g: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.register_buffer("g", g)
+        self.register_buffer("b", b)
+
+
+def layernorm(p: LayerNorm, x: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """Mean and variance over the last axis in f32, as JAX's ``norm``
+    computes them (the variance as the mean of squared deviations)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p.g.float() + p.b.float()).to(x.dtype)
+
+
+def init_norm(d: int, kind: str, device) -> nn.Module:
+    """Unit gain (and zero shift) for ``cfg.norm``'s kind."""
+    g = torch.ones((d,), device=device)
+    return RMSNorm(g) if kind == "rmsnorm" else \
+        LayerNorm(g, torch.zeros((d,), device=device))
+
+
+def norm(p: nn.Module, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """``cfg.norm``'s normalisation (``rmsnorm`` | ``layernorm``), as
+    JAX's ``norm(params, x, kind)``."""
+    return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -51,6 +85,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if rot_d < d:
         rotated = torch.cat([rotated, x[..., rot_d:].float()], dim=-1)
     return rotated.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 class MLP(nn.Module):

@@ -8,7 +8,11 @@ quantized — the attention projections (GQA's four, or MLA's six:
 ``w_q`` or ``w_dq``/``w_uq``, ``w_dkv``, ``w_kpe``, ``w_uk``, ``w_uv``,
 ``wo``), an RG-LRU mixer's five (``w_gate``, ``w_branch``, ``w_out``,
 ``w_a``, ``w_x``, biases kept; its ``conv_w``, ``conv_b`` and ``lam``
-stay full precision, as JAX's walk leaves them), the SwiGLU three or,
+stay full precision, as JAX's walk leaves them), an mLSTM mixer's seven
+(``up``, ``up_gate``, ``wq``, ``wk``, ``wv``, ``w_if``, ``down``) and an
+sLSTM mixer's four (``w_gates``, ``w_out``, ``ffn_up``, ``ffn_down``;
+``r_gates`` stays full precision: a raw tensor, as JAX's walk leaves
+it), the SwiGLU three or,
 in an MoE block, the router, the
 shared experts' three and every (expert, projection) matrix of the
 routed stacks, each with its own k* and its own generator, stacked back
@@ -20,12 +24,14 @@ only shrinks during the pass.
 
 Calibration statistics (``data.calibration``) are looked up by each
 matrix's own layer: ``L<i>.attn.wq`` … ``L<i>..down``, ``L<i>.attn.w_dkv``
-…, ``L<i>.rglru.w_gate`` …, ``L<i>.moe.router``, ``L<i>.moe.shared.up``
-…. The JAX pass looks them up with an empty layer hint, so every scanned
-layer there takes the first recorded layer's statistics (ROADMAP §3; its
-MLA and RG-LRU names, absent from its role table, fall to the first
-``L<i>.attn.<name>`` / ``L<i>.rglru.<name>`` by its suffix match); here
-each layer takes its own. Routed experts record no tap (their
+…, ``L<i>.rglru.w_gate`` …, ``L<i>.mlstm.wq`` …, ``L<i>.slstm.w_gates``
+…, ``L<i>.moe.router``, ``L<i>.moe.shared.up`` …. The JAX pass looks
+them up with an empty layer hint, so every scanned layer there takes the
+first recorded layer's statistics (ROADMAP §3; its MLA, RG-LRU and xLSTM
+names, absent from its role table, fall to the first
+``L<i>.attn.<name>`` / ``L<i>.rglru.<name>`` / ``L<i>.mlstm.<name>`` /
+``L<i>.slstm.<name>`` by its suffix match); here each layer takes its
+own. An xLSTM block has no FFN to quantize. Routed experts record no tap (their
 input is the dispatch buffer), so they take the identity scaling, as in
 JAX.
 """
@@ -43,6 +49,8 @@ from repro_torch.models.linear import QLinear
 from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU, RGLRU_PROJECTIONS
 from repro_torch.models.transformer import LM
+from repro_torch.models.xlstm import (MLSTM, MLSTM_PROJECTIONS, SLSTM,
+                                      SLSTM_PROJECTIONS)
 from repro_torch.quant.mxint import pack_codes_4bit
 
 ATTENTION = ("wq", "wk", "wv", "wo")
@@ -142,6 +150,10 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
         if isinstance(blk.mixer, RGLRU):
             projections(blk.mixer, f"blocks.{i}.mixer", RGLRU_PROJECTIONS,
                         layer + "rglru.")
+        elif isinstance(blk.mixer, (MLSTM, SLSTM)):
+            projections(blk.mixer, f"blocks.{i}.mixer",
+                        MLSTM_PROJECTIONS if blk.kind == "mlstm"
+                        else SLSTM_PROJECTIONS, f"{layer}{blk.kind}.")
         else:
             mixer = ([n for n in MLA_PROJECTIONS
                       if getattr(blk.mixer, n) is not None]
@@ -155,7 +167,7 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
                 projections(blk.mlp.shared, f"{pre}.shared", SWIGLU,
                             layer + "moe.shared.")
             stacks(blk.mlp.experts, f"{pre}.experts")
-        else:
+        elif blk.mlp is not None:
             projections(blk.mlp, f"blocks.{i}.mlp", SWIGLU, layer + ".")
         if stats is not None:
             for key in [k for k in stats if k.startswith(layer)]:

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import init_linear
+from repro_torch.models.layers import gelu, init_linear
 from repro_torch.models.linear import Ctx, linear
 
 C_GATE = 8.0  # Griffin's fixed gate sharpness
@@ -96,11 +96,6 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.gelu's default is the tanh approximation
-    return F.gelu(x, approximate="tanh")
-
-
 def _conv(p: RGLRU, xp: torch.Tensor, s: int) -> torch.Tensor:
     """Depthwise causal conv of the history-prefixed ``xp`` (B, cw − 1 + s,
     dr) → (B, s, dr): JAX's ``sum(xp[:, i:i+s] · w[i]) + b`` in x's
@@ -149,7 +144,7 @@ def rglru_seq(ctx: Ctx, p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
     history kept for decode is each row's ``cw − 1`` branch inputs before
     its length. With a cache: a fresh ``h``/``conv``/``pos``."""
     b, s, _ = x.shape
-    gate = _gelu(linear(ctx, p.w_gate, x, f"{prefix}.w_gate"))
+    gate = gelu(linear(ctx, p.w_gate, x, f"{prefix}.w_gate"))
     branch = linear(ctx, p.w_branch, x, f"{prefix}.w_branch")
     cw = p.conv_w.shape[0]
     hist = cache["conv"] if cache is not None else torch.zeros(
@@ -186,7 +181,7 @@ def rglru_step(ctx: Ctx, p: RGLRU, x: torch.Tensor, cache: Dict,
                ) -> Tuple[torch.Tensor, Dict]:
     """One decode step, x (B, 1, D): the cache's three entries are
     rebound to the new state (module docstring)."""
-    gate = _gelu(linear(ctx, p.w_gate, x, f"{prefix}.w_gate"))
+    gate = gelu(linear(ctx, p.w_gate, x, f"{prefix}.w_gate"))
     branch = linear(ctx, p.w_branch, x, f"{prefix}.w_branch")
     hist = torch.cat([cache["conv"].to(branch.dtype), branch], dim=1)
     h = _conv(p, hist, 1)

@@ -1,5 +1,5 @@
 """Decoder: config → init / forward / prefill / decode (port of the
-full-attention, MLA and RG-LRU hybrid parts of
+full-attention, MLA, RG-LRU hybrid and xLSTM parts of
 ``repro/models/transformer.py``).
 
 The JAX package folds depth into a ``lax.scan`` over stacked params; here
@@ -17,7 +17,11 @@ package). A hybrid config's ``block_pattern`` cycles through the depth
 each :class:`Block` knows its kind, and its mixer is an
 :class:`~repro_torch.models.rglru.RGLRU` or a sliding-window GQA over a
 ring cache (no paged cache and no chunked prefill, as in the JAX
-package). Embeddings and the LM head stay full precision by PTQ policy.
+package). An xLSTM config's pattern alternates ``mlstm`` and ``slstm``
+blocks (:mod:`~repro_torch.models.xlstm`), which carry their own
+projections and take no FFN after the mixer; its norms are LayerNorms
+(``cfg.norm`` picks the kind for every block and the final norm).
+Embeddings and the LM head stay full precision by PTQ policy.
 :func:`lm_loss` is the calibration pass's forward (and the training
 objective): token cross-entropy plus the MoE load-balance term.
 """
@@ -33,16 +37,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, RMSNorm, chunked_softmax_xent,
-                                       embed, init_linear, mlp, rmsnorm)
+                                       embed, init_linear, init_norm, mlp,
+                                       norm)
 from repro_torch.models.linear import Ctx, FpLinear, linear
 from repro_torch.models.moe import MoE, init_moe, moe_apply
 from repro_torch.models.rglru import (RGLRU, init_rglru, init_rglru_cache,
                                       rglru_seq, rglru_step)
+from repro_torch.models.xlstm import (MLSTM, SLSTM, init_mlstm,
+                                      init_mlstm_cache, init_slstm,
+                                      init_slstm_cache, mlstm_seq, mlstm_step,
+                                      slstm_seq, slstm_step)
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss coefficient
 
 
 MIXER_KINDS = ("attn", "local", "rglru")
+XLSTM_KINDS = ("mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -50,30 +60,41 @@ def check_supported(cfg: ModelConfig) -> None:
     + shared experts after ``first_dense`` dense layers), with GQA (full
     or half RoPE, optional QKV biases) or MLA attention (a latent of
     ``kv_lora_rank`` and a shared RoPE key of ``rope_head_dim``, full
-    RoPE whatever ``rope_kind`` says, as in the JAX package), and GQA
+    RoPE whatever ``rope_kind`` says, as in the JAX package), GQA
     hybrids whose ``block_pattern`` mixes full attention, sliding-window
-    (``local``) attention and RG-LRU blocks; raise for anything else
-    (xLSTM blocks, encoder-decoders, vision prefixes) rather than run it
-    wrongly."""
-    moe_ok = not cfg.moe or (cfg.n_routed > 0 and 0 < cfg.top_k <= cfg.n_routed
-                             and cfg.d_expert > 0)
-    hybrid = set(cfg.block_pattern) != {"attn"}
-    attn_ok = cfg.attn_kind == "gqa" or (
-        cfg.attn_kind == "mla" and not hybrid and cfg.kv_lora_rank > 0
-        and cfg.rope_head_dim > 0 and cfg.rope_head_dim % 2 == 0)
-    ok = (set(cfg.block_pattern) <= set(MIXER_KINDS) and attn_ok
-          and moe_ok and (cfg.moe or not cfg.first_dense)
-          and (cfg.conv_width >= 1 or "rglru" not in cfg.block_pattern)
-          and not cfg.is_encoder_decoder and not cfg.n_vision_tokens
-          and cfg.rope_kind in ("full", "half") and cfg.act == "swiglu"
-          and cfg.norm == "rmsnorm" and cfg.d_ff > 0)
+    (``local``) attention and RG-LRU blocks, and xLSTM stacks (a pattern
+    of ``mlstm``/``slstm`` blocks only, no FFN after them, no RoPE read,
+    LayerNorm or RMSNorm); raise for anything else (mixes of xLSTM and
+    attention blocks, encoder-decoders, vision prefixes) rather than run
+    it wrongly."""
+    kinds = set(cfg.block_pattern)
+    plain = (not cfg.is_encoder_decoder and not cfg.n_vision_tokens
+             and bool(kinds))
+    if kinds <= set(XLSTM_KINDS):
+        ok = (plain and not cfg.moe and not cfg.first_dense
+              and cfg.attn_kind == "gqa" and cfg.d_ff == 0
+              and cfg.norm in ("rmsnorm", "layernorm"))
+    else:
+        moe_ok = not cfg.moe or (cfg.n_routed > 0
+                                 and 0 < cfg.top_k <= cfg.n_routed
+                                 and cfg.d_expert > 0)
+        hybrid = kinds != {"attn"}
+        attn_ok = cfg.attn_kind == "gqa" or (
+            cfg.attn_kind == "mla" and not hybrid and cfg.kv_lora_rank > 0
+            and cfg.rope_head_dim > 0 and cfg.rope_head_dim % 2 == 0)
+        ok = (plain and kinds <= set(MIXER_KINDS) and attn_ok
+              and moe_ok and (cfg.moe or not cfg.first_dense)
+              and (cfg.conv_width >= 1 or "rglru" not in kinds)
+              and cfg.rope_kind in ("full", "half") and cfg.act == "swiglu"
+              and cfg.norm == "rmsnorm" and cfg.d_ff > 0)
     if not ok:
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA or MLA decoders (dense or MoE)"
             f" and GQA hybrids of attn/local/rglru blocks, with full or half "
-            f"RoPE, SwiGLU and RMSNorm only (block_pattern="
-            f"{cfg.block_pattern}, attn_kind={cfg.attn_kind!r}, "
-            f"rope_kind={cfg.rope_kind!r}, moe={cfg.moe})")
+            f"RoPE, SwiGLU and RMSNorm, and xLSTM stacks of mlstm/slstm "
+            f"blocks only (block_pattern={cfg.block_pattern}, "
+            f"attn_kind={cfg.attn_kind!r}, rope_kind={cfg.rope_kind!r}, "
+            f"moe={cfg.moe})")
 
 
 def kind_at(cfg: ModelConfig, i: int) -> str:
@@ -86,13 +107,15 @@ def kind_at(cfg: ModelConfig, i: int) -> str:
 
 
 class Block(nn.Module):
-    """``kind`` is the mixer's block kind (``attn``, ``local`` or
-    ``rglru``); ``mlp`` is the block's FFN: a SwiGLU :class:`MLP` or an
-    :class:`MoE`."""
+    """``kind`` is the mixer's block kind (``attn``, ``local``,
+    ``rglru``, ``mlstm`` or ``slstm``); ``mlp`` is the block's FFN: a
+    SwiGLU :class:`MLP`, an :class:`MoE`, or ``None`` (with ``norm2``)
+    for an xLSTM block."""
 
-    def __init__(self, norm1: RMSNorm,
-                 mixer: Union[attn.Attention, attn.MLA, RGLRU],
-                 norm2: RMSNorm, mlp_: Union[MLP, MoE], kind: str):
+    def __init__(self, norm1: nn.Module,
+                 mixer: Union[attn.Attention, attn.MLA, RGLRU, MLSTM, SLSTM],
+                 norm2: Optional[nn.Module], mlp_: Union[MLP, MoE, None],
+                 kind: str):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.mlp = norm1, mixer, norm2, mlp_
         self.kind = kind
@@ -102,7 +125,7 @@ def ffn(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig
         ) -> torch.Tensor:
     """The block's FFN (SwiGLU or MoE) applied to ``norm2(x)``; the
     caller adds it to the residual stream ``x``."""
-    h = rmsnorm(blk.norm2, x)
+    h = norm(blk.norm2, x, cfg.norm)
     if isinstance(blk.mlp, MoE):
         return moe_apply(ctx, blk.mlp, h, cfg)
     return mlp(ctx, blk.mlp, h)
@@ -113,7 +136,7 @@ class LM(nn.Module):
     embedding)."""
 
     def __init__(self, cfg: ModelConfig, embed_w: torch.Tensor,
-                 blocks: List[Block], final_norm: RMSNorm,
+                 blocks: List[Block], final_norm: nn.Module,
                  lm_head: Optional[FpLinear]):
         super().__init__()
         check_supported(cfg)
@@ -139,13 +162,14 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     width ``d_ff``, then MoE blocks; ``cfg.qkv_bias`` gives wq/wk/wv a
     zero bias, as JAX's ``init_linear(..., bias=True)`` does; an MLA
     config gets MLA mixers (``init_mla``'s scales); an ``rglru`` layer an
-    RG-LRU mixer (``init_rglru``'s)."""
+    RG-LRU mixer (``init_rglru``'s); an ``mlstm``/``slstm`` layer its
+    xLSTM mixer (``init_mlstm``'s / ``init_slstm``'s) and no FFN. Norms
+    follow ``cfg.norm``."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, hd, ff = cfg.d_model, cfg.head_dim_, cfg.d_ff
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    ones = lambda: torch.ones((d,), device=dev)  # noqa: E731
 
     def qkv(n: int) -> FpLinear:
         p = init_linear(gen, d, n, d ** -0.5, dev)
@@ -175,6 +199,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     blocks = []
     for i in range(cfg.n_layers):
         kind = kind_at(cfg, i)
+        if kind in XLSTM_KINDS:
+            mixer = (init_mlstm if kind == "mlstm" else init_slstm)(
+                gen, cfg, dev)
+            blocks.append(Block(init_norm(d, cfg.norm, dev), mixer, None,
+                                None, kind))
+            continue
         if kind == "rglru":
             mixer = init_rglru(gen, cfg, dev)
         elif cfg.attn_kind == "mla":
@@ -187,12 +217,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
             mlp_ = MLP(init_linear(gen, d, ff, d ** -0.5, dev),
                        init_linear(gen, d, ff, d ** -0.5, dev),
                        init_linear(gen, ff, d, ff ** -0.5, dev))
-        blocks.append(Block(RMSNorm(ones()), mixer, RMSNorm(ones()), mlp_,
-                            kind))
+        blocks.append(Block(init_norm(d, cfg.norm, dev), mixer,
+                            init_norm(d, cfg.norm, dev), mlp_, kind))
     embed_w = torch.randn((cfg.vocab, d), generator=gen, device=dev) * 0.02
     head = None if cfg.tie_embeddings else init_linear(gen, d, cfg.vocab,
                                                         d ** -0.5, dev)
-    return LM(cfg, embed_w, blocks, RMSNorm(ones()), head)
+    return LM(cfg, embed_w, blocks, init_norm(d, cfg.norm, dev), head)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -206,7 +236,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     equal). A ``local`` layer gets a ring of ``min(window, max_len)``
     slots. An MLA layer's latent cache and an RG-LRU layer's state stay
     in a float type as JAX's rule has it (int8/int4 → bf16), and neither
-    takes the paged layout (nor does a ring)."""
+    takes the paged layout (nor does a ring). An xLSTM layer's state is
+    f32 whatever ``dtype`` says, as in JAX."""
     kinds = [kind_at(cfg, i) for i in range(cfg.n_layers)]
     if pages is not None:
         for kind in kinds:
@@ -219,7 +250,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     fdtype = torch.bfloat16 if dtype in (torch.int8, attn.INT4) else dtype
     out = []
     for kind in kinds:
-        if kind == "rglru":
+        if kind == "mlstm":
+            out.append(init_mlstm_cache(cfg, batch, device))
+        elif kind == "slstm":
+            out.append(init_slstm_cache(cfg, batch, device))
+        elif kind == "rglru":
             out.append(init_rglru_cache(cfg, batch, fdtype, device))
         elif kind == "attn" and cfg.attn_kind == "mla":
             out.append(attn.init_mla_cache(cfg, batch, max_len, fdtype,
@@ -235,6 +270,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def _mix_seq(ctx: Ctx, blk: Block, h: torch.Tensor, cfg: ModelConfig,
              cache: Optional[Dict], lengths: Optional[torch.Tensor]):
     """The block's mixer over a full sequence (prefill / calibration)."""
+    if blk.kind == "mlstm":
+        return mlstm_seq(ctx, blk.mixer, h, cfg, cache=cache, lengths=lengths)
+    if blk.kind == "slstm":
+        return slstm_seq(ctx, blk.mixer, h, cfg, cache=cache, lengths=lengths)
     if blk.kind == "rglru":
         return rglru_seq(ctx, blk.mixer, h, cfg, cache=cache, lengths=lengths)
     if isinstance(blk.mixer, attn.MLA):
@@ -248,6 +287,10 @@ def _mix_step(ctx: Ctx, blk: Block, h: torch.Tensor, cache: Dict,
               cfg: ModelConfig):
     """The block's mixer for one decode step, its cache updated in
     place."""
+    if blk.kind == "mlstm":
+        return mlstm_step(ctx, blk.mixer, h, cache, cfg)
+    if blk.kind == "slstm":
+        return slstm_step(ctx, blk.mixer, h, cache, cfg)
     if blk.kind == "rglru":
         return rglru_step(ctx, blk.mixer, h, cache, cfg)
     if isinstance(blk.mixer, attn.MLA):
@@ -274,14 +317,15 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
     for i, blk in enumerate(model.blocks):
         if ctx.tap is not None:
             ctx.prefix = f"L{i}."
-        y, c = _mix_seq(ctx, blk, rmsnorm(blk.norm1, x), cfg,
+        y, c = _mix_seq(ctx, blk, norm(blk.norm1, x, cfg.norm), cfg,
                         cache[i] if cache is not None else None, lengths)
         x = x + y
-        x = x + ffn(ctx, blk, x, cfg)
+        if blk.mlp is not None:
+            x = x + ffn(ctx, blk, x, cfg)
         if new_cache is not None:
             new_cache.append(c)
     ctx.prefix = ""
-    return rmsnorm(model.final_norm, x), new_cache
+    return norm(model.final_norm, x, cfg.norm), new_cache
 
 
 def lm_loss(ctx: Ctx, model: LM, batch: Dict[str, torch.Tensor]
@@ -331,11 +375,12 @@ def _chunk_stack(ctx: Ctx, model: LM, tokens: torch.Tensor,
                              f"got kind={blk.kind!r}")
     x = embed(model.embed, tokens, ctx.compute_dtype)
     for blk, c in zip(model.blocks, cache):
-        y, _ = attn.attention_chunk(ctx, blk.mixer, rmsnorm(blk.norm1, x), c,
-                                    cfg, row, start, length)
+        y, _ = attn.attention_chunk(ctx, blk.mixer,
+                                    norm(blk.norm1, x, cfg.norm), c, cfg,
+                                    row, start, length)
         x = x + y
         x = x + ffn(ctx, blk, x, cfg)
-    return rmsnorm(model.final_norm, x)
+    return norm(model.final_norm, x, cfg.norm)
 
 
 def prefill_chunk(ctx: Ctx, model: LM, tokens: torch.Tensor,
@@ -383,8 +428,9 @@ def decode_step(ctx: Ctx, model: LM, token: torch.Tensor,
     cfg = model.cfg
     x = embed(model.embed, token, ctx.compute_dtype)
     for blk, c in zip(model.blocks, cache):
-        y, _ = _mix_step(ctx, blk, rmsnorm(blk.norm1, x), c, cfg)
+        y, _ = _mix_step(ctx, blk, norm(blk.norm1, x, cfg.norm), c, cfg)
         x = x + y
-        x = x + ffn(ctx, blk, x, cfg)
-    x = rmsnorm(model.final_norm, x)
+        if blk.mlp is not None:
+            x = x + ffn(ctx, blk, x, cfg)
+    x = norm(model.final_norm, x, cfg.norm)
     return _head(ctx, model, x), cache

@@ -29,8 +29,10 @@ absorbed decode: its dense W_uk/W_uv are built once per engine, and its
 decode attention runs through K3 at the latent head. A hybrid model
 (``block_pattern`` with ``rglru``/``local`` blocks: recurrentgemma-9b)
 serves its RG-LRU states and sliding-window rings from the same slot
-cache. As in the JAX engine neither takes the paged cache nor
-speculative decoding: both are for pure full-GQA-attention stacks.
+cache, and an xLSTM model (xlstm-125m) its f32 mLSTM and sLSTM states,
+each admission prefilled from the zero template. As in the JAX engine
+none of them takes the paged cache or speculative decoding: both are for
+pure full-GQA-attention stacks.
 
 ``ServeConfig(speculative=True)`` decodes greedy lanes
 self-speculatively: ``spec_k - 1`` draft steps through the quantized

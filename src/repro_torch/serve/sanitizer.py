@@ -29,8 +29,8 @@ host bookkeeping against the device state it mirrors after every
 
 The port's cache is a list of per-layer dicts (``models.attention``),
 each layer with its own copy of the block table and positions; an
-RG-LRU layer holds a ``pos`` and no K/V, so the ``pos`` checks read every
-layer and the K/V checks the layers with ``k``. Reads
+RG-LRU, mLSTM or sLSTM layer holds a ``pos`` and no K/V, so the ``pos``
+checks read every layer and the K/V checks the layers with ``k``. Reads
 only — a sanitized engine is token-identical to a bare one — but each
 check copies the small block-table/pos tensors to the host, so it is a
 smoke/debug tool. Violations raise :class:`SanitizerError` naming the

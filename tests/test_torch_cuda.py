@@ -5,7 +5,9 @@ K3/K4 also at head_dim 128, K3/K5 across split boundaries and at groups
 of up to 16 query heads a KV head, K3 at MLA's latent head (576 wide, V
 its first 512 columns, scale override), K3 and K4 at head dim 256
 (recurrentgemma-9b's local layers: one KV head, G = 16; K3 over the four
-cache types and a wrapped ring, K4 under a window), K6 over an
+cache types and a wrapped ring, K4 under a window), K1/K2 at
+xlstm-125m's shapes (the 1536×8 ``w_if`` at rank 4, and an N that is not
+a multiple of 4, run widened by ``pad_cols``), K6 over an
 expert stack with and without counts, K7 bit for bit), and each wrapper
 raising on input the kernel does not take.
 
@@ -123,6 +125,27 @@ def test_qlr_serving_shapes(dev, m, k, n):
     for xx in (x, x.bfloat16()):
         _close(_qlr_kernel(xx, codes, scale, l, rr),
                mk.qlr_matmul_plain(xx, codes, scale, l, rr), 1e-4)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m", [8, 256])
+@pytest.mark.parametrize("k,n,r", [(1536, 8, 4), (1536, 1536, 16),
+                                   (1024, 768, 16), (96, 85, 16),
+                                   (768, 1023, 4)])
+def test_qlr_xlstm_shapes(dev, packed, m, k, n, r):
+    """xlstm-125m's ``w_if`` (8 columns at rank 4: a partial 16-rank x·L
+    tile, 8 live columns of the router tile, 8-byte code rows), two of its
+    wider projections, and N = 85 (the reduced sLSTM FFN) and 1023, which
+    the launchers run widened to a multiple of 4 and slice back; one
+    launch a call either way."""
+    x, codes, scale, l, rr = _qlr(dev, m, k, n, r, packed, seed=n + r)
+    key = "qlr_fused" if m <= QLR_FUSED_MAX_ROWS else "qlr"
+    for xx in (x, x.bfloat16()):
+        before = mk.LAUNCHES[key]
+        got = mk.qlr_matmul(xx, codes, scale, l, rr)
+        assert mk.LAUNCHES[key] == before + 1 and got.shape == (m, n)
+        _close(got, mk.qlr_matmul_plain(xx, codes, scale, l, rr),
+               1e-4 if xx.dtype == torch.float32 else 2 ** -8)
 
 
 @pytest.mark.parametrize("packed", [False, True])

@@ -426,7 +426,7 @@ def test_dense_variants_registered_and_admitted(name, monkeypatch):
 
 @pytest.mark.parametrize("change", [
     dict(rope_kind="none"), dict(attn_kind="mla"),
-    dict(block_pattern=("mlstm", "slstm")), dict(act="gelu"),
+    dict(block_pattern=("attn", "mlstm")), dict(act="gelu"),
     dict(norm="layernorm"), dict(enc_layers=2)])
 def test_check_supported_rejects_the_rest(change):
     cfg = dataclasses.replace(get_config("chatglm3-6b").reduced(), **change)

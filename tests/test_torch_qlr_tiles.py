@@ -13,6 +13,9 @@ in order, and the splits' sums add in rank order; K1's x·L runs as x hi/lo × L
 :func:`qlr_stacked_plan`, with the entry's x rows at or past its count
 loaded as zeros and its y rows there written as zeros.
 
+An N that is not a multiple of four runs as the launchers run it: on the
+operands widened by ``pad_cols``, the padded columns sliced off.
+
 Tolerance: ``1e-4 · max(1, max|y|)``, the gate the card run holds the
 kernel to. The weights are exact in bf16; x's hi/lo pair misses x by about
 2^-17 of |x|, so each product is off by that much at most, and the
@@ -27,9 +30,10 @@ import torch
 from repro.kernels.ref import mxint_lowrank_matmul_ref
 from repro.quant.mxint import MXIntQuantizer, pack_codes_4bit
 from repro_torch.kernels.constraints import (CUDA_MAX_GRID_YZ, MXINT_BLOCK,
-                                             QLR_FUSED_MAX_ROWS,
-                                             QLR_MAX_SPLITS, QLR_TILES)
-from repro_torch.kernels.mxint_matmul import (_check, qlr_plan,
+                                             QLR_COL_VEC, QLR_FUSED_MAX_ROWS,
+                                             QLR_MAX_SPLITS, QLR_TILE_ROUTER,
+                                             QLR_TILES)
+from repro_torch.kernels.mxint_matmul import (_check, pad_cols, qlr_plan,
                                               qlr_stacked_plan)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
@@ -145,9 +149,10 @@ def _hold(m, k, n, rank, packed, seed, extreme=False, bf16=False):
     xt = torch.from_numpy(x)
     if bf16:
         xt = xt.bfloat16()
-    args = [torch.from_numpy(a) for a in (c, scale, l, r)]
+    c, scale_t, r_t = pad_cols(*(torch.from_numpy(a) for a in (c, scale, r)))
+    args = [c, scale_t, torch.from_numpy(l), r_t]
     xl = None if m <= QLR_FUSED_MAX_ROWS else xt.float() @ args[2]
-    got = emulate(xt, *args, xl=xl).numpy()
+    got = emulate(xt, *args, xl=xl)[:, :n].numpy()
     assert np.isfinite(want).all() and np.isfinite(got).all()
     tol = 1e-4 * max(1.0, float(np.abs(want).max()))
     assert float(np.abs(got - want).max()) <= tol
@@ -191,6 +196,41 @@ def test_stacked_tiles_match_jax_oracle(bf16, rank, m, n):
     assert np.isfinite(got).all() and not got[rows].any()
     tol = 1e-4 * max(1.0, float(np.abs(want).max()))
     assert float(np.abs(got - want).max()) <= tol
+
+
+# xlstm-125m's w_if: 1536×8 at rank 4 (one partial 16-rank tile of x·L,
+# 8 live columns of the router tile); the reduced sLSTM FFN's N = 85
+# (widened to 88); at decode (K1) and prefill (K2) rows
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m", [8, 256])
+@pytest.mark.parametrize("k,n,rank", [(1536, 8, 4), (96, 85, 16)])
+def test_narrow_and_ragged_widths_match_jax_oracle(packed, m, k, n, rank):
+    _hold(m, k, n, rank, packed, seed=k + n + m)
+
+
+@pytest.mark.parametrize("n,rank", [(8, 4), (85, 16), (85, 0)])
+def test_check_takes_any_width_after_pad_cols(n, rank):
+    """The launchers' check raises at N % 4 != 0; ``pad_cols`` widens
+    codes (zeros), scale (ones) and R (zeros) to the next multiple,
+    leaves a multiple uncopied, and the check then passes; N = 8 takes
+    the router tile."""
+    k = 96
+    codes = torch.randint(-4, 4, (k, n), dtype=torch.int8)
+    scale = torch.full((k // MXINT_BLOCK, n), 0.5)
+    ops = dict(x=torch.zeros((8, k)), l=torch.zeros((k, rank)))
+    r = torch.randn((rank, n))
+    if n % QLR_COL_VEC:
+        with pytest.raises(ValueError, match="multiple"):
+            _check(codes=codes, scale=scale, r=r, **ops, rank_rows=k)
+    pc, ps, pr = pad_cols(codes, scale, r)
+    width = -(-n // QLR_COL_VEC) * QLR_COL_VEC
+    assert _check(codes=pc, scale=ps, r=pr, **ops, rank_rows=k) == \
+        (k, width, rank)
+    assert torch.equal(pc[:, :n], codes) and not pc[:, n:].any()
+    assert bool((ps[:, n:] == 1).all()) and not pr[:, n:].any()
+    if n % QLR_COL_VEC == 0:
+        assert pc is codes and ps is scale and pr is r
+        assert qlr_plan(8, k, n)[0] == QLR_TILE_ROUTER
 
 
 @pytest.mark.parametrize("m", [8, 130])
