@@ -34,7 +34,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    K7 at those and 4096×256; for phase "xlstm", K1/K2 at xlstm-125m's
    eight projection shapes (``w_if`` 1536×8 at rank 4) and at the reduced
    sLSTM FFN's N = 85 (widened to 88 by the launchers), K7 at 768×1536,
-   1536×1536, 1536×8 and 1024×768: max error against a stated tolerance,
+   1536×1536, 1536×8 and 1024×768; for phase "whisper", K4 at head dim
+   64 over 20 heads non-causal at 1500 × 1500 and 256 × 1500 and causal
+   at 256 (f32), K3 at hd 64, KV 20, G 1 over 512 slots (bf16, int8) and
+   over the 1500-slot cross memory, every slot valid (bf16, f32), K1/K2
+   at 1280×1280, 1280×5120 and 5120×1280 with 8, 256 and 1500 rows, K7
+   at those: max error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
    layers finds them cold) and the bound (K1/K2/K6: the function's
@@ -190,7 +195,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    a lane's state bytes equal to (a)'s (14,266,512); the prefill logits
    of (a) and (b) and one decode step's logits after (b)'s prefill
    through the kernels against ``fused="off"``, each within 1e-3 ·
-   max|logit|.
+   max|logit|;
+11. "whisper": whisper-large-v3 (the encoder-decoder: a bidirectional
+   encoder over the 1500-frame stub, cross attention in every decoder
+   block, GELU, LayerNorm, 20 heads of 64) at full width and all 32 + 32
+   layers: ``init_lm`` (seed 0) → calibration as in phase 4, over the
+   synthetic frames too → the scalings built ahead (timed) → qera-exact
+   SRR (512 matrices, K7's launches read around the pass) → (a) phase
+   4's unpaged serving with bf16 KV and seeded frames through
+   ``extra_inputs`` (every launch count exactly as the layout gives it:
+   K1 256 and K3 64 a decode step, K2 512 and K4 96 an admission, K5 and
+   K6 never; a lane's cross memory 245,760,000 bytes), profiled decode
+   steps; (b) the same with int8 KV (the cross memory stays bf16; tokens
+   equal (a)'s except after a first token, at a near-tie within twice
+   the |Δlogit| int8 makes); the drift probe leaving the cache bit for
+   bit; ``paged``/``speculative`` refused; the prefill logits and one
+   decode step's logits over the 8 lanes through the kernels against
+   ``fused="off"``, each within 1e-3 · max|logit|.
 
 In a directory that holds this script and nothing else of the
 repository it exits 1, without a card 2. The last lines are the nvidia-smi line, one JSON object with a record
@@ -490,10 +511,12 @@ def check_decode_latent(dev, kind: str, b=8, s=512, h=16, r=512, pe=64,
 
 
 def check_flash(dev, h=32, s=256, hd=96, g: int = 1, dtype: str = "f32",
-                window: int = 0) -> dict:
+                window: int = 0, sk: int = 0, causal: bool = True) -> dict:
     """K4 over a causal prefill of ``s`` tokens: ``h`` query heads, ``g``
     of them a KV head, an optional window; f32 (tolerance 1e-4 of the
-    output scale) or bf16 (one bf16 ulp of it). The yardstick is SDPA
+    output scale) or bf16 (one bf16 ulp of it). ``causal=False``: ``s``
+    queries over ``sk`` keys (``s`` by default), every key valid (the
+    encoder's and the cross attention's prefill). The yardstick is SDPA
     with the KV heads expanded to the query heads (expanded before it is
     timed) and, under a window, its boolean mask."""
     import torch
@@ -502,17 +525,21 @@ def check_flash(dev, h=32, s=256, hd=96, g: int = 1, dtype: str = "f32",
 
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
     kvh = h // g
+    sk = sk or s
     gen = torch.Generator(device=dev).manual_seed(hd)
     q = torch.randn((1, s, kvh, g, hd), generator=gen, device=dev).to(dt)
-    k = torch.randn((1, s, kvh, hd), generator=gen, device=dev).to(dt)
-    v = torch.randn((1, s, kvh, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((1, sk, kvh, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((1, sk, kvh, hd), generator=gen, device=dev).to(dt)
     pos = torch.arange(s, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(sk, dtype=torch.int32, device=dev)
 
     def kernel(q_, k_, v_):
-        return fk.flash_attention_cuda(q_, k_, v_, pos, pos, window=window)
+        return fk.flash_attention_cuda(q_, k_, v_, pos, k_pos, causal=causal,
+                                       window=window)
 
     def plain(q_, k_, v_):
-        return fk.flash_attention_plain(q_, k_, v_, pos, pos, window=window)
+        return fk.flash_attention_plain(q_, k_, v_, pos, k_pos, causal=causal,
+                                        window=window)
 
     got, want = kernel(q, k, v), plain(q, k, v)
     torch.cuda.synchronize()
@@ -530,15 +557,17 @@ def check_flash(dev, h=32, s=256, hd=96, g: int = 1, dtype: str = "f32",
     t_kernel, host = time_ms(kernel, sets)
     t_plain, _ = time_ms(plain, sets)
     t_lib, _ = time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
-        a, b_, c, is_causal=mask is None, attn_mask=mask), heads)
-    nbytes = 2 * tensor_bytes(q) + 2 * tensor_bytes(k) + 2 * s * 4
-    # causal: keys at or before; a window keeps the last ``window`` of them
-    pairs = sum(min(r + 1, window) for r in range(s)) if window \
-        else s * (s + 1) // 2
+        a, b_, c, is_causal=causal and mask is None, attn_mask=mask), heads)
+    nbytes = 2 * tensor_bytes(q) + 2 * tensor_bytes(k) + (s + sk) * 4
+    # causal: keys at or before; a window keeps the last ``window`` of them;
+    # non-causal: every key
+    pairs = (sum(min(r + 1, window) for r in range(s)) if window
+             else s * (s + 1) // 2 if causal else s * sk)
     ops = 2 * 2 * h * pairs * hd
     b_ms, b_by = bound_ms(nbytes, ops, "float32" if dtype == "f32"
                           else "bfloat16")
-    shape = (f"H={h} S={s} hd={hd} causal f32"
+    shape = (f"H={h} Sq={s} Sk={sk} hd={hd} non-causal {dtype}"
+             if not causal else f"H={h} S={s} hd={hd} causal f32"
              if (g, dtype, window) == (1, "f32", 0) else
              f"H={h} KV={kvh} S={s} hd={hd} causal {dtype}"
              + (f" window {window}" if window else ""))
@@ -847,6 +876,21 @@ XLSTM_QLR = ((768, 1536, 16), (1536, 1536, 16), (1536, 8, 4),
              (768, 1024, 16), (1024, 768, 16))
 XLSTM_RAGGED = (64, 85, 16)
 XLSTM_K7 = ((768, 1536), (1536, 1536), (1536, 8), (1024, 768))
+# phase "whisper" (whisper-large-v3, head dim 64, 20 heads over 20 KV
+# heads): K4 over the encoder's non-causal 1500 × 1500 and the cross
+# prefill's 256 queries × 1500 memory slots (every key valid; 1500 is not
+# a multiple of the 64-key tile), f32, and the decoder's causal 256, as
+# (Sq, Sk, causal); K3 over the self cache (S 512, bf16 and int8) and over
+# the cross memory (S 1500, every slot valid: 47 tiles of 32, the last
+# partial; bf16 and f32), as (S, kind); K1 (8 decode rows) and K2 (the
+# decoder's 256 prefill rows, the encoder's and the cross wk/wv's 1500)
+# at its three projection shapes; K7 at them
+WHISPER_FLASH = ((1500, 1500, False), (256, 1500, False), (256, 256, True))
+WHISPER_DECODE = ((512, "bf16"), (512, "int8"), (1500, "bf16"),
+                  (1500, "f32"))
+WHISPER_SHAPES = ((1280, 1280), (1280, 5120), (5120, 1280))
+WHISPER_QLR = tuple((m, k, n) for m in (8, 256, 1500)
+                    for k, n in WHISPER_SHAPES)
 
 
 def phase_kernels(dev) -> list:
@@ -923,6 +967,7 @@ def phase_kernels(dev) -> list:
             rows.append(check_qlr(dev, m, k, n, rank, False))
     for m, n in XLSTM_K7:
         rows.append(check_quantize(dev, m, n))
+    rows += phase_kernels_whisper(dev)
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else f"[{r['note']}]")
@@ -942,6 +987,23 @@ def phase_kernels(dev) -> list:
                else ""))
     bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
     require(not bad, f"kernels disagree with their plain versions: {bad}")
+    return rows
+
+
+def phase_kernels_whisper(dev) -> list:
+    """Phase 3's cases at whisper-large-v3's shapes: K4 non-causal and
+    causal at head dim 64, K3 at hd 64 over the self cache and the cross
+    memory, K1/K2 and K7 at its projections."""
+    rows = []
+    for sq, sk, causal in WHISPER_FLASH:
+        rows.append(check_flash(dev, h=20, s=sq, hd=64, sk=sk,
+                                causal=causal))
+    for s_len, kind in WHISPER_DECODE:
+        rows.append(check_decode(dev, kind, kvh=20, s=s_len, hd=64))
+    for m, k, n in WHISPER_QLR:
+        rows.append(check_qlr(dev, m, k, n, 16, False))
+    for m, n in WHISPER_SHAPES:
+        rows.append(check_quantize(dev, m, n))
     return rows
 
 
@@ -1529,9 +1591,11 @@ def host_bound_ms(fn, n: int = 20) -> dict:
                 launches=launches / n)
 
 
-def top2_gap(dev, cfg, model, prompt, tokens, pos: int) -> float:
+def top2_gap(dev, cfg, model, prompt, tokens, pos: int,
+             frames=None) -> float:
     """Gap between the two largest logits after ``prompt`` and the first
-    ``pos`` generated ``tokens``, from a one-shot unpaged prefill."""
+    ``pos`` generated ``tokens``, from a one-shot unpaged prefill (an
+    encoder-decoder's over ``frames``, (1, enc_seq, d_frontend))."""
     import numpy as np
     import torch
     from repro_torch.models import Ctx, init_cache, prefill
@@ -1541,7 +1605,7 @@ def top2_gap(dev, cfg, model, prompt, tokens, pos: int) -> float:
     n = torch.tensor([len(seq)], dtype=torch.int32, device=dev)
     logits, _ = prefill(Ctx(), model, t, init_cache(cfg, 1, 512,
                                                     torch.bfloat16, dev),
-                        lengths=n)
+                        lengths=n, frames=frames)
     top = torch.topk(logits[0, 0].float(), 2).values
     return float(top[0] - top[1])
 
@@ -3075,12 +3139,13 @@ def family_model(dev, cfg, tag: str, prepare=None) -> tuple:
 
 
 def family_logits(dev, cfg, model, reqs, max_len: int,
-                  step: bool) -> dict:
+                  step: bool, frames=None) -> dict:
     """The prompts' prefill logits (right-padded, ``lengths``) through the
     kernels against ``fused="off"`` into a bf16 cache of ``max_len``
     slots and, with ``step``, one decode step's logits over the prefilled
     lanes (copies of the kernel run's cache) the same way (and, where the
-    model has local layers, the ring's slots and largest position)."""
+    model has local layers, the ring's slots and largest position). An
+    encoder-decoder encodes ``frames`` (a row a prompt; zeros if None)."""
     import torch
     from repro_torch.models import Ctx, decode_step, init_cache, prefill
 
@@ -3094,7 +3159,7 @@ def family_logits(dev, cfg, model, reqs, max_len: int,
     for fused in ("auto", "off"):
         out, c = prefill(Ctx(fused=fused), model, tokens.to(dev),
                          init_cache(cfg, len(reqs), max_len, torch.bfloat16,
-                                    dev), lengths=n)
+                                    dev), lengths=n, frames=frames)
         logit[fused] = out.float()
         cache = cache or c
     res = dict(prefill_err=float((logit["auto"] - logit["off"]).abs().max()),
@@ -3292,8 +3357,7 @@ def fill_xlstm_biases(model, seed: int) -> str:
 
 def lane_bytes(eng) -> int:
     """Bytes of the engine's live cache a lane holds."""
-    return sum(t.numel() * t.element_size() for layer in eng.slots.cache
-               for t in layer.values()) // eng.sc.decode_batch
+    return eng.slots.hbm_bytes() // eng.sc.decode_batch
 
 
 def phase_xlstm(dev) -> dict:
@@ -3453,6 +3517,216 @@ def phase_xlstm(dev) -> dict:
                long_ttft_ms=[1e3 * t for t in ttftb],
                long_step_ms=1e3 * sum(stepsb) / len(stepsb),
                lane_bytes=state_a, probe_changed=changed, logits=[lg, lgb])
+    return run
+
+
+WHISPER_FRAMES_SEED = 17
+
+
+def kv_logit_delta(dev, cfg, model, reqs, frames, steps: int = 4) -> tuple:
+    """(prefill Δ, decode Δ): the largest |Δlogit| between a bf16 and an
+    int8 KV cache prefilled from the same prompts (right-padded,
+    ``lengths``) and frames, at the prefill (which reads no cache: 0) and
+    over ``steps`` greedy decode steps fed the bf16 run's tokens, through
+    the kernels. The decode Δ bounds how far int8 KV moves a logit on
+    this path, so how close two logits must be for int8 to swap them."""
+    import torch
+    from repro_torch.models import Ctx, decode_step, init_cache, prefill
+    from repro_torch.serve.slots import KV_DTYPES
+
+    width = max(len(r.prompt) for r in reqs)
+    tokens = torch.zeros((len(reqs), width), dtype=torch.long)
+    for i, r in enumerate(reqs):
+        tokens[i, :len(r.prompt)] = torch.from_numpy(r.prompt).long()
+    n = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32,
+                     device=dev)
+    out, cache = {}, {}
+    for kind in ("bf16", "int8"):
+        out[kind], cache[kind] = prefill(
+            Ctx(), model, tokens.to(dev),
+            init_cache(cfg, len(reqs), 512, KV_DTYPES[kind], dev),
+            lengths=n, frames=frames)
+    pre = float((out["int8"] - out["bf16"]).abs().max())
+    step = 0.0
+    tok = out["bf16"][:, -1].argmax(-1)[:, None]
+    for _ in range(steps):
+        for kind in out:
+            out[kind] = decode_step(Ctx(), model, tok, cache[kind])[0]
+        step = max(step, float((out["int8"] - out["bf16"]).abs().max()))
+        tok = out["bf16"][:, -1].argmax(-1)[:, None]
+    return pre, step
+
+
+def phase_whisper(dev) -> dict:
+    """Phase "whisper": whisper-large-v3 (a bidirectional encoder over the
+    1500-frame stub, cross attention in every decoder block, GELU,
+    LayerNorm) at full width and all 32 + 32 layers → :func:`family_model`
+    (calibration over the synthetic frames) → (a) phase 4's unpaged
+    serving, bf16 KV, seeded frames through ``extra_inputs`` (every
+    admission takes ``frames[0]``, as in JAX): every launch count exactly
+    as the layout gives it (K1 = 256 a decode step, K2 = 512 and K4 = 96
+    an admission, K3 = 64 a step, K5 = K6 = 0), profiled decode steps; (b)
+    the same with int8 KV: the cross memory bf16, the launches as in (a),
+    each request's tokens equal (a)'s or diverging only after its first
+    token and where (a)'s top-2 logit gap is within twice the largest
+    |Δlogit| int8 KV makes over 4 decode steps (:func:`kv_logit_delta`);
+    the drift probe leaving the cache bit for bit; ``paged``/``speculative``
+    refused; the prefill logits and one decode step's logits over the 8
+    lanes through the kernels against ``fused="off"``, each within 1e-3 ·
+    max|logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.linear import QLinear
+    from repro_torch.serve import Engine
+
+    cfg = get_config("whisper-large-v3")
+    tag = "whisper"
+    gib = 2.0 ** 30
+    model, run = family_model(dev, cfg, tag)
+    n_proj = sum(isinstance(m, QLinear) for m in model.modules())
+    per_step = sum(isinstance(m, QLinear) for m in model.blocks.modules())
+    n_cross = 2 * cfg.n_layers          # cross wk/wv run at prefill only
+    log(tag, f"{n_proj} quantized projections ({n_proj - per_step} in the "
+        f"encoder, {per_step} in the decoder); enc_layers {cfg.enc_layers} "
+        f"enc_seq {cfg.enc_seq} act {cfg.act}")
+    want_k = dict(K1=per_step - n_cross, K2=n_proj, K3=2 * cfg.n_layers,
+                  K4=cfg.enc_layers + 2 * cfg.n_layers)
+    require(n_proj == 512 and want_k == dict(K1=256, K2=512, K3=64, K4=96),
+            f"expected 512 projections, K1/K2/K3/K4 = 256/512/64/96, got "
+            f"{n_proj}, {want_k}")
+
+    def check_counts(counts, steps: int, admissions: int, what: str) -> None:
+        want = {"K1": steps * want_k["K1"], "K2": admissions * want_k["K2"],
+                "K3": steps * want_k["K3"], "K4": admissions * want_k["K4"],
+                "K5": 0, "K6": 0}
+        require(all(counts[k] == v for k, v in want.items()),
+                f"{what}: launches {counts}, the layout gives {want} "
+                f"({steps} decode steps, {admissions} admissions)")
+
+    frames = np.random.default_rng(WHISPER_FRAMES_SEED).standard_normal(
+        (8, cfg.enc_seq, cfg.d_frontend)).astype(np.float32)
+    extra = {"frames": frames}
+
+    # (a) phase 4's serving, bf16 KV, the frames through extra_inputs
+    sc = main_serve_config()
+    serve(Engine(model, cfg, sc, device=dev, extra_inputs=extra),
+          make_requests(cfg, 2, seed=1, lengths=[40, 60]))     # warm-up
+    eng = Engine(model, cfg, sc, device=dev, extra_inputs=extra)
+    reqs = make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results, steps, wall = serve(eng, reqs)
+    counts = launch_counts()
+    n_steps = eng.sched.stats.decode_steps
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_s for r in results]
+    step_ms = 1e3 * sum(steps) / len(steps)
+    cross_bytes = sum(layer[k].numel() * layer[k].element_size()
+                      for layer in eng.slots.cache
+                      for k in ("cross_k", "cross_v")) // sc.decode_batch
+    lane = lane_bytes(eng)
+    log(tag, f"(a) served {len(results)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s: {n_tok / wall:.1f} tok/s; TTFT first "
+        f"{1e3 * min(ttft):.1f} ms mean {1e3 * sum(ttft) / len(ttft):.1f} ms "
+        f"max {1e3 * max(ttft):.1f} ms (the encoder runs at every "
+        f"admission); decode step {step_ms:.2f} ms over {len(steps)} "
+        f"decode-only steps ({n_steps} decode steps in all); peak memory "
+        f"while serving {torch.cuda.max_memory_allocated() / gib:.2f} GiB; "
+        f"a lane's cache {lane:,} bytes, {cross_bytes:,} of them the cross "
+        f"memory (bf16)")
+    log(tag, f"(a) kernel launches in the run: {counts}")
+    require(len(results) == 8 and all(len(r.tokens) == 32 for r in results),
+            f"expected 8 requests × 32 tokens, got "
+            f"{[len(r.tokens) for r in results]}")
+    require(all(0 <= t < cfg.vocab for r in results for t in r.tokens),
+            "a token outside the vocabulary")
+    require(cross_bytes == 2 * cfg.n_layers * cfg.n_kv_heads * cfg.enc_seq
+            * cfg.head_dim_ * 2, f"a lane's cross memory is {cross_bytes} "
+            f"bytes")
+    check_counts(counts, n_steps, eng.sched.stats.admitted, "(a)")
+    prof = profile_decode(eng, cfg, make_requests(cfg, 8, seed=4,
+                                                  lengths=MAIN_LENGTHS),
+                          tag=tag)
+    del eng
+
+    # (b) int8 KV: the cross memory stays bf16. int8 moves every decode
+    # logit by up to the measured Δ, and random weights leave near-ties
+    # among 51,866 logits (on an H100, seed 0: 3 of 8 requests diverge at
+    # top-2 gaps of 9.2e-4 to 5.2e-3), so a request may diverge, but only
+    # after its first token (the prefill reads no cache) and only where
+    # bf16's top-2 gap is within 2Δ
+    eng8 = Engine(model, cfg, main_serve_config(kv_dtype="int8"), device=dev,
+                  extra_inputs=extra)
+    reset_counts()
+    results8, _, _ = serve(eng8, make_requests(cfg, 8, seed=0,
+                                               lengths=MAIN_LENGTHS))
+    counts8 = launch_counts()
+    d_pre, d_step = kv_logit_delta(dev, cfg, model, reqs, torch.from_numpy(
+        np.repeat(frames[:1], len(reqs), 0)).to(dev))
+    splits = []
+    for r, g, w in zip(reqs, results8, results):
+        g, w = g.tokens.tolist(), w.tokens.tolist()
+        if g != w:
+            pos = next(j for j, (x, y) in enumerate(zip(g, w)) if x != y)
+            splits.append((r.uid, pos, top2_gap(
+                dev, cfg, model, r.prompt, w, pos,
+                torch.from_numpy(frames[:1]).to(dev))))
+    cross_dt = sorted({str(layer[k].dtype) for layer in eng8.slots.cache
+                       for k in ("cross_k", "cross_v")})
+    log(tag, f"(b) int8 KV engine: {8 - len(splits)}/8 requests' tokens "
+        f"equal the bf16 engine's; the others diverge at (uid, token, bf16 "
+        f"top-2 gap) {[(u, p, float(f'{gap:.3e}')) for u, p, gap in splits]}"
+        f"; int8 moves a logit by {d_pre:.3e} at the prefill, by up to "
+        f"{d_step:.3e} over 4 decode steps (2Δ {2 * d_step:.3e}); cross "
+        f"memory {cross_dt}, self K {eng8.slots.cache[0]['k'].dtype}; "
+        f"launches {counts8}")
+    require(d_pre == 0.0, "int8 KV changed the prefill logits")
+    require(all(p > 0 and gap <= 2 * d_step for _, p, gap in splits),
+            f"the int8-KV engine diverges from bf16's past int8's reach: "
+            f"{splits}, 2Δ {2 * d_step:.3e}")
+    require(cross_dt == ["torch.bfloat16"], f"cross memory {cross_dt}")
+    check_counts(counts8, eng8.sched.stats.decode_steps,
+                 eng8.sched.stats.admitted, "(b)")
+    del eng8
+
+    changed = probe_leaves_cache(dev, cfg, model, main_serve_config(
+        drift_monitor=True, drift_sample_rate=1.0))
+    log(tag, f"drift probe's reference pass over a live whisper cache: "
+        f"{changed} tensors changed")
+    require(changed == 0, "the drift probe left the whisper cache changed")
+    refused = []
+    for kw in (dict(paged=True), dict(speculative=True)):
+        try:
+            Engine(model, cfg, main_serve_config(**kw), device=dev)
+        except ValueError as e:
+            refused.append(str(e).split(" (")[0])
+    log(tag, f"refused: {refused}")
+    require(len(refused) == 2, "a paged or speculative whisper engine was "
+            "built")
+
+    t0 = time.perf_counter()
+    lg = family_logits(dev, cfg, model, reqs, 512, True,
+                       frames=torch.from_numpy(frames).to(dev))
+    gates = [("prefill", lg["prefill_err"], lg["prefill_scale"]),
+             ("decode step after the prefill", lg["step_err"],
+              lg["step_scale"])]
+    for what, err, scale in gates:
+        log(tag, f"{what} logits over 8 lanes, kernels vs fused=off: max "
+            f"|Δ| {err:.3e} (max |logit| {scale:.3f}, tol "
+            f"{1e-3 * max(1.0, scale):.3e})")
+        require(err <= 1e-3 * max(1.0, scale),
+                f"the whisper kernel path disagrees with fused=off: {what}")
+    log(tag, f"logit checks took {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    run.update(counts=counts, counts_int8=counts8, decode_steps=n_steps,
+               int8_splits=splits, int8_delta=d_step,
+               tok_s=n_tok / wall, step_ms=step_ms,
+               ttft_ms=[1e3 * t for t in ttft], profile=prof,
+               lane_bytes=lane, cross_bytes=cross_bytes,
+               probe_changed=changed, logits=lg)
     return run
 
 
@@ -3657,6 +3931,9 @@ def main() -> int:
     t0 = time.perf_counter()
     xlstm_run = phase_xlstm(dev)
     log("xlstm", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper_run = phase_whisper(dev)
+    log("whisper", f"phase took {time.perf_counter() - t0:.1f} s")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -3666,7 +3943,8 @@ def main() -> int:
                    "ptq": ptq_run,
                    "moe_path": moe_run, "dense": dense_run,
                    "mla": mla_run, "hybrid": hybrid_run,
-                   "xlstm": xlstm_run}, fh, indent=1)
+                   "xlstm": xlstm_run, "whisper": whisper_run}, fh,
+                  indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",
@@ -3791,6 +4069,35 @@ def main() -> int:
         picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
                       *picks["K7"][2:])
         runs.append((key, "K7", xlstm_run["ptq_counts"]))
+    # phase "whisper": K4 at head dim 64 (the encoder's and the cross
+    # prefill's non-causal attention, the decoder's causal prefill), K3 at
+    # hd 64 over the self cache and the cross memory (bf16: run (a); the
+    # self cache in int8: run (b)), K1/K2 at its projections (run (a)),
+    # K7 at its matrices (its PTQ pass); the f32 cross-memory K3 row stays
+    # in build/chip_smoke.json (no run serves an f32 cache)
+    for sq, sk, causal in WHISPER_FLASH:
+        shape = (f"H=20 Sq={sq} Sk={sk} hd=64 non-causal f32" if not causal
+                 else f"H=20 S={sq} hd=64 causal f32")
+        key = f"K4 whisper {shape}"
+        picks[key] = ("K4 flash_attention", shape, *picks["K4"][2:])
+        runs.append((key, "K4", whisper_run["counts"]))
+    for s_len, kind in WHISPER_DECODE[:3]:
+        shape = f"B=8 KV=20 G=1 S={s_len} hd=64 {kind}"
+        key = f"K3 whisper {shape}"
+        picks[key] = ("K3 flash_decode", shape, *picks["K3"][2:])
+        runs.append((key, "K3", whisper_run["counts_int8" if kind == "int8"
+                                            else "counts"]))
+    for m, k, n in WHISPER_QLR:
+        kernel = "K1" if m <= 128 else "K2"
+        key = f"{kernel} whisper {m}x{k}x{n}"
+        picks[key] = (picks[kernel][0], f"M={m} K={k} N={n} r=16 int8",
+                      *picks[kernel][2:])
+        runs.append((key, kernel, whisper_run["counts"]))
+    for m, n in WHISPER_SHAPES:
+        key = f"K7 whisper {m}x{n}"
+        picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
+                      *picks["K7"][2:])
+        runs.append((key, "K7", whisper_run["ptq_counts"]))
     kernels = []
     for key, kernel, counts in runs:
         kname, shape, source, replaces = picks[key]

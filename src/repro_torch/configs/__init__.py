@@ -11,11 +11,13 @@ from repro_torch.configs.minitron_4b import CONFIG as _minitron
 from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
 from repro_torch.configs.qwen1_5_32b import CONFIG as _qwen1_5
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma
+from repro_torch.configs.whisper_large_v3 import CONFIG as _whisper
 from repro_torch.configs.xlstm_125m import CONFIG as _xlstm
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in (_phi3, _deepseek_moe, _chatglm3, _minitron, _qwen1_5,
-                        _deepseek_v2, _recurrentgemma, _xlstm)}
+                        _deepseek_v2, _recurrentgemma, _xlstm,
+                        _whisper)}
 
 
 def get_config(name: str) -> ModelConfig:

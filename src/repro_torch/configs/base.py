@@ -3,8 +3,8 @@
 One :class:`ModelConfig` describes every family the JAX package
 supports; the port serves the dense GQA decoder, its MoE variant
 (DeepSeek-style: dense lead-in layers, then routed + shared experts),
-MLA attention over either FFN, the RG-LRU hybrid and xLSTM;
-``models.transformer`` rejects the rest (encoder-decoders, vision
+MLA attention over either FFN, the RG-LRU hybrid, xLSTM and the
+encoder-decoder; ``models.transformer`` rejects the rest (vision
 prefixes). ``reduced()``
 shrinks a config to smoke-test size while preserving the family
 structure, exactly as the JAX package does, so parity tests build the

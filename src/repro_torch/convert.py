@@ -26,11 +26,15 @@ needs no JAX. It handles:
     config's layout (``models.transformer.kind_at`` of its depth), not
     from its keys; an xLSTM block has no ``norm2`` and no FFN;
   * norms: ``{"g"}`` (RMSNorm) or ``{"g", "b"}`` (LayerNorm);
-  * a block's FFN: ``mlp`` (SwiGLU; the dense ``prefix`` lead-in layers
-    of an MoE config carry it too) or ``moe`` — ``router``, ``experts``
-    (the three schemas with a leading expert axis: in ``groups`` a leaf
-    is ``(G, E, ...)``, G is unstacked and E kept) and optional
-    ``shared``.
+  * a block's FFN: ``mlp`` (SwiGLU, or ``up``/``down`` alone for a GELU
+    config; the dense ``prefix`` lead-in layers of an MoE config carry it
+    too) or ``moe`` — ``router``, ``experts`` (the three schemas with a
+    leading expert axis: in ``groups`` a leaf is ``(G, E, ...)``, G is
+    unstacked and E kept) and optional ``shared``;
+  * an encoder-decoder's ``encoder`` subtree (``blocks`` stacked over
+    ``enc_layers`` attention blocks, ``final_norm``), each decoder block's
+    ``norm_x`` and ``cross`` attention, and ``frontend_proj`` where the
+    tree has one (``repro/models/transformer.py:95-97, 290-302``).
 """
 from __future__ import annotations
 
@@ -72,7 +76,8 @@ def _linear(d: Dict[str, Any], device):
 
 
 def _mlp(d: Dict[str, Any], device) -> MLP:
-    return MLP(*(_linear(d[n], device) for n in ("up", "gate", "down")))
+    return MLP(*(_linear(d[n], device) if n in d else None
+                 for n in ("up", "gate", "down")))
 
 
 def _ffn(d: Dict[str, Any], device):
@@ -120,10 +125,18 @@ def _block(d: Dict[str, Any], kind: str, device) -> Block:
     elif "w_dkv" in mx:
         mixer = _mla(mx, device)
     else:
-        mixer = Attention(*(_linear(mx[n], device)
-                            for n in ("wq", "wk", "wv", "wo")))
+        mixer = _attention(mx, device)
+    cross = {}
+    if "cross" in d:
+        cross = dict(norm_x=_norm(d["norm_x"], device),
+                     cross=_attention(d["cross"], device))
     return Block(_norm(d["norm1"], device), mixer, _norm(d["norm2"], device),
-                 _ffn(d, device), kind)
+                 _ffn(d, device), kind, **cross)
+
+
+def _attention(mx: Dict[str, Any], device) -> Attention:
+    return Attention(*(_linear(mx[n], device)
+                       for n in ("wq", "wk", "wv", "wo")))
 
 
 def _unstack(tree: Any, i: int) -> Any:
@@ -157,5 +170,13 @@ def convert_params(tree: Dict[str, Any], cfg: ModelConfig, *,
                          f"{cfg.name} has {cfg.n_layers} layers")
     blocks = [_block(d, kind_at(cfg, i), dev) for i, d in enumerate(layers)]
     head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
+    encoder = enc_norm = proj = None
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        encoder = [_block(_unstack(enc["blocks"], e), "attn", dev)
+                   for e in range(_first_leaf(enc["blocks"]).shape[0])]
+        enc_norm = _norm(enc["final_norm"], dev)
+    if "frontend_proj" in tree:
+        proj = _linear(tree["frontend_proj"], dev)
     return LM(cfg, _tensor(tree["embed"]["w"], dev), blocks,
-              _norm(tree["final_norm"], dev), head)
+              _norm(tree["final_norm"], dev), head, encoder, enc_norm, proj)

@@ -1,6 +1,7 @@
 """Deterministic synthetic LM data — stateless, per-host sharded (port
-of ``repro/data/synthetic.py``, text only: the port serves no audio or
-vision family, ``models.transformer.check_supported``).
+of ``repro/data/synthetic.py``: text, and the encoder-decoder's
+``frames`` stub; the port serves no vision family,
+``models.transformer.check_supported``).
 
 Batch contents are a pure function of ``(seed, step, sample-index)``, so
 a restarted host asking for step ``s`` gets the same tokens. The
@@ -11,7 +12,7 @@ noise) gives the LM a learnable signal.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +24,7 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 0
+    frames: Optional[Tuple[int, int]] = None   # (enc_seq, d_frontend)
 
 
 def _fold(*ints: int) -> np.random.Generator:
@@ -52,15 +54,24 @@ def host_batch(cfg: DataConfig, step: int, host_index: int = 0,
                host_count: int = 1, *, device) -> Dict[str, torch.Tensor]:
     """This host's slice of global batch ``step`` as int32 ``tokens`` and
     ``labels`` (B, seq_len) on ``device``: sample ids ``step·B + i`` for
-    the host's contiguous shard of ``i ∈ [0, B)``."""
+    the host's contiguous shard of ``i ∈ [0, B)``. With ``cfg.frames``,
+    also f32 ``frames`` (B, enc_seq, d_frontend), standard normal from
+    ``(seed, step, 1_000_003 + host_index)``: JAX's stub bit for bit."""
     if cfg.global_batch % host_count:
         raise ValueError("global batch must divide across hosts")
     per_host = cfg.global_batch // host_count
     lo = host_index * per_host
     seqs = torch.from_numpy(np.stack([sample_tokens(cfg, step, lo + i)
                                       for i in range(per_host)]))
-    return {"tokens": seqs[:, :-1].to(device, torch.int32),
-            "labels": seqs[:, 1:].to(device, torch.int32)}
+    batch = {"tokens": seqs[:, :-1].to(device, torch.int32),
+             "labels": seqs[:, 1:].to(device, torch.int32)}
+    if cfg.frames is not None:
+        s, d = cfg.frames
+        rng = _fold(cfg.seed, step, 1_000_003 + host_index)
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((per_host, s, d)).astype(np.float32)
+        ).to(device)
+    return batch
 
 
 def batches(cfg: DataConfig, start_step: int = 0, host_index: int = 0,
@@ -74,6 +85,9 @@ def batches(cfg: DataConfig, start_step: int = 0, host_index: int = 0,
 
 def data_config_for(model_cfg, seq_len: int, global_batch: int,
                     seed: int = 0) -> DataConfig:
-    """The DataConfig of a text model."""
+    """The DataConfig of a model: an encoder-decoder's carries the
+    ``frames`` stub's shape."""
     return DataConfig(vocab=model_cfg.vocab, seq_len=seq_len,
-                      global_batch=global_batch, seed=seed)
+                      global_batch=global_batch, seed=seed,
+                      frames=((model_cfg.enc_seq, model_cfg.d_frontend)
+                              if model_cfg.is_encoder_decoder else None))

@@ -9,9 +9,12 @@ kernels' plain versions).
 ``--arch`` picks a registered architecture (``phi3-mini-3.8b``,
 ``chatglm3-6b``, ``minitron-4b`` and ``qwen1.5-32b``, dense,
 ``deepseek-moe-16b``, MoE, ``deepseek-v2-lite-16b``, MLA over MoE,
-``recurrentgemma-9b``, RG-LRU blocks and sliding-window attention, or
-``xlstm-125m``, mLSTM and sLSTM blocks; the last three take neither
-``--paged`` nor ``--spec-k``); ``--full`` serves it at its published
+``recurrentgemma-9b``, RG-LRU blocks and sliding-window attention,
+``xlstm-125m``, mLSTM and sLSTM blocks, or ``whisper-large-v3``, the
+encoder-decoder, whose calibration draws the synthetic ``frames`` stub
+and whose requests are served over zero frames, as the JAX CLI serves
+them; the last four take neither ``--paged`` nor ``--spec-k``);
+``--full`` serves it at its published
 size instead of its ``.reduced()`` smoke-test size. ``--paged`` serves from the paged KV
 cache with prefix reuse and chunked prefill; ``--scheduler bucketed``
 through the bucketed baseline. ``--temperature``/``--top-p``/``--top-k``

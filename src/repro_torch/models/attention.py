@@ -32,6 +32,13 @@ tensors and concatenates them (and pads ``ckv`` to r + pe) for its decode
 kernel on every step; one row per token lets K3 read the row once as the
 key and its first r columns as the value, in place.
 
+Cross attention (the encoder-decoder's decoder layers): a layer's cache
+dict also holds ``cross_k``/``cross_v`` (B, KV, enc_seq, hd), the
+encoder memory's K/V, head-major as the self cache is (the JAX package
+keeps them (B, enc_seq, KV, hd)), in the cache's float type (bf16 under
+int8/int4 KV, never quantized). Prefill writes them; decode reads them
+through K3 with every slot valid.
+
 Rows decode independently: each writes at its own slot and masks against
 its own slot map. Unlike the JAX package, whose caches are immutable
 pytrees, a decode step and a prefill chunk write their K/V into the
@@ -153,6 +160,9 @@ def _cache_kv(cache: Dict, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _qkv(ctx: Ctx, p: Attention, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
+    """q (B, S, KV, G, hd), k and v (B, S, KV, hd), RoPE'd at
+    ``positions`` — in every attention call, the encoder's too, as JAX's
+    ``_qkv`` has it."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
     q = linear(ctx, p.wq, x, "attn.wq").reshape(b, s, cfg.n_heads, hd)
@@ -211,21 +221,24 @@ def _populate_kv_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
 
 def attention_seq(ctx: Ctx, p: Attention, x: torch.Tensor, cfg: ModelConfig,
                   cache: Optional[Dict] = None,
-                  lengths: Optional[torch.Tensor] = None, local: bool = False
+                  lengths: Optional[torch.Tensor] = None, local: bool = False,
+                  causal: bool = True
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Prefill attention over a full (right-padded) sequence; with a
     cache, populate each row's valid prefix (``lengths``). ``local``:
     sliding-window attention (``q − k < cfg.window``) into a ring cache,
-    whose slots keep each row's latest positions."""
+    whose slots keep each row's latest positions. ``causal=False``: the
+    encoder's bidirectional attention (no cache)."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(ctx, p, x, cfg, positions)
     window = cfg.window if local else 0
     if fused_mode(ctx) == "off":
         out = flash_attention_plain(q, k, v, positions, positions,
-                                    window=window)
+                                    causal=causal, window=window)
     else:
-        out = flash_attention(q, k, v, positions, positions, window=window)
+        out = flash_attention(q, k, v, positions, positions, causal=causal,
+                              window=window)
     y = linear(ctx, p.wo, out.reshape(b, s, cfg.n_heads * cfg.head_dim_),
                "attn.wo")
     if cache is not None:
@@ -233,6 +246,62 @@ def attention_seq(ctx: Ctx, p: Attention, x: torch.Tensor, cfg: ModelConfig,
             lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
         cache = _populate_kv_cache(cache, k, v, lengths)
     return y, cache
+
+
+def cross_memory(ctx: Ctx, p: Attention, memory: torch.Tensor,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross attention's K/V (B, enc_seq, KV, hd) of the encoder's
+    output ``memory`` (B, enc_seq, D), through ``wk``/``wv`` (taps
+    ``xattn.wk``/``xattn.wv``, one moment set: the same input). No RoPE,
+    as in JAX's ``cross_memory``."""
+    b, sm, _ = memory.shape
+    hd = cfg.head_dim_
+    k = linear(ctx, p.wk, memory, "xattn.wk").reshape(b, sm, cfg.n_kv_heads,
+                                                      hd)
+    v = linear(ctx, p.wv, memory, "xattn.wv").reshape(b, sm, cfg.n_kv_heads,
+                                                      hd)
+    return k, v
+
+
+def cross_attention(ctx: Ctx, p: Attention, x: torch.Tensor,
+                    mem_k: torch.Tensor, mem_v: torch.Tensor,
+                    cfg: ModelConfig, head_major: bool = False
+                    ) -> torch.Tensor:
+    """The decoder's cross attention of x (B, S, D) over every slot of
+    the encoder memory (no mask, no RoPE): q from ``wq``, the output
+    through ``wo`` (taps ``xattn.wq``/``xattn.wo``).
+
+    Prefill (``head_major=False``): the fresh memory K/V (B, enc_seq,
+    KV, hd) from :func:`cross_memory`, through K4 with ``causal=False``
+    (q_pos ``arange(S)``, k_pos ``arange(enc_seq)``). Decode
+    (``head_major=True``, S = 1): the cached (B, KV, enc_seq, hd) memory,
+    through K3 with q_pos ``enc_seq − 1`` on every row, which admits every
+    slot (``0 ≤ k_pos ≤ q_pos``): an f32 query over the cache's bf16 as
+    the self-attention decode has it, where K4 would need one dtype.
+    ``fused="off"`` runs their plain versions (JAX computes both in its
+    plain ``blockwise_attention``)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    g = cfg.n_heads // cfg.n_kv_heads
+    q = linear(ctx, p.wq, x, "xattn.wq").reshape(b, s, cfg.n_kv_heads, g, hd)
+    sm = mem_k.shape[2] if head_major else mem_k.shape[1]
+    k_pos = torch.arange(sm, dtype=torch.int32, device=x.device)
+    if head_major:
+        q_pos = torch.full((b,), sm - 1, dtype=torch.int32, device=x.device)
+        k_pos = k_pos.expand(b, sm)
+        if fused_mode(ctx) == "off":
+            out = decode_attention(q, mem_k.to(x.dtype), mem_v.to(x.dtype),
+                                   q_pos, k_pos)
+        else:
+            out = decode_attention_op(q[:, 0], mem_k, mem_v, q_pos,
+                                      k_pos.contiguous())[:, None]
+    else:
+        q_pos = torch.arange(s, dtype=torch.int32, device=x.device)
+        attend = flash_attention_plain if fused_mode(ctx) == "off" \
+            else flash_attention
+        out = attend(q, mem_k, mem_v, q_pos, k_pos, causal=False)
+    out = out.to(x.dtype).reshape(b, s, cfg.n_heads * hd)
+    return linear(ctx, p.wo, out, "xattn.wo")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

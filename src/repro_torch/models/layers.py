@@ -1,9 +1,10 @@
 """Shared building blocks: RMSNorm and LayerNorm, RoPE (full or half),
-the SwiGLU MLP, the embedding and the chunked cross-entropy (port of
-``repro/models/layers.py``, the parts the decoders use)."""
+the SwiGLU and GELU MLPs, the embedding and the chunked cross-entropy
+(port of ``repro/models/layers.py``, the parts the models use)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -93,16 +94,23 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class MLP(nn.Module):
-    """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
+    """SwiGLU, ``down(silu(gate(x)) * up(x))``, or, with ``gate=None``
+    (``act="gelu"``: JAX's ``init_mlp`` makes no gate), the GELU MLP
+    ``down(gelu(up(x)))``."""
 
-    def __init__(self, up: nn.Module, gate: nn.Module, down: nn.Module):
+    def __init__(self, up: nn.Module, gate: Optional[nn.Module],
+                 down: nn.Module):
         super().__init__()
         self.up, self.gate, self.down = up, gate, down
 
 
 def mlp(ctx: Ctx, p: MLP, x: torch.Tensor, prefix: str = "") -> torch.Tensor:
     up = linear(ctx, p.up, x, f"{prefix}.up")
-    h = torch.nn.functional.silu(linear(ctx, p.gate, x, f"{prefix}.gate")) * up
+    if p.gate is None:
+        h = gelu(up)
+    else:
+        h = torch.nn.functional.silu(
+            linear(ctx, p.gate, x, f"{prefix}.gate")) * up
     return linear(ctx, p.down, h, f"{prefix}.down")
 
 

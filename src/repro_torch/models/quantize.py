@@ -16,24 +16,30 @@ it), the SwiGLU three or,
 in an MoE block, the router, the
 shared experts' three and every (expert, projection) matrix of the
 routed stacks, each with its own k* and its own generator, stacked back
-into the expert container; the embedding, the LM head and the norms stay
-full precision. Matrices are quantized one at a time on the model's
-device, and each projection's fp weights (a whole expert stack at once)
-are released as soon as it is replaced, so the f32 model's footprint
-only shrinks during the pass.
+into the expert container; an encoder-decoder's encoder blocks (their
+four attention projections and the GELU MLP's ``up``/``down``) first,
+then each decoder block's self attention, its ``cross`` attention's four
+and its ``up``/``down``; the embedding, the LM head, ``frontend_proj``
+and the norms stay full precision. Matrices are quantized one at a time
+on the model's device, and each projection's fp weights (a whole expert
+stack at once) are released as soon as it is replaced, so the f32
+model's footprint only shrinks during the pass.
 
 Calibration statistics (``data.calibration``) are looked up by each
 matrix's own layer: ``L<i>.attn.wq`` … ``L<i>..down``, ``L<i>.attn.w_dkv``
 …, ``L<i>.rglru.w_gate`` …, ``L<i>.mlstm.wq`` …, ``L<i>.slstm.w_gates``
-…, ``L<i>.moe.router``, ``L<i>.moe.shared.up`` …. The JAX pass looks
-them up with an empty layer hint, so every scanned layer there takes the
-first recorded layer's statistics (ROADMAP §3; its MLA, RG-LRU and xLSTM
-names, absent from its role table, fall to the first
+…, ``L<i>.moe.router``, ``L<i>.moe.shared.up`` …, ``L<i>.xattn.wq`` …
+and, in the encoder, ``E<e>.attn.wq`` … ``E<e>..down``. The JAX pass
+looks them up with an empty layer hint, so every scanned layer there
+takes the first recorded layer's statistics (ROADMAP §3; its MLA, RG-LRU
+and xLSTM names, absent from its role table, fall to the first
 ``L<i>.attn.<name>`` / ``L<i>.rglru.<name>`` / ``L<i>.mlstm.<name>`` /
-``L<i>.slstm.<name>`` by its suffix match); here each layer takes its
-own. An xLSTM block has no FFN to quantize. Routed experts record no tap (their
-input is the dispatch buffer), so they take the identity scaling, as in
-JAX.
+``L<i>.slstm.<name>`` by its suffix match; an encoder-decoder's
+calibration records the encoder first, so every whisper projection there,
+the decoder's self and cross attention and its MLP included, takes
+``E0.``'s); here each layer takes its own. An xLSTM block has no FFN to
+quantize. Routed experts record no tap (their input is the dispatch
+buffer), so they take the identity scaling, as in JAX.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from repro_torch.quant.mxint import pack_codes_4bit
 
 ATTENTION = ("wq", "wk", "wv", "wo")
 SWIGLU = ("up", "gate", "down")
+GELU = ("up", "down")
 
 
 def fixed_gamma_scale(rank: int, k: int, gamma: float,
@@ -145,6 +152,17 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
                        for key in per[0]}
             setattr(owner, n, QLinear(b=p.b, **stacked))
 
+    def release(layer: str) -> None:
+        if stats is not None:
+            for key in [k for k in stats if k.startswith(layer)]:
+                del stats[key]
+
+    for e, blk in enumerate(model.encoder or []):
+        layer = f"E{e}."
+        projections(blk.mixer, f"encoder.{e}.mixer", ATTENTION,
+                    layer + "attn.")
+        projections(blk.mlp, f"encoder.{e}.mlp", GELU, layer + ".")
+        release(layer)
     for i, blk in enumerate(model.blocks):
         layer = f"L{i}."
         if isinstance(blk.mixer, RGLRU):
@@ -160,6 +178,9 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
                      if isinstance(blk.mixer, MLA) else ATTENTION)
             projections(blk.mixer, f"blocks.{i}.mixer", mixer,
                         layer + "attn.")
+        if blk.cross is not None:
+            projections(blk.cross, f"blocks.{i}.cross", ATTENTION,
+                        layer + "xattn.")
         if isinstance(blk.mlp, MoE):
             pre = f"blocks.{i}.mlp"
             projections(blk.mlp, pre, ("router",), layer + "moe.")
@@ -168,8 +189,8 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
                             layer + "moe.shared.")
             stacks(blk.mlp.experts, f"{pre}.experts")
         elif blk.mlp is not None:
-            projections(blk.mlp, f"blocks.{i}.mlp", SWIGLU, layer + ".")
-        if stats is not None:
-            for key in [k for k in stats if k.startswith(layer)]:
-                del stats[key]
+            projections(blk.mlp, f"blocks.{i}.mlp",
+                        SWIGLU if blk.mlp.gate is not None else GELU,
+                        layer + ".")
+        release(layer)
     return model, reports

@@ -21,7 +21,13 @@ package). An xLSTM config's pattern alternates ``mlstm`` and ``slstm``
 blocks (:mod:`~repro_torch.models.xlstm`), which carry their own
 projections and take no FFN after the mixer; its norms are LayerNorms
 (``cfg.norm`` picks the kind for every block and the final norm).
-Embeddings and the LM head stay full precision by PTQ policy.
+An encoder-decoder config (whisper-large-v3) adds the encoder: blocks
+of bidirectional GQA attention and a GELU MLP over the ``frames`` stub
+plus a sinusoid (:func:`encode`), whose output every decoder block reads
+through its cross attention (``norm_x`` then ``cross``, after the self
+mixer and before the FFN); the decoder's cache carries each layer's
+cross memory (``models.attention``), written at prefill and read at
+decode. Embeddings and the LM head stay full precision by PTQ policy.
 :func:`lm_loss` is the calibration pass's forward (and the training
 objective): token cross-entropy plus the MoE load-balance term.
 """
@@ -62,15 +68,23 @@ def check_supported(cfg: ModelConfig) -> None:
     ``kv_lora_rank`` and a shared RoPE key of ``rope_head_dim``, full
     RoPE whatever ``rope_kind`` says, as in the JAX package), GQA
     hybrids whose ``block_pattern`` mixes full attention, sliding-window
-    (``local``) attention and RG-LRU blocks, and xLSTM stacks (a pattern
+    (``local``) attention and RG-LRU blocks, xLSTM stacks (a pattern
     of ``mlstm``/``slstm`` blocks only, no FFN after them, no RoPE read,
-    LayerNorm or RMSNorm); raise for anything else (mixes of xLSTM and
-    attention blocks, encoder-decoders, vision prefixes) rather than run
-    it wrongly."""
+    LayerNorm or RMSNorm), and encoder-decoders (full-attention GQA
+    blocks with full RoPE, a GELU MLP and LayerNorm on both sides, dense,
+    over a fixed ``enc_seq``-frame input); raise for anything else (mixes
+    of xLSTM and attention blocks, vision prefixes) rather than run it
+    wrongly."""
     kinds = set(cfg.block_pattern)
     plain = (not cfg.is_encoder_decoder and not cfg.n_vision_tokens
              and bool(kinds))
-    if kinds <= set(XLSTM_KINDS):
+    if cfg.is_encoder_decoder:
+        ok = (not cfg.n_vision_tokens and kinds == {"attn"}
+              and cfg.attn_kind == "gqa" and not cfg.moe
+              and not cfg.first_dense and cfg.rope_kind == "full"
+              and cfg.act == "gelu" and cfg.norm == "layernorm"
+              and cfg.d_ff > 0 and cfg.enc_seq > 0 and cfg.d_frontend > 0)
+    elif kinds <= set(XLSTM_KINDS):
         ok = (plain and not cfg.moe and not cfg.first_dense
               and cfg.attn_kind == "gqa" and cfg.d_ff == 0
               and cfg.norm in ("rmsnorm", "layernorm"))
@@ -91,8 +105,9 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA or MLA decoders (dense or MoE)"
             f" and GQA hybrids of attn/local/rglru blocks, with full or half "
-            f"RoPE, SwiGLU and RMSNorm, and xLSTM stacks of mlstm/slstm "
-            f"blocks only (block_pattern={cfg.block_pattern}, "
+            f"RoPE, SwiGLU and RMSNorm, xLSTM stacks of mlstm/slstm "
+            f"blocks only, and GELU/LayerNorm encoder-decoders without a "
+            f"vision prefix (block_pattern={cfg.block_pattern}, "
             f"attn_kind={cfg.attn_kind!r}, rope_kind={cfg.rope_kind!r}, "
             f"moe={cfg.moe})")
 
@@ -109,16 +124,22 @@ def kind_at(cfg: ModelConfig, i: int) -> str:
 class Block(nn.Module):
     """``kind`` is the mixer's block kind (``attn``, ``local``,
     ``rglru``, ``mlstm`` or ``slstm``); ``mlp`` is the block's FFN: a
-    SwiGLU :class:`MLP`, an :class:`MoE`, or ``None`` (with ``norm2``)
-    for an xLSTM block."""
+    SwiGLU or GELU :class:`MLP`, an :class:`MoE`, or ``None`` (with
+    ``norm2``) for an xLSTM block. An encoder-decoder's decoder block
+    also has ``norm_x`` and the ``cross`` attention (JAX's ``norm_x`` /
+    ``cross``); every other block has ``None`` there."""
 
     def __init__(self, norm1: nn.Module,
                  mixer: Union[attn.Attention, attn.MLA, RGLRU, MLSTM, SLSTM],
                  norm2: Optional[nn.Module], mlp_: Union[MLP, MoE, None],
-                 kind: str):
+                 kind: str, norm_x: Optional[nn.Module] = None,
+                 cross: Optional[attn.Attention] = None):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.mlp = norm1, mixer, norm2, mlp_
         self.kind = kind
+        if (norm_x is None) != (cross is None):
+            raise ValueError("a cross-attention block takes norm_x and cross")
+        self.norm_x, self.cross = norm_x, cross
 
 
 def ffn(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig
@@ -133,22 +154,44 @@ def ffn(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig
 
 class LM(nn.Module):
     """Embedding, blocks, final norm, LM head (``None``: tied to the
-    embedding)."""
+    embedding); an encoder-decoder also has the ``encoder`` blocks
+    (``cfg.enc_layers``, no cross attention), their final ``enc_norm``,
+    and ``frontend_proj`` (full precision) when ``cfg.d_frontend`` is not
+    ``d_model``."""
 
     def __init__(self, cfg: ModelConfig, embed_w: torch.Tensor,
                  blocks: List[Block], final_norm: nn.Module,
-                 lm_head: Optional[FpLinear]):
+                 lm_head: Optional[FpLinear],
+                 encoder: Optional[List[Block]] = None,
+                 enc_norm: Optional[nn.Module] = None,
+                 frontend_proj: Optional[FpLinear] = None):
         super().__init__()
         check_supported(cfg)
         kinds = [kind_at(cfg, i) for i in range(cfg.n_layers)]
         if [blk.kind for blk in blocks] != kinds:
             raise ValueError(f"block kinds {[blk.kind for blk in blocks]} do "
                              f"not follow {cfg.name}'s layout {kinds}")
+        enc_dec = cfg.is_encoder_decoder
+        if (any((blk.cross is None) == enc_dec for blk in blocks)
+                or (encoder is None) == enc_dec
+                or (enc_norm is None) == enc_dec
+                or len(encoder or []) != cfg.enc_layers
+                or any(blk.cross is not None for blk in encoder or [])
+                or (frontend_proj is not None)
+                != (enc_dec and cfg.d_frontend != cfg.d_model)):
+            raise ValueError(f"{cfg.name}: an encoder-decoder takes "
+                             f"{cfg.enc_layers} encoder blocks, enc_norm, a "
+                             f"cross attention in every decoder block and "
+                             f"frontend_proj iff d_frontend != d_model; "
+                             f"any other model none of them")
         self.cfg = cfg
         self.register_buffer("embed", embed_w)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
         self.lm_head = lm_head
+        self.encoder = nn.ModuleList(encoder) if encoder is not None else None
+        self.enc_norm = enc_norm
+        self.frontend_proj = frontend_proj
 
     @property
     def device(self) -> torch.device:
@@ -163,8 +206,11 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     zero bias, as JAX's ``init_linear(..., bias=True)`` does; an MLA
     config gets MLA mixers (``init_mla``'s scales); an ``rglru`` layer an
     RG-LRU mixer (``init_rglru``'s); an ``mlstm``/``slstm`` layer its
-    xLSTM mixer (``init_mlstm``'s / ``init_slstm``'s) and no FFN. Norms
-    follow ``cfg.norm``."""
+    xLSTM mixer (``init_mlstm``'s / ``init_slstm``'s) and no FFN. An
+    encoder-decoder's blocks take a GELU MLP (``up``/``down``), each
+    decoder block a cross attention with ``init_attention``'s scales, and
+    the encoder ``enc_layers`` attention blocks. Norms follow
+    ``cfg.norm``."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -196,6 +242,18 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
                         init_linear(gen, r, qd, r ** -0.5, dev), wo(),
                         RMSNorm(torch.ones((r,), device=dev)), **q)
 
+    def gqa() -> attn.Attention:
+        return attn.Attention(qkv(qd), qkv(kvd), qkv(kvd), wo())
+
+    def ffn_at(i: int) -> Union[MLP, MoE]:
+        """Layer ``i``'s FFN (``-1``: an encoder block's)."""
+        if i >= 0 and cfg.uses_moe_at(i):
+            return init_moe(gen, cfg, dev)
+        up = init_linear(gen, d, ff, d ** -0.5, dev)
+        gate = (init_linear(gen, d, ff, d ** -0.5, dev)
+                if cfg.act == "swiglu" else None)
+        return MLP(up, gate, init_linear(gen, ff, d, ff ** -0.5, dev))
+
     blocks = []
     for i in range(cfg.n_layers):
         kind = kind_at(cfg, i)
@@ -210,19 +268,28 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
         elif cfg.attn_kind == "mla":
             mixer = mla()
         else:
-            mixer = attn.Attention(qkv(qd), qkv(kvd), qkv(kvd), wo())
-        if cfg.uses_moe_at(i):
-            mlp_ = init_moe(gen, cfg, dev)
-        else:
-            mlp_ = MLP(init_linear(gen, d, ff, d ** -0.5, dev),
-                       init_linear(gen, d, ff, d ** -0.5, dev),
-                       init_linear(gen, ff, d, ff ** -0.5, dev))
+            mixer = gqa()
+        cross = {}
+        if cfg.is_encoder_decoder:
+            cross = dict(norm_x=init_norm(d, cfg.norm, dev),
+                         cross=gqa())
         blocks.append(Block(init_norm(d, cfg.norm, dev), mixer,
-                            init_norm(d, cfg.norm, dev), mlp_, kind))
+                            init_norm(d, cfg.norm, dev), ffn_at(i), kind,
+                            **cross))
+    encoder = enc_norm = proj = None
+    if cfg.is_encoder_decoder:
+        encoder = [Block(init_norm(d, cfg.norm, dev), gqa(),
+                         init_norm(d, cfg.norm, dev), ffn_at(-1), "attn")
+                   for _ in range(cfg.enc_layers)]
+        enc_norm = init_norm(d, cfg.norm, dev)
+        if cfg.d_frontend != d:
+            proj = init_linear(gen, cfg.d_frontend, d,
+                               cfg.d_frontend ** -0.5, dev)
     embed_w = torch.randn((cfg.vocab, d), generator=gen, device=dev) * 0.02
     head = None if cfg.tie_embeddings else init_linear(gen, d, cfg.vocab,
                                                         d ** -0.5, dev)
-    return LM(cfg, embed_w, blocks, init_norm(d, cfg.norm, dev), head)
+    return LM(cfg, embed_w, blocks, init_norm(d, cfg.norm, dev), head,
+              encoder, enc_norm, proj)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -237,7 +304,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     slots. An MLA layer's latent cache and an RG-LRU layer's state stay
     in a float type as JAX's rule has it (int8/int4 → bf16), and neither
     takes the paged layout (nor does a ring). An xLSTM layer's state is
-    f32 whatever ``dtype`` says, as in JAX."""
+    f32 whatever ``dtype`` says, as in JAX. An encoder-decoder's layers
+    also hold ``cross_k``/``cross_v`` (B, KV, enc_seq, hd) in that float
+    type (``models.attention``)."""
     kinds = [kind_at(cfg, i) for i in range(cfg.n_layers)]
     if pages is not None:
         for kind in kinds:
@@ -264,6 +333,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                             device, pages=pages,
                                             page_size=page_size,
                                             local=kind == "local"))
+        if cfg.is_encoder_decoder:
+            shape = (batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim_)
+            out[-1]["cross_k"] = torch.zeros(shape, dtype=fdtype,
+                                             device=device)
+            out[-1]["cross_v"] = torch.zeros(shape, dtype=fdtype,
+                                             device=device)
     return out
 
 
@@ -305,14 +380,73 @@ def _head(ctx: Ctx, model: LM, x: torch.Tensor) -> torch.Tensor:
     return linear(ctx, model.lm_head, x)
 
 
+def _sinusoid(s: int, d: int, device) -> torch.Tensor:
+    """(s, d) f32 [sin ‖ cos] of ``pos / 10000^(2i/d)`` (JAX's
+    ``_sinusoid``: the halves side by side, not interleaved)."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(ctx: Ctx, model: LM, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over (B, enc_seq, d_frontend) frame embeddings:
+    ``frontend_proj`` where there is one, plus the sinusoid, then the
+    encoder blocks with bidirectional attention (RoPE inside, as JAX's
+    ``_qkv`` applies it) and the GELU MLP, then ``enc_norm``. Calibration
+    records encoder layer ``e`` under ``E<e>.``."""
+    cfg = model.cfg
+    x = frames.to(ctx.compute_dtype)
+    if model.frontend_proj is not None:
+        x = linear(ctx, model.frontend_proj, x)
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    for e, blk in enumerate(model.encoder):
+        if ctx.tap is not None:
+            ctx.prefix = f"E{e}."
+        y, _ = attn.attention_seq(ctx, blk.mixer, norm(blk.norm1, x, cfg.norm),
+                                  cfg, causal=False)
+        x = x + y
+        x = x + ffn(ctx, blk, x, cfg)
+    ctx.prefix = ""
+    return norm(model.enc_norm, x, cfg.norm)
+
+
+def _cross(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
+           memory: Optional[torch.Tensor], cache: Optional[Dict]
+           ) -> torch.Tensor:
+    """A decoder block's cross attention, added to ``x``: over the fresh
+    memory K/V of ``memory`` (prefill / scoring; written into ``cache``
+    head-major in its float type), or, with ``memory`` None (decode), over
+    the cache's."""
+    hx = norm(blk.norm_x, x, cfg.norm)
+    if memory is None:
+        return x + attn.cross_attention(ctx, blk.cross, hx, cache["cross_k"],
+                                        cache["cross_v"], cfg,
+                                        head_major=True)
+    mk, mv = attn.cross_memory(ctx, blk.cross, memory, cfg)
+    if cache is not None:
+        for key, t in (("cross_k", mk), ("cross_v", mv)):
+            cache[key] = t.transpose(1, 2).to(cache[key].dtype).contiguous()
+    return x + attn.cross_attention(ctx, blk.cross, hx, mk, mv, cfg)
+
+
 def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
             cache: Optional[List[Dict]] = None,
-            lengths: Optional[torch.Tensor] = None
+            lengths: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
     """Prefill/scoring pass over (B, S) tokens; returns the final-normed
-    hidden states (B, S, D) and, with ``cache``, the populated cache."""
+    hidden states (B, S, D) and, with ``cache``, the populated cache. An
+    encoder-decoder encodes ``frames`` (zeros when None) once per call;
+    its decoder layers record their taps under ``L<i>.``."""
     cfg = model.cfg
     x = embed(model.embed, tokens, ctx.compute_dtype)
+    memory = None
+    if cfg.is_encoder_decoder:
+        if frames is None:      # zeros, as the JAX engine feeds them
+            frames = torch.zeros((x.shape[0], cfg.enc_seq, cfg.d_frontend),
+                                 device=x.device)
+        memory = encode(ctx, model, frames.to(x.device))
     new_cache = [] if cache is not None else None
     for i, blk in enumerate(model.blocks):
         if ctx.tap is not None:
@@ -320,6 +454,8 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
         y, c = _mix_seq(ctx, blk, norm(blk.norm1, x, cfg.norm), cfg,
                         cache[i] if cache is not None else None, lengths)
         x = x + y
+        if blk.cross is not None:
+            x = _cross(ctx, blk, x, cfg, memory, c)
         if blk.mlp is not None:
             x = x + ffn(ctx, blk, x, cfg)
         if new_cache is not None:
@@ -332,10 +468,11 @@ def lm_loss(ctx: Ctx, model: LM, batch: Dict[str, torch.Tensor]
             ) -> torch.Tensor:
     """Mean token cross-entropy of ``batch["tokens"]`` (B, S) against
     ``batch["labels"]`` plus ``AUX_WEIGHT`` × the MoE layers' summed
-    load-balance terms; a scalar f32."""
+    load-balance terms; a scalar f32. An encoder-decoder reads
+    ``batch["frames"]``."""
     aux: List[torch.Tensor] = []
     hidden, _ = forward(dataclasses.replace(ctx, aux_log=aux), model,
-                        batch["tokens"])
+                        batch["tokens"], frames=batch.get("frames"))
     head = model.lm_head if model.lm_head is not None \
         else FpLinear(model.embed.T)
     xent = chunked_softmax_xent(hidden, head, batch["labels"], ctx)
@@ -343,11 +480,15 @@ def lm_loss(ctx: Ctx, model: LM, batch: Dict[str, torch.Tensor]
 
 
 def prefill(ctx: Ctx, model: LM, tokens: torch.Tensor, cache: List[Dict],
-            lengths: Optional[torch.Tensor] = None
+            lengths: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, List[Dict]]:
     """Process right-padded prompts; returns (logits (B, 1, V) at each
-    row's last valid position, populated cache)."""
-    hidden, cache = forward(ctx, model, tokens, cache=cache, lengths=lengths)
+    row's last valid position, populated cache). An encoder-decoder
+    encodes ``frames`` (B, enc_seq, d_frontend), zeros when None, and
+    writes each layer's cross memory into the cache."""
+    hidden, cache = forward(ctx, model, tokens, cache=cache, lengths=lengths,
+                            frames=frames)
     if lengths is None:
         last = hidden[:, -1:, :]
     else:
@@ -369,6 +510,10 @@ def _chunk_stack(ctx: Ctx, model: LM, tokens: torch.Tensor,
         raise ValueError(f"chunked prefill needs full GQA attention layers, "
                          f"got attn_kind={cfg.attn_kind!r}: MLA latents have "
                          f"no chunked path")
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"chunked prefill has no encoder pass: "
+                         f"{cfg.name}'s cross memory is written by a "
+                         f"one-shot prefill")
     for blk in model.blocks:
         if blk.kind != "attn":
             raise ValueError(f"chunked prefill needs full-attention layers, "
@@ -424,12 +569,15 @@ def verify_chunk(ctx: Ctx, model: LM, tokens: torch.Tensor,
 def decode_step(ctx: Ctx, model: LM, token: torch.Tensor,
                 cache: List[Dict]) -> Tuple[torch.Tensor, List[Dict]]:
     """One token for every row; token (B, 1). The cache is updated in
-    place and returned."""
+    place and returned (an encoder-decoder's cross memory is read, never
+    written)."""
     cfg = model.cfg
     x = embed(model.embed, token, ctx.compute_dtype)
     for blk, c in zip(model.blocks, cache):
         y, _ = _mix_step(ctx, blk, norm(blk.norm1, x, cfg.norm), c, cfg)
         x = x + y
+        if blk.cross is not None:
+            x = _cross(ctx, blk, x, cfg, None, c)
         if blk.mlp is not None:
             x = x + ffn(ctx, blk, x, cfg)
     x = norm(model.final_norm, x, cfg.norm)

@@ -30,9 +30,14 @@ decode attention runs through K3 at the latent head. A hybrid model
 (``block_pattern`` with ``rglru``/``local`` blocks: recurrentgemma-9b)
 serves its RG-LRU states and sliding-window rings from the same slot
 cache, and an xLSTM model (xlstm-125m) its f32 mLSTM and sLSTM states,
-each admission prefilled from the zero template. As in the JAX engine
-none of them takes the paged cache or speculative decoding: both are for
-pure full-GQA-attention stacks.
+each admission prefilled from the zero template. An encoder-decoder
+(whisper-large-v3) encodes its ``frames`` at every admission, from
+``extra_inputs={"frames": (N, enc_seq, d_frontend)}`` or zeros, and
+keeps each lane's cross memory in the slot cache beside its K/V; as in
+the JAX engine a continuous admission (a batch of one) takes
+``frames[0]`` for every request and a bucketed run ``frames[:b]`` for
+its ``b`` lanes. As in the JAX engine none of them takes the paged cache
+or speculative decoding: both are for pure full-GQA-attention stacks.
 
 ``ServeConfig(speculative=True)`` decodes greedy lanes
 self-speculatively: ``spec_k - 1`` draft steps through the quantized
@@ -232,7 +237,8 @@ def _logprobs(lg: torch.Tensor, tok: torch.Tensor) -> tuple:
 
 class Engine:
     def __init__(self, model: LM, cfg: ModelConfig, sc: ServeConfig, *,
-                 device="cuda"):
+                 device="cuda",
+                 extra_inputs: Optional[Dict[str, np.ndarray]] = None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, the engine "
@@ -293,6 +299,12 @@ class Engine:
                              "engine's slot/page state — it needs "
                              "scheduler='continuous'")
         self.model, self.cfg, self.sc = model, cfg, sc
+        # an encoder-decoder's frames, on the device once; None: zeros
+        frames = (extra_inputs or {}).get("frames")
+        self._frames = (torch.as_tensor(np.asarray(frames, np.float32),
+                                        device=self.device)
+                        if frames is not None and cfg.is_encoder_decoder
+                        else None)
         # MLA decode's dense W_uk/W_uv, built once for this engine (JAX's
         # absorbed_params) and shared by every context
         absorbed = ({blk.mixer: absorb_mla_weights(blk.mixer)
@@ -767,7 +779,8 @@ class Engine:
             logits, pf_cache = prefill(self.ctx, self.model,
                                        prompts.to(self.device),
                                        self.slots.prefill_cache,
-                                       lengths=lengths)
+                                       lengths=lengths,
+                                       frames=self._frames_for(1))
             first, lp_host = self._read_first(*self._sample(
                 logits, self._lanes_for(state, 0),
                 state.sampling.logprobs is not None))
@@ -783,6 +796,12 @@ class Engine:
             return [self._finish(slot)]
         self.slots.admit(pf_cache, slot)
         return self._first_token(slot, state, first, lp_host)
+
+    def _frames_for(self, b: int) -> Optional[torch.Tensor]:
+        """The first ``b`` rows of ``extra_inputs["frames"]`` (JAX's
+        ``frames[:b]``; an admission's b is 1), or None: zeros, which
+        ``prefill`` makes."""
+        return None if self._frames is None else self._frames[:b]
 
     def _finish(self, slot: int) -> Result:
         state = self.sched.retire(slot)
@@ -1209,7 +1228,7 @@ class Engine:
         # the first token takes the decode steps' per-lane sampling path
         # (token index 0, as the continuous engine's prefill)
         logits, cache = prefill(self.ctx, self.model, prompts.to(self.device),
-                                cache)
+                                cache, frames=self._frames_for(b))
         tok, _ = self._sample(logits, self._bucket_lanes(reqs, seeds, 0),
                               False)
         budget = min(max(self._req_budget(r) for r in reqs),

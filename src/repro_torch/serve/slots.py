@@ -46,6 +46,12 @@ class SlotKVCache:
     def admit(self, prefilled: List[Dict], slot: int) -> None:
         write_slot(self.cache, prefilled, slot)
 
+    def hbm_bytes(self) -> int:
+        """Bytes of the live cache, every leaf (an encoder-decoder's cross
+        memory too), as JAX's ``SlotKVCache.hbm_bytes``."""
+        return sum(t.numel() * t.element_size() for layer in self.cache
+                   for t in layer.values())
+
 
 @dataclasses.dataclass
 class SlotState:

@@ -7,7 +7,10 @@ its first 512 columns, scale override), K3 and K4 at head dim 256
 (recurrentgemma-9b's local layers: one KV head, G = 16; K3 over the four
 cache types and a wrapped ring, K4 under a window), K1/K2 at
 xlstm-125m's shapes (the 1536×8 ``w_if`` at rank 4, and an N that is not
-a multiple of 4, run widened by ``pad_cols``), K6 over an
+a multiple of 4, run widened by ``pad_cols``), whisper-large-v3's (K4
+non-causal at head dim 64 over 1500 keys, K3 at hd 64 over its self cache
+and its 1500-slot cross memory, K1/K2 at its projections up to 1500
+rows), K6 over an
 expert stack with and without counts, K7 bit for bit), and each wrapper
 raising on input the kernel does not take.
 
@@ -808,3 +811,68 @@ def test_wide_autocorr_takes_the_range_route(dev, monkeypatch):
         assert float((mine.double() - exact).abs().max()) <= 1e-6 * scale
     with pytest.raises(ValueError, match="range route"):
         sc.autocorr_scaling_from_moments(r, rows=128)
+
+
+# whisper-large-v3: 20 heads over 20 KV heads of 64; the encoder's 1500
+# frames (not a multiple of K4's 64-key tile: its last query tile holds
+# 28 rows), the decoder's 256-row prefill
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal", [(1500, 1500, False),
+                                          (256, 1500, False),
+                                          (256, 256, True)])
+def test_flash_attention_whisper_shapes(dev, dtype, sq, sk, causal):
+    """K4 at head dim 64: the encoder's bidirectional 1500 × 1500, the
+    cross attention's prefill (256 queries over the 1500 memory slots,
+    no mask) and the decoder's causal 256; every query row written."""
+    gen = torch.Generator(device=dev).manual_seed(sq + sk)
+    q = torch.randn((1, sq, 20, 1, 64), generator=gen, device=dev).to(dtype)
+    k = torch.randn((1, sk, 20, 64), generator=gen, device=dev).to(dtype)
+    v = torch.randn((1, sk, 20, 64), generator=gen, device=dev).to(dtype)
+    q_pos = torch.arange(sq, device=dev, dtype=torch.int32)
+    k_pos = torch.arange(sk, device=dev, dtype=torch.int32)
+    want = fk.flash_attention_plain(q, k, v, q_pos, k_pos, causal)
+    before = fk.LAUNCHES["flash_attention"]
+    got = fk.flash_attention(q, k, v, q_pos, k_pos, causal=causal)
+    assert fk.LAUNCHES["flash_attention"] == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2 ** -8)
+
+
+@pytest.mark.parametrize("kind,s", [("bf16", 512), ("int8", 512),
+                                    ("int4", 512), ("bf16", 1500),
+                                    ("f32", 1500)])
+def test_flash_decode_whisper_shapes(dev, kind, s):
+    """K3 at head dim 64, KV 20, G 1: over the self cache (S = 512, ragged
+    rows) and over the cross memory (S = 1500, every slot valid, q_pos
+    enc_seq − 1 on every row: 47 tiles of 32, the last partial), as
+    ``cross_attention`` calls it."""
+    b = 8
+    q, k, v, _, _, ks, vs = _cache(dev, kind, b=b, kvh=20, g=1, s=s, hd=64,
+                                   seed=s)
+    k_pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+    if s == 1500:
+        q_pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    else:
+        q_pos = torch.arange(b, device=dev, dtype=torch.int32) * 19 + 150
+        k_pos = torch.where(k_pos <= q_pos[:, None], k_pos, -1)
+    want = dk.decode_attention_plain(q, k, v, q_pos, k_pos, ks, vs)
+    before = dk.LAUNCHES["flash_decode"]
+    got = dk.decode_attention_op(q, k, v, q_pos, k_pos, k_scale=ks,
+                                 v_scale=vs)
+    assert dk.LAUNCHES["flash_decode"] == before + 1
+    assert got.shape == (b, 20, 1, 64)
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("m", [8, 256, 1500])
+@pytest.mark.parametrize("k,n", [(1280, 1280), (1280, 5120), (5120, 1280)])
+def test_qlr_whisper_shapes(dev, m, k, n):
+    """K1 at whisper's decode rows and K2 at its decoder prefill (256) and
+    its encoder's and cross memory's 1500 rows, at its three projection
+    shapes; one launch a call."""
+    x, codes, scale, l, rr = _qlr(dev, m, k, n, 16, False, seed=m + n)
+    key = "qlr_fused" if m <= QLR_FUSED_MAX_ROWS else "qlr"
+    before = mk.LAUNCHES[key]
+    got = mk.qlr_matmul(x, codes, scale, l, rr)
+    assert mk.LAUNCHES[key] == before + 1 and got.shape == (m, n)
+    _close(got, mk.qlr_matmul_plain(x, codes, scale, l, rr), 1e-4)

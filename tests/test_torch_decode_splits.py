@@ -109,7 +109,9 @@ def test_combine_of_all_empty_splits_is_zero():
     (4 * 32, 320, (5, 2)),    # phase 5: 4 lanes, max_len 320
     (64 * 32, 256, (1, 8)),   # B·KV alone fills the card: one split
     (8, 32768, (64, 16)),     # a long context: capped at 16 tiles a split
-])
+    (8 * 20, 512, (4, 4)),    # whisper's self decode (KV 20, hd 64)
+    (8 * 20, 1500, (4, 12)),  # whisper's cross memory: 47 tiles, the
+])                            # last split 11 of them
 def test_decode_splits_at_serving_shapes(rows, slots, want):
     assert dk.decode_splits(rows, slots, 132) == want
 

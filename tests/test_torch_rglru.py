@@ -556,11 +556,11 @@ def test_registered_and_laid_out():
 @pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-large-v3",
                                   "internvl2-2b"])
 def test_check_supported_refuses(arch):
-    """The encoder-decoder and the vision prefix stay refused; xlstm-125m,
-    the family after the hybrid, is admitted
-    (``tests/test_torch_xlstm.py``)."""
+    """The vision prefix stays refused; xlstm-125m and whisper-large-v3,
+    the families after the hybrid, are admitted
+    (``tests/test_torch_xlstm.py``, ``tests/test_torch_whisper.py``)."""
     cfg = ModelConfig(**dataclasses.asdict(jget_config(arch)))
-    if arch == "xlstm-125m":
+    if arch in ("xlstm-125m", "whisper-large-v3"):
         check_supported(cfg)
         return
     with pytest.raises(NotImplementedError):
