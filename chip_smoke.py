@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving main path on one CUDA card.
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -65,7 +65,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    decode goes through K5); then a 300-token prompt's logits through two
    paged chunks against the unpaged one-shot prefill and against
    ``fused="off"``; then, after serving, where phase 4's SRR pass goes
-   (``profile_srr``, as in phase 6, over its first two layers' 14
+   (``profile_srr``, over its first two layers' 14
    matrices);
 4c. "surface", with phase 4's quantized model: (a) ``sample_tokens`` on
    the card against the CPU over the logits (8, 32,064) of one decode
@@ -85,7 +85,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    prints its position and the spec-off top-2 logit gap there, and
    fails), K1/K3/K4 launched, round ms, acceptance and tok/s; then 1 lane
    with speculation off and on; (d) phase 4b's paged serving with
-   ``speculative=True``: tokens equal phase 4b's, K5 launched, page
+   ``speculative=True`` over the first 8 of its 16 prompts
+   (``SPEC_PAGED_REQUESTS``): tokens equal phase 4b's, K5 launched, page
    refcounts back to the parked pages after the drain;
 4d. "frontend", with phase 4's quantized model: the drift probe's
    reference pass over a live cache changes no cache tensor; (a)
@@ -118,8 +119,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    scaled_err(srr) (each · (1 + 1e-5)); the held-out ``lm_loss`` of the fp
    model and of each method through the kernels and ``fused="off"``;
 6. the MoE main path at full width: ``init_lm`` of deepseek-moe-16b (its
-   first ``MOE_LAYERS`` = 8 of 28 layers, the dense lead-in and 7 MoE
-   layers, seed 0; cut so that phase "dense" fits the script's time) →
+   first ``MOE_LAYERS`` = 2 of 28 layers, the dense lead-in and one MoE
+   layer, seed 0; cut so that phases "dense" and "train" fit the
+   script's time) →
    calibration as in phase 4 → qera-exact SRR
    ``quantize_model_params`` (routed experts under the identity; each
    layer's statistics released once it is quantized; rank 16, 3-bit
@@ -134,13 +136,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    layers whose top-k expert sets differ between the two runs counted
    (a routing flip), and the logits held to the tolerance under one
    routing (the ``fused="off"`` run replays the kernel run's choices when
-   any flipped); last, where the SRR pass goes, read apart from the
-   timed pass (``profile_srr``): the model cut to its first two layers
-   (207 matrices) quantized again under ``torch.profiler``, for device
-   time by stage (the ``srr.*`` and ``mxint.*`` ranges of ``core/api.py``,
-   ``core/srr.py`` and ``quant/mxint.py``) and by kernel, the device's busy share, host
-   ms a matrix profiled and in the timed pass, and K7's device total over
-   the timed pass from its launches × phase 3's time at each shape;
+   any flipped). Where an SRR pass's time goes is read in phase 4b
+   (``profile_srr``); reading phase 6's 207-matrix pass under
+   ``torch.profiler`` took about 95 s and gated nothing;
 7. "dense": chatglm3-6b (half RoPE, QKV bias, G = 16) and minitron-4b (G =
    3, vocabulary 256,000) at full width and 8 of their 28 and 32 layers
    (``DENSE_RUNS``; at full depth the phase took a quarter of the
@@ -211,7 +209,27 @@ Phases (each prints its own lines; any failure exits non-zero):
    the |Δlogit| int8 makes); the drift probe leaving the cache bit for
    bit; ``paged``/``speculative`` refused; the prefill logits and one
    decode step's logits over the 8 lanes through the kernels against
-   ``fused="off"``, each within 1e-3 · max|logit|.
+   ``fused="off"``, each within 1e-3 · max|logit|;
+12. "train": training and QPEFT through ``repro_torch.launch.train``'s
+   ``build`` (the CLI's own set-up) at phi3-mini-3.8b's full width: (a)
+   ``--mode qpeft --full-size --batch 8 --seq 64 --rank 16 --bits 3``,
+   all 32 layers: init (seed 0) → calibration over 2 batches → the
+   qera-exact SRR pass through K7 (its launches read around the build) →
+   split; every one of the 224 adapters' ``l`` and ``r`` with a finite,
+   nonzero gradient at step 1; 20 timed bf16 steps and 2 under
+   ``torch.profiler`` (step ms, trained tokens/s, busy share, peak
+   memory), every loss finite, the held-out loss (batch 999) lower after
+   than before, the frozen tensors bit-identical by checksum; (d) the
+   trained adapters merged and served by phase 4's engine (K1–K4
+   launched, a projection's served ``l`` the trained one and not the
+   pass's, the prefill logits within 1e-3 · max|logit| of ``fused="off"``);
+   (b) ``--mode full --remat full --batch 32 --seq 128 --lr 6e-4`` at all
+   32 layers: 10 timed steps and 2 profiled, finite losses, the last
+   below the first, the held-out loss (batch 999) lower after than
+   before; (c) reduced phi3 in
+   f32, one state on the card and on the CPU, three QPEFT and three full
+   steps each: losses within 1e-5 relative, the trained tensors within
+   1e-2 of their update's norm.
 
 In a directory that holds this script and nothing else of the
 repository it exits 1, without a card 2. The last lines are the nvidia-smi line, one JSON object with a record
@@ -254,8 +272,14 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 L2_BYTES = 50e6
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line, after the seconds since the script started (where the
+    script's time goes, line by line)."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] [{phase}] {msg}",
+          flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1029,6 +1053,7 @@ def reset_counts() -> None:
                 mxint_quantize):
         for key in mod.LAUNCHES:
             mod.LAUNCHES[key] = 0
+    mxint_quantize.LAUNCH_SHAPES.clear()
 
 
 def prefill_work(eng) -> tuple:
@@ -1495,6 +1520,7 @@ def phase_paged(dev, cfg, model, unpaged_step_ms: float) -> dict:
 # ---------------------------------------------------------------------------
 # (temperature, top_p, top_k) of the 8 lanes: greedy, T 0.7, top-p 0.9,
 # top-k 40 and combinations
+SPEC_PAGED_REQUESTS = 8       # "surface" (d): the first 8 of phase 4b's 16
 SURFACE_LANES = [(0.0, 1.0, 0), (0.7, 1.0, 0), (0.7, 0.9, 0), (0.7, 1.0, 40),
                  (0.7, 0.9, 40), (1.0, 0.9, 40), (0.0, 0.9, 40),
                  (1.3, 0.5, 5)]
@@ -1818,7 +1844,9 @@ def phase_surface(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
         for k, d in one.items()}
 
     # ---- d: speculative serving, paged --------------------------------
-    reqs = shared_prefix_requests(cfg, 16, seed=6)
+    # the first SPEC_PAGED_REQUESTS of phase 4b's prompts (cut from 16 to
+    # make room for phase "train"), held to phase 4b's tokens
+    reqs = shared_prefix_requests(cfg, SPEC_PAGED_REQUESTS, seed=6)
     eng = Engine(model, cfg, paged_serve_config(speculative=True, spec_k=4),
                  device=dev)
     reset_counts()
@@ -1829,12 +1857,14 @@ def phase_surface(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
     n_tok = sum(len(t) for t in got)
     bad = hold_tokens(dev, cfg, model, reqs, got, paged_run["tokens"],
                       "spec paged vs phase 4b")
-    log("surface", f"speculative, paged (16 requests, shared prefix): "
+    log("surface", f"speculative, paged ({len(reqs)} requests, shared "
+        f"prefix): "
         f"{n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} tok/s (phase "
         f"4b plain: {paged_run['tok_s']:.1f}); {st['spec_rounds']} rounds, "
         f"acceptance {st['spec_acceptance_rate']:.4f}; pages hot after the "
         f"drain {st['pages_hot']} (parked {eng.sc.decode_batch}); {bad} of "
-        f"16 requests differ from phase 4b's tokens; launches {counts}")
+        f"{len(reqs)} requests differ from phase 4b's tokens; launches "
+        f"{counts}")
     require(bad == 0, f"{bad} paged speculative requests diverged")
     require(counts["K5"] > 0 and counts["K3"] == 0,
             f"paged speculative decode launches {counts}")
@@ -2531,13 +2561,15 @@ def routing_flips(log_a: list, log_b: list) -> int:
     return flips
 
 
-# deepseek-moe-16b's layers in phase 6 (of 28): the dense lead-in and 7
-# MoE layers, every width as published; the whole depth took 227 s of
-# the script's time, which phase "dense" now needs
-MOE_LAYERS = 8
+# deepseek-moe-16b's layers in phase 6 (of 28): the dense lead-in and
+# one MoE layer, every width and so every kernel shape as published; the
+# whole depth took 227 s of the script's time, which phase "dense"
+# needed, and with phase "train" the script took 1005 s at 8 layers on
+# an H100 80GB HBM3 at 700 W, and a slower host's run 1191 s at 4
+MOE_LAYERS = 2
 
 
-def phase_moe(dev, k7_ms=None) -> dict:
+def phase_moe(dev) -> dict:
     """Phase 6: deepseek-moe-16b at full width, init → calibration →
     qera-exact SRR (K7) → serve."""
     import torch
@@ -2658,17 +2690,10 @@ def phase_moe(dev, k7_ms=None) -> dict:
             "with the dequantize-then-matmul baseline")
     del model
     torch.cuda.empty_cache()
-    # the first two layers: the dense lead-in (7 matrices) and the first
-    # MoE layer (4 attention, the router, 3 shared, 64 × 3 expert ones)
-    srr_profile = profile_srr(dev, cfg, "moe", t_quant, reports, k7_ms)
-    require(srr_profile["matrices"] == 7 + 8 + 3 * cfg.n_routed,
-            f"the profiled pass quantized {srr_profile['matrices']} matrices")
-    torch.cuda.empty_cache()
     return dict(counts=counts, ptq_counts=ptq_counts, tok_s=n_tok / wall,
                 step_ms=step_ms, ttft_ms=[1e3 * t for t in ttft],
                 calibration_s=t_calib, peak_gib_calibration=peak_calib,
                 quantize_s=t_quant, matrices=len(reports), mean_k=mean_k,
-                srr_profile=srr_profile,
                 peak_gib_ptq=peak, profile=prof, routing_flips=flips,
                 logit_err=err)
 
@@ -3731,6 +3756,394 @@ def phase_whisper(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase "train": training and QPEFT through launch/train.py's entry points
+# ---------------------------------------------------------------------------
+TRAIN_QPEFT_STEPS = 20
+TRAIN_FULL_STEPS = 10
+# phi3-mini-3.8b's 3.82 B f32 parameters, gradients, μ and ν take 61 GB:
+# all 32 layers fit the card beside the activations under --remat full
+TRAIN_FULL_LAYERS = 32
+TRAIN_ARGS = ["--full-size", "--device", "cuda"]
+# (b)'s run: at JAX's default --lr 3e-3 and 8 × 64 tokens the full-width
+# training loss climbed from the sixth step (10.90 → 11.57 in 12 steps on
+# an H100 80GB HBM3 at 700 W; the port's full step follows JAX's through
+# that lr at reduced width, tests/test_torch_train.py). (b) runs 32 × 128
+# tokens at 6e-4 and is gated on the held-out loss (batch 999), which the
+# batch-to-batch spread of the training loss (about ±0.05) does not move
+TRAIN_FULL_ARGS = ["--batch", "32", "--seq", "128", "--lr", "6e-4"]
+# card against the CPU, reduced phi3 in f32: losses within 1e-5 relative;
+# trained tensors within 1e-2 of their update's norm (Adam's
+# (m/c1)/(sqrt(v/c2)+eps) swings by up to lr where a gradient sits near
+# eps, so an element-wise bound does not hold; tests/test_torch_train.py
+# bounds the port against JAX the same way)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_NORM_TOL = 1e-2
+
+
+def checksums(model, skip=(".l", ".r")) -> dict:
+    """Two int64 sums of every buffer's bits (plain, and weighted by
+    position) on the card, by name: a frozen tensor that changes a bit
+    changes them, with no copy of the model kept."""
+    import torch
+    out = {}
+    for name, t in model.named_buffers():
+        if name.endswith(skip):
+            continue
+        flat = t.detach().contiguous().view(-1)
+        ints = flat.view({4: torch.int32, 2: torch.int16,
+                          1: torch.int8}[t.element_size()]).to(torch.int64)
+        pos = torch.arange(1, ints.numel() + 1, device=t.device,
+                           dtype=torch.int64)
+        out[name] = (int(ints.sum()), int((ints * pos).sum()))
+        del ints, pos
+    return out
+
+
+def timed_steps(step, state, data, n: int) -> tuple:
+    """``n`` steps, each synchronized: (state, losses, ms a step)."""
+    import torch
+    losses, ms = [], []
+    for _ in range(n):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    return state, losses, ms
+
+
+def profile_steps(step, state, data, n: int = 2) -> tuple:
+    """``n`` steps under torch.profiler: (state, losses, the device's busy
+    share of their wall, device ms a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    losses = []
+    torch.cuda.synchronize()
+    # the device's kernels only: the busy share needs no host op, and a
+    # training step has thousands of them to trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, m = step(state, next(data))
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0)
+    return state, [float(v) for v in losses], dev_us / (wall * 1e6), \
+        dev_us / n / 1e3
+
+
+def step_summary(tag: str, what: str, ms: list, losses: list, busy: float,
+                 dev_ms: float, tokens: int, peak: float) -> dict:
+    med = sorted(ms[2:])[len(ms[2:]) // 2]
+    log(tag, f"{what}: step ms median of steps 3–{len(ms)} {med:.2f} "
+        f"(first {ms[0]:.2f}, second {ms[1]:.2f}); {tokens / med * 1e3:.1f} "
+        f"trained tokens/s; 2 profiled steps: device busy {dev_ms:.2f} "
+        f"ms a step ({100 * busy:.1f}%); peak memory while training "
+        f"{peak:.2f} GiB; losses {[round(v, 4) for v in losses]}")
+    return dict(step_ms=med, tok_s=tokens / med * 1e3, busy=busy,
+                device_ms=dev_ms, peak_gib=peak, losses=losses,
+                first_ms=ms[0])
+
+
+def train_qpeft(dev, tag: str) -> tuple:
+    """(a): the qpeft build of ``launch/train.py`` at full width and
+    depth (init → calibration → the SRR pass through K7 → split), the
+    gradient of every adapter at step 1, ``TRAIN_QPEFT_STEPS`` timed steps
+    and 2 profiled ones, the held-out loss before and after, the frozen
+    part's checksums before and after. Returns (run, its state, the PTQ
+    pass's adapters of one projection, numbers)."""
+    import torch
+    from repro_torch.data import batches, host_batch
+    from repro_torch.kernels import mxint_quantize
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Ctx, lm_loss
+    from repro_torch.train.steps import _grads_of
+
+    gib = 2.0 ** 30
+    args = launch_train.parser().parse_args(
+        ["--mode", "qpeft", "--batch", "8", "--seq", "64", "--rank", "16",
+         "--bits", "3", "--steps", str(TRAIN_QPEFT_STEPS)] + TRAIN_ARGS)
+    marks = []
+
+    def mark(msg: str) -> None:
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        print(msg, flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = launch_train.build(args, log=mark)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    ptq_counts = launch_counts()
+    k7_shapes = {f"{m}x{n}": c
+                 for (m, n), c in mxint_quantize.LAUNCH_SHAPES.items()}
+    cfg, st = run.cfg, run.state
+    n = len(run.reports)
+    out = dict(init_s=marks[1] - marks[0], pass_s=marks[2] - marks[1],
+               build_s=marks[3] - marks[0], matrices=n,
+               build_peak_gib=torch.cuda.max_memory_allocated() / gib,
+               mean_k=sum(r.k_star for r in run.reports) / n,
+               ptq_counts=ptq_counts, k7_shapes=k7_shapes)
+    log(tag, f"(a) {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"d_ff {cfg.d_ff} vocab {cfg.vocab}: init {out['init_s']:.2f} s, "
+        f"calibration (2 batches of 8 × 64) + SRR pass {out['pass_s']:.2f} s "
+        f"({n} matrices, mean k* {out['mean_k']:.2f}, K7 launches "
+        f"{ptq_counts['K7']}, by M×N {k7_shapes}); peak memory of the build "
+        f"{out['build_peak_gib']:.2f} GiB; the frozen model "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB")
+    require(n == 224 and len(st.trainable) == 224,
+            f"expected 224 adapters, got {n} / {len(st.trainable)}")
+    require(ptq_counts["K7"] >= 2 * n,
+            f"the PTQ pass did not quantize through K7: {ptq_counts}")
+    require(sum(k7_shapes.values()) == ptq_counts["K7"]
+            and set(k7_shapes) == {f"{m}x{n}" for m, n in K7_SHAPES[:3]},
+            f"K7's launches by shape {k7_shapes}: not phi3's three shapes "
+            f"summing to its count {ptq_counts['K7']}")
+    require(run.sc.compute_dtype == torch.bfloat16, "not bf16 on the card")
+    sums = checksums(st.frozen)
+    pass_l = {p: d["l"].clone() for p, d in st.trainable.items()}
+    ctx = Ctx(compute_dtype=run.sc.compute_dtype, fused="off")
+    held = host_batch(run.dcfg, 999, device=dev)
+    with torch.no_grad():
+        held0 = float(lm_loss(ctx, st.frozen, held))
+    _, g = _grads_of(lambda b: lm_loss(ctx, st.frozen, b), st.trainable,
+                     host_batch(run.dcfg, 0, device=dev), 0)
+    dead = [f"{p}.{k}" for p, d in g.items() for k, v in d.items()
+            if not (bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0)]
+    log(tag, f"(a) step 1's gradients: {2 * len(g) - len(dead)} of "
+        f"{2 * len(g)} adapter tensors finite and nonzero")
+    require(not dead, f"adapters with no finite nonzero gradient: {dead[:8]}")
+    del g
+    torch.cuda.reset_peak_memory_stats()
+    data = batches(run.dcfg, 0, device=dev)
+    st, losses, ms = timed_steps(run.step, st, data, TRAIN_QPEFT_STEPS)
+    st, more, busy, dev_ms = profile_steps(run.step, st, data)
+    peak = torch.cuda.max_memory_allocated() / gib
+    with torch.no_grad():
+        held1 = float(lm_loss(ctx, st.frozen, held))
+    same = checksums(st.frozen) == sums
+    out.update(step_summary(tag, "(a) qpeft", ms, losses + more, busy,
+                            dev_ms, args.batch * args.seq, peak))
+    log(tag, f"(a) held-out loss (batch 999) {held0:.4f} before, "
+        f"{held1:.4f} after {len(ms) + len(more)} steps; frozen tensors "
+        f"(codes, scale, gscale, norms, embedding, head: {len(sums)}) "
+        f"{'bit-identical' if same else 'CHANGED'} by checksum")
+    require(all(math.isfinite(v) for v in losses + more), "a non-finite loss")
+    require(held1 < held0, "the held-out loss did not fall")
+    require(same, "a frozen tensor changed in training")
+    out.update(held_before=held0, held_after=held1)
+    return run, st, pass_l, out
+
+
+def serve_finetuned(dev, tag: str, run, st, pass_l) -> dict:
+    """(d): the trained adapters merged into the model, served by phase
+    4's engine through the kernels: K1–K4 launched, the served ``l`` of a
+    projection the trained one (not the pass's), the prefill logits
+    through the kernels against ``fused="off"``."""
+    import torch
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, init_cache, prefill
+    from repro_torch.models.quantize import merge_qpeft
+    from repro_torch.serve import Engine
+
+    cfg = run.cfg
+    model = merge_qpeft(st.trainable, st.frozen)
+    sc = main_serve_config()
+    serve(Engine(model, cfg, sc, device=dev),
+          make_requests(cfg, 2, seed=1, lengths=[40, 60]))     # warm-up
+    eng = Engine(model, cfg, sc, device=dev)
+    reqs = make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    reset_counts()
+    results, steps, wall = serve(eng, reqs)
+    counts = launch_counts()
+    n_tok = sum(len(r.tokens) for r in results)
+    step_ms = 1e3 * sum(steps) / len(steps)
+    path = "blocks.0.mixer.wq"
+    served = eng.model.get_submodule(path).l
+    trained = bool(torch.equal(served, st.trainable[path]["l"]))
+    moved = not torch.equal(served, pass_l[path])
+    log(tag, f"(d) fine-tuned container served: {len(results)} requests, "
+        f"{n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} tok/s, decode "
+        f"step {step_ms:.2f} ms; launches {counts}; {path}.l served = "
+        f"trained: {trained}, differs from the pass's: {moved}")
+    require(len(results) == 8 and all(len(r.tokens) == 32 for r in results),
+            "expected 8 requests × 32 tokens")
+    require(all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4")),
+            f"a kernel of the path never launched: {counts}")
+    require(trained and moved, "the engine does not serve the trained "
+            "adapters")
+    tokens = torch.from_numpy(reqs[0].prompt).long()[None].to(dev)
+    n = torch.tensor([tokens.shape[1]], dtype=torch.int32, device=dev)
+    logit = {}
+    for fused in ("auto", "off"):
+        logit[fused] = prefill(Ctx(fused=fused), model, tokens,
+                               init_cache(cfg, 1, 512, torch.bfloat16, dev),
+                               lengths=n)[0].float()
+    scale = float(logit["off"].abs().max())
+    err = float((logit["auto"] - logit["off"]).abs().max())
+    log(tag, f"(d) prefill logits, kernels vs fused=off: max |Δ| {err:.3e} "
+        f"(max |logit| {scale:.3f}, tol {1e-3 * max(1.0, scale):.3e})")
+    require(bool(torch.isfinite(logit["auto"]).all()), "non-finite logits")
+    require(err <= 1e-3 * max(1.0, scale), "the fine-tuned container's "
+            "kernel path disagrees with fused=off")
+    return dict(counts=counts, tok_s=n_tok / wall, step_ms=step_ms,
+                logit_err=err, logit_scale=scale)
+
+
+def train_full(dev, tag: str) -> dict:
+    """(b): full mode at full width, ``TRAIN_FULL_LAYERS`` layers, remat
+    full: ``TRAIN_FULL_STEPS`` timed steps and 2 profiled ones; finite
+    losses, the last below the first, the held-out loss (batch 999) lower
+    after than before."""
+    import torch
+    from repro_torch.data import batches, host_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Ctx, lm_loss
+
+    gib = 2.0 ** 30
+    args = launch_train.parser().parse_args(
+        ["--mode", "full", "--remat", "full", "--steps",
+         str(TRAIN_FULL_STEPS)] + TRAIN_FULL_ARGS + TRAIN_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = launch_train.build(args, log=lambda m: print(m, flush=True))
+    torch.cuda.synchronize()
+    cfg = run.cfg
+    require(cfg.n_layers == TRAIN_FULL_LAYERS, f"depth {cfg.n_layers}")
+    n_params = sum(t.numel() for t in run.state.params.buffers())
+    log(tag, f"(b) full mode, {cfg.n_layers} of {cfg.n_layers} layers (the "
+        f"four f32 trees {4 * 4 * n_params / 1e9:.1f} GB fit the card), "
+        f"remat full, batch {args.batch} × {args.seq}, lr {args.lr:g}: init "
+        f"{time.perf_counter() - t0:.2f} s, {n_params / 1e9:.3f} B "
+        f"parameters")
+    ctx = Ctx(compute_dtype=run.sc.compute_dtype, fused="off")
+    held = host_batch(run.dcfg, 999, device=dev)
+    with torch.no_grad():
+        held0 = float(lm_loss(ctx, run.state.params, held))
+    data = batches(run.dcfg, 0, device=dev)
+    st, losses, ms = timed_steps(run.step, run.state, data, TRAIN_FULL_STEPS)
+    st, more, busy, dev_ms = profile_steps(run.step, st, data)
+    peak = torch.cuda.max_memory_allocated() / gib
+    with torch.no_grad():
+        held1 = float(lm_loss(ctx, st.params, held))
+    out = step_summary(tag, "(b) full", ms, losses + more, busy, dev_ms,
+                       args.batch * args.seq, peak)
+    log(tag, f"(b) held-out loss (batch 999) {held0:.4f} before, "
+        f"{held1:.4f} after {len(ms) + len(more)} steps")
+    require(all(math.isfinite(v) for v in losses + more), "a non-finite loss")
+    require(losses[-1] < losses[0], f"the training loss did not fall: "
+            f"{losses[0]:.4f} → {losses[-1]:.4f}")
+    require(held1 < held0, f"the held-out loss did not fall: {held0:.4f} → "
+            f"{held1:.4f}")
+    out.update(layers=cfg.n_layers, params=n_params, held_before=held0,
+               held_after=held1)
+    del run, st, data
+    return out
+
+
+def train_card_vs_cpu(dev, tag: str) -> dict:
+    """(c): reduced phi3 in f32, one state copied to the card and kept on
+    the CPU, three QPEFT and three full steps on each: losses within
+    ``TRAIN_LOSS_TOL``, the trained tensors within ``TRAIN_NORM_TOL`` of
+    their update's norm."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import PTQConfig
+    from repro_torch.data import data_config_for, host_batch
+    from repro_torch.models import init_lm
+    from repro_torch.models.quantize import quantize_model_params, split_qpeft
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import (StepConfig, init_qpeft_state,
+                                   init_train_state, make_qpeft_step,
+                                   make_train_step, trainable_params)
+
+    cfg = get_config("phi3-mini-3.8b").reduced()
+    dcfg = data_config_for(cfg, seq_len=16, global_batch=4, seed=0)
+    sc = StepConfig(compute_dtype=torch.float32)
+    cpu = torch.device("cpu")
+    qmodel, _ = quantize_model_params(
+        init_lm(cfg, 0, device=cpu),
+        PTQConfig(method="srr", scaling="identity", rank=8, exact_svd=True),
+        device=cpu)
+    out = {}
+    for mode in ("qpeft", "full"):
+        res = []
+        for d in (cpu, dev):
+            model = copy.deepcopy(qmodel if mode == "qpeft" else
+                                  init_lm(cfg, 0, device=cpu)).to(d)
+            opt = AdamW(learning_rate=cosine_schedule(3e-3, 2, 10),
+                        weight_decay=0.01)
+            if mode == "qpeft":
+                tr, fr = split_qpeft(model)
+                state = init_qpeft_state(tr, fr, opt)
+                step = make_qpeft_step(cfg, opt, sc)
+                read = lambda s: {f"{p}.{k}": v for p, dd in  # noqa: E731
+                                  s.trainable.items() for k, v in dd.items()}
+            else:
+                state = init_train_state(model, opt)
+                step = make_train_step(cfg, opt, sc)
+                read = lambda s: trainable_params(s.params)  # noqa: E731
+            init = {k: v.detach().cpu().clone() for k, v in read(state).items()}
+            losses = []
+            for i in range(3):
+                state, m = step(state, host_batch(dcfg, i, device=d))
+                losses.append(float(m["loss"]))
+            res.append((losses, init,
+                        {k: v.cpu() for k, v in read(state).items()}))
+        (lc, init, pc), (lg, _, pg) = res
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        worst = max(float((pg[k] - pc[k]).norm()
+                          / (pc[k] - init[k]).norm().clamp_min(1e-30))
+                    for k in pc)
+        elem = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+        log(tag, f"(c) {mode}, reduced phi3 f32, 3 steps card vs CPU: losses "
+            f"{[round(v, 6) for v in lg]} / {[round(v, 6) for v in lc]}, "
+            f"max relative Δ {loss_err:.2e} (tol {TRAIN_LOSS_TOL:g}); "
+            f"trained tensors: worst ‖Δ‖/‖update‖ {worst:.2e} (tol "
+            f"{TRAIN_NORM_TOL:g}), max |Δ| {elem:.2e}")
+        require(loss_err <= TRAIN_LOSS_TOL, f"{mode}: card losses differ")
+        require(worst <= TRAIN_NORM_TOL, f"{mode}: card training differs")
+        out[mode] = dict(loss_err=loss_err, norm_err=worst, max_abs=elem)
+    return out
+
+
+def phase_train(dev) -> dict:
+    """Phase "train" (module docstring): (a) QPEFT of phi3-mini-3.8b at
+    full width and depth, (d) its fine-tuned container served through
+    K1–K4, (b) full mode, (c) the card against the CPU."""
+    import gc
+    import torch
+
+    tag = "train"
+    t0 = time.perf_counter()
+    run, st, pass_l, qpeft = train_qpeft(dev, tag)
+    qpeft["serve"] = serve_finetuned(dev, tag, run, st, pass_l)
+    del run, st, pass_l
+    gc.collect()
+    torch.cuda.empty_cache()
+    qpeft["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = train_full(dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vs_cpu = train_card_vs_cpu(dev, tag)
+    log(tag, f"(a)+(d) {qpeft['seconds']:.1f} s, (b) {full['seconds']:.1f} s, "
+        f"(c) {time.perf_counter() - t0:.1f} s")
+    return dict(qpeft=qpeft, full=full, card_vs_cpu=vs_cpu,
+                counts=qpeft["serve"]["counts"],
+                k7_shapes=qpeft["k7_shapes"])
+
+
+# ---------------------------------------------------------------------------
 # phase 3's kernels of two trees, in turns on one card
 # ---------------------------------------------------------------------------
 _COMPARE_ROWS = """
@@ -3917,7 +4330,7 @@ def main() -> int:
     ptq_run = phase_ptq(dev, dataclasses.replace(cfg, n_layers=2))
     log("ptq", f"phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    moe_run = phase_moe(dev, k7_ms)
+    moe_run = phase_moe(dev)
     log("moe", f"phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dense_run = phase_dense(dev)
@@ -3934,6 +4347,9 @@ def main() -> int:
     t0 = time.perf_counter()
     whisper_run = phase_whisper(dev)
     log("whisper", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_run = phase_train(dev)
+    log("train", f"phase took {time.perf_counter() - t0:.1f} s")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -3943,8 +4359,8 @@ def main() -> int:
                    "ptq": ptq_run,
                    "moe_path": moe_run, "dense": dense_run,
                    "mla": mla_run, "hybrid": hybrid_run,
-                   "xlstm": xlstm_run, "whisper": whisper_run}, fh,
-                  indent=1)
+                   "xlstm": xlstm_run, "whisper": whisper_run,
+                   "train": train_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",
@@ -4098,6 +4514,18 @@ def main() -> int:
         picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
                       *picks["K7"][2:])
         runs.append((key, "K7", whisper_run["ptq_counts"]))
+    # phase "train": K1–K4 at phi3's rows, launched by (d)'s serving of the
+    # fine-tuned container; K7 at phi3's matrices, each row with the
+    # launches (a)'s qpeft pass made at its shape
+    for key in ("K1", "K2", "K3", "K4"):
+        picks[f"{key} train"] = picks[key]
+        runs.append((f"{key} train", key, train_run["counts"]))
+    for m, n in K7_SHAPES[:3]:
+        key = f"K7 train {m}x{n}"
+        picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
+                      *picks["K7"][2:])
+        runs.append((key, "K7", {"K7": train_run["k7_shapes"].get(
+            f"{m}x{n}", 0)}))
     kernels = []
     for key, kernel, counts in runs:
         kname, shape, source, replaces = picks[key]

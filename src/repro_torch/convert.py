@@ -35,6 +35,12 @@ needs no JAX. It handles:
     ``enc_layers`` attention blocks, ``final_norm``), each decoder block's
     ``norm_x`` and ``cross`` attention, and ``frontend_proj`` where the
     tree has one (``repro/models/transformer.py:95-97, 290-302``).
+
+:func:`convert_train_state` and :func:`convert_qpeft_state` carry a JAX
+training state across (params, or the QPEFT trainable/frozen split, and
+Adam's step and moments), so a run started in JAX continues in the port
+on the same trajectory. The moments take the parameters' walk: each is
+converted as a parameter tree of its own and read back by name.
 """
 from __future__ import annotations
 
@@ -49,10 +55,13 @@ from repro_torch.models.attention import MLA, Attention
 from repro_torch.models.layers import MLP, LayerNorm, RMSNorm
 from repro_torch.models.linear import FpLinear, QLinear
 from repro_torch.models.moe import MoE
+from repro_torch.models.quantize import split_qpeft
 from repro_torch.models.rglru import RGLRU, RGLRU_PROJECTIONS
 from repro_torch.models.transformer import LM, Block, kind_at
 from repro_torch.models.xlstm import (MLSTM, MLSTM_PROJECTIONS, SLSTM,
                                       SLSTM_PROJECTIONS)
+from repro_torch.optim.adamw import AdamState
+from repro_torch.train.steps import QPEFTState, TrainState, trainable_params
 
 _DTYPES = {np.dtype(np.float32), np.dtype(np.int8), np.dtype(np.uint8)}
 
@@ -180,3 +189,54 @@ def convert_params(tree: Dict[str, Any], cfg: ModelConfig, *,
         proj = _linear(tree["frontend_proj"], dev)
     return LM(cfg, _tensor(tree["embed"]["w"], dev), blocks,
               _norm(tree["final_norm"], dev), head, encoder, enc_norm, proj)
+
+
+def _step_count(a, device) -> torch.Tensor:
+    return torch.tensor(int(a), dtype=torch.int32, device=device)
+
+
+def convert_train_state(state, cfg: ModelConfig, *,
+                        device="cuda") -> TrainState:
+    """The port's :class:`~repro_torch.train.TrainState` of JAX's (numpy
+    leaves; ``params``, ``opt.step``/``mu``/``nu`` and ``step`` are read
+    by attribute)."""
+    dev = resolve_device(device)
+    mu, nu = (trainable_params(convert_params(t, cfg, device=dev))
+              for t in (state.opt.mu, state.opt.nu))
+    return TrainState(convert_params(state.params, cfg, device=dev),
+                      AdamState(_step_count(state.opt.step, dev), mu, nu),
+                      _step_count(state.step, dev))
+
+
+def _merge_adapters(trainable: Any, frozen: Any) -> Any:
+    """JAX's ``merge_qpeft`` over numpy trees: each quantized linear of
+    ``frozen`` takes the ``{"l", "r"}`` at its place in ``trainable``."""
+    if isinstance(frozen, dict) and ("codes" in frozen or "packed" in frozen):
+        return {**frozen, **(trainable if isinstance(trainable, dict)
+                             else {})}
+    if isinstance(frozen, dict):
+        return {k: _merge_adapters(trainable.get(k) if isinstance(
+            trainable, dict) else None, v) for k, v in frozen.items()}
+    if isinstance(frozen, (list, tuple)):
+        ts = trainable if isinstance(trainable, (list, tuple)) \
+            else [None] * len(frozen)
+        return type(frozen)(_merge_adapters(t, f) for t, f in zip(ts, frozen))
+    return frozen
+
+
+def convert_qpeft_state(state, cfg: ModelConfig, *,
+                        device="cuda") -> QPEFTState:
+    """The port's :class:`~repro_torch.train.QPEFTState` of JAX's (numpy
+    leaves; ``trainable``, ``frozen``, ``opt.step``/``mu``/``nu`` and
+    ``step`` read by attribute): the model converted from the merged
+    tree and split again; each moment merged into the frozen tree in the
+    adapters' place, converted, and its adapters read back."""
+    dev = resolve_device(device)
+    trainable, frozen = split_qpeft(convert_params(
+        _merge_adapters(state.trainable, state.frozen), cfg, device=dev))
+    mu, nu = (split_qpeft(convert_params(_merge_adapters(t, state.frozen),
+                                         cfg, device=dev))[0]
+              for t in (state.opt.mu, state.opt.nu))
+    return QPEFTState(trainable, frozen,
+                      AdamState(_step_count(state.opt.step, dev), mu, nu),
+                      _step_count(state.step, dev))

@@ -11,6 +11,8 @@ any even page size runs.
 """
 from __future__ import annotations
 
+import torch
+
 # MXINT shared-exponent block: one scale per 32 codes along K. The
 # quantizer and the matmul kernels' scale indexing both assume it.
 MXINT_BLOCK = 32
@@ -176,3 +178,16 @@ def check_decode_head_dim(hd: int) -> None:
         raise ValueError(
             f"head_dim={hd} unsupported: K3 takes at most "
             f"{DECODE_MAX_HEAD_DIM} and a multiple of {ATTN_HEAD_DIM_ALIGN}")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """The kernels (and so their wrappers, whichever version runs) define
+    no backward: raise when grad mode is on and an operand requires grad,
+    instead of returning an output that silently cuts the gradient. A
+    model differentiates through ``fused="off"``, as training does."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward, and an operand requires grad: run "
+            f"the model with fused='off' to differentiate it, or call the "
+            f"wrapper under torch.no_grad() / on detached tensors")

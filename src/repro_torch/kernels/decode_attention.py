@@ -64,6 +64,7 @@ from repro_torch.kernels.constraints import (ATTN_HEAD_DIM_ALIGN,
                                              KV_PTR_ALIGN,
                                              PACKED4_ALIGN, check_head_dim,
                                              check_decode_head_dim,
+                                             refuse_grad,
                                              validate_page_size)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
@@ -395,7 +396,9 @@ def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through ``block_table``: the plain version for CPU tensors, K3 (K5
     when paged) for CUDA tensors. ``scale`` overrides 1/√hd. ``latent``
     (unpaged) picks K3's route (module docstring): ``v`` is then ``k``'s
-    first dv columns, and the output has dv."""
+    first dv columns, and the output has dv. Raises for an operand that
+    requires grad (``constraints.refuse_grad``)."""
+    refuse_grad("K3/K5 (decode_attention_op)", q, k, v, k_scale, v_scale)
     if block_table is not None:
         if q.device.type == "cpu":
             return decode_attention_paged_plain(q, k, v, q_pos, k_pos,

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.constraints import (ATTN_WIDE_HEAD_DIM, KV_PTR_ALIGN,
-                                             check_head_dim)
+                                             check_head_dim, refuse_grad)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -85,7 +85,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Prefill attention: the plain version for CPU tensors, K4 for CUDA
-    tensors."""
+    tensors. Raises for an operand that requires grad
+    (``constraints.refuse_grad``)."""
+    refuse_grad("K4 (flash_attention)", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, k_pos, causal, window)
     return flash_attention_cuda(q, k, v, q_pos, k_pos, causal, window)

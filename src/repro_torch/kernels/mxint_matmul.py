@@ -44,7 +44,7 @@ from repro_torch.kernels.constraints import (
     QLR_MAX_SPLITS, QLR_PREFILL_TARGET_BLOCKS, QLR_ROUTER_COLS,
     QLR_STACK_TARGET_BLOCKS, QLR_TILE_DECODE, QLR_TILE_PREFILL,
     QLR_TILE_ROUTER, QLR_TILE_STACK_DECODE, QLR_TILE_STACK_PREFILL,
-    QLR_TILE_WIDE, QLR_TILES, QLR_WIDE_MAX_COLS, QLR_X_ALIGN)
+    QLR_TILE_WIDE, QLR_TILES, QLR_WIDE_MAX_COLS, QLR_X_ALIGN, refuse_grad)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
 # launches of each kernel since the last reset; a plain count per wrapper
@@ -225,7 +225,9 @@ def qlr_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                l: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """``y = x·dequant(codes, scale) + (x·L)·R`` over any leading dims of
     ``x``; returns ``x.dtype``. CPU tensors take the plain version; CUDA
-    tensors take K1 (rows ≤ ``QLR_FUSED_MAX_ROWS``) or K2."""
+    tensors take K1 (rows ≤ ``QLR_FUSED_MAX_ROWS``) or K2. Raises for an
+    operand that requires grad (``constraints.refuse_grad``)."""
+    refuse_grad("K1/K2 (qlr_matmul)", x, codes, scale, l, r)
     k = x.shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
@@ -350,7 +352,8 @@ def qlr_matmul_batched(x: torch.Tensor, codes: torch.Tensor,
     K/32, N)``, ``l (E, K, r)``, ``r (E, r, N)``; rows of entry ``e`` at
     or past ``counts[e]`` (an (E,) int32, or None for none) are zero.
     Returns ``x.dtype``. CPU tensors take the plain version; CUDA tensors
-    take K6."""
+    take K6. Raises for an operand that requires grad."""
+    refuse_grad("K6 (qlr_matmul_batched)", x, codes, scale, l, r)
     if x.device.type == "cpu":
         y = qlr_matmul_batched_plain(x, codes, scale, l, r, counts)
     else:

@@ -22,6 +22,7 @@ one too small.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple, Tuple
 
 import torch
@@ -32,8 +33,10 @@ from repro_torch.kernels.constraints import (
     MXINT_MAX_ITEMS, MXINT_MIN_BITS, MXINT_PATH_REGISTERS, MXINT_PATH_SCALAR,
     MXINT_THREADS, MXINT_VEC)
 
-# launches since the last reset; a plain count per wrapper
+# launches since the last reset; a plain count per wrapper, and K7's by
+# the (M, N) it quantized
 LAUNCHES = {"mxint_quantize": 0}
+LAUNCH_SHAPES: Counter = Counter()
 
 MAX_EXPONENT = 127          # int8 exponents, clipped like the reference
 
@@ -143,6 +146,7 @@ def mxint_quantize_cuda(w: torch.Tensor, bits: int
              torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(err, "mxint_quantize_launch (K7)")
     LAUNCHES["mxint_quantize"] += 1
+    LAUNCH_SHAPES[(m, n)] += 1
     return codes, exps
 
 

@@ -40,6 +40,11 @@ the decoder's self and cross attention and its MLP included, takes
 ``E0.``'s); here each layer takes its own. An xLSTM block has no FFN to
 quantize. Routed experts record no tap (their input is the dispatch
 buffer), so they take the identity scaling, as in JAX.
+
+The QPEFT half (:func:`split_qpeft`, :func:`merge_qpeft`,
+:func:`qpeft_grad_scales`, :func:`set_qpeft_scaling`) splits a quantized
+model into its trainable adapters and the frozen rest, for
+``train.steps.make_qpeft_step``.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import torch
 
 from repro_torch.core.api import (CalibStats, LayerReport, PTQConfig,
                                   quantize_layer)
+from repro_torch.core.qpeft import fixed_gamma_scale
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import MLA, MLA_PROJECTIONS
 from repro_torch.models.linear import QLinear
@@ -62,14 +68,6 @@ from repro_torch.quant.mxint import pack_codes_4bit
 ATTENTION = ("wq", "wk", "wv", "wo")
 SWIGLU = ("up", "gate", "down")
 GELU = ("up", "down")
-
-
-def fixed_gamma_scale(rank: int, k: int, gamma: float,
-                      device) -> torch.Tensor:
-    """QPEFT gradient scale g_i = γ for preserved ranks (i < k), else 1
-    (Eq. 7) — carried as ``gscale`` like the JAX container."""
-    idx = torch.arange(rank, device=device)
-    return torch.where(idx < k, gamma, 1.0).float()
 
 
 def _quantize_matrix(name: str, w: torch.Tensor, cfg: PTQConfig,
@@ -194,3 +192,69 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
                         layer + ".")
         release(layer)
     return model, reports
+
+
+# ==========================================================================
+# QPEFT split / merge (repro/models/quantize.py:217-313)
+# ==========================================================================
+def qlinears(model: LM) -> List[Tuple[str, QLinear]]:
+    """Every Q + LR projection of ``model`` (an expert stack is one), by
+    its module path, in module order."""
+    return [(path, m) for path, m in model.named_modules()
+            if isinstance(m, QLinear)]
+
+
+def split_qpeft(model: LM) -> Tuple[Dict[str, Dict[str, torch.Tensor]], LM]:
+    """(trainable, frozen): the adapters ``{path: {"l", "r"}}`` train; the
+    model is the frozen part. The trainable tensors are the model's own
+    ``l``/``r`` buffers (no copy), so an update to them is the model's;
+    everything else in the model (codes, packed, scale, gscale, biases,
+    norms, embedding, LM head) stays as it is."""
+    return {path: {"l": m.l, "r": m.r} for path, m in qlinears(model)}, model
+
+
+def merge_qpeft(trainable: Dict[str, Dict[str, torch.Tensor]],
+                frozen: LM) -> LM:
+    """Inverse of :func:`split_qpeft`: bind each ``{"l", "r"}`` of
+    ``trainable`` into the projection at its path, and return the model
+    (the module layout the engine and the converter see is unchanged)."""
+    for path, t in trainable.items():
+        m = frozen.get_submodule(path)
+        if not isinstance(m, QLinear):
+            raise TypeError(f"{path} is a {type(m).__name__}, not a QLinear")
+        m.l, m.r = t["l"], t["r"]
+    return frozen
+
+
+def qpeft_grad_scales(trainable: Dict[str, Dict[str, torch.Tensor]],
+                      frozen: LM) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-rank gradient-scale tree aligned with the trainable tree."""
+    return {path: {"gscale": frozen.get_submodule(path).gscale}
+            for path in trainable}
+
+
+def set_qpeft_scaling(model: LM, mode: str = "gamma", gamma: float = 0.1,
+                      alpha: float = 5.0) -> LM:
+    """Rebuild every ``gscale`` vector of a quantized model (γ, SGP or
+    ``none``), in place; returns the model. Vectorised over a leading
+    expert axis: the preserved-rank mask is recovered from the existing
+    ``gscale`` (< 1 ⇔ preserved), so each stacked matrix keeps its own
+    k*. SGP reads σ_i as the norms of R's rows (R = ΣVᵀ)."""
+    for _, m in qlinears(model):
+        preserved = m.gscale < 1.0
+        if mode == "gamma":
+            g = torch.where(preserved, gamma, 1.0)
+        elif mode == "sgp":
+            sigma = torch.linalg.norm(m.r, dim=-1)
+            s_pres = torch.where(preserved, sigma, 0.0)
+            sigma1 = torch.clamp(torch.amax(s_pres, dim=-1, keepdim=True),
+                                 min=1e-12)
+            lam = torch.clamp((alpha + 1.0) * sigma
+                              / (alpha * sigma + sigma1), 0.0, 1.0)
+            g = torch.where(preserved, 1.0 - lam, 1.0)
+        elif mode == "none":
+            g = torch.ones_like(m.gscale)
+        else:
+            raise ValueError(mode)
+        m.gscale = g.float()
+    return model

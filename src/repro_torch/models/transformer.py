@@ -37,6 +37,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -119,6 +120,32 @@ def kind_at(cfg: ModelConfig, i: int) -> str:
     if i < cfg.first_dense:
         return cfg.block_pattern[0]
     return cfg.block_pattern[(i - cfg.first_dense) % len(cfg.block_pattern)]
+
+
+def layer_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_prefix, n_groups, n_suffix) of the JAX package's parameter tree
+    (``repro/models/transformer.py::layer_layout``): the ``first_dense``
+    lead-in layers, the scanned groups of one ``block_pattern`` period
+    each, and the remainder."""
+    period = len(cfg.block_pattern)
+    n_main = cfg.n_layers - cfg.first_dense
+    return cfg.first_dense, n_main // period, n_main % period
+
+
+def reference_lead(cfg: ModelConfig, name: str) -> int:
+    """Leading axes the JAX package's tree stacks in front of the port's
+    leaf ``name`` (a dotted buffer path, ``blocks.<i>.…`` or
+    ``encoder.<e>.…``): 1 for a layer of a scanned group and for every
+    encoder layer (vmapped), 0 for the prefix and suffix layers and the
+    top-level leaves. The port keeps every layer unstacked."""
+    parts = name.split(".")
+    if parts[0] == "encoder" and len(parts) > 1:
+        return 1
+    if parts[0] != "blocks" or len(parts) < 2:
+        return 0
+    n_prefix, n_groups, _ = layer_layout(cfg)
+    i = int(parts[1])
+    return int(n_prefix <= i < n_prefix + n_groups * len(cfg.block_pattern))
 
 
 class Block(nn.Module):
@@ -430,15 +457,46 @@ def _cross(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
     return x + attn.cross_attention(ctx, blk.cross, hx, mk, mv, cfg)
 
 
+def _block_seq(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
+               memory: Optional[torch.Tensor], cache: Optional[Dict],
+               lengths: Optional[torch.Tensor]):
+    """One decoder block over a full sequence: (x, the block's cache)."""
+    y, c = _mix_seq(ctx, blk, norm(blk.norm1, x, cfg.norm), cfg, cache,
+                    lengths)
+    x = x + y
+    if blk.cross is not None:
+        x = _cross(ctx, blk, x, cfg, memory, c)
+    if blk.mlp is not None:
+        x = x + ffn(ctx, blk, x, cfg)
+    return x, c
+
+
+def _block_remat(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
+                 memory: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`_block_seq` under ``torch.utils.checkpoint`` (JAX's
+    ``jax.checkpoint`` around its group body): the block keeps only its
+    input for the backward pass and runs again there. The rerun appends
+    an MoE layer's load-balance term to ``ctx.aux_log`` a second time,
+    after :func:`lm_loss` has summed the list."""
+    return torch.utils.checkpoint.checkpoint(
+        lambda h, mem: _block_seq(ctx, blk, h, cfg, mem, None, None)[0],
+        x, memory, use_reentrant=False)
+
+
 def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
             cache: Optional[List[Dict]] = None,
             lengths: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None
+            frames: Optional[torch.Tensor] = None, remat: str = "none"
             ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
     """Prefill/scoring pass over (B, S) tokens; returns the final-normed
     hidden states (B, S, D) and, with ``cache``, the populated cache. An
     encoder-decoder encodes ``frames`` (zeros when None) once per call;
-    its decoder layers record their taps under ``L<i>.``."""
+    its decoder layers record their taps under ``L<i>.``. ``remat="full"``
+    (no cache) recomputes each decoder block in the backward pass."""
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be none|full, got {remat!r}")
+    if remat == "full" and cache is not None:
+        raise ValueError("remat='full' is for training: no cache")
     cfg = model.cfg
     x = embed(model.embed, tokens, ctx.compute_dtype)
     memory = None
@@ -451,28 +509,28 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
     for i, blk in enumerate(model.blocks):
         if ctx.tap is not None:
             ctx.prefix = f"L{i}."
-        y, c = _mix_seq(ctx, blk, norm(blk.norm1, x, cfg.norm), cfg,
-                        cache[i] if cache is not None else None, lengths)
-        x = x + y
-        if blk.cross is not None:
-            x = _cross(ctx, blk, x, cfg, memory, c)
-        if blk.mlp is not None:
-            x = x + ffn(ctx, blk, x, cfg)
+        if remat == "full":
+            x = _block_remat(ctx, blk, x, cfg, memory)
+            continue
+        x, c = _block_seq(ctx, blk, x, cfg, memory,
+                          cache[i] if cache is not None else None, lengths)
         if new_cache is not None:
             new_cache.append(c)
     ctx.prefix = ""
     return norm(model.final_norm, x, cfg.norm), new_cache
 
 
-def lm_loss(ctx: Ctx, model: LM, batch: Dict[str, torch.Tensor]
-            ) -> torch.Tensor:
+def lm_loss(ctx: Ctx, model: LM, batch: Dict[str, torch.Tensor],
+            remat: str = "none") -> torch.Tensor:
     """Mean token cross-entropy of ``batch["tokens"]`` (B, S) against
     ``batch["labels"]`` plus ``AUX_WEIGHT`` × the MoE layers' summed
     load-balance terms; a scalar f32. An encoder-decoder reads
-    ``batch["frames"]``."""
+    ``batch["frames"]``. ``remat`` as :func:`forward` takes it (the
+    training steps' ``StepConfig.remat``)."""
     aux: List[torch.Tensor] = []
     hidden, _ = forward(dataclasses.replace(ctx, aux_log=aux), model,
-                        batch["tokens"], frames=batch.get("frames"))
+                        batch["tokens"], frames=batch.get("frames"),
+                        remat=remat)
     head = model.lm_head if model.lm_head is not None \
         else FpLinear(model.embed.T)
     xent = chunked_softmax_xent(hidden, head, batch["labels"], ctx)

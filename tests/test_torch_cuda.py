@@ -12,7 +12,8 @@ non-causal at head dim 64 over 1500 keys, K3 at hd 64 over its self cache
 and its 1500-slot cross memory, K1/K2 at its projections up to 1500
 rows), K6 over an
 expert stack with and without counts, K7 bit for bit), and each wrapper
-raising on input the kernel does not take.
+raising on input the kernel does not take (K1/K2 also on an operand that
+requires grad: the kernels have no backward).
 
 Run on a machine with an H100: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``. Tolerances: the kernels sum in another
@@ -477,8 +478,10 @@ def test_mxint_quantize_bit_exact(dev, bits, m, n, offset):
     w = _quantize_input(dev, m, n, bits, offset)
     assert w.is_contiguous() and (w.data_ptr() % 16 != 0) == bool(offset)
     before = kq.LAUNCHES["mxint_quantize"]
+    shaped = kq.LAUNCH_SHAPES[(m, n)]
     codes, exps = kq.mxint_quantize(w, bits)
     assert kq.LAUNCHES["mxint_quantize"] == before + 1
+    assert kq.LAUNCH_SHAPES[(m, n)] == shaped + 1
     want_c, want_e = kq.mxint_quantize_plain(w, bits)
     assert torch.equal(codes, want_c) and torch.equal(exps, want_e)
     if m * n <= 2048 * 1408:
@@ -876,3 +879,18 @@ def test_qlr_whisper_shapes(dev, m, k, n):
     got = mk.qlr_matmul(x, codes, scale, l, rr)
     assert mk.LAUNCHES[key] == before + 1 and got.shape == (m, n)
     _close(got, mk.qlr_matmul_plain(x, codes, scale, l, rr), 1e-4)
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_qlr_wrapper_refuses_grad_on_the_card(dev, m):
+    """K1 (8 rows) and K2 (256) define no backward: an operand that
+    requires grad raises before a launch; detached, the kernel runs."""
+    x, codes, scale, l, rr = _qlr(dev, m, 1024, 384, 16, False, seed=m)
+    before = dict(mk.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mk.qlr_matmul(x, codes, scale, l.clone().requires_grad_(), rr)
+    assert mk.LAUNCHES == before
+    with torch.no_grad():
+        got = mk.qlr_matmul(x, codes, scale, l.clone().requires_grad_(), rr)
+    _close(got, mk.qlr_matmul_plain(x, codes, scale, l, rr), 1e-4)
+    assert sum(mk.LAUNCHES.values()) == sum(before.values()) + 1
