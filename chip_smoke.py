@@ -39,7 +39,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    at 256 (f32), K3 at hd 64, KV 20, G 1 over 512 slots (bf16, int8) and
    over the 1500-slot cross memory, every slot valid (bf16, f32), K1/K2
    at 1280×1280, 1280×5120 and 5120×1280 with 8, 256 and 1500 rows, K7
-   at those: max error against a stated tolerance,
+   at those; for phase "vlm", K1/K2 at internvl2-2b's 2048×2048,
+   2048×1024, 2048×8192 and 8192×2048 with 8 and 512 rows, K3 at KV 8,
+   G 2, hd 128 over 576 slots at its serving rows (406–538 valid), K4 at
+   16 heads over 8 at its 512-row prefill (f32), K7 at those shapes:
+   max error against a stated tolerance,
    kernel / plain / library-yardstick times (CUDA events, inputs rotated
    through more than the 50 MB L2 cache, as a decode step over all the
    layers finds them cold) and the bound (K1/K2/K6: the function's
@@ -118,6 +122,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    scaled_err(qer) ≤ scaled_err(w-only) and scaled_err(srr-joint) ≤
    scaled_err(srr) (each · (1 + 1e-5)); the held-out ``lm_loss`` of the fp
    model and of each method through the kernels and ``fused="off"``;
+   then the uniform and GPTQ quantizers (``make_quantizer``) on layer 0's
+   wq (3072²), up (3072×8192) and down (8192×3072): uniform codes,
+   scales and zeros on the card bit for bit the CPU's (symmetric and
+   asymmetric, 3 bits, groups of 32), and GPTQ bound to the matrix's
+   calibration Hessian below uniform round-to-nearest in the proxy error
+   tr((W − Q)ᵀ H (W − Q));
 6. the MoE main path at full width: ``init_lm`` of deepseek-moe-16b (its
    first ``MOE_LAYERS`` = 2 of 28 layers, the dense lead-in and one MoE
    layer, seed 0; cut so that phases "dense" and "train" fit the
@@ -210,7 +220,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    bit; ``paged``/``speculative`` refused; the prefill logits and one
    decode step's logits over the 8 lanes through the kernels against
    ``fused="off"``, each within 1e-3 · max|logit|;
-12. "train": training and QPEFT through ``repro_torch.launch.train``'s
+12. "vlm": internvl2-2b (an InternLM2-1.8B decoder, 16 query heads over 8
+   KV heads, with 256 vision rows of 1024 projected by the full-precision
+   ``vision_proj`` in front of every prompt) at full width and all 24
+   layers: ``init_lm`` (seed 0) → calibration as in phase 4, over the
+   synthetic vision stub too → the scalings built ahead (timed) →
+   qera-exact SRR (168 matrices, K7 twice each, by shape) → (a) phase 4's
+   unpaged serving in a 576-slot cache with 512-row prefills, bf16 KV,
+   seeded vision rows through ``extra_inputs`` (every launch count
+   exactly as the layout gives it: K1 168 and K3 24 a decode step, K2 168
+   and K4 24 an admission, K5 and K6 never), profiled decode steps; (b)
+   the same with the sanitizer on (no fault, (a)'s tokens); the first
+   prompt's prefill logits with the vision rows against zeros in their
+   place (the prefix moves them past the kernels' tolerance);
+   ``paged``/``speculative`` refused; the prefill logits and one decode
+   step's logits over the 8 lanes through the kernels against
+   ``fused="off"``, each within 1e-3 · max|logit|;
+13. "train": training and QPEFT through ``repro_torch.launch.train``'s
    ``build`` (the CLI's own set-up) at phi3-mini-3.8b's full width: (a)
    ``--mode qpeft --full-size --batch 8 --seq 64 --rank 16 --bits 3``,
    all 32 layers: init (seed 0) → calibration over 2 batches → the
@@ -379,10 +405,12 @@ def check_qlr(dev, m: int, k: int, n: int, rank: int, packed: bool) -> dict:
 
 
 def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
-                 ragged: bool = False, g: int = 1, ring: int = 0) -> dict:
+                 ragged: bool = False, g: int = 1, ring: int = 0,
+                 first: int = 150) -> dict:
     """K3 over a full cache (every row valid up to slot s - 1) or, with
-    ``ragged``, at phase 4's serving occupancy: row i holds 150 + 132·i/7
-    valid slots (150–282) and the slots past them carry k_pos = -1. ``g``
+    ``ragged``, at phase 4's serving occupancy: row i holds first +
+    132·i/7 valid slots (150–282; phase "vlm": 406–538, its 256 vision
+    rows in front) and the slots past them carry k_pos = -1. ``g``
     query heads a KV head; the yardstick is SDPA over the KV heads
     expanded to the query heads (expanded before it is timed). ``ring``:
     a local layer's wrapped ring of s slots under a window of s, every
@@ -410,7 +438,8 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
         v = torch.round(vf / vs[..., None]).clamp(-qmax, qmax).to(torch.int8)
         if kind == "int4":
             k, v = pack_codes_4bit(k), pack_codes_4bit(v)
-    lengths = [150 + (132 * i) // (b - 1) if ragged else s for i in range(b)]
+    lengths = [first + (132 * i) // (b - 1) if ragged else s
+               for i in range(b)]
     window = s if ring else 0
     if ring:
         j = torch.arange(s, dtype=torch.int32, device=dev)
@@ -468,7 +497,8 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
     ops = 2 * 2 * valid * kvh * g * hd
     b_ms, b_by = bound_ms(nbytes, ops, "float32")
     row = dict(name="K3 flash_decode", shape=f"B={b} KV={kvh} G={g} S={s} "
-               f"hd={hd} {kind}" + (" rows 150-282" if ragged else "")
+               f"hd={hd} {kind}"
+               + (f" rows {first}-{first + 132}" if ragged else "")
                + (f" ring {ring - s}-{ring - 1} window {s}" if ring else ""),
                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
@@ -915,6 +945,16 @@ WHISPER_DECODE = ((512, "bf16"), (512, "int8"), (1500, "bf16"),
 WHISPER_SHAPES = ((1280, 1280), (1280, 5120), (5120, 1280))
 WHISPER_QLR = tuple((m, k, n) for m in (8, 256, 1500)
                     for k, n in WHISPER_SHAPES)
+# phase "vlm" (internvl2-2b: 16 query heads over 8 KV heads of 128, G 2):
+# its serving cache (576 slots) and prefill width (512 rows: the 256
+# vision rows and the prompt padded to 256); K1 (decode rows) and K2 (the
+# prefill's rows) at its four projection shapes (wq/wo 2048², wk/wv
+# 2048×1024, gate/up 2048×8192, down 8192×2048); K3 at B 8, KV 8, G 2
+# over the 576 slots at the serving rows (VLM_ROWS = 150 + 256 to 538
+# valid slots); K4 at the causal 512-row prefill; K7 at the four shapes
+VLM_MAX_LEN, VLM_PREFILL, VLM_ROWS = 576, 512, 406
+VLM_SHAPES = ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))
+VLM_QLR = tuple((m, k, n) for m in (8, VLM_PREFILL) for k, n in VLM_SHAPES)
 
 
 def phase_kernels(dev) -> list:
@@ -992,6 +1032,7 @@ def phase_kernels(dev) -> list:
     for m, n in XLSTM_K7:
         rows.append(check_quantize(dev, m, n))
     rows += phase_kernels_whisper(dev)
+    rows += phase_kernels_vlm(dev)
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else f"[{r['note']}]")
@@ -1028,6 +1069,18 @@ def phase_kernels_whisper(dev) -> list:
         rows.append(check_qlr(dev, m, k, n, 16, False))
     for m, n in WHISPER_SHAPES:
         rows.append(check_quantize(dev, m, n))
+    return rows
+
+
+def phase_kernels_vlm(dev) -> list:
+    """Phase 3's cases at internvl2-2b's shapes: K1/K2 at its projections
+    (8 decode rows, the 512-row prefill), K3 at G 2 over its serving
+    cache, K4 at its prefill, K7 at its matrices."""
+    rows = [check_qlr(dev, m, k, n, 16, False) for m, k, n in VLM_QLR]
+    rows.append(check_decode(dev, "bf16", kvh=8, s=VLM_MAX_LEN, hd=128, g=2,
+                             ragged=True, first=VLM_ROWS))
+    rows.append(check_flash(dev, h=16, s=VLM_PREFILL, hd=128, g=2))
+    rows += [check_quantize(dev, m, n) for m, n in VLM_SHAPES]
     return rows
 
 
@@ -1165,7 +1218,6 @@ def profile_srr(dev, cfg, tag: str, t_pass: float, reports,
     shape (``k7_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.api import PTQConfig
     from repro_torch.models import init_lm
     from repro_torch.models.quantize import quantize_model_params
 
@@ -1180,8 +1232,7 @@ def profile_srr(dev, cfg, tag: str, t_pass: float, reports,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, window = quantize_model_params(
-            model, PTQConfig(method="srr", scaling="qera-exact", rank=16,
-                             bits=3, seed=0),
+            model, srr_ptq(),
             container="int8", stats=stats, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1256,6 +1307,17 @@ def k7_pass_ms(reports, k7_ms) -> float | None:
 CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ = 4, 8, 256
 
 
+def srr_ptq(**kw):
+    """Phase 4's pass configuration (qera-exact SRR, rank 16, 3-bit MXINT
+    in blocks of 32, seed 0), with ``kw`` replacing any of it."""
+    from repro_torch.core.api import PTQConfig
+    from repro_torch.quant import QuantizerConfig
+    return PTQConfig(**dict(dict(
+        method="srr", scaling="qera-exact",
+        quantizer=QuantizerConfig(kind="mxint", bits=3, block_size=32),
+        rank=16, seed=0), **kw))
+
+
 def calibrate(dev, cfg, model, tag: str) -> tuple:
     """``capture_calibration`` of ``model`` over the calibration batches
     through ``lm_loss``; returns (stats, seconds)."""
@@ -1300,7 +1362,6 @@ def quantized_model(dev, cfg):
     the pass's seconds and reports. The scalings are built before the
     pass and timed apart (``build_scalings``)."""
     import torch
-    from repro_torch.core.api import PTQConfig
     from repro_torch.models import init_lm
     from repro_torch.models.quantize import quantize_model_params
 
@@ -1316,8 +1377,7 @@ def quantized_model(dev, cfg):
     t_scaling = build_scalings(stats)
     t0 = time.perf_counter()
     model, reports = quantize_model_params(
-        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
-                         seed=0), container="int8", stats=stats, device=dev)
+        model, srr_ptq(), container="int8", stats=stats, device=dev)
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     require(not stats, "the pass left calibration statistics behind")
@@ -2249,7 +2309,6 @@ def quant_report_pass(dev, cfg) -> dict:
     import contextlib
     import io
     import torch
-    from repro_torch.core.api import PTQConfig
     from repro_torch.models import init_lm
     from repro_torch.models.linear import QLinear
     from repro_torch.models.quantize import quantize_model_params
@@ -2257,8 +2316,7 @@ def quant_report_pass(dev, cfg) -> dict:
 
     cut = dataclasses.replace(cfg, n_layers=2)
     stats, _ = calibrate(dev, cut, init_lm(cut, 0, device=dev), "frontend")
-    ptq = PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
-                    seed=0)
+    ptq = srr_ptq()
     models, took = {}, {}
     rec = QuantRecorder()
     for with_rec in (False, True):
@@ -2390,14 +2448,13 @@ def phase_frontend(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
 
 def phase_reduced(dev, cfg) -> None:
     import torch
-    from repro_torch.core.api import PTQConfig
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import Ctx, init_cache, init_lm, prefill
     from repro_torch.models.quantize import quantize_model_params
     from repro_torch.serve import Engine, ServeConfig
 
     model, _ = quantize_model_params(init_lm(cfg, 1, device=dev),
-                                     PTQConfig(rank=16, bits=3, seed=1),
+                                     srr_ptq(seed=1),
                                      container="packed4", device=dev)
     for kv in ("int4", "int8"):
         for paged in (False, True):
@@ -2465,7 +2522,6 @@ def phase_ptq(dev, cfg) -> dict:
     lm_loss of the fp model and of each method, through the kernels and
     through ``fused="off"``."""
     import torch
-    from repro_torch.core.api import PTQConfig
     from repro_torch.data import data_config_for, host_batch
     from repro_torch.models import Ctx, init_lm, lm_loss
     from repro_torch.models.quantize import quantize_model_params
@@ -2514,8 +2570,7 @@ def phase_ptq(dev, cfg) -> dict:
         model = copy.deepcopy(fp)
         t0 = time.perf_counter()
         model, reports = quantize_model_params(
-            model, PTQConfig(method=method, scaling="qera-exact", rank=16,
-                             bits=3, seed=0, exact_svd=True),
+            model, srr_ptq(method=method, exact_svd=True),
             container="int8", stats=dict(card), device=dev)
         torch.cuda.synchronize()
         took = time.perf_counter() - t0
@@ -2545,9 +2600,68 @@ def phase_ptq(dev, cfg) -> dict:
     shared = all(errs["srr"][k].k_star == r.k_star
                  for k, r in errs["srr-joint"].items())
     require(shared, "srr and srr-joint chose different k*")
+    out["quantizers"] = quantizer_gates(dev, fp, card)
     del fp
     torch.cuda.empty_cache()
     out["moment_rel_err"] = worst
+    return out
+
+
+# phase "ptq"'s quantizer gates: one phi3 matrix of each shape, by the
+# module that holds it and its tap name
+QUANTIZER_MATRICES = (("mixer", "wq", "L0.attn.wq"), ("mlp", "up", "L0..up"),
+                      ("mlp", "down", "L0..down"))
+
+
+def quantizer_gates(dev, fp, stats) -> dict:
+    """The uniform and GPTQ quantizers (``make_quantizer``) on one phi3
+    matrix of each shape (3072², 3072×8192, 8192×3072) of layer 0: the
+    uniform codes, scales and zeros on the card bit for bit the CPU's,
+    symmetric and asymmetric, at 3 bits in groups of 32; GPTQ, bound to
+    the matrix's calibration Hessian H = Σxxᵀ / n, with a proxy error
+    tr((W − Q)ᵀ H (W − Q)) below uniform round-to-nearest's (the same
+    group scales), and its seconds on the card."""
+    import torch
+    from repro_torch.quant import QuantizerConfig, make_quantizer
+
+    out = {}
+    for owner, name, key in QUANTIZER_MATRICES:
+        w = getattr(getattr(fp.blocks[0], owner), name).w
+        shape = "x".join(str(d) for d in w.shape)
+        for symmetric in (True, False):
+            q = make_quantizer(QuantizerConfig(kind="uniform", bits=3,
+                                               block_size=32,
+                                               symmetric=symmetric))
+            card, host = q.quantize(w), q.quantize(w.cpu())
+            bad = [f for f in ("codes", "scales", "zeros")
+                   if not torch.equal(getattr(card, f).cpu(),
+                                      getattr(host, f))]
+            require(not bad, f"uniform {shape} symmetric={symmetric}: "
+                    f"{bad} differ between the card and the CPU")
+        st = stats[key]
+        h = st.autocorr / st.count
+        cfg = QuantizerConfig(kind="gptq", bits=3, block_size=32)
+        gptq = make_quantizer(cfg, h)
+        rtn = make_quantizer(dataclasses.replace(cfg, kind="uniform"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qg = gptq.fake_quant(w)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+
+        def proxy(q_):
+            e = (w - q_).double()
+            return float((e * (h.double() @ e)).sum())
+
+        err_g, err_r = proxy(qg), proxy(rtn.fake_quant(w))
+        log("ptq", f"{key} {shape}: uniform codes/scales/zeros card = CPU "
+            f"(symmetric and asymmetric); proxy tr((W−Q)ᵀH(W−Q)) GPTQ "
+            f"{err_g:.6e} vs round-to-nearest {err_r:.6e} (ratio "
+            f"{err_g / err_r:.4f}); GPTQ {took:.2f} s on the card")
+        require(math.isfinite(err_g) and err_g < err_r,
+                f"GPTQ does not beat round-to-nearest on {key}")
+        out[key] = dict(shape=shape, gptq_proxy=err_g, rtn_proxy=err_r,
+                        gptq_s=took)
     return out
 
 
@@ -2574,7 +2688,6 @@ def phase_moe(dev) -> dict:
     qera-exact SRR (K7) → serve."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.api import PTQConfig
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import Ctx, init_cache, init_lm, prefill
     from repro_torch.models.quantize import quantize_model_params
@@ -2598,8 +2711,7 @@ def phase_moe(dev) -> dict:
     reset_counts()
     t0 = time.perf_counter()
     model, reports = quantize_model_params(
-        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
-                         seed=0), container="int8", stats=stats, device=dev)
+        model, srr_ptq(), container="int8", stats=stats, device=dev)
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     ptq_counts = launch_counts()
@@ -2740,7 +2852,6 @@ def dense_model(dev, cfg, tag: str, ahead: bool) -> tuple:
     timed apart when ``ahead``, else inside the pass, each layer's
     released with its statistics. Returns (model, stats of the pass)."""
     import torch
-    from repro_torch.core.api import PTQConfig
     from repro_torch.models import init_lm
     from repro_torch.models.quantize import quantize_model_params
 
@@ -2762,8 +2873,7 @@ def dense_model(dev, cfg, tag: str, ahead: bool) -> tuple:
     reset_counts()
     t0 = time.perf_counter()
     model, reports = quantize_model_params(
-        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
-                         seed=0), container="int8", stats=stats, device=dev)
+        model, srr_ptq(), container="int8", stats=stats, device=dev)
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     ptq_counts = launch_counts()
@@ -2962,7 +3072,6 @@ def phase_mla(dev) -> dict:
     ``fused="off"`` under one routing."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.api import PTQConfig
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import Ctx, init_cache, init_lm, prefill
     from repro_torch.models.quantize import quantize_model_params
@@ -2989,8 +3098,7 @@ def phase_mla(dev) -> dict:
     reset_counts()
     t0 = time.perf_counter()
     model, reports = quantize_model_params(
-        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
-                         seed=0), container="int8", stats=stats, device=dev)
+        model, srr_ptq(), container="int8", stats=stats, device=dev)
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     ptq_counts = launch_counts()
@@ -3118,7 +3226,7 @@ def family_model(dev, cfg, tag: str, prepare=None) -> tuple:
     pass. Phases "hybrid" and "xlstm" share it. Returns (model, stats of
     the pass)."""
     import torch
-    from repro_torch.core.api import PTQConfig
+    from repro_torch.kernels import mxint_quantize
     from repro_torch.models import init_lm
     from repro_torch.models.quantize import quantize_model_params
 
@@ -3142,12 +3250,16 @@ def family_model(dev, cfg, tag: str, prepare=None) -> tuple:
     reset_counts()
     t0 = time.perf_counter()
     model, reports = quantize_model_params(
-        model, PTQConfig(method="srr", scaling="qera-exact", rank=16, bits=3,
-                         seed=0), container="int8", stats=stats, device=dev)
+        model, srr_ptq(), container="int8", stats=stats, device=dev)
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     ptq_counts = launch_counts()
-    require(not stats, "the pass left calibration statistics behind")
+    k7_shapes = {f"{m}x{n}": c
+                 for (m, n), c in mxint_quantize.LAUNCH_SHAPES.items()}
+    # a VLM's vision_proj input, recorded under "" as JAX records it, is
+    # the one entry no matrix reads
+    require(set(stats) <= ({""} if cfg.n_vision_tokens else set()),
+            f"the pass left calibration statistics behind: {sorted(stats)}")
     peak = torch.cuda.max_memory_allocated() / gib
     mean_k = sum(r.k_star for r in reports) / len(reports)
     log(tag, f"calibration {t_calib:.2f} s; qera-exact scalings built ahead "
@@ -3160,17 +3272,20 @@ def family_model(dev, cfg, tag: str, prepare=None) -> tuple:
             f"the PTQ pass did not quantize through K7: {ptq_counts}")
     return model, dict(calibration_s=t_calib, scaling_s=t_scaling,
                        quantize_s=t_quant, peak_gib=peak, mean_k=mean_k,
-                       matrices=len(reports), ptq_counts=ptq_counts)
+                       matrices=len(reports), ptq_counts=ptq_counts,
+                       k7_shapes=k7_shapes)
 
 
 def family_logits(dev, cfg, model, reqs, max_len: int,
-                  step: bool, frames=None) -> dict:
+                  step: bool, frames=None, vision=None) -> dict:
     """The prompts' prefill logits (right-padded, ``lengths``) through the
     kernels against ``fused="off"`` into a bf16 cache of ``max_len``
     slots and, with ``step``, one decode step's logits over the prefilled
     lanes (copies of the kernel run's cache) the same way (and, where the
     model has local layers, the ring's slots and largest position). An
-    encoder-decoder encodes ``frames`` (a row a prompt; zeros if None)."""
+    encoder-decoder encodes ``frames`` (a row a prompt; zeros if None); a
+    VLM puts ``vision`` (a row a prompt) in front, its rows counted in
+    ``lengths``."""
     import torch
     from repro_torch.models import Ctx, decode_step, init_cache, prefill
 
@@ -3178,13 +3293,15 @@ def family_logits(dev, cfg, model, reqs, max_len: int,
     tokens = torch.zeros((len(reqs), width), dtype=torch.long)
     for i, r in enumerate(reqs):
         tokens[i, :len(r.prompt)] = torch.from_numpy(r.prompt).long()
-    n = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32,
-                     device=dev)
+    n_vis = 0 if vision is None else cfg.n_vision_tokens
+    n = torch.tensor([len(r.prompt) + n_vis for r in reqs],
+                     dtype=torch.int32, device=dev)
     logit, cache = {}, None
     for fused in ("auto", "off"):
         out, c = prefill(Ctx(fused=fused), model, tokens.to(dev),
                          init_cache(cfg, len(reqs), max_len, torch.bfloat16,
-                                    dev), lengths=n, frames=frames)
+                                    dev), lengths=n, frames=frames,
+                         vision=vision)
         logit[fused] = out.float()
         cache = cache or c
     res = dict(prefill_err=float((logit["auto"] - logit["off"]).abs().max()),
@@ -3752,6 +3869,183 @@ def phase_whisper(dev) -> dict:
                ttft_ms=[1e3 * t for t in ttft], profile=prof,
                lane_bytes=lane, cross_bytes=cross_bytes,
                probe_changed=changed, logits=lg)
+    return run
+
+
+VLM_VISION_SEED = 19
+
+
+def vlm_config(**kw):
+    """Phase "vlm"'s ``ServeConfig``: phase 4's, its cache and prefill
+    widened by the 256 vision rows (150–250-token prompts + 256 + 32 new
+    tokens need 538 slots, and 506 rows of prefill)."""
+    return main_serve_config(**dict(dict(max_len=VLM_MAX_LEN,
+                                         prefill_len=VLM_PREFILL), **kw))
+
+
+def vision_moves_logits(dev, cfg, model, prompt, vision) -> tuple:
+    """(max |Δ|, max |logit|) between one prompt's prefill logits (through
+    the kernels) with the seeded vision rows and with zeros in their
+    place: a prefix that reached no layer would leave them equal."""
+    import torch
+    from repro_torch.models import Ctx, init_cache, prefill
+
+    tokens = torch.from_numpy(prompt).long()[None].to(dev)
+    n = torch.tensor([len(prompt) + cfg.n_vision_tokens], dtype=torch.int32,
+                     device=dev)
+    out = [prefill(Ctx(), model, tokens,
+                   init_cache(cfg, 1, VLM_MAX_LEN, torch.bfloat16, dev),
+                   lengths=n, vision=v)[0].float()
+           for v in (vision, torch.zeros_like(vision))]
+    require(all(bool(torch.isfinite(o).all()) for o in out),
+            "non-finite logits")
+    return float((out[0] - out[1]).abs().max()), float(out[1].abs().max())
+
+
+def phase_vlm(dev) -> dict:
+    """Phase "vlm": internvl2-2b (an InternLM2-1.8B decoder, G 2, with 256
+    vision rows of 1024 projected in front of every prompt by the full
+    precision ``vision_proj``) at full width and all 24 layers →
+    :func:`family_model` (calibration over the synthetic vision stub too;
+    ``vision_proj``'s moments stay, unread, as in JAX) → (a) phase 4's
+    unpaged serving widened to 576 slots and 512 prefill rows, bf16 KV,
+    seeded vision rows through ``extra_inputs`` (every admission takes
+    ``vision[0]``, as in JAX): every launch count exactly as the layout
+    gives it (K1 = 168 a decode step, K2 = 168 and K4 = 24 an admission,
+    K3 = 24 a step, K5 = K6 = 0; K7 twice a matrix in the pass), profiled
+    decode steps; (b) the same served with the sanitizer on (every lane's
+    position prompt + 256 + generated − 1): no fault and (a)'s tokens; the
+    first prompt's prefill logits with the seeded vision rows against
+    zeros (the prefix is read: they differ by more than the kernels'
+    tolerance); ``paged``/``speculative`` refused; the prefill logits and
+    one decode step's logits over the 8 lanes through the kernels against
+    ``fused="off"``, each within 1e-3 · max|logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.linear import QLinear
+    from repro_torch.serve import Engine
+    from repro_torch.serve.sanitizer import SanitizerError
+
+    cfg = get_config("internvl2-2b")
+    tag = "vlm"
+    gib = 2.0 ** 30
+    model, run = family_model(dev, cfg, tag)
+    n_proj = sum(isinstance(m, QLinear) for m in model.modules())
+    want_k = dict(K1=n_proj, K2=n_proj, K3=cfg.n_layers, K4=cfg.n_layers)
+    want_k7 = {f"{m}x{n}": 2 * cfg.n_layers * (1 if (m, n) == (8192, 2048)
+                                               else 2)
+               for m, n in VLM_SHAPES}
+    log(tag, f"{n_proj} quantized projections; vision_proj "
+        f"{tuple(model.vision_proj.w.shape)} full precision; "
+        f"n_vision_tokens {cfg.n_vision_tokens}; K7 by M×N "
+        f"{run['k7_shapes']}")
+    require(n_proj == 168 and run["k7_shapes"] == want_k7,
+            f"expected 168 projections and K7 {want_k7}, got {n_proj} and "
+            f"{run['k7_shapes']}")
+
+    def check_counts(counts, steps: int, admissions: int, what: str) -> None:
+        want = {"K1": steps * want_k["K1"], "K2": admissions * want_k["K2"],
+                "K3": steps * want_k["K3"], "K4": admissions * want_k["K4"],
+                "K5": 0, "K6": 0}
+        require(all(counts[k] == v for k, v in want.items()),
+                f"{what}: launches {counts}, the layout gives {want} "
+                f"({steps} decode steps, {admissions} admissions)")
+
+    vision = np.random.default_rng(VLM_VISION_SEED).standard_normal(
+        (8, cfg.n_vision_tokens, cfg.d_frontend)).astype(np.float32)
+    extra = {"vision": vision}
+
+    # (a) phase 4's serving, bf16 KV, the vision rows through extra_inputs
+    sc = vlm_config()
+    serve(Engine(model, cfg, sc, device=dev, extra_inputs=extra),
+          make_requests(cfg, 2, seed=1, lengths=[40, 60]))     # warm-up
+    eng = Engine(model, cfg, sc, device=dev, extra_inputs=extra)
+    reqs = make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results, steps, wall = serve(eng, reqs)
+    counts = launch_counts()
+    n_steps = eng.sched.stats.decode_steps
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_s for r in results]
+    step_ms = 1e3 * sum(steps) / len(steps)
+    lane = lane_bytes(eng)
+    log(tag, f"(a) served {len(results)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s: {n_tok / wall:.1f} tok/s; TTFT first "
+        f"{1e3 * min(ttft):.1f} ms mean {1e3 * sum(ttft) / len(ttft):.1f} ms "
+        f"max {1e3 * max(ttft):.1f} ms ({VLM_PREFILL}-row prefills, "
+        f"{cfg.n_vision_tokens} of them vision); decode step {step_ms:.2f} "
+        f"ms over {len(steps)} decode-only steps ({n_steps} decode steps in "
+        f"all); peak memory while serving "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB; a lane's cache "
+        f"{lane:,} bytes")
+    log(tag, f"(a) kernel launches in the run: {counts}")
+    require(len(results) == 8 and all(len(r.tokens) == 32 for r in results),
+            f"expected 8 requests × 32 tokens, got "
+            f"{[len(r.tokens) for r in results]}")
+    require(all(0 <= t < cfg.vocab for r in results for t in r.tokens),
+            "a token outside the vocabulary")
+    check_counts(counts, n_steps, eng.sched.stats.admitted, "(a)")
+    prof = profile_decode(eng, cfg, make_requests(cfg, 8, seed=4,
+                                                  lengths=MAIN_LENGTHS),
+                          tag=tag)
+    del eng
+
+    # (b) the sanitizer on: positions count the vision rows
+    eng = Engine(model, cfg, vlm_config(sanitize=True), device=dev,
+                 extra_inputs=extra)
+    try:
+        sane, _, _ = serve(eng, make_requests(cfg, 8, seed=0,
+                                              lengths=MAIN_LENGTHS))
+    except SanitizerError as e:
+        require(False, f"(b) the sanitizer found a fault: {e}")
+    same = sum(g.tokens.tolist() == w.tokens.tolist()
+               for g, w in zip(sane, results))
+    pos = sorted({int(p) for layer in eng.slots.cache
+                  for p in layer["pos"].tolist()})
+    log(tag, f"(b) sanitizer on: no fault over {eng.sched.stats.decode_steps}"
+        f" decode steps; {same}/8 requests' tokens equal (a)'s; positions "
+        f"at the end {pos[0]}–{pos[-1]}")
+    require(same == 8, "(b) the sanitized engine's tokens differ from (a)'s")
+    del eng
+
+    delta, scale = vision_moves_logits(dev, cfg, model, reqs[0].prompt,
+                                       torch.from_numpy(vision[:1]).to(dev))
+    log(tag, f"the first prompt's prefill logits, seeded vision rows vs "
+        f"zeros: max |Δ| {delta:.3e} (max |logit| {scale:.3f}; the kernels' "
+        f"tolerance {1e-3 * max(1.0, scale):.3e})")
+    require(delta > 1e-3 * max(1.0, scale),
+            "the vision prefix does not move the logits")
+    refused = []
+    for kw in (dict(paged=True), dict(speculative=True)):
+        try:
+            Engine(model, cfg, vlm_config(**kw), device=dev)
+        except ValueError as e:
+            refused.append(str(e).split(" (")[0])
+    log(tag, f"refused: {refused}")
+    require(len(refused) == 2, "a paged or speculative VLM engine was built")
+
+    t0 = time.perf_counter()
+    lg = family_logits(dev, cfg, model, reqs, VLM_MAX_LEN, True,
+                       vision=torch.from_numpy(vision).to(dev))
+    gates = [("prefill", lg["prefill_err"], lg["prefill_scale"]),
+             ("decode step after the prefill", lg["step_err"],
+              lg["step_scale"])]
+    for what, err, scale in gates:
+        log(tag, f"{what} logits over 8 lanes, kernels vs fused=off: max "
+            f"|Δ| {err:.3e} (max |logit| {scale:.3f}, tol "
+            f"{1e-3 * max(1.0, scale):.3e})")
+        require(err <= 1e-3 * max(1.0, scale),
+                f"the VLM kernel path disagrees with fused=off: {what}")
+    log(tag, f"logit checks took {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    run.update(counts=counts, decode_steps=n_steps, tok_s=n_tok / wall,
+               step_ms=step_ms, ttft_ms=[1e3 * t for t in ttft],
+               profile=prof, lane_bytes=lane, vision_delta=delta,
+               logits=lg)
     return run
 
 
@@ -4348,6 +4642,9 @@ def main() -> int:
     whisper_run = phase_whisper(dev)
     log("whisper", f"phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    vlm_run = phase_vlm(dev)
+    log("vlm", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     train_run = phase_train(dev)
     log("train", f"phase took {time.perf_counter() - t0:.1f} s")
 
@@ -4360,7 +4657,7 @@ def main() -> int:
                    "moe_path": moe_run, "dense": dense_run,
                    "mla": mla_run, "hybrid": hybrid_run,
                    "xlstm": xlstm_run, "whisper": whisper_run,
-                   "train": train_run}, fh, indent=1)
+                   "vlm": vlm_run, "train": train_run}, fh, indent=1)
 
     picks = {"K1": ("K1 qlr_fused_matmul", "M=8 K=3072 N=8192 r=16 int8",
                     "src/repro_torch/kernels/csrc/mxint_matmul.cu",
@@ -4514,6 +4811,30 @@ def main() -> int:
         picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
                       *picks["K7"][2:])
         runs.append((key, "K7", whisper_run["ptq_counts"]))
+    # phase "vlm": K1/K2 at its projections, K3 at G 2 over its serving
+    # rows, K4 at its 512-row prefill (run (a)'s counts), K7 at its
+    # matrices (its PTQ pass, by shape)
+    for m, k, n in VLM_QLR:
+        kernel = "K1" if m <= 128 else "K2"
+        key = f"{kernel} vlm {m}x{k}x{n}"
+        picks[key] = (picks[kernel][0], f"M={m} K={k} N={n} r=16 int8",
+                      *picks[kernel][2:])
+        runs.append((key, kernel, vlm_run["counts"]))
+    vlm_attn = {"K3 vlm": ("K3 flash_decode",
+                           f"B=8 KV=8 G=2 S={VLM_MAX_LEN} hd=128 bf16 rows "
+                           f"{VLM_ROWS}-{VLM_ROWS + 132}"),
+                "K4 vlm": ("K4 flash_attention",
+                           f"H=16 KV=8 S={VLM_PREFILL} hd=128 causal f32")}
+    for key, (kname, shape) in vlm_attn.items():
+        kernel = kname.split()[0]
+        picks[key] = (kname, shape, *picks[kernel][2:])
+        runs.append((key, kernel, vlm_run["counts"]))
+    for m, n in VLM_SHAPES:
+        key = f"K7 vlm {m}x{n}"
+        picks[key] = ("K7 mxint_quantize", f"M={m} N={n} bits=3",
+                      *picks["K7"][2:])
+        runs.append((key, "K7", {"K7": vlm_run["k7_shapes"].get(
+            f"{m}x{n}", 0)}))
     # phase "train": K1–K4 at phi3's rows, launched by (d)'s serving of the
     # fine-tuned container; K7 at phi3's matrices, each row with the
     # launches (a)'s qpeft pass made at its shape

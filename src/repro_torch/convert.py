@@ -34,7 +34,9 @@ needs no JAX. It handles:
   * an encoder-decoder's ``encoder`` subtree (``blocks`` stacked over
     ``enc_layers`` attention blocks, ``final_norm``), each decoder block's
     ``norm_x`` and ``cross`` attention, and ``frontend_proj`` where the
-    tree has one (``repro/models/transformer.py:95-97, 290-302``).
+    tree has one (``repro/models/transformer.py:95-97, 290-302``);
+  * a VLM's ``vision_proj`` (full precision, ``repro/models/
+    transformer.py:303-306``).
 
 :func:`convert_train_state` and :func:`convert_qpeft_state` carry a JAX
 training state across (params, or the QPEFT trainable/frozen split, and
@@ -187,8 +189,11 @@ def convert_params(tree: Dict[str, Any], cfg: ModelConfig, *,
         enc_norm = _norm(enc["final_norm"], dev)
     if "frontend_proj" in tree:
         proj = _linear(tree["frontend_proj"], dev)
+    vision = (_linear(tree["vision_proj"], dev) if "vision_proj" in tree
+              else None)
     return LM(cfg, _tensor(tree["embed"]["w"], dev), blocks,
-              _norm(tree["final_norm"], dev), head, encoder, enc_norm, proj)
+              _norm(tree["final_norm"], dev), head, encoder, enc_norm, proj,
+              vision)
 
 
 def _step_count(a, device) -> torch.Tensor:

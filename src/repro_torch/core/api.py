@@ -3,9 +3,11 @@
 
 Calibration statistics are *streaming moments* (constant memory per
 projection): count, Σ|x|, Σx² and optionally Σxxᵀ — enough to build
-every scaling kind without keeping activations. The backbone quantizer
-is MXINT, as in the JAX package's model-level pass. Without statistics
-the scaling is the identity, as with JAX's ``stats=None``.
+every scaling kind without keeping activations. ``PTQConfig.quantizer``
+picks the backbone quantizer by its :class:`~repro_torch.quant.
+QuantizerConfig` (MXINT by default, uniform or GPTQ), built by
+``make_quantizer`` as in the JAX package. Without statistics the scaling
+is the identity, as with JAX's ``stats=None``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core.qer import (Decomposition, qer_decompose,
 from repro_torch.core.scaling import (IDENTITY, Scaling,
                                       autocorr_scaling_from_moments)
 from repro_torch.core.srr import srr_decompose
-from repro_torch.quant.mxint import MXIntQuantizer
+from repro_torch.quant import QuantizerConfig, make_quantizer
 
 METHODS = ("srr", "srr-joint", "qer", "w-only", "none")
 
@@ -81,13 +83,13 @@ class CalibStats:
 
 @dataclasses.dataclass(frozen=True)
 class PTQConfig:
-    """Knobs of the offline pass (MXINT backbone)."""
+    """One knob object for the whole offline pass."""
 
     method: str = "srr"             # srr | srr-joint | qer | w-only | none
     scaling: str = "qera-exact"     # see repro_torch.core.scaling
+    quantizer: QuantizerConfig = QuantizerConfig(kind="mxint", bits=3,
+                                                 block_size=32)
     rank: int = 64
-    bits: int = 3
-    block_size: int = 32
     exact_svd: bool = False         # randomized SVD by default (paper A.4)
     seed: int = 0
     forced_k: int | None = None     # override k* (ablations)
@@ -95,9 +97,6 @@ class PTQConfig:
     def rank_for(self, shape: tuple[int, int]) -> int:
         """Effective budget for narrow matrices (e.g. MoE experts)."""
         return max(1, min(self.rank, min(shape) // 2))
-
-    def quantizer(self) -> MXIntQuantizer:
-        return MXIntQuantizer(bits=self.bits, block_size=self.block_size)
 
 
 class LayerReport(NamedTuple):
@@ -112,10 +111,13 @@ class LayerReport(NamedTuple):
 
 def quantize_layer(name: str, w: torch.Tensor, cfg: PTQConfig,
                    gen: Optional[torch.Generator],
-                   stats: Optional[CalibStats] = None, recorder=None
-                   ) -> tuple[Decomposition, LayerReport]:
+                   stats: Optional[CalibStats] = None, recorder=None,
+                   quantizer=None) -> tuple[Decomposition, LayerReport]:
     """Apply the configured method to one weight matrix, under the
-    scaling ``cfg.scaling`` of ``stats`` (the identity without them).
+    scaling ``cfg.scaling`` of ``stats`` (the identity without them),
+    with ``quantizer`` or, when None, ``make_quantizer(cfg.quantizer)``
+    (a GPTQ config then raises: it needs a Hessian, bound by the caller
+    as ``make_quantizer(config, hessian)``).
 
     ``recorder`` is an optional duck-typed observer (see
     :mod:`repro_torch.obs.quant`) whose ``record_layer`` receives the
@@ -124,9 +126,10 @@ def quantize_layer(name: str, w: torch.Tensor, cfg: PTQConfig,
     with record_function("srr.scaling"):
         scaling = stats.scaling(cfg.scaling) if stats is not None \
             else IDENTITY
+    if quantizer is None:
+        quantizer = make_quantizer(cfg.quantizer)
     rank = cfg.rank_for(tuple(w.shape))
     w = w.float()
-    quantizer = cfg.quantizer()
     if cfg.method == "w-only":
         dec = w_only(w, quantizer, rank)
     elif cfg.method == "qer":

@@ -1,7 +1,6 @@
 """Deterministic synthetic LM data — stateless, per-host sharded (port
-of ``repro/data/synthetic.py``: text, and the encoder-decoder's
-``frames`` stub; the port serves no vision family,
-``models.transformer.check_supported``).
+of ``repro/data/synthetic.py``: text, the encoder-decoder's ``frames``
+stub and the VLM's ``vision`` stub).
 
 Batch contents are a pure function of ``(seed, step, sample-index)``, so
 a restarted host asking for step ``s`` gets the same tokens. The
@@ -25,6 +24,7 @@ class DataConfig:
     global_batch: int
     seed: int = 0
     frames: Optional[Tuple[int, int]] = None   # (enc_seq, d_frontend)
+    vision: Optional[Tuple[int, int]] = None   # (n_tokens, d_frontend)
 
 
 def _fold(*ints: int) -> np.random.Generator:
@@ -56,7 +56,9 @@ def host_batch(cfg: DataConfig, step: int, host_index: int = 0,
     ``labels`` (B, seq_len) on ``device``: sample ids ``step·B + i`` for
     the host's contiguous shard of ``i ∈ [0, B)``. With ``cfg.frames``,
     also f32 ``frames`` (B, enc_seq, d_frontend), standard normal from
-    ``(seed, step, 1_000_003 + host_index)``: JAX's stub bit for bit."""
+    ``(seed, step, 1_000_003 + host_index)``; with ``cfg.vision``, f32
+    ``vision`` (B, n_tokens, d_frontend) from ``(seed, step, 2_000_003 +
+    host_index)``: JAX's stubs bit for bit."""
     if cfg.global_batch % host_count:
         raise ValueError("global batch must divide across hosts")
     per_host = cfg.global_batch // host_count
@@ -70,6 +72,12 @@ def host_batch(cfg: DataConfig, step: int, host_index: int = 0,
         rng = _fold(cfg.seed, step, 1_000_003 + host_index)
         batch["frames"] = torch.from_numpy(
             rng.standard_normal((per_host, s, d)).astype(np.float32)
+        ).to(device)
+    if cfg.vision is not None:
+        t, d = cfg.vision
+        rng = _fold(cfg.seed, step, 2_000_003 + host_index)
+        batch["vision"] = torch.from_numpy(
+            rng.standard_normal((per_host, t, d)).astype(np.float32)
         ).to(device)
     return batch
 
@@ -86,8 +94,11 @@ def batches(cfg: DataConfig, start_step: int = 0, host_index: int = 0,
 def data_config_for(model_cfg, seq_len: int, global_batch: int,
                     seed: int = 0) -> DataConfig:
     """The DataConfig of a model: an encoder-decoder's carries the
-    ``frames`` stub's shape."""
+    ``frames`` stub's shape, a VLM's the ``vision`` stub's."""
     return DataConfig(vocab=model_cfg.vocab, seq_len=seq_len,
                       global_batch=global_batch, seed=seed,
                       frames=((model_cfg.enc_seq, model_cfg.d_frontend)
-                              if model_cfg.is_encoder_decoder else None))
+                              if model_cfg.is_encoder_decoder else None),
+                      vision=((model_cfg.n_vision_tokens,
+                               model_cfg.d_frontend or model_cfg.d_model)
+                              if model_cfg.n_vision_tokens else None))

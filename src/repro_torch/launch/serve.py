@@ -42,6 +42,7 @@ from repro_torch.core.api import PTQConfig
 from repro_torch.data import capture_calibration, data_config_for
 from repro_torch.models.transformer import LM, init_lm, lm_loss
 from repro_torch.models.quantize import quantize_model_params
+from repro_torch.quant import QuantizerConfig
 from repro_torch.serve import Engine, Request, SamplingParams, ServeConfig
 from repro_torch.serve.telemetry import percentile
 
@@ -92,7 +93,10 @@ def build_quantized_model(args, tag: str = "serve") -> tuple[LM, ModelConfig]:
         stats = capture_calibration(model, dcfg, lm_loss, n_batches=2,
                                     device=args.device)
         ptq = PTQConfig(method=args.method, scaling="qera-exact",
-                        rank=args.rank, bits=args.bits, seed=args.seed)
+                        quantizer=QuantizerConfig(kind="mxint",
+                                                  bits=args.bits,
+                                                  block_size=32),
+                        rank=args.rank, seed=args.seed)
         t0 = time.perf_counter()
         model, reports = quantize_model_params(model, ptq, stats=stats,
                                                recorder=recorder,

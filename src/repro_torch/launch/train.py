@@ -32,6 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import init_lm, lm_loss
 from repro_torch.models.quantize import quantize_model_params, split_qpeft
 from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.quant import QuantizerConfig
 from repro_torch.train import (CheckpointManager, StepConfig, Trainer,
                                init_qpeft_state, init_train_state,
                                make_qpeft_step, make_train_step)
@@ -99,8 +100,11 @@ def build(args: argparse.Namespace,
         log("[train] calibrating + quantizing (SRR)…")
         stats = capture_calibration(model, dcfg, lm_loss, n_batches=2,
                                     device=dev)
-        ptq = PTQConfig(method="srr", scaling="qera-exact", rank=args.rank,
-                        bits=args.bits, block_size=32, seed=args.seed)
+        ptq = PTQConfig(method="srr", scaling="qera-exact",
+                        quantizer=QuantizerConfig(kind="mxint",
+                                                  bits=args.bits,
+                                                  block_size=32),
+                        rank=args.rank, seed=args.seed)
         model, reports = quantize_model_params(model, ptq, stats=stats,
                                                device=dev)
         mean_k = sum(r.k_star for r in reports) / max(len(reports), 1)

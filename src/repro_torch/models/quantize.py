@@ -19,11 +19,13 @@ routed stacks, each with its own k* and its own generator, stacked back
 into the expert container; an encoder-decoder's encoder blocks (their
 four attention projections and the GELU MLP's ``up``/``down``) first,
 then each decoder block's self attention, its ``cross`` attention's four
-and its ``up``/``down``; the embedding, the LM head, ``frontend_proj``
-and the norms stay full precision. Matrices are quantized one at a time
-on the model's device, and each projection's fp weights (a whole expert
-stack at once) are released as soon as it is replaced, so the f32
-model's footprint only shrinks during the pass.
+and its ``up``/``down``; the embedding, the LM head, ``frontend_proj``,
+``vision_proj`` (JAX's ``EXCLUDE_NAMES``; served by a plain matmul, as
+JAX computes it outside any kernel) and the norms stay full precision.
+Matrices are quantized one at a time on the model's device, and each
+projection's fp weights (a whole expert stack at once) are released as
+soon as it is replaced, so the f32 model's footprint only shrinks during
+the pass.
 
 Calibration statistics (``data.calibration``) are looked up by each
 matrix's own layer: ``L<i>.attn.wq`` … ``L<i>..down``, ``L<i>.attn.w_dkv``
@@ -34,7 +36,9 @@ looks them up with an empty layer hint, so every scanned layer there
 takes the first recorded layer's statistics (ROADMAP §3; its MLA, RG-LRU
 and xLSTM names, absent from its role table, fall to the first
 ``L<i>.attn.<name>`` / ``L<i>.rglru.<name>`` / ``L<i>.mlstm.<name>`` /
-``L<i>.slstm.<name>`` by its suffix match; an encoder-decoder's
+``L<i>.slstm.<name>`` by its suffix match; a VLM's calibration records
+``vision_proj``'s input under the bare name ``""``, which no matrix
+reads, as in JAX; an encoder-decoder's
 calibration records the encoder first, so every whisper projection there,
 the decoder's self and cross attention and its MLP included, takes
 ``E0.``'s); here each layer takes its own. An xLSTM block has no FFN to
@@ -63,7 +67,7 @@ from repro_torch.models.rglru import RGLRU, RGLRU_PROJECTIONS
 from repro_torch.models.transformer import LM
 from repro_torch.models.xlstm import (MLSTM, MLSTM_PROJECTIONS, SLSTM,
                                       SLSTM_PROJECTIONS)
-from repro_torch.quant.mxint import pack_codes_4bit
+from repro_torch.quant.mxint import MXIntQuantizer, pack_codes_4bit
 
 ATTENTION = ("wq", "wk", "wv", "wo")
 SWIGLU = ("up", "gate", "down")
@@ -77,10 +81,14 @@ def _quantize_matrix(name: str, w: torch.Tensor, cfg: PTQConfig,
     """Decompose one (m, n) matrix into the Q + LR container's buffers
     (``"int8"`` codes or ``"packed4"`` nibbles)."""
     dec, rep = quantize_layer(name, w, cfg, gen, stats, recorder=recorder)
-    packed = cfg.quantizer().quantize(dec.q)
+    # the container is MXINT at the config's bits and block size whatever
+    # its kind, as JAX's pass packs it (a uniform Q is requantized)
+    q = cfg.quantizer
+    packed = MXIntQuantizer(bits=q.bits, block_size=q.block_size).quantize(
+        dec.q)
     store = {"codes": packed.codes}
     if container == "packed4":
-        if cfg.bits > 4:
+        if q.bits > 4:
             raise ValueError("packed4 container requires bits <= 4")
         store = {"packed": pack_codes_4bit(packed.codes)}
     elif container != "int8":

@@ -27,9 +27,13 @@ plus a sinusoid (:func:`encode`), whose output every decoder block reads
 through its cross attention (``norm_x`` then ``cross``, after the self
 mixer and before the FFN); the decoder's cache carries each layer's
 cross memory (``models.attention``), written at prefill and read at
-decode. Embeddings and the LM head stay full precision by PTQ policy.
-:func:`lm_loss` is the calibration pass's forward (and the training
-objective): token cross-entropy plus the MoE load-balance term.
+decode. A VLM config (internvl2-2b) puts ``vision_proj`` of the
+``vision`` stub's patch embeddings in front of the token embeddings, so
+RoPE positions run over vision + prompt and the cache holds the prefix
+like any prompt row. Embeddings, ``vision_proj`` and the LM head stay
+full precision by PTQ policy. :func:`lm_loss` is the calibration pass's
+forward (and the training objective): token cross-entropy (over the
+token rows only) plus the MoE load-balance term.
 """
 from __future__ import annotations
 
@@ -71,14 +75,18 @@ def check_supported(cfg: ModelConfig) -> None:
     hybrids whose ``block_pattern`` mixes full attention, sliding-window
     (``local``) attention and RG-LRU blocks, xLSTM stacks (a pattern
     of ``mlstm``/``slstm`` blocks only, no FFN after them, no RoPE read,
-    LayerNorm or RMSNorm), and encoder-decoders (full-attention GQA
+    LayerNorm or RMSNorm), encoder-decoders (full-attention GQA
     blocks with full RoPE, a GELU MLP and LayerNorm on both sides, dense,
-    over a fixed ``enc_seq``-frame input); raise for anything else (mixes
-    of xLSTM and attention blocks, vision prefixes) rather than run it
-    wrongly."""
+    over a fixed ``enc_seq``-frame input), and a vision prefix in front
+    of a dense full-attention GQA decoder (the JAX package's only VLM);
+    raise for anything else (mixes of xLSTM and attention blocks, a
+    vision prefix beside an encoder, an MoE, MLA or a hybrid) rather than
+    run it wrongly."""
     kinds = set(cfg.block_pattern)
-    plain = (not cfg.is_encoder_decoder and not cfg.n_vision_tokens
-             and bool(kinds))
+    plain = not cfg.is_encoder_decoder and bool(kinds)
+    vision_ok = not cfg.n_vision_tokens or (
+        kinds == {"attn"} and cfg.attn_kind == "gqa" and not cfg.moe
+        and not cfg.first_dense)
     if cfg.is_encoder_decoder:
         ok = (not cfg.n_vision_tokens and kinds == {"attn"}
               and cfg.attn_kind == "gqa" and not cfg.moe
@@ -86,7 +94,8 @@ def check_supported(cfg: ModelConfig) -> None:
               and cfg.act == "gelu" and cfg.norm == "layernorm"
               and cfg.d_ff > 0 and cfg.enc_seq > 0 and cfg.d_frontend > 0)
     elif kinds <= set(XLSTM_KINDS):
-        ok = (plain and not cfg.moe and not cfg.first_dense
+        ok = (plain and not cfg.n_vision_tokens and not cfg.moe
+              and not cfg.first_dense
               and cfg.attn_kind == "gqa" and cfg.d_ff == 0
               and cfg.norm in ("rmsnorm", "layernorm"))
     else:
@@ -97,7 +106,7 @@ def check_supported(cfg: ModelConfig) -> None:
         attn_ok = cfg.attn_kind == "gqa" or (
             cfg.attn_kind == "mla" and not hybrid and cfg.kv_lora_rank > 0
             and cfg.rope_head_dim > 0 and cfg.rope_head_dim % 2 == 0)
-        ok = (plain and kinds <= set(MIXER_KINDS) and attn_ok
+        ok = (plain and vision_ok and kinds <= set(MIXER_KINDS) and attn_ok
               and moe_ok and (cfg.moe or not cfg.first_dense)
               and (cfg.conv_width >= 1 or "rglru" not in kinds)
               and cfg.rope_kind in ("full", "half") and cfg.act == "swiglu"
@@ -107,10 +116,11 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the port serves GQA or MLA decoders (dense or MoE)"
             f" and GQA hybrids of attn/local/rglru blocks, with full or half "
             f"RoPE, SwiGLU and RMSNorm, xLSTM stacks of mlstm/slstm "
-            f"blocks only, and GELU/LayerNorm encoder-decoders without a "
-            f"vision prefix (block_pattern={cfg.block_pattern}, "
+            f"blocks only, GELU/LayerNorm encoder-decoders, and a vision "
+            f"prefix on a dense full-attention GQA decoder only "
+            f"(block_pattern={cfg.block_pattern}, "
             f"attn_kind={cfg.attn_kind!r}, rope_kind={cfg.rope_kind!r}, "
-            f"moe={cfg.moe})")
+            f"moe={cfg.moe}, n_vision_tokens={cfg.n_vision_tokens})")
 
 
 def kind_at(cfg: ModelConfig, i: int) -> str:
@@ -184,14 +194,16 @@ class LM(nn.Module):
     embedding); an encoder-decoder also has the ``encoder`` blocks
     (``cfg.enc_layers``, no cross attention), their final ``enc_norm``,
     and ``frontend_proj`` (full precision) when ``cfg.d_frontend`` is not
-    ``d_model``."""
+    ``d_model``; a VLM has ``vision_proj`` (full precision, d_frontend →
+    d_model)."""
 
     def __init__(self, cfg: ModelConfig, embed_w: torch.Tensor,
                  blocks: List[Block], final_norm: nn.Module,
                  lm_head: Optional[FpLinear],
                  encoder: Optional[List[Block]] = None,
                  enc_norm: Optional[nn.Module] = None,
-                 frontend_proj: Optional[FpLinear] = None):
+                 frontend_proj: Optional[FpLinear] = None,
+                 vision_proj: Optional[FpLinear] = None):
         super().__init__()
         check_supported(cfg)
         kinds = [kind_at(cfg, i) for i in range(cfg.n_layers)]
@@ -211,6 +223,9 @@ class LM(nn.Module):
                              f"cross attention in every decoder block and "
                              f"frontend_proj iff d_frontend != d_model; "
                              f"any other model none of them")
+        if (vision_proj is not None) != bool(cfg.n_vision_tokens):
+            raise ValueError(f"{cfg.name}: a model with n_vision_tokens "
+                             f"takes vision_proj, any other none")
         self.cfg = cfg
         self.register_buffer("embed", embed_w)
         self.blocks = nn.ModuleList(blocks)
@@ -219,6 +234,7 @@ class LM(nn.Module):
         self.encoder = nn.ModuleList(encoder) if encoder is not None else None
         self.enc_norm = enc_norm
         self.frontend_proj = frontend_proj
+        self.vision_proj = vision_proj
 
     @property
     def device(self) -> torch.device:
@@ -236,7 +252,8 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     xLSTM mixer (``init_mlstm``'s / ``init_slstm``'s) and no FFN. An
     encoder-decoder's blocks take a GELU MLP (``up``/``down``), each
     decoder block a cross attention with ``init_attention``'s scales, and
-    the encoder ``enc_layers`` attention blocks. Norms follow
+    the encoder ``enc_layers`` attention blocks; a VLM config gets
+    ``vision_proj`` (``init_linear``'s scale). Norms follow
     ``cfg.norm``."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -312,11 +329,15 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
         if cfg.d_frontend != d:
             proj = init_linear(gen, cfg.d_frontend, d,
                                cfg.d_frontend ** -0.5, dev)
+    vision = None
+    if cfg.n_vision_tokens:
+        dv = cfg.d_frontend or d
+        vision = init_linear(gen, dv, d, dv ** -0.5, dev)
     embed_w = torch.randn((cfg.vocab, d), generator=gen, device=dev) * 0.02
     head = None if cfg.tie_embeddings else init_linear(gen, d, cfg.vocab,
                                                         d ** -0.5, dev)
     return LM(cfg, embed_w, blocks, init_norm(d, cfg.norm, dev), head,
-              encoder, enc_norm, proj)
+              encoder, enc_norm, proj, vision)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -486,13 +507,19 @@ def _block_remat(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
 def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
             cache: Optional[List[Dict]] = None,
             lengths: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None, remat: str = "none"
+            frames: Optional[torch.Tensor] = None, remat: str = "none",
+            vision: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
     """Prefill/scoring pass over (B, S) tokens; returns the final-normed
     hidden states (B, S, D) and, with ``cache``, the populated cache. An
     encoder-decoder encodes ``frames`` (zeros when None) once per call;
-    its decoder layers record their taps under ``L<i>.``. ``remat="full"``
-    (no cache) recomputes each decoder block in the backward pass."""
+    its decoder layers record their taps under ``L<i>.``. A VLM given
+    ``vision`` (B, n_vision_tokens, d_frontend) puts ``vision_proj`` of
+    it in front of the token embeddings (JAX's ``"vision" in batch``: no
+    prefix when None), so the hidden states are (B, n_vision_tokens + S,
+    D) and ``lengths`` count the prefix; the projection records its tap
+    under the bare name ``""``, as JAX's does. ``remat="full"`` (no
+    cache) recomputes each decoder block in the backward pass."""
     if remat not in ("none", "full"):
         raise ValueError(f"remat must be none|full, got {remat!r}")
     if remat == "full" and cache is not None:
@@ -505,6 +532,10 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
             frames = torch.zeros((x.shape[0], cfg.enc_seq, cfg.d_frontend),
                                  device=x.device)
         memory = encode(ctx, model, frames.to(x.device))
+    if cfg.n_vision_tokens and vision is not None:
+        vis = linear(ctx, model.vision_proj,
+                     vision.to(x.device, ctx.compute_dtype))
+        x = torch.cat([vis, x], dim=1)
     new_cache = [] if cache is not None else None
     for i, blk in enumerate(model.blocks):
         if ctx.tap is not None:
@@ -525,12 +556,16 @@ def lm_loss(ctx: Ctx, model: LM, batch: Dict[str, torch.Tensor],
     """Mean token cross-entropy of ``batch["tokens"]`` (B, S) against
     ``batch["labels"]`` plus ``AUX_WEIGHT`` × the MoE layers' summed
     load-balance terms; a scalar f32. An encoder-decoder reads
-    ``batch["frames"]``. ``remat`` as :func:`forward` takes it (the
-    training steps' ``StepConfig.remat``)."""
+    ``batch["frames"]``; a VLM ``batch["vision"]``, whose rows it drops
+    from the hidden states before the loss. ``remat`` as :func:`forward`
+    takes it (the training steps' ``StepConfig.remat``)."""
     aux: List[torch.Tensor] = []
+    vision = batch.get("vision")
     hidden, _ = forward(dataclasses.replace(ctx, aux_log=aux), model,
                         batch["tokens"], frames=batch.get("frames"),
-                        remat=remat)
+                        remat=remat, vision=vision)
+    if model.cfg.n_vision_tokens and vision is not None:
+        hidden = hidden[:, model.cfg.n_vision_tokens:]
     head = model.lm_head if model.lm_head is not None \
         else FpLinear(model.embed.T)
     xent = chunked_softmax_xent(hidden, head, batch["labels"], ctx)
@@ -539,14 +574,16 @@ def lm_loss(ctx: Ctx, model: LM, batch: Dict[str, torch.Tensor],
 
 def prefill(ctx: Ctx, model: LM, tokens: torch.Tensor, cache: List[Dict],
             lengths: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None
+            frames: Optional[torch.Tensor] = None,
+            vision: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, List[Dict]]:
     """Process right-padded prompts; returns (logits (B, 1, V) at each
     row's last valid position, populated cache). An encoder-decoder
     encodes ``frames`` (B, enc_seq, d_frontend), zeros when None, and
-    writes each layer's cross memory into the cache."""
+    writes each layer's cross memory into the cache. A VLM prepends
+    ``vision`` where given; ``lengths`` then count its rows too."""
     hidden, cache = forward(ctx, model, tokens, cache=cache, lengths=lengths,
-                            frames=frames)
+                            frames=frames, vision=vision)
     if lengths is None:
         last = hidden[:, -1:, :]
     else:

@@ -17,8 +17,8 @@ pass runs. It is threaded — duck-typed, optional — through
 * the bit and rank budgets and the serving container's bytes, split into
   quantized and low-rank storage.
 
-The port has one quantizer, MXINT (``PTQConfig.bits`` /
-``block_size``): the report's ``config.quantizer`` is ``"mxint"``.
+The report's ``config`` names the pass's quantizer
+(``PTQConfig.quantizer``: kind, bits, block size), as JAX's does.
 ``build_report()`` returns the JSON dict that
 ``tools/quant_report_schema.json`` pins; ``write(path)`` also drops a
 sibling ``*.trace.json`` Chrome trace with one span per matrix.
@@ -91,8 +91,9 @@ class QuantRecorder:
         """Capture one quantized matrix (called by ``quantize_layer``)."""
         if not self._config:
             self._config = {"method": cfg.method, "scaling": cfg.scaling,
-                            "quantizer": "mxint", "bits": int(cfg.bits),
-                            "block_size": int(cfg.block_size),
+                            "quantizer": cfg.quantizer.kind,
+                            "bits": int(cfg.quantizer.bits),
+                            "block_size": int(cfg.quantizer.block_size),
                             "rank": int(cfg.rank),
                             "exact_svd": bool(cfg.exact_svd)}
         wf = w.float()

@@ -36,8 +36,17 @@ each admission prefilled from the zero template. An encoder-decoder
 keeps each lane's cross memory in the slot cache beside its K/V; as in
 the JAX engine a continuous admission (a batch of one) takes
 ``frames[0]`` for every request and a bucketed run ``frames[:b]`` for
-its ``b`` lanes. As in the JAX engine none of them takes the paged cache
-or speculative decoding: both are for pure full-GQA-attention stacks.
+its ``b`` lanes. A VLM (internvl2-2b) puts its ``n_vision_tokens``-row
+prefix, from ``extra_inputs={"vision": (N, n_vision_tokens,
+d_frontend)}`` or zeros, in front of every prompt by the same rule
+(``vision[0]`` at a continuous admission, ``vision[:b]`` in a bucketed
+run): the prefix counts toward ``max_len`` and ``prefill_len`` and
+toward each lane's positions, and a continuous admission pads the prompt
+to ``prefill_len - n_vision_tokens`` so that its prefill, prefix
+included, is ``prefill_len`` rows (JAX pads the prompt itself to
+``prefill_len``; the valid rows are the same). As in the JAX engine none
+of them takes the paged cache or speculative decoding: both are for
+pure full-GQA-attention stacks.
 
 ``ServeConfig(speculative=True)`` decodes greedy lanes
 self-speculatively: ``spec_k - 1`` draft steps through the quantized
@@ -299,12 +308,19 @@ class Engine:
                              "engine's slot/page state — it needs "
                              "scheduler='continuous'")
         self.model, self.cfg, self.sc = model, cfg, sc
-        # an encoder-decoder's frames, on the device once; None: zeros
-        frames = (extra_inputs or {}).get("frames")
-        self._frames = (torch.as_tensor(np.asarray(frames, np.float32),
-                                        device=self.device)
-                        if frames is not None and cfg.is_encoder_decoder
-                        else None)
+        # an encoder-decoder's frames and a VLM's vision prefix, on the
+        # device once; None: zeros
+        extra = extra_inputs or {}
+
+        def on_device(key: str, used: bool) -> Optional[torch.Tensor]:
+            if extra.get(key) is None or not used:
+                return None
+            return torch.as_tensor(np.asarray(extra[key], np.float32),
+                                   device=self.device)
+
+        self._frames = on_device("frames", cfg.is_encoder_decoder)
+        self._vision = on_device("vision", bool(cfg.n_vision_tokens))
+        self._n_vis = cfg.n_vision_tokens or 0
         # MLA decode's dense W_uk/W_uv, built once for this engine (JAX's
         # absorbed_params) and shared by every context
         absorbed = ({blk.mixer: absorb_mla_weights(blk.mixer)
@@ -602,6 +618,7 @@ class Engine:
     # ------------------------------------------------------------------
     def _validate(self, req: Request) -> None:
         plen = len(req.prompt)
+        eff = plen + self._n_vis
         if plen < 1:
             raise ValueError(f"request {req.uid}: empty prompt")
         if req.params is not None:
@@ -610,7 +627,7 @@ class Engine:
             except ValueError as e:
                 raise ValueError(f"request {req.uid}: {e}") from None
         if self.sc.max_pages_per_request is not None \
-                and plen >= self.sc.max_pages_per_request * self.page_size:
+                and eff >= self.sc.max_pages_per_request * self.page_size:
             raise ValueError(
                 f"request {req.uid}: prompt length {plen} fills the "
                 f"max_pages_per_request={self.sc.max_pages_per_request} page "
@@ -618,13 +635,15 @@ class Engine:
                 f"left")
         # the messages are the JAX engine's: the HTTP frontend returns them
         # in its error envelopes
-        if plen >= self.sc.max_len:
-            raise ValueError(f"request {req.uid}: prompt length {plen} "
-                             f"leaves no decode budget within max_len="
-                             f"{self.sc.max_len} — raise ServeConfig.max_len "
-                             f"or shorten the prompt")
+        if eff >= self.sc.max_len:
+            raise ValueError(
+                f"request {req.uid}: prompt length {plen}"
+                + (f" (+{self._n_vis} vision tokens)" if self._n_vis else "")
+                + f" leaves no decode budget within max_len="
+                f"{self.sc.max_len} — raise ServeConfig.max_len or shorten "
+                f"the prompt")
         if self.sc.scheduler == "continuous" and not self.sc.paged \
-                and plen > self.prefill_len:
+                and eff > self.prefill_len:
             # the paged engine has no such cap: chunked prefill feeds any
             # prompt < max_len through the one chunk width
             raise ValueError(f"request {req.uid}: prompt length {plen} "
@@ -768,19 +787,21 @@ class Engine:
         req, state = self.sched.next_admission()
         state.seed = lane_seed(state.sampling.seed, self._base_seed, req.uid)
         self.tel.request_admitted(req.uid)
-        state.budget = min(state.budget, self.sc.max_len - state.prompt_len)
-        prompts = torch.zeros((1, self.prefill_len), dtype=torch.int64)
+        eff = state.prompt_len + self._n_vis
+        state.budget = min(state.budget, self.sc.max_len - eff)
+        prompts = torch.zeros((1, self.prefill_len - self._n_vis),
+                              dtype=torch.int64)
         prompts[0, :state.prompt_len] = torch.from_numpy(
             np.ascontiguousarray(req.prompt, dtype=np.int64))
-        lengths = torch.tensor([state.prompt_len], dtype=torch.int32,
-                               device=self.device)
+        lengths = torch.tensor([eff], dtype=torch.int32, device=self.device)
         t0 = time.perf_counter()
         with self.tel.entry("prefill", tuple(prompts.shape)):
             logits, pf_cache = prefill(self.ctx, self.model,
                                        prompts.to(self.device),
                                        self.slots.prefill_cache,
                                        lengths=lengths,
-                                       frames=self._frames_for(1))
+                                       frames=self._frames_for(1),
+                                       vision=self._vision_for(1))
             first, lp_host = self._read_first(*self._sample(
                 logits, self._lanes_for(state, 0),
                 state.sampling.logprobs is not None))
@@ -802,6 +823,18 @@ class Engine:
         ``frames[:b]``; an admission's b is 1), or None: zeros, which
         ``prefill`` makes."""
         return None if self._frames is None else self._frames[:b]
+
+    def _vision_for(self, b: int) -> Optional[torch.Tensor]:
+        """A VLM's prefix for ``b`` rows: the first ``b`` rows of
+        ``extra_inputs["vision"]`` or zeros, as JAX's ``_batch_for``
+        gives them; None for any other model."""
+        if not self._n_vis:
+            return None
+        if self._vision is not None:
+            return self._vision[:b]
+        return torch.zeros((b, self._n_vis,
+                            self.cfg.d_frontend or self.cfg.d_model),
+                           device=self.device)
 
     def _finish(self, slot: int) -> Result:
         state = self.sched.retire(slot)
@@ -1085,9 +1118,9 @@ class Engine:
         sc = self.sc
         active = self.sched.table.active
         states = {s: active[s] for s in decoding}
-        # next-write slot per lane: pos = prompt + generated - 1
-        p0 = {s: states[s].prompt_len + len(states[s].tokens) - 1
-              for s in decoding}
+        # next-write slot per lane: pos = prompt (+ vision) + generated - 1
+        p0 = {s: states[s].prompt_len + self._n_vis
+              + len(states[s].tokens) - 1 for s in decoding}
         lanes = self._decode_lanes()
         tel = self.tel
         with tel.phase("decode"), \
@@ -1228,11 +1261,12 @@ class Engine:
         # the first token takes the decode steps' per-lane sampling path
         # (token index 0, as the continuous engine's prefill)
         logits, cache = prefill(self.ctx, self.model, prompts.to(self.device),
-                                cache, frames=self._frames_for(b))
+                                cache, frames=self._frames_for(b),
+                                vision=self._vision_for(b))
         tok, _ = self._sample(logits, self._bucket_lanes(reqs, seeds, 0),
                               False)
         budget = min(max(self._req_budget(r) for r in reqs),
-                     sc.max_len - plen)
+                     sc.max_len - plen - self._n_vis)
         out = np.zeros((b, budget), np.int32)
         done = np.zeros((b,), bool)
         n = 0
@@ -1271,7 +1305,8 @@ class Engine:
                         if int(toks[j]) in stops[i]), None)
             if cut is not None:
                 toks = toks[:cut + 1]
-            lim = min(self._req_budget(r), sc.max_len - plen)
+            lim = min(self._req_budget(r),
+                      sc.max_len - plen - self._n_vis)
             toks = toks[:lim]
             stopped = cut is not None and cut < lim
             if stopped and sc.eos_id >= 0 and toks[-1] == sc.eos_id:

@@ -17,7 +17,8 @@ host bookkeeping against the device state it mirrors after every
   * **prefix-cache agreement** (``prefix-cache``) — the radix tree and
     the pool's cached flags name the same page set;
   * **pos / slot_pos** (``pos``) — a decoding lane's device write position
-    equals ``prompt_len + generated - 1``, a mid-prefill lane's is at or
+    equals ``prompt_len + n_vision_tokens + generated - 1`` (a VLM's
+    prefix holds the first positions), a mid-prefill lane's is at or
     past its chunk frontier, and (unpaged) no slot holds a position beyond
     it. (The JAX sanitizer wants a mid-prefill lane exactly at its
     frontier, which the lockstep decode of the other lanes breaks in any
@@ -200,6 +201,7 @@ class Sanitizer:
     def _check_pos(self, engine) -> None:
         active = engine.sched.table.active
         jobs = engine._prefill_jobs if engine.sc.paged else {}
+        n_vis = engine._n_vis
         for path, layer in _pos_layers(engine.slots.cache):
             pos = _host(layer["pos"])
             for slot, state in active.items():
@@ -217,9 +219,9 @@ class Sanitizer:
                               f"mid-prefill frontier {front}")
                     continue
                 if state.tokens:
-                    want = state.prompt_len + len(state.tokens) - 1
-                    tag = (f"prompt {state.prompt_len} + generated "
-                           f"{len(state.tokens)} - 1 = {want}")
+                    want = state.prompt_len + n_vis + len(state.tokens) - 1
+                    tag = (f"prompt {state.prompt_len} + vision {n_vis} "
+                           f"+ generated {len(state.tokens)} - 1 = {want}")
                 else:
                     continue                   # admitted, nothing emitted
                 if int(pos[slot]) != want:

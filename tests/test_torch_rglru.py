@@ -556,12 +556,10 @@ def test_registered_and_laid_out():
 @pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-large-v3",
                                   "internvl2-2b"])
 def test_check_supported_refuses(arch):
-    """The vision prefix stays refused; xlstm-125m and whisper-large-v3,
-    the families after the hybrid, are admitted
-    (``tests/test_torch_xlstm.py``, ``tests/test_torch_whisper.py``)."""
+    """The families after the hybrid are admitted: xlstm-125m,
+    whisper-large-v3 and internvl2-2b's vision prefix
+    (``tests/test_torch_xlstm.py``, ``tests/test_torch_whisper.py``,
+    ``tests/test_torch_vlm.py``, which also holds the prefix refused
+    beside an MoE, MLA, a hybrid, xLSTM or an encoder)."""
     cfg = ModelConfig(**dataclasses.asdict(jget_config(arch)))
-    if arch in ("xlstm-125m", "whisper-large-v3"):
-        check_supported(cfg)
-        return
-    with pytest.raises(NotImplementedError):
-        check_supported(cfg)
+    check_supported(cfg)

@@ -50,7 +50,6 @@ from repro.serve import Engine as JEngine
 from repro.serve import Request as JRequest
 from repro.serve import ServeConfig as JServeConfig
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import convert_params
 from repro_torch.core.api import PTQConfig
 from repro_torch.data import capture_calibration, data_config_for, host_batch
@@ -650,10 +649,7 @@ def test_registered_and_laid_out():
                                 dict(block_pattern=("attn", "local"))])
 def test_other_encoder_decoders_stay_refused(kw):
     """A vision prefix beside the encoder, a SwiGLU or RMSNorm
-    encoder-decoder, half RoPE, an MoE or a local layer are refused, as is
-    the VLM config."""
+    encoder-decoder, half RoPE, an MoE or a local layer are refused (the
+    VLM config itself, a decoder, is admitted: ``tests/test_torch_vlm.py``)."""
     with pytest.raises(NotImplementedError):
         check_supported(dataclasses.replace(ARCHS[ARCH], **kw))
-    with pytest.raises(NotImplementedError):
-        check_supported(ModelConfig(**dataclasses.asdict(
-            jget_config("internvl2-2b"))))
