@@ -22,10 +22,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    N % 4 != 0, with an f32 → int8 ``copy_`` of the same bytes timed
    beside it); for phase "dense", K3 and K5 at chatglm3-6b's group (KV 2,
    G 16, bf16 and int8 KV) and minitron-4b's (KV 8, G 3), head_dim 128,
-   K1 at 4096×256, 13696×4096 and 5120×27392 and K7 at 13696×4096 and
-   27392×5120; for phase "mla", K3's latent instance at B=8, one KV head,
-   G 16, head_dim 576 with V the first 512 columns of K's rows, bf16 and
-   f32, scale 1/√192 (yardstick: masked SDPA with ``scale=``, the KV head
+   K1 at 4096×256 and 13696×4096 and K7 at 13696×4096, and for phase
+   "depth" K1 at 5120×27392 and K7 at 27392×5120; for phase "mla", K3's
+   latent instance at B=8, one KV head, G 16, head_dim 576 with V the
+   first 512 columns of K's rows, bf16 and f32, scale 1/√192 (yardstick: masked SDPA with ``scale=``, the KV head
    expanded); for phase "hybrid", K3 at head_dim 256 (B=8, one KV head, G
    16) in bf16 at the serving rows, f32, int8 and int4, K3 on a wrapped
    2048-slot ring (positions 952–2999 out of slot order, window 2048), K4
@@ -115,7 +115,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    packed4 chunk writes and nibble read-modify-writes run on the card),
    and its prefill logits on the card (kernels) against the CPU (plain
    versions);
-5b. "ptq": phi3 at full width and 2 layers calibrated on the card and on
+5b. "ptq": phi3 at full width and 1 layer calibrated on the card and on
    the CPU from the same batches (tap names and counts equal, moments
    within ``MOMENT_TOL``), then quantized by w-only, qer, srr and
    srr-joint under qera-exact with exact SVDs, gated per matrix on
@@ -152,18 +152,31 @@ Phases (each prints its own lines; any failure exits non-zero):
 7. "dense": chatglm3-6b (half RoPE, QKV bias, G = 16) and minitron-4b (G =
    3, vocabulary 256,000) at full width and 8 of their 28 and 32 layers
    (``DENSE_RUNS``; at full depth the phase took a quarter of the
-   script), qwen1.5-32b (QKV bias, θ = 10⁶) at full width and 4 of its 64
-   layers (131 GiB in f32 at full depth): ``init_lm`` (seed 0; ``init_lm`` makes the QKV biases zero, so
-   they are filled from a seeded generator first, and the bias path
+   script): ``init_lm`` (seed 0; ``init_lm`` makes the QKV biases zero,
+   so they are filled from a seeded generator first, and the bias path
    carries real values) → calibration as in phase 4 → qera-exact SRR (K7's
    launches read around the pass; chatglm's scalings built inside the
-   pass, the others' ahead and timed apart) → phase 4's unpaged serving
-   (K1–K4 launched, K5 not; profiled decode steps) and, for chatglm and
-   minitron, phase 4b's paged serving (K5 launched, K3 not); minitron's
-   sampler on the card against the CPU at V = 256,000 bit for bit; a
-   150-token prompt's prefill logits through the kernels against
-   ``fused="off"`` and against the model moved to the CPU (plain
-   versions), each within 1e-3 · max|logit|;
+   pass, minitron's ahead and timed apart) → phase 4's unpaged serving
+   (K1–K4 launched, K5 not; profiled decode steps) and phase 4b's paged
+   serving (K5 launched, K3 not); minitron's sampler on the card against
+   the CPU at V = 256,000 bit for bit; a 150-token prompt's prefill
+   logits through the kernels against ``fused="off"`` and against the
+   model moved to the CPU (plain versions), each within 1e-3 ·
+   max|logit|;
+7b. "depth": qwen1.5-32b (QKV bias, θ = 10⁶, MHA of 40 heads, d_ff
+   27,392; 131 GiB in f32 at its 64 layers) built a block at a time
+   (``models/build.py``): (a) at full width and 2 layers, the
+   whole-model build (``init_lm``, QKV biases from seed 11, phase 4's
+   calibration, ``quantize_model_params``) and the block-at-a-time one
+   from the same draws, every buffer equal bit for bit, the seconds and
+   peak GiB of each stage logged; (b) all 64 layers built by the serve
+   CLI's ``build_quantized_model`` on its own arguments (``--arch
+   qwen1.5-32b --full``), never more than one block in full precision,
+   its peak below 80 GiB, K7 at least twice a matrix → phase 4's unpaged
+   serving (K1 448 and K3 64 a decode step, K5 never; profiled decode
+   steps) → a 150-token prompt's prefill logits through the kernels
+   against ``fused="off"`` within 1e-3 · max|logit| (no CPU leg: the
+   container is 44 GB);
 8. "mla": deepseek-v2-lite-16b (MLA over the MoE) at full width and 8 of
    its 27 layers (``MLA_LAYERS``): ``init_lm`` (seed 0) → calibration as
    in phase 4 → the scalings built ahead (timed) → qera-exact SRR (K7's
@@ -888,8 +901,8 @@ K7_SHAPES = ((3072, 3072), (3072, 8192), (8192, 3072), (2048, 2048),
              (2048, 1002))
 # phase "dense": K3/K5 at chatglm3-6b's group (KV 2, G 16) and
 # minitron-4b's (KV 8, G 3), head_dim 128, as (KV, G, cache kind); K1 at
-# chatglm's wk/wv and down and qwen1.5-32b's gate/up; K7 at chatglm's and
-# qwen's down
+# chatglm's wk/wv and down and, for phase "depth", qwen1.5-32b's gate/up;
+# K7 at chatglm's and qwen's down
 DENSE_DECODE = ((2, 16, "bf16"), (8, 3, "bf16"), (2, 16, "int8"))
 DENSE_QLR = ((4096, 256), (13696, 4096), (5120, 27392))
 DENSE_K7 = ((13696, 4096), (27392, 5120))
@@ -1581,6 +1594,9 @@ def phase_paged(dev, cfg, model, unpaged_step_ms: float) -> dict:
 # (temperature, top_p, top_k) of the 8 lanes: greedy, T 0.7, top-p 0.9,
 # top-k 40 and combinations
 SPEC_PAGED_REQUESTS = 8       # "surface" (d): the first 8 of phase 4b's 16
+# "surface" (c)'s one-lane run, spec off and on: the first 2 of phase 4's
+# prompts (it was 4; cut to make room for phase "depth")
+SPEC_ONE_LANE_REQUESTS = 2
 SURFACE_LANES = [(0.0, 1.0, 0), (0.7, 1.0, 0), (0.7, 0.9, 0), (0.7, 1.0, 40),
                  (0.7, 0.9, 40), (1.0, 0.9, 40), (0.0, 0.9, 40),
                  (1.3, 0.5, 5)]
@@ -1878,12 +1894,14 @@ def phase_surface(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
                                accepted=st["spec_accepted_tokens"],
                                counts=counts, plain_tok_s=main_run["tok_s"])
 
-    # one lane, spec off then on, the first four prompts
+    # one lane, spec off then on, the first SPEC_ONE_LANE_REQUESTS prompts
     one = {}
+    n1_req = SPEC_ONE_LANE_REQUESTS
     for spec in (False, True):
         eng = Engine(model, cfg, main_serve_config(
             decode_batch=1, speculative=spec, spec_k=4), device=dev)
-        reqs1 = make_requests(cfg, 4, seed=0, lengths=MAIN_LENGTHS[:4])
+        reqs1 = make_requests(cfg, n1_req, seed=0,
+                              lengths=MAIN_LENGTHS[:n1_req])
         results, rounds, wall = serve_rounds(eng, reqs1)
         toks1 = [r.tokens.tolist() for r in results]
         n1 = sum(len(t) for t in toks1)
@@ -1893,11 +1911,12 @@ def phase_surface(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
         del eng
     bad1 = hold_tokens(dev, cfg, model, reqs1, one[True]["tokens"],
                        one[False]["tokens"], "spec vs plain at 1 lane")
-    log("surface", f"1 lane, 4 requests × 32 tokens: plain "
+    log("surface", f"1 lane, {n1_req} requests × 32 tokens: plain "
         f"{one[False]['tok_s']:.1f} tok/s, speculative "
         f"{one[True]['tok_s']:.1f} tok/s (rounds of "
         f"{one[True]['round_ms']:.2f} ms, acceptance "
-        f"{one[True]['acceptance']:.4f}); {bad1} of 4 requests differ")
+        f"{one[True]['acceptance']:.4f}); {bad1} of {n1_req} requests "
+        f"differ")
     require(bad1 == 0, "speculative decode at 1 lane diverged from plain")
     out["one_lane"] = {("spec" if k else "plain"): {
         key: v for key, v in d.items() if key != "tokens"}
@@ -2511,10 +2530,15 @@ MOMENT_TOL = 2e-4
 LOSS_TOL = 1e-3
 
 
+# phase "ptq"'s depth: layer 0 holds every projection shape; one layer
+# (it was two) halves the exact SVDs, to make room for phase "depth"
+PTQ_LAYERS = 1
+
+
 def phase_ptq(dev, cfg) -> dict:
-    """phi3 at full width and 2 layers, calibrated on the card and on the
-    CPU (plain path) from the same batches: equal tap names and counts,
-    moments within MOMENT_TOL. Then w-only, qer, srr and srr-joint under
+    """phi3 at full width and ``PTQ_LAYERS`` layers, calibrated on the
+    card and on the CPU (plain path) from the same batches: equal tap
+    names and counts, moments within MOMENT_TOL. Then w-only, qer, srr and srr-joint under
     qera-exact with exact SVDs from the card's statistics, gated per
     matrix on scaled_err(qer) ≤ scaled_err(w-only)·(1 + 1e-5) and
     scaled_err(srr-joint) ≤ scaled_err(srr)·(1 + 1e-5) (srr and
@@ -2811,21 +2835,19 @@ def phase_moe(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase "dense": chatglm3-6b, minitron-4b, qwen1.5-32b at full width
+# phase "dense": chatglm3-6b and minitron-4b at full width
 # ---------------------------------------------------------------------------
 # (arch, layers run: None for the published depth, paged run too, build
 # the scalings ahead of the pass). chatglm3-6b and minitron-4b run 8 of
 # their 28 and 32 layers: at full depth the phase took 240–256 s of the
 # script's 1200 s limit, and every width, and so every kernel shape, is
-# the same at 8. qwen1.5-32b's 64 layers are 131 GiB in
-# f32; 4 of its layers (2.1 GB each, plus a 3.0 GB Σxxᵀ for down's
-# 27,392-wide input) fit beside the embedding and head. chatglm3-6b's
-# scalings are built inside the pass, one layer at a time, as at its
-# full depth, where S and S⁻¹ of its 112 moment sets (2 × 26 GB) would
-# not fit beside the f32 model and Σxxᵀ.
+# the same at 8. chatglm3-6b's scalings are built inside the pass, one
+# layer at a time, as at its full depth, where S and S⁻¹ of its 112
+# moment sets (2 × 26 GB) would not fit beside the f32 model and Σxxᵀ.
+# qwen1.5-32b runs at all 64 layers in phase "depth", built a block at a
+# time.
 DENSE_RUNS = (("chatglm3-6b", 8, True, False),
-              ("minitron-4b", 8, True, True),
-              ("qwen1.5-32b", 4, False, True))
+              ("minitron-4b", 8, True, True))
 # the QKV biases filled before calibration: N(0, BIAS_STD²) from a seed
 BIAS_STD = 0.1
 
@@ -2836,8 +2858,15 @@ def fill_qkv_biases(model, seed: int) -> int:
     returns how many were filled."""
     import torch
     gen = torch.Generator(device=model.device).manual_seed(seed)
+    return fill_block_biases(model.blocks, gen)
+
+
+def fill_block_biases(blocks, gen) -> int:
+    """:func:`fill_qkv_biases`'s draws from ``gen`` over ``blocks``, in
+    order: a block-at-a-time build that passes its blocks here as it
+    draws them gets the same biases."""
     n = 0
-    for blk in model.blocks:
+    for blk in blocks:
         for p in (blk.mixer.wq, blk.mixer.wk, blk.mixer.wv):
             if p.b is not None:
                 p.b.normal_(0.0, BIAS_STD, generator=gen)
@@ -2939,7 +2968,9 @@ def serve_dense(dev, cfg, model, tag: str, paged: bool) -> dict:
     require(counts["K3" if paged else "K5"] == 0,
             f"the other decode kernel launched: {counts}")
     out = dict(counts=counts, tok_s=n_tok / wall, step_ms=step_ms,
-               decode_steps=len(steps), ttft_ms=[1e3 * t for t in ttft])
+               decode_steps=len(steps), ttft_ms=[1e3 * t for t in ttft],
+               engine_decode_steps=eng.sched.stats.decode_steps,
+               admissions=eng.sched.stats.admitted)
     if paged:
         require(st["prefix_hit_tokens"] > 0, "the prefix cache served no "
                 "prompt token")
@@ -2953,10 +2984,10 @@ def serve_dense(dev, cfg, model, tag: str, paged: bool) -> dict:
     return out
 
 
-def dense_logits(dev, cfg, model, tag: str) -> dict:
+def dense_logits(dev, cfg, model, tag: str, cpu: bool = True) -> dict:
     """A 150-token prompt's prefill logits through the kernels against
-    ``fused="off"`` on the card and against the CPU (the model moved
-    there last: the plain versions at full width)."""
+    ``fused="off"`` on the card and, with ``cpu``, against the CPU (the
+    model moved there last: the plain versions at full width)."""
     import numpy as np
     import torch
     from repro_torch.models import Ctx, init_cache, prefill
@@ -2971,23 +3002,28 @@ def dense_logits(dev, cfg, model, tag: str) -> dict:
                        lengths=n)[0].float().cpu()
 
     logit = {"auto": run("auto", dev), "off": run("off", dev)}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.to("cpu")
-    logit["cpu"] = run("auto", torch.device("cpu"))
-    t_cpu = time.perf_counter() - t0
     scale = float(logit["off"].abs().max())
     tol = 1e-3 * max(1.0, scale)
     err_off = float((logit["auto"] - logit["off"]).abs().max())
-    err_cpu = float((logit["auto"] - logit["cpu"]).abs().max())
-    log(tag, f"prefill logits (150 tokens), kernels vs fused=off: max |Δ| "
-        f"{err_off:.3e}; vs the CPU (plain versions, {t_cpu:.1f} s): max "
-        f"|Δ| {err_cpu:.3e} (max |logit| {scale:.3f}, tol {tol:.3e})")
+    out = dict(logit_err_off=err_off, max_logit=scale)
+    line = (f"prefill logits (150 tokens), kernels vs fused=off: max |Δ| "
+            f"{err_off:.3e}")
+    if cpu:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.to("cpu")
+        logit["cpu"] = run("auto", torch.device("cpu"))
+        out["cpu_s"] = time.perf_counter() - t0
+        out["logit_err_cpu"] = float(
+            (logit["auto"] - logit["cpu"]).abs().max())
+        line += (f"; vs the CPU (plain versions, {out['cpu_s']:.1f} s): max "
+                 f"|Δ| {out['logit_err_cpu']:.3e}")
+    log(tag, line + f" (max |logit| {scale:.3f}, tol {tol:.3e})")
     require(bool(torch.isfinite(logit["auto"]).all()), "non-finite logits")
     require(err_off <= tol, "the kernel path disagrees with fused=off")
-    require(err_cpu <= tol, "card and CPU logits disagree")
-    return dict(logit_err_off=err_off, logit_err_cpu=err_cpu,
-                max_logit=scale, cpu_s=t_cpu)
+    if cpu:
+        require(out["logit_err_cpu"] <= tol, "card and CPU logits disagree")
+    return out
 
 
 def phase_dense(dev) -> dict:
@@ -3018,6 +3054,179 @@ def phase_dense(dev) -> dict:
         run["seconds"] = time.perf_counter() - t0
         log(tag, f"took {run['seconds']:.1f} s")
         out[arch] = run
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase "depth": qwen1.5-32b built a block at a time, at all 64 layers
+# ---------------------------------------------------------------------------
+DEPTH_ARCH = "qwen1.5-32b"
+# (a): the two builds compared bit for bit, at full width
+DEPTH_CHECK_LAYERS = 2
+# (b): the serving CLI's own build, at the published size
+DEPTH_ARGS = ["--arch", DEPTH_ARCH, "--full"]
+# a build's stages as its progress hook names them → the log's names
+DEPTH_STAGES = {"tail": "init", "draw": "init", "calibrate": "calibration",
+                "scale": "scalings", "quantize": "SRR"}
+
+
+class StageClock:
+    """A block-at-a-time build's ``progress`` hook: synchronized seconds
+    and the peak GiB allocated, by stage (``DEPTH_STAGES``), and the most
+    blocks that held an ``FpLinear`` at once. The clock starts when it is
+    made, so the source's drawing walk counts to "init"."""
+
+    def __init__(self):
+        import torch
+        self.seconds = {v: 0.0 for v in DEPTH_STAGES.values()}
+        self.peak_gib = {v: 0.0 for v in DEPTH_STAGES.values()}
+        self.most_fp = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.t = time.perf_counter()
+
+    def __call__(self, step) -> None:
+        import torch
+        from repro_torch.models.linear import FpLinear
+        torch.cuda.synchronize()
+        stage = DEPTH_STAGES[step.stage]
+        self.seconds[stage] += time.perf_counter() - self.t
+        self.peak_gib[stage] = max(self.peak_gib[stage],
+                                   torch.cuda.max_memory_allocated() / 2**30)
+        self.most_fp = max(self.most_fp, sum(
+            any(isinstance(m, FpLinear) for m in blk.modules())
+            for blk in step.blocks))
+        torch.cuda.reset_peak_memory_stats()
+        self.t = time.perf_counter()
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {v:.2f} s (peak {self.peak_gib[k]:.2f} GiB)"
+                         for k, v in self.seconds.items())
+
+
+def depth_equal(dev, tag: str) -> dict:
+    """(a) qwen1.5-32b at full width and ``DEPTH_CHECK_LAYERS`` layers,
+    built twice from the same draws (QKV biases from seed 11) and phase
+    4's calibration batches: by ``dense_model``'s path (``init_lm`` →
+    calibration → ``quantize_model_params``, the scalings in the pass)
+    and by ``models.build`` (``DrawnBlocks`` with the biases filled as
+    each block is drawn); every buffer and every report's (name, k*)
+    must be equal, bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import data_config_for
+    from repro_torch.models import init_lm
+    from repro_torch.models.build import DrawnBlocks, build_quantized_lm
+    from repro_torch.models.quantize import quantize_model_params
+
+    cfg = dataclasses.replace(get_config(DEPTH_ARCH),
+                              n_layers=DEPTH_CHECK_LAYERS)
+    gib = 2.0 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole = init_lm(cfg, 0, device=dev)
+    fill_qkv_biases(whole, 11)
+    stats, _ = calibrate(dev, cfg, whole, tag)
+    whole, reports = quantize_model_params(whole, srr_ptq(), stats=stats,
+                                           device=dev)
+    torch.cuda.synchronize()
+    t_whole = time.perf_counter() - t0
+    peak_whole = torch.cuda.max_memory_allocated() / gib
+
+    class Biased(DrawnBlocks):
+        def __init__(self):
+            super().__init__(cfg, 0, device=dev)
+            self.bias_gen = torch.Generator(device=dev).manual_seed(11)
+
+        def block(self, i):
+            blk = super().block(i)
+            fill_block_biases([blk], self.bias_gen)
+            return blk
+
+    clock = StageClock()
+    streamed, reports_b = build_quantized_lm(
+        Biased(), srr_ptq(), data_config_for(cfg, seq_len=CALIB_SEQ,
+                                             global_batch=CALIB_BATCH,
+                                             seed=0),
+        CALIB_BATCHES, progress=clock, device=dev)
+    t_streamed = sum(clock.seconds.values())
+    a, b = whole.state_dict(), streamed.state_dict()
+    differ = [k for k in a if k not in b or a[k].dtype != b[k].dtype
+              or not torch.equal(a[k], b[k])]
+    log(tag, f"(a) {cfg.n_layers} layers at full width: whole-model build "
+        f"{t_whole:.2f} s, peak {peak_whole:.2f} GiB; block at a time "
+        f"{t_streamed:.2f} s ({clock.line()}); {len(a)} buffers, "
+        f"{len(differ)} differ; most fp blocks at once {clock.most_fp}")
+    for k in differ[:8]:
+        log(tag, f"  {k}: max |Δ| "
+            f"{float((a[k].double() - b[k].double()).abs().max()):.3e}")
+    require(sorted(a) == sorted(b) and not differ,
+            f"the block-at-a-time build differs from the whole-model build "
+            f"in {differ[:8]}")
+    require([(r.name, r.k_star) for r in reports]
+            == [(r.name, r.k_star) for r in reports_b],
+            "the two builds' reports differ")
+    require(clock.most_fp == 1, f"{clock.most_fp} fp blocks at once")
+    n_buffers = len(a)
+    del whole, streamed, a, b
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, buffers=n_buffers,
+                matrices=len(reports), whole_s=t_whole,
+                whole_peak_gib=peak_whole, streamed_s=t_streamed,
+                stage_s=clock.seconds, stage_peak_gib=clock.peak_gib)
+
+
+def phase_depth(dev) -> dict:
+    """Phase "depth": (a) :func:`depth_equal`; (b) qwen1.5-32b at full
+    width and all 64 layers, built by the serving CLI's
+    ``build_quantized_model`` on its own arguments (``--arch qwen1.5-32b
+    --full``: calibration on 2 batches of 4 × 32 tokens, qera-exact SRR,
+    rank 16, 3-bit MXINT) a block at a time, with the seconds and peak
+    GiB of each stage and K7's launches read around it; then
+    :func:`serve_dense` unpaged (every launch count as the layout gives
+    it: K1 448 and K3 64 a decode step, K5 never) with profiled decode
+    steps, and :func:`dense_logits` on the card (no CPU leg: it would
+    move 44 GB to the host)."""
+    import torch
+    from repro_torch.launch.serve import build_quantized_model, parser
+
+    tag = "depth"
+    out = {"a": depth_equal(dev, tag)}
+    gib = 2.0 ** 30
+    args = parser().parse_args(DEPTH_ARGS)
+    clock = StageClock()
+    reset_counts()
+    model, cfg = build_quantized_model(args, tag=tag, progress=clock)
+    ptq_counts = launch_counts()
+    peak = max(clock.peak_gib.values())
+    resident = torch.cuda.memory_allocated() / gib
+    n_mat = 7 * cfg.n_layers
+    log(tag, f"(b) {cfg.name} at {cfg.n_layers} layers through "
+        f"build_quantized_model({' '.join(DEPTH_ARGS)}): "
+        f"{sum(clock.seconds.values()):.2f} s ({clock.line()}); K7 "
+        f"launches {ptq_counts['K7']}; peak {peak:.2f} GiB, resident after "
+        f"the build {resident:.2f} GiB; most fp blocks at once "
+        f"{clock.most_fp}")
+    require(clock.most_fp == 1, f"{clock.most_fp} fp blocks at once")
+    require(ptq_counts["K7"] >= 2 * n_mat,
+            f"the pass did not quantize through K7: {ptq_counts}")
+    require(peak < 80.0, f"the build peaked at {peak:.2f} GiB")
+    run = {"unpaged": serve_dense(dev, cfg, model, tag, False)}
+    steps = run["unpaged"]["engine_decode_steps"]
+    counts = run["unpaged"]["counts"]
+    want = {"K1": n_mat * steps, "K3": cfg.n_layers * steps, "K5": 0}
+    require(all(counts[k] == v for k, v in want.items()),
+            f"launches {counts}, the layout gives {want} ({steps} decode "
+            f"steps)")
+    run.update(dense_logits(dev, cfg, model, tag, cpu=False))
+    run.update(layers=cfg.n_layers, stage_s=clock.seconds,
+               stage_peak_gib=clock.peak_gib, peak_gib=peak,
+               resident_gib=resident, ptq_counts=ptq_counts,
+               matrices=n_mat)
+    del model
+    torch.cuda.empty_cache()
+    out["b"] = run
     return out
 
 
@@ -4621,7 +4830,7 @@ def main() -> int:
     log("reduced", f"phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ptq_run = phase_ptq(dev, dataclasses.replace(cfg, n_layers=2))
+    ptq_run = phase_ptq(dev, dataclasses.replace(cfg, n_layers=PTQ_LAYERS))
     log("ptq", f"phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     moe_run = phase_moe(dev)
@@ -4629,6 +4838,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dense_run = phase_dense(dev)
     log("dense", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    depth_run = phase_depth(dev)
+    log("depth", f"phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     mla_run = phase_mla(dev)
     log("mla", f"phase took {time.perf_counter() - t0:.1f} s")
@@ -4655,6 +4867,7 @@ def main() -> int:
                    "surface": surface_run, "frontend": frontend_run,
                    "ptq": ptq_run,
                    "moe_path": moe_run, "dense": dense_run,
+                   "depth": depth_run,
                    "mla": mla_run, "hybrid": hybrid_run,
                    "xlstm": xlstm_run, "whisper": whisper_run,
                    "vlm": vlm_run, "train": train_run}, fh, indent=1)
@@ -4684,13 +4897,14 @@ def main() -> int:
     # launches: K1–K4 from the unpaged main path (phase 4), K5 from the
     # paged one (phase 4b), K6 from the MoE one (phase 6) and K7 from its
     # PTQ pass, each read around its own run; the dense variants' rows
-    # from their own arch's serving run or PTQ pass in phase "dense"
+    # from their own arch's serving run or PTQ pass in phase "dense", and
+    # qwen1.5-32b's from its 64-layer run in phase "depth" (b)
     runs = [(key, key, {"K5": paged_run["counts"], "K6": moe_run["counts"],
                         "K7": moe_run["ptq_counts"]}.get(key,
                                                          main_run["counts"]))
             for key in picks]
     glm, mini = dense_run["chatglm3-6b"], dense_run["minitron-4b"]
-    qwen = dense_run["qwen1.5-32b"]
+    qwen = depth_run["b"]
     for kvh, g, kind in DENSE_DECODE[:2]:
         arch = glm if g == 16 else mini
         picks[f"K3 G{g}"] = ("K3 flash_decode",

@@ -1,8 +1,9 @@
 """Serving CLI: ``python -m repro_torch.launch.serve [--full] [...]``.
 
-Init a model from a seed → calibrate it on synthetic batches → quantize
+Draw a model from a seed, calibrate it on synthetic batches and quantize
 it under the qera-exact scaling (SRR by default; ``--method qer`` or
-``w-only`` for the baselines) into the Q + LR container → serve requests
+``w-only`` for the baselines) into the Q + LR container, one block at a
+time, so the f32 model is never whole on the device → serve requests
 through the continuous-batching engine, as ``repro.launch.serve`` does,
 on the card by default (``--device cuda``; ``--device cpu`` runs the
 kernels' plain versions).
@@ -39,9 +40,9 @@ import numpy as np
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import PTQConfig
-from repro_torch.data import capture_calibration, data_config_for
-from repro_torch.models.transformer import LM, init_lm, lm_loss
-from repro_torch.models.quantize import quantize_model_params
+from repro_torch.data import data_config_for
+from repro_torch.models.build import DrawnBlocks, build_quantized_lm
+from repro_torch.models.transformer import LM, init_lm
 from repro_torch.quant import QuantizerConfig
 from repro_torch.serve import Engine, Request, SamplingParams, ServeConfig
 from repro_torch.serve.telemetry import percentile
@@ -69,11 +70,19 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="published size instead of .reduced()")
 
 
-def build_quantized_model(args, tag: str = "serve") -> tuple[LM, ModelConfig]:
-    """Init the model per the model flags and, unless ``--method none``,
+def build_quantized_model(args, tag: str = "serve", *, progress=None
+                          ) -> tuple[LM, ModelConfig]:
+    """Build the model per the model flags and, unless ``--method none``,
     run the paper's pipeline with the JAX CLI's defaults: calibrate on two
     synthetic batches of 4 × 32 tokens, then quantize under qera-exact;
-    returns ``(model, cfg)``.
+    returns ``(model, cfg)``. The quantized model is built a block at a
+    time (``models.build``: each block drawn, calibrated and quantized
+    before the next is drawn), so a model whose f32 weights would not fit
+    on the card is served once its container fits; it equals ``init_lm``
+    → ``capture_calibration`` → ``quantize_model_params`` bit for bit.
+    ``--method none`` draws the whole fp model with ``init_lm``.
+    ``progress`` goes to :func:`~repro_torch.models.build.
+    build_quantized_lm`.
 
     ``--quant-report PATH`` threads a :class:`repro_torch.obs.QuantRecorder`
     through the pass and writes its report (always: ``--method none``
@@ -81,28 +90,28 @@ def build_quantized_model(args, tag: str = "serve") -> tuple[LM, ModelConfig]:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    model = init_lm(cfg, args.seed, device=args.device)
     recorder = None
     report_path = getattr(args, "quant_report", None)
     if report_path:
         from repro_torch.obs import QuantRecorder
         recorder = QuantRecorder()
-    if args.method != "none":
+    if args.method == "none":
+        model = init_lm(cfg, args.seed, device=args.device)
+    else:
         dcfg = data_config_for(cfg, seq_len=32, global_batch=4,
                                seed=args.seed)
-        stats = capture_calibration(model, dcfg, lm_loss, n_batches=2,
-                                    device=args.device)
         ptq = PTQConfig(method=args.method, scaling="qera-exact",
                         quantizer=QuantizerConfig(kind="mxint",
                                                   bits=args.bits,
                                                   block_size=32),
                         rank=args.rank, seed=args.seed)
         t0 = time.perf_counter()
-        model, reports = quantize_model_params(model, ptq, stats=stats,
-                                               recorder=recorder,
-                                               device=args.device)
+        model, reports = build_quantized_lm(
+            DrawnBlocks(cfg, args.seed, device=args.device), ptq, dcfg, 2,
+            progress=progress, recorder=recorder, device=args.device)
         print(f"[{tag}] {args.method} quantized {len(reports)} matrices in "
-              f"{time.perf_counter() - t0:.1f}s")
+              f"{time.perf_counter() - t0:.1f}s (drawn, calibrated and "
+              f"quantized a block at a time, {cfg.n_layers} layers)")
     if recorder is not None:
         recorder.write(report_path)
         print(f"[{tag}] quant report -> {report_path}")

@@ -24,8 +24,10 @@ and its ``up``/``down``; the embedding, the LM head, ``frontend_proj``,
 JAX computes it outside any kernel) and the norms stay full precision.
 Matrices are quantized one at a time on the model's device, and each
 projection's fp weights (a whole expert stack at once) are released as
-soon as it is replaced, so the f32 model's footprint only shrinks during
-the pass.
+soon as it is replaced, so the model's footprint only shrinks during the
+pass. :class:`ModelPass` carries the pass from block to block, so
+``models.build`` can quantize each block as soon as it is drawn and
+calibrated, with no whole f32 model before it.
 
 Calibration statistics (``data.calibration``) are looked up by each
 matrix's own layer: ``L<i>.attn.wq`` … ``L<i>..down``, ``L<i>.attn.w_dkv``
@@ -102,6 +104,107 @@ def _quantize_matrix(name: str, w: torch.Tensor, cfg: PTQConfig,
     return out, rep
 
 
+class ModelPass:
+    """The state of one model-level pass across its blocks: the running
+    matrix index that seeds each matrix's generator, the reports, and the
+    calibration statistics by tap name, each layer's deleted once its
+    matrices are replaced. :func:`quantize_model_params` walks a whole
+    model through it; ``models.build`` hands it one block at a time, in
+    the same order (encoder blocks first), so both draw the same
+    sketches."""
+
+    def __init__(self, cfg: PTQConfig, container: str = "int8",
+                 progress: Optional[Callable[[LayerReport], None]] = None,
+                 stats: Optional[Dict[str, CalibStats]] = None,
+                 recorder=None):
+        self.cfg, self.container, self.progress = cfg, container, progress
+        self.stats, self.recorder = stats, recorder
+        self.reports: List[LayerReport] = []
+        self.index = 0
+
+    def _one(self, name: str, w: torch.Tensor, key: Optional[str]) -> dict:
+        self.index += 1
+        gen = torch.Generator(device=w.device).manual_seed(
+            self.cfg.seed * 1_000_003 + self.index)
+        st = None
+        if self.stats is not None and key is not None:
+            if key not in self.stats:
+                raise KeyError(f"no calibration statistics for {key} "
+                               f"(quantize_model_params deletes each "
+                               f"layer's entries; pass a copy to reuse them)")
+            st = self.stats[key]
+        bufs, rep = _quantize_matrix(name, w, self.cfg, gen, self.container,
+                                     st, recorder=self.recorder)
+        self.reports.append(rep)
+        if self.progress is not None:
+            self.progress(rep)
+        return bufs
+
+    def _projections(self, owner, prefix: str, names, tap: str) -> None:
+        for n in names:
+            p = getattr(owner, n)
+            setattr(owner, n, QLinear(b=p.b, **self._one(f"{prefix}.{n}",
+                                                         p.w, f"{tap}{n}")))
+
+    def _stacks(self, owner, prefix: str) -> None:
+        # one matrix per expert, stacked back along the expert axis; the
+        # fp stack goes once the module is replaced
+        for n in SWIGLU:
+            p = getattr(owner, n)
+            per = [self._one(f"{prefix}.{n}[{e}]", p.w[e], None)
+                   for e in range(p.w.shape[0])]
+            stacked = {key: torch.stack([q[key] for q in per])
+                       for key in per[0]}
+            setattr(owner, n, QLinear(b=p.b, **stacked))
+
+    def _release(self, layer: str) -> None:
+        if self.stats is not None:
+            for key in [k for k in self.stats if k.startswith(layer)]:
+                del self.stats[key]
+
+    def encoder_block(self, e: int, blk) -> None:
+        """Quantize encoder block ``e`` in place under ``E<e>.``'s
+        statistics, then release them."""
+        layer = f"E{e}."
+        self._projections(blk.mixer, f"encoder.{e}.mixer", ATTENTION,
+                          layer + "attn.")
+        self._projections(blk.mlp, f"encoder.{e}.mlp", GELU, layer + ".")
+        self._release(layer)
+
+    def decoder_block(self, i: int, blk) -> None:
+        """Quantize decoder block ``i`` in place under ``L<i>.``'s
+        statistics, then release them."""
+        layer = f"L{i}."
+        if isinstance(blk.mixer, RGLRU):
+            self._projections(blk.mixer, f"blocks.{i}.mixer",
+                              RGLRU_PROJECTIONS, layer + "rglru.")
+        elif isinstance(blk.mixer, (MLSTM, SLSTM)):
+            self._projections(blk.mixer, f"blocks.{i}.mixer",
+                              MLSTM_PROJECTIONS if blk.kind == "mlstm"
+                              else SLSTM_PROJECTIONS, f"{layer}{blk.kind}.")
+        else:
+            mixer = ([n for n in MLA_PROJECTIONS
+                      if getattr(blk.mixer, n) is not None]
+                     if isinstance(blk.mixer, MLA) else ATTENTION)
+            self._projections(blk.mixer, f"blocks.{i}.mixer", mixer,
+                              layer + "attn.")
+        if blk.cross is not None:
+            self._projections(blk.cross, f"blocks.{i}.cross", ATTENTION,
+                              layer + "xattn.")
+        if isinstance(blk.mlp, MoE):
+            pre = f"blocks.{i}.mlp"
+            self._projections(blk.mlp, pre, ("router",), layer + "moe.")
+            if blk.mlp.shared is not None:
+                self._projections(blk.mlp.shared, f"{pre}.shared", SWIGLU,
+                                  layer + "moe.shared.")
+            self._stacks(blk.mlp.experts, f"{pre}.experts")
+        elif blk.mlp is not None:
+            self._projections(blk.mlp, f"blocks.{i}.mlp",
+                              SWIGLU if blk.mlp.gate is not None else GELU,
+                              layer + ".")
+        self._release(layer)
+
+
 def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
                           progress: Optional[Callable[[LayerReport], None]] = None,
                           *, stats: Optional[Dict[str, CalibStats]] = None,
@@ -115,91 +218,18 @@ def quantize_model_params(model: LM, cfg: PTQConfig, container: str = "int8",
     each layer's entries are deleted from ``stats`` once its matrices are
     replaced (a full-width model's Σxxᵀ run to GBs): pass a copy to keep
     them. ``recorder`` (duck-typed, see :mod:`repro_torch.obs.quant`)
-    captures a quality record and the container's bytes per matrix."""
+    captures a quality record and the container's bytes per matrix.
+    ``models.build`` runs the same pass a block at a time while it draws
+    and calibrates the model, so the whole f32 model never exists."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model lives on {model.device}, not on {dev}")
-    reports: List[LayerReport] = []
-    index = 0
-
-    def one(name: str, w: torch.Tensor, key: Optional[str]) -> dict:
-        nonlocal index
-        index += 1
-        gen = torch.Generator(device=model.device).manual_seed(
-            cfg.seed * 1_000_003 + index)
-        st = None
-        if stats is not None and key is not None:
-            if key not in stats:
-                raise KeyError(f"no calibration statistics for {key} "
-                               f"(quantize_model_params deletes each "
-                               f"layer's entries; pass a copy to reuse them)")
-            st = stats[key]
-        bufs, rep = _quantize_matrix(name, w, cfg, gen, container, st,
-                                     recorder=recorder)
-        reports.append(rep)
-        if progress is not None:
-            progress(rep)
-        return bufs
-
-    def projections(owner, prefix: str, names, tap: str) -> None:
-        for n in names:
-            p = getattr(owner, n)
-            setattr(owner, n, QLinear(b=p.b, **one(f"{prefix}.{n}", p.w,
-                                                   f"{tap}{n}")))
-
-    def stacks(owner, prefix: str) -> None:
-        # one matrix per expert, stacked back along the expert axis; the
-        # fp stack goes once the module is replaced
-        for n in SWIGLU:
-            p = getattr(owner, n)
-            per = [one(f"{prefix}.{n}[{e}]", p.w[e], None)
-                   for e in range(p.w.shape[0])]
-            stacked = {key: torch.stack([q[key] for q in per])
-                       for key in per[0]}
-            setattr(owner, n, QLinear(b=p.b, **stacked))
-
-    def release(layer: str) -> None:
-        if stats is not None:
-            for key in [k for k in stats if k.startswith(layer)]:
-                del stats[key]
-
+    walk = ModelPass(cfg, container, progress, stats, recorder)
     for e, blk in enumerate(model.encoder or []):
-        layer = f"E{e}."
-        projections(blk.mixer, f"encoder.{e}.mixer", ATTENTION,
-                    layer + "attn.")
-        projections(blk.mlp, f"encoder.{e}.mlp", GELU, layer + ".")
-        release(layer)
+        walk.encoder_block(e, blk)
     for i, blk in enumerate(model.blocks):
-        layer = f"L{i}."
-        if isinstance(blk.mixer, RGLRU):
-            projections(blk.mixer, f"blocks.{i}.mixer", RGLRU_PROJECTIONS,
-                        layer + "rglru.")
-        elif isinstance(blk.mixer, (MLSTM, SLSTM)):
-            projections(blk.mixer, f"blocks.{i}.mixer",
-                        MLSTM_PROJECTIONS if blk.kind == "mlstm"
-                        else SLSTM_PROJECTIONS, f"{layer}{blk.kind}.")
-        else:
-            mixer = ([n for n in MLA_PROJECTIONS
-                      if getattr(blk.mixer, n) is not None]
-                     if isinstance(blk.mixer, MLA) else ATTENTION)
-            projections(blk.mixer, f"blocks.{i}.mixer", mixer,
-                        layer + "attn.")
-        if blk.cross is not None:
-            projections(blk.cross, f"blocks.{i}.cross", ATTENTION,
-                        layer + "xattn.")
-        if isinstance(blk.mlp, MoE):
-            pre = f"blocks.{i}.mlp"
-            projections(blk.mlp, pre, ("router",), layer + "moe.")
-            if blk.mlp.shared is not None:
-                projections(blk.mlp.shared, f"{pre}.shared", SWIGLU,
-                            layer + "moe.shared.")
-            stacks(blk.mlp.experts, f"{pre}.experts")
-        elif blk.mlp is not None:
-            projections(blk.mlp, f"blocks.{i}.mlp",
-                        SWIGLU if blk.mlp.gate is not None else GELU,
-                        layer + ".")
-        release(layer)
-    return model, reports
+        walk.decoder_block(i, blk)
+    return model, walk.reports
 
 
 # ==========================================================================

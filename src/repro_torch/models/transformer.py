@@ -241,90 +241,114 @@ class LM(nn.Module):
         return self.embed.device
 
 
-def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
-    """Random f32 model from ``seed`` with the JAX package's init scales
-    (``transformer.init_lm``); the numbers differ from JAX's, since the
-    generators differ. An MoE config gets ``first_dense`` dense layers of
-    width ``d_ff``, then MoE blocks; ``cfg.qkv_bias`` gives wq/wk/wv a
-    zero bias, as JAX's ``init_linear(..., bias=True)`` does; an MLA
-    config gets MLA mixers (``init_mla``'s scales); an ``rglru`` layer an
-    RG-LRU mixer (``init_rglru``'s); an ``mlstm``/``slstm`` layer its
-    xLSTM mixer (``init_mlstm``'s / ``init_slstm``'s) and no FFN. An
-    encoder-decoder's blocks take a GELU MLP (``up``/``down``), each
-    decoder block a cross attention with ``init_attention``'s scales, and
-    the encoder ``enc_layers`` attention blocks; a VLM config gets
-    ``vision_proj`` (``init_linear``'s scale). Norms follow
-    ``cfg.norm``."""
-    check_supported(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    d, hd, ff = cfg.d_model, cfg.head_dim_, cfg.d_ff
-    qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+def _init_qkv(gen: torch.Generator, cfg: ModelConfig, n: int, dev
+              ) -> FpLinear:
+    d = cfg.d_model
+    p = init_linear(gen, d, n, d ** -0.5, dev)
+    if cfg.qkv_bias:
+        p.b = torch.zeros((n,), device=dev)
+    return p
 
-    def qkv(n: int) -> FpLinear:
-        p = init_linear(gen, d, n, d ** -0.5, dev)
-        if cfg.qkv_bias:
-            p.b = torch.zeros((n,), device=dev)
-        return p
 
-    def wo() -> FpLinear:
-        return init_linear(gen, qd, d,
-                           1.0 / (qd ** 0.5 * (2 * cfg.n_layers) ** 0.5), dev)
+def _init_wo(gen: torch.Generator, cfg: ModelConfig, dev) -> FpLinear:
+    qd = cfg.n_heads * cfg.head_dim_
+    return init_linear(gen, qd, cfg.d_model,
+                       1.0 / (qd ** 0.5 * (2 * cfg.n_layers) ** 0.5), dev)
 
-    def mla() -> attn.MLA:
-        r, pe, ql = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.q_lora_rank
-        qw = cfg.n_heads * (hd + pe)
-        if ql:
-            q = dict(w_dq=init_linear(gen, d, ql, d ** -0.5, dev),
-                     w_uq=init_linear(gen, ql, qw, ql ** -0.5, dev),
-                     q_norm=RMSNorm(torch.ones((ql,), device=dev)))
-        else:
-            q = dict(w_q=init_linear(gen, d, qw, d ** -0.5, dev))
-        return attn.MLA(init_linear(gen, d, r, d ** -0.5, dev),
-                        init_linear(gen, d, pe, d ** -0.5, dev),
-                        init_linear(gen, r, qd, r ** -0.5, dev),
-                        init_linear(gen, r, qd, r ** -0.5, dev), wo(),
-                        RMSNorm(torch.ones((r,), device=dev)), **q)
 
-    def gqa() -> attn.Attention:
-        return attn.Attention(qkv(qd), qkv(kvd), qkv(kvd), wo())
+def _init_gqa(gen: torch.Generator, cfg: ModelConfig, dev) -> attn.Attention:
+    qd = cfg.n_heads * cfg.head_dim_
+    kvd = cfg.n_kv_heads * cfg.head_dim_
+    return attn.Attention(_init_qkv(gen, cfg, qd, dev),
+                          _init_qkv(gen, cfg, kvd, dev),
+                          _init_qkv(gen, cfg, kvd, dev),
+                          _init_wo(gen, cfg, dev))
 
-    def ffn_at(i: int) -> Union[MLP, MoE]:
-        """Layer ``i``'s FFN (``-1``: an encoder block's)."""
-        if i >= 0 and cfg.uses_moe_at(i):
-            return init_moe(gen, cfg, dev)
-        up = init_linear(gen, d, ff, d ** -0.5, dev)
-        gate = (init_linear(gen, d, ff, d ** -0.5, dev)
-                if cfg.act == "swiglu" else None)
-        return MLP(up, gate, init_linear(gen, ff, d, ff ** -0.5, dev))
 
-    blocks = []
-    for i in range(cfg.n_layers):
-        kind = kind_at(cfg, i)
-        if kind in XLSTM_KINDS:
-            mixer = (init_mlstm if kind == "mlstm" else init_slstm)(
-                gen, cfg, dev)
-            blocks.append(Block(init_norm(d, cfg.norm, dev), mixer, None,
-                                None, kind))
-            continue
-        if kind == "rglru":
-            mixer = init_rglru(gen, cfg, dev)
-        elif cfg.attn_kind == "mla":
-            mixer = mla()
-        else:
-            mixer = gqa()
-        cross = {}
-        if cfg.is_encoder_decoder:
-            cross = dict(norm_x=init_norm(d, cfg.norm, dev),
-                         cross=gqa())
-        blocks.append(Block(init_norm(d, cfg.norm, dev), mixer,
-                            init_norm(d, cfg.norm, dev), ffn_at(i), kind,
-                            **cross))
-    encoder = enc_norm = proj = None
+def _init_mla(gen: torch.Generator, cfg: ModelConfig, dev) -> attn.MLA:
+    d, hd = cfg.d_model, cfg.head_dim_
+    qd = cfg.n_heads * hd
+    r, pe, ql = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.q_lora_rank
+    qw = cfg.n_heads * (hd + pe)
+    if ql:
+        q = dict(w_dq=init_linear(gen, d, ql, d ** -0.5, dev),
+                 w_uq=init_linear(gen, ql, qw, ql ** -0.5, dev),
+                 q_norm=RMSNorm(torch.ones((ql,), device=dev)))
+    else:
+        q = dict(w_q=init_linear(gen, d, qw, d ** -0.5, dev))
+    return attn.MLA(init_linear(gen, d, r, d ** -0.5, dev),
+                    init_linear(gen, d, pe, d ** -0.5, dev),
+                    init_linear(gen, r, qd, r ** -0.5, dev),
+                    init_linear(gen, r, qd, r ** -0.5, dev),
+                    _init_wo(gen, cfg, dev),
+                    RMSNorm(torch.ones((r,), device=dev)), **q)
+
+
+def _init_ffn(gen: torch.Generator, cfg: ModelConfig, i: int, dev
+              ) -> Union[MLP, MoE]:
+    """Layer ``i``'s FFN (``-1``: an encoder block's)."""
+    if i >= 0 and cfg.uses_moe_at(i):
+        return init_moe(gen, cfg, dev)
+    d, ff = cfg.d_model, cfg.d_ff
+    up = init_linear(gen, d, ff, d ** -0.5, dev)
+    gate = (init_linear(gen, d, ff, d ** -0.5, dev)
+            if cfg.act == "swiglu" else None)
+    return MLP(up, gate, init_linear(gen, ff, d, ff ** -0.5, dev))
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, i: int, device
+               ) -> Block:
+    """Decoder layer ``i`` as :func:`init_lm` draws it from ``gen``."""
+    d, dev = cfg.d_model, device
+    kind = kind_at(cfg, i)
+    if kind in XLSTM_KINDS:
+        mixer = (init_mlstm if kind == "mlstm" else init_slstm)(gen, cfg, dev)
+        return Block(init_norm(d, cfg.norm, dev), mixer, None, None, kind)
+    if kind == "rglru":
+        mixer = init_rglru(gen, cfg, dev)
+    elif cfg.attn_kind == "mla":
+        mixer = _init_mla(gen, cfg, dev)
+    else:
+        mixer = _init_gqa(gen, cfg, dev)
+    cross = {}
     if cfg.is_encoder_decoder:
-        encoder = [Block(init_norm(d, cfg.norm, dev), gqa(),
-                         init_norm(d, cfg.norm, dev), ffn_at(-1), "attn")
-                   for _ in range(cfg.enc_layers)]
+        cross = dict(norm_x=init_norm(d, cfg.norm, dev),
+                     cross=_init_gqa(gen, cfg, dev))
+    return Block(init_norm(d, cfg.norm, dev), mixer,
+                 init_norm(d, cfg.norm, dev), _init_ffn(gen, cfg, i, dev),
+                 kind, **cross)
+
+
+def init_encoder_block(gen: torch.Generator, cfg: ModelConfig, device
+                       ) -> Block:
+    """An encoder layer as :func:`init_lm` draws it from ``gen``."""
+    d = cfg.d_model
+    return Block(init_norm(d, cfg.norm, device), _init_gqa(gen, cfg, device),
+                 init_norm(d, cfg.norm, device),
+                 _init_ffn(gen, cfg, -1, device), "attn")
+
+
+@dataclasses.dataclass
+class Tail:
+    """Everything of an :class:`LM` but its blocks, under the LM's own
+    attribute names: the embedding, the final norm, the LM head, and the
+    encoder's ``enc_norm``, ``frontend_proj`` and the ``vision_proj``
+    where the config has them."""
+
+    embed: torch.Tensor
+    final_norm: nn.Module
+    lm_head: Optional[FpLinear]
+    enc_norm: Optional[nn.Module] = None
+    frontend_proj: Optional[FpLinear] = None
+    vision_proj: Optional[FpLinear] = None
+
+
+def init_tail(gen: torch.Generator, cfg: ModelConfig, device) -> Tail:
+    """The tail as :func:`init_lm` draws it from ``gen`` once the blocks
+    and the encoder are drawn."""
+    d, dev = cfg.d_model, device
+    enc_norm = proj = None
+    if cfg.is_encoder_decoder:
         enc_norm = init_norm(d, cfg.norm, dev)
         if cfg.d_frontend != d:
             proj = init_linear(gen, cfg.d_frontend, d,
@@ -336,8 +360,43 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     embed_w = torch.randn((cfg.vocab, d), generator=gen, device=dev) * 0.02
     head = None if cfg.tie_embeddings else init_linear(gen, d, cfg.vocab,
                                                         d ** -0.5, dev)
-    return LM(cfg, embed_w, blocks, init_norm(d, cfg.norm, dev), head,
-              encoder, enc_norm, proj, vision)
+    return Tail(embed_w, init_norm(d, cfg.norm, dev), head, enc_norm, proj,
+                vision)
+
+
+def assemble_lm(cfg: ModelConfig, blocks: List[Block],
+                encoder: Optional[List[Block]], tail: Tail) -> LM:
+    """The :class:`LM` of ``blocks``, the ``encoder`` blocks (None
+    without one) and ``tail``."""
+    return LM(cfg, tail.embed, blocks, tail.final_norm, tail.lm_head,
+              encoder, tail.enc_norm, tail.frontend_proj, tail.vision_proj)
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
+    """Random f32 model from ``seed`` with the JAX package's init scales
+    (``transformer.init_lm``); the numbers differ from JAX's, since the
+    generators differ. One generator draws the decoder blocks in order
+    (:func:`init_block`), then the encoder's (:func:`init_encoder_block`),
+    then the tail (:func:`init_tail`: ``frontend_proj``, ``vision_proj``,
+    the embedding, the LM head). An MoE config gets ``first_dense`` dense
+    layers of width ``d_ff``, then MoE blocks; ``cfg.qkv_bias`` gives
+    wq/wk/wv a zero bias, as JAX's ``init_linear(..., bias=True)`` does;
+    an MLA config gets MLA mixers (``init_mla``'s scales); an ``rglru``
+    layer an RG-LRU mixer (``init_rglru``'s); an ``mlstm``/``slstm`` layer
+    its xLSTM mixer (``init_mlstm``'s / ``init_slstm``'s) and no FFN. An
+    encoder-decoder's blocks take a GELU MLP (``up``/``down``), each
+    decoder block a cross attention with ``init_attention``'s scales, and
+    the encoder ``enc_layers`` attention blocks; a VLM config gets
+    ``vision_proj`` (``init_linear``'s scale). Norms follow
+    ``cfg.norm``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = [init_block(gen, cfg, i, dev) for i in range(cfg.n_layers)]
+    encoder = ([init_encoder_block(gen, cfg, dev)
+                for _ in range(cfg.enc_layers)]
+               if cfg.is_encoder_decoder else None)
+    return assemble_lm(cfg, blocks, encoder, init_tail(gen, cfg, dev))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -437,26 +496,49 @@ def _sinusoid(s: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def encode(ctx: Ctx, model: LM, frames: torch.Tensor) -> torch.Tensor:
-    """The encoder over (B, enc_seq, d_frontend) frame embeddings:
-    ``frontend_proj`` where there is one, plus the sinusoid, then the
-    encoder blocks with bidirectional attention (RoPE inside, as JAX's
-    ``_qkv`` applies it) and the GELU MLP, then ``enc_norm``. Calibration
-    records encoder layer ``e`` under ``E<e>.``."""
-    cfg = model.cfg
+def encoder_input(ctx: Ctx, parts: Union[LM, Tail], frames: torch.Tensor
+                  ) -> torch.Tensor:
+    """The encoder's input over (B, enc_seq, d_frontend) frame embeddings:
+    ``frontend_proj`` of ``parts`` (an :class:`LM` or its :class:`Tail`)
+    where there is one, plus the sinusoid."""
     x = frames.to(ctx.compute_dtype)
-    if model.frontend_proj is not None:
-        x = linear(ctx, model.frontend_proj, x)
-    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    if parts.frontend_proj is not None:
+        x = linear(ctx, parts.frontend_proj, x)
+    return x + _sinusoid(x.shape[1], x.shape[-1], x.device).to(x.dtype)[None]
+
+
+def encoder_block_seq(ctx: Ctx, blk: Block, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """One encoder block: bidirectional attention (RoPE inside, as JAX's
+    ``_qkv`` applies it), then the GELU MLP."""
+    y, _ = attn.attention_seq(ctx, blk.mixer, norm(blk.norm1, x, cfg.norm),
+                              cfg, causal=False)
+    x = x + y
+    return x + ffn(ctx, blk, x, cfg)
+
+
+def encode(ctx: Ctx, model: LM, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over (B, enc_seq, d_frontend) frame embeddings
+    (:func:`encoder_input`), its blocks (:func:`encoder_block_seq`), then
+    ``enc_norm``. Calibration records encoder layer ``e`` under
+    ``E<e>.``."""
+    cfg = model.cfg
+    x = encoder_input(ctx, model, frames)
     for e, blk in enumerate(model.encoder):
         if ctx.tap is not None:
             ctx.prefix = f"E{e}."
-        y, _ = attn.attention_seq(ctx, blk.mixer, norm(blk.norm1, x, cfg.norm),
-                                  cfg, causal=False)
-        x = x + y
-        x = x + ffn(ctx, blk, x, cfg)
+        x = encoder_block_seq(ctx, blk, x, cfg)
     ctx.prefix = ""
     return norm(model.enc_norm, x, cfg.norm)
+
+
+def vision_prefix(ctx: Ctx, parts: Union[LM, Tail], x: torch.Tensor,
+                  vision: torch.Tensor) -> torch.Tensor:
+    """``vision_proj`` of ``parts`` over (B, n_vision_tokens, d_frontend)
+    ``vision``, put in front of the token embeddings ``x``."""
+    vis = linear(ctx, parts.vision_proj,
+                 vision.to(x.device, ctx.compute_dtype))
+    return torch.cat([vis, x], dim=1)
 
 
 def _cross(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
@@ -478,7 +560,7 @@ def _cross(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
     return x + attn.cross_attention(ctx, blk.cross, hx, mk, mv, cfg)
 
 
-def _block_seq(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
+def block_seq(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
                memory: Optional[torch.Tensor], cache: Optional[Dict],
                lengths: Optional[torch.Tensor]):
     """One decoder block over a full sequence: (x, the block's cache)."""
@@ -494,13 +576,13 @@ def _block_seq(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
 
 def _block_remat(ctx: Ctx, blk: Block, x: torch.Tensor, cfg: ModelConfig,
                  memory: Optional[torch.Tensor]) -> torch.Tensor:
-    """:func:`_block_seq` under ``torch.utils.checkpoint`` (JAX's
+    """:func:`block_seq` under ``torch.utils.checkpoint`` (JAX's
     ``jax.checkpoint`` around its group body): the block keeps only its
     input for the backward pass and runs again there. The rerun appends
     an MoE layer's load-balance term to ``ctx.aux_log`` a second time,
     after :func:`lm_loss` has summed the list."""
     return torch.utils.checkpoint.checkpoint(
-        lambda h, mem: _block_seq(ctx, blk, h, cfg, mem, None, None)[0],
+        lambda h, mem: block_seq(ctx, blk, h, cfg, mem, None, None)[0],
         x, memory, use_reentrant=False)
 
 
@@ -533,9 +615,7 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
                                  device=x.device)
         memory = encode(ctx, model, frames.to(x.device))
     if cfg.n_vision_tokens and vision is not None:
-        vis = linear(ctx, model.vision_proj,
-                     vision.to(x.device, ctx.compute_dtype))
-        x = torch.cat([vis, x], dim=1)
+        x = vision_prefix(ctx, model, x, vision)
     new_cache = [] if cache is not None else None
     for i, blk in enumerate(model.blocks):
         if ctx.tap is not None:
@@ -543,7 +623,7 @@ def forward(ctx: Ctx, model: LM, tokens: torch.Tensor,
         if remat == "full":
             x = _block_remat(ctx, blk, x, cfg, memory)
             continue
-        x, c = _block_seq(ctx, blk, x, cfg, memory,
+        x, c = block_seq(ctx, blk, x, cfg, memory,
                           cache[i] if cache is not None else None, lengths)
         if new_cache is not None:
             new_cache.append(c)

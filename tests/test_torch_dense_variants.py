@@ -209,6 +209,16 @@ MODEL_KV = {"chatglm3-6b": "int8", "minitron-4b": "bf16", "qwen1.5-32b": "f32",
             "chatglm3-6b-g16": "int4", "minitron-4b-g3": "f32"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
 def quantized(request):
     """(name, JAX config, SRR-quantized JAX params with seeded biases, the

@@ -38,6 +38,16 @@ COUNTS = ("drift_checks", "drift_top1_agree", "drift_nonfinite",
           "guard_token_oob", "drift_top1_agreement_rate")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = jget_config("phi3-mini-3.8b").reduced()

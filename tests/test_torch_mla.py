@@ -102,6 +102,16 @@ def _jptq():
                                                 block_size=32))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def quantized():
     """(JAX config, JAX SRR-quantized params (int8), the converted model)

@@ -43,6 +43,16 @@ def _configs(kv_heads):
     return j, t
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module", params=[4, 2], ids=["mha", "gqa2"])
 def models(request):
     jcfg, tcfg = _configs(request.param)

@@ -114,6 +114,16 @@ def test_batched_plain_counts_match_jax_kernel(counts):
 # --------------------------------------------------------------------------
 # moe_apply, with capacity drops
 # --------------------------------------------------------------------------
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def jax_models():
     """The reduced model, f32 and JAX-SRR-quantized (int8 container)."""

@@ -113,6 +113,16 @@ def test_paged_decode_plain_matches_jax(container, window=9):
 # ---------------------------------------------------------------------------
 # prefill_chunk / attention_chunk on converted params
 # ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def quantized():
     jcfg = jget_config("phi3-mini-3.8b").reduced()

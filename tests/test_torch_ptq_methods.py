@@ -255,6 +255,16 @@ def test_quantize_tree_and_report_summary_match_jax():
 # ---------------------------------------------------------------------------
 # over a model
 # ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def calibrated():
     """Reduced phi3 (two scanned layers): JAX params, the converted port

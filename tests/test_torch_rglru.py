@@ -108,6 +108,16 @@ def _jnp(a):
     return a.astype(np.float32) if a.dtype == jnp.bfloat16 else a
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def fp_model():
     """(JAX config, JAX fp params, the converted model) of the reduced

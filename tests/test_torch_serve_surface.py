@@ -16,6 +16,7 @@
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jget_config
 from repro.core.api import PTQConfig as JPTQConfig
@@ -39,6 +40,16 @@ SAMPLING = [dict(logprobs=5), dict(temperature=0.8, seed=3),
             dict(temperature=1.0, top_p=0.9),
             dict(temperature=0.7, top_k=11, logprobs=3), dict(logprobs=2),
             dict(temperature=1.2, top_k=5, top_p=0.8)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -64,6 +64,16 @@ def _models(arch, quantize):
     return jcfg, params, model
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def fp():
     return _models("phi3-mini-3.8b", quantize=False)

@@ -120,6 +120,16 @@ def _numpy_params(jcfg, seed):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Many small ops: two intra-op threads, as in
+    ``tests/test_torch_train.py``; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def fp_model():
     """(JAX config, the fp params, the converted model) of the reduced
