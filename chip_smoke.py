@@ -110,6 +110,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    two-layer model (``QuantRecorder`` through the SRR pass: the report
    validates, ``tools.quant_report`` renders it, the containers are
    bit-identical to a pass without the recorder);
+4e. "lowering", with phase 4's quantized model: (a) ``python -m
+   repro_torch.launch.dryrun --arch phi3-mini-3.8b --shape decode_32k
+   --mesh both`` in a subprocess started beside the kernels' build, read
+   here (2 ok: the abstract cells distributed over fake 256- and 512-chip
+   worlds and counted); (b) one decode step
+   over phase 4's 8-lane cache, its prompts prefilled, is counted by
+   ``launch.cost.count`` at ``fused="auto"`` and ``"off"`` (the same
+   FLOPs; the recorded K1/K3 calls equal the launches: 7 and 1 a layer;
+   each one's formula equals ``flop_counter``'s FLOPs of the
+   ``fused="off"`` ops that compute it),
+   its roofline terms printed beside its measured device time; (c)
+   ``ef_compressed_psum`` over the model's 224 adapter ``l``/``r`` pairs
+   (gradients and a residual from a seed) in an NCCL group of one (a
+   ``FileStore`` under ``build/``) against a gloo group of one on the CPU,
+   bit for bit, ``synced + ef' = g + ef`` within f32 rounding, one sync's
+   time; (d) the container distributed over ``make_host_mesh()`` (1×1),
+   every ``to_local()`` equal to its tensor;
 5. a reduced-depth (2-layer, full-width) model in the packed4 container
    served with int4 and int8 KV, unpaged and paged (chunks of 64, so the
    packed4 chunk writes and nibble read-modify-writes run on the card),
@@ -286,10 +303,14 @@ of the tree at PARENT_ROOT
 (an unpacked ``git
 archive``) and of this one on one card, in the order parent, change,
 change, parent, and prints one line per case
-(``build/compare_kernels.json`` holds them).
+(``build/compare_kernels.json`` holds them); then each turn serves
+phase 4's requests (``phase_main_path``) over phi3 with a seeded int8
+rank-16 container and prints its decode step ms, tok/s and device busy
+ms.
 """
 from __future__ import annotations
 
+import atexit
 import bisect
 import contextlib
 import copy
@@ -304,10 +325,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build")
 
-# H100 SXM data-sheet peaks (dense): HBM bandwidth, f32 outside the tensor
-# cores, bf16 tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 L2_BYTES = 50e6
 
 
@@ -360,10 +377,25 @@ def copies_for(nbytes: int) -> int:
     return max(2, math.ceil(2 * L2_BYTES / max(nbytes, 1)))
 
 
+def hbm_ms(nbytes: float) -> float:
+    """Milliseconds to move ``nbytes`` at the H100's HBM rate
+    (``repro_torch.launch.roofline``, the data sheet's peaks)."""
+    from repro_torch.launch.roofline import HBM_BW
+    return nbytes / HBM_BW * 1e3
+
+
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    """The larger of the bytes' time at the HBM rate and the operations'
+    at the dense peak for ``dtype`` (bf16 tensor cores, f32 outside them)."""
+    from repro_torch.launch.roofline import PEAK_FLOPS_BY_DTYPE
+    t_bytes = hbm_ms(nbytes)
+    t_ops = ops / PEAK_FLOPS_BY_DTYPE[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_of(work, dtype: str) -> tuple[float, str]:
+    """``bound_ms`` of a kernel function's ``launch.cost.Work``."""
+    return bound_ms(work.bytes, work.flops, dtype)
 
 
 def tensor_bytes(*ts) -> int:
@@ -376,6 +408,7 @@ def tensor_bytes(*ts) -> int:
 def check_qlr(dev, m: int, k: int, n: int, rank: int, packed: bool) -> dict:
     import torch
     from repro_torch.kernels import mxint_matmul as mk
+    from repro_torch.launch import cost
     from repro_torch.quant.mxint import MXIntQuantizer, pack_codes_4bit
 
     gen = torch.Generator(device=dev).manual_seed(k + n + rank)
@@ -402,16 +435,15 @@ def check_qlr(dev, m: int, k: int, n: int, rank: int, packed: bool) -> dict:
     t_kernel, host = time_ms(kernel, sets)
     t_plain, _ = time_ms(mk.qlr_matmul_plain, sets)
     t_lib, _ = time_ms(torch.matmul, dense)
-    nbytes = tensor_bytes(x, codes, scale, r) + m * n * 4 \
-        + (k * rank * 4 if fused else m * rank * 4)
-    ops = 2 * m * k * n + 2 * m * k * rank + 2 * m * rank * n
-    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+    work = cost.qlr_work(m, k, n, rank, x_itemsize=x.element_size(),
+                         packed=packed)
+    b_ms, b_by = bound_of(work, "bfloat16")
     row = dict(name="K1 qlr_fused_matmul" if fused else "K2 qlr_xl_matmul",
                shape=f"M={m} K={k} N={n} r={rank} "
                      f"{'packed4' if packed else 'int8'}",
                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-               bound_by=b_by, f32_bound_ms=bound_ms(nbytes, ops, "float32")[0])
+               bound_by=b_by, f32_bound_ms=bound_of(work, "float32")[0])
     if not fused:     # K2's time includes the x·L GEMM before its launch
         row["xl_ms"] = time_ms(lambda x_, c_, s_, l_, r_: x_ @ l_, sets)[0]
     return row
@@ -432,6 +464,7 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
+    from repro_torch.launch import cost
     from repro_torch.quant.mxint import pack_codes_4bit, unpack_codes_4bit
 
     gen = torch.Generator(device=dev).manual_seed(s)
@@ -502,13 +535,12 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
     # bytes: the K/V rows (and scales) of the valid slots, the positions,
     # q and the output; "walked": every slot of every row
     valid = int(ok.sum())
-    slot_bytes = 2 * kvh * hd * k.element_size() / (2 if kind == "int4" else 1)
-    if ks is not None:
-        slot_bytes += 2 * kvh * 4
-    nbytes = valid * slot_bytes + tensor_bytes(q, q_pos, k_pos) \
-        + q.numel() * 4
-    ops = 2 * 2 * valid * kvh * g * hd
-    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    kv_itemsize = k.element_size() / (2 if kind == "int4" else 1)
+    work = cost.decode_attention_work(b, kvh, g, hd, s, valid=valid,
+                                      kv_itemsize=kv_itemsize,
+                                      scaled=ks is not None,
+                                      q_itemsize=q.element_size())
+    b_ms, b_by = bound_of(work, "float32")
     row = dict(name="K3 flash_decode", shape=f"B={b} KV={kvh} G={g} S={s} "
                f"hd={hd} {kind}"
                + (f" rows {first}-{first + 132}" if ragged else "")
@@ -517,7 +549,8 @@ def check_decode(dev, kind: str, b=8, kvh=32, s=512, hd=96,
                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
                bound_by=b_by)
     if ragged:
-        row["walked_bound_ms"] = b * s * slot_bytes / HBM_BYTES_PER_S * 1e3
+        row["walked_bound_ms"] = hbm_ms(b * s * cost.decode_slot_bytes(
+            kvh, hd, kv_itemsize, ks is not None))
     return row
 
 
@@ -532,6 +565,7 @@ def check_decode_latent(dev, kind: str, b=8, s=512, h=16, r=512, pe=64,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
+    from repro_torch.launch import cost
 
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
     gen = torch.Generator(device=dev).manual_seed(s + r)
@@ -567,9 +601,9 @@ def check_decode_latent(dev, kind: str, b=8, s=512, h=16, r=512, pe=64,
         a, b_, c, attn_mask=mask, scale=scale), dense)
     # bytes: each latent row once (V is its first r columns), q, the
     # positions and the f32 output
-    nbytes = tensor_bytes(lat, q, q_pos, k_pos) + b * h * r * 4
-    ops = 2 * b * h * s * (r + pe) + 2 * b * h * s * r
-    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    b_ms, b_by = bound_of(cost.latent_decode_work(
+        b, h, s, r, pe, lat_itemsize=lat.element_size(),
+        q_itemsize=q.element_size()), "float32")
     return dict(name="K3 flash_decode",
                 shape=f"B={b} KV=1 G={h} S={s} hd={r + pe} dv={r} {kind}",
                 max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
@@ -589,6 +623,7 @@ def check_flash(dev, h=32, s=256, hd=96, g: int = 1, dtype: str = "f32",
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.launch import cost
 
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
     kvh = h // g
@@ -625,14 +660,12 @@ def check_flash(dev, h=32, s=256, hd=96, g: int = 1, dtype: str = "f32",
     t_plain, _ = time_ms(plain, sets)
     t_lib, _ = time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
         a, b_, c, is_causal=causal and mask is None, attn_mask=mask), heads)
-    nbytes = 2 * tensor_bytes(q) + 2 * tensor_bytes(k) + (s + sk) * 4
     # causal: keys at or before; a window keeps the last ``window`` of them;
     # non-causal: every key
-    pairs = (sum(min(r + 1, window) for r in range(s)) if window
-             else s * (s + 1) // 2 if causal else s * sk)
-    ops = 2 * 2 * h * pairs * hd
-    b_ms, b_by = bound_ms(nbytes, ops, "float32" if dtype == "f32"
-                          else "bfloat16")
+    pairs = cost.attention_pairs(s, sk, causal=causal, window=window)
+    b_ms, b_by = bound_of(cost.flash_attention_work(
+        s, h, kvh, hd, pairs=pairs, kv_rows=sk, positions=s + sk,
+        itemsize=q.element_size()), "float32" if dtype == "f32" else "bfloat16")
     shape = (f"H={h} Sq={s} Sk={sk} hd={hd} non-causal {dtype}"
              if not causal else f"H={h} S={s} hd={hd} causal f32"
              if (g, dtype, window) == (1, "f32", 0) else
@@ -651,6 +684,7 @@ def check_paged(dev, kind: str, b=8, kvh=32, hd=96, ps=16, nb=32,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
+    from repro_torch.launch import cost
     from repro_torch.quant.mxint import pack_codes_4bit, unpack_codes_4bit
 
     gen = torch.Generator(device=dev).manual_seed(pages)
@@ -709,20 +743,19 @@ def check_paged(dev, kind: str, b=8, kvh=32, hd=96, ps=16, nb=32,
     # the bytes the function needs: the K/V rows (and scales) of every
     # row's valid slots 0..q_pos, its table, positions, q and the output
     valid = int((q_pos + 1).sum())
-    slot_bytes = 2 * kvh * hd * k.element_size() / (2 if kind == "int4" else 1)
-    if ks is not None:
-        slot_bytes += 2 * kvh * 4
-    nbytes = valid * slot_bytes + tensor_bytes(q, bt, q_pos, k_pos) \
-        + q.numel() * 4
-    walked = b * nb * ps * slot_bytes
-    ops = 2 * 2 * valid * kvh * g * hd
-    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    kv_itemsize = k.element_size() / (2 if kind == "int4" else 1)
+    walked = b * nb * ps * cost.decode_slot_bytes(kvh, hd, kv_itemsize,
+                                                  ks is not None)
+    b_ms, b_by = bound_of(cost.paged_decode_work(
+        b, kvh, g, hd, nb * ps, bt.numel(), valid=valid,
+        kv_itemsize=kv_itemsize, scaled=ks is not None,
+        q_itemsize=q.element_size()), "float32")
     return dict(name="K5 flash_decode_paged",
                 shape=f"B={b} KV={kvh} G={g} hd={hd} ps={ps} nb={nb} "
                       f"P={pages} {kind}",
                 max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
                 plain_ms=t_plain, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, walked_bound_ms=walked / HBM_BYTES_PER_S * 1e3,
+                bound_by=b_by, walked_bound_ms=hbm_ms(walked),
                 note=f"gather_pages + SDPA on the gathered cache "
                      f"{t_note:.4f} ms")
 
@@ -734,6 +767,7 @@ def check_flash_chunk(dev, h=32, sq=256, ctx=512, start=200, hd=96) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.launch import cost
 
     gen = torch.Generator(device=dev).manual_seed(start)
     q = torch.randn((1, sq, h, 1, hd), generator=gen, device=dev)
@@ -765,11 +799,10 @@ def check_flash_chunk(dev, h=32, sq=256, ctx=512, start=200, hd=96) -> dict:
         a, b_, c, attn_mask=mask), heads)
     # bytes: q, out and the K/V rows of the valid keys; ops: the valid
     # (query, key) pairs — start stored keys and the causal chunk
-    pairs = sq * start + sq * (sq + 1) // 2
-    nbytes = 2 * tensor_bytes(q) + 2 * (start + sq) * h * hd * 4 \
-        + tensor_bytes(q_pos, k_pos)
-    ops = 2 * 2 * h * pairs * hd
-    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    b_ms, b_by = bound_of(cost.flash_attention_work(
+        sq, h, h, hd, pairs=cost.attention_pairs(sq, ctx + sq, start=start),
+        kv_rows=start + sq, positions=q_pos.numel() + k_pos.numel()),
+        "float32")
     return dict(name="K4 flash_attention", shape=f"H={h} Sq={sq} "
                 f"Sk={ctx + sq} start={start} hd={hd} chunk f32",
                 max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
@@ -797,6 +830,7 @@ def check_qlr_batched(dev, e: int, m: int, k: int, n: int, rank: int,
     cannot skip experts without a host sync, so it computes them all)."""
     import torch
     from repro_torch.kernels import mxint_matmul as mk
+    from repro_torch.launch import cost
     from repro_torch.quant.mxint import MXIntQuantizer
 
     gen = torch.Generator(device=dev).manual_seed(e + m + k + n)
@@ -833,11 +867,10 @@ def check_qlr_batched(dev, e: int, m: int, k: int, n: int, rank: int,
     # bytes: x's rows that hold a token, the codes, scale, L and R of the
     # experts that hold one, the counts, and all of y (zeros included)
     live = sum(1 for c in rows if c > 0)
-    per_expert = tensor_bytes(codes[0], scale[0], l[0], r[0])
-    nbytes = live * per_expert + sum(rows) * k * x.element_size() \
-        + tensor_bytes(counts) + e * m * n * 4
-    ops = 2 * sum(rows) * (k * n + k * rank + rank * n)
-    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")     # as check_qlr's
+    work = cost.qlr_batched_work(e, m, k, n, rank, rows=sum(rows), live=live,
+                                 x_itemsize=x.element_size(),
+                                 counts=counts is not None)
+    b_ms, b_by = bound_of(work, "bfloat16")     # as check_qlr's
     shape = f"E={e} M={m} K={k} N={n} r={rank} int8"
     row = dict(name="K6 qlr_batched_matmul",
                shape=shape + (f" top-{top_k} counts ({live} experts, "
@@ -845,7 +878,7 @@ def check_qlr_batched(dev, e: int, m: int, k: int, n: int, rank: int,
                max_abs_err=err, tol=tol, ms=t_kernel, host_ms=host,
                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
                bound_by=b_by,
-               f32_bound_ms=bound_ms(nbytes, ops, "float32")[0])
+               f32_bound_ms=bound_of(work, "float32")[0])
     if top_k:
         row["note"] = ("library: torch.bmm on the whole dense stack, which "
                        "cannot skip the experts without a token (that would "
@@ -861,6 +894,7 @@ def check_quantize(dev, m: int, n: int, bits: int = 3) -> dict:
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import mxint_quantize as kq
+    from repro_torch.launch import cost
 
     gen = torch.Generator(device=dev).manual_seed(m + n)
     w = torch.randn((m, n), generator=gen, device=dev) * m ** -0.5
@@ -878,8 +912,8 @@ def check_quantize(dev, m: int, n: int, bits: int = 3) -> dict:
     plan = kq.mxint_quantize_plan(m, n, _build.sm_count(dev.index or 0))
     # one read of w, one write of the codes and of the exponents; per
     # weight an abs, a max, a scaling, a rounding and two clamps
-    nbytes = tensor_bytes(w, codes, exps)
-    b_ms, b_by = bound_ms(nbytes, 6 * m * n, "float32")
+    b_ms, b_by = bound_of(cost.mxint_quantize_work(
+        m, n, w_itemsize=w.element_size()), "float32")
     path = {kq.MXINT_PATH_SCALAR: "scalar", kq.MXINT_PATH_REGISTERS:
             "register"}[plan.path]
     return dict(name="K7 mxint_quantize", shape=f"M={m} N={n} bits={bits}",
@@ -2462,6 +2496,275 @@ def phase_frontend(dev, cfg, model, main_run: dict, paged_run: dict) -> dict:
 
     # ---- c: the quant report ---------------------------------------------
     out["quant_report"] = quant_report_pass(dev, cfg)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase "lowering": the dry run, one decode step's count, the compressed sync
+# ---------------------------------------------------------------------------
+DRYRUN_ARGS = ["--arch", "phi3-mini-3.8b", "--shape", "decode_32k",
+               "--mesh", "both"]
+SYNC_SEED = 23
+SYNC_REPS = 5
+
+
+def start_dryrun():
+    """(a) ``launch.dryrun`` in a process of its own (its fake world is the
+    default process group there; (c) and (d) need this process's)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+         "--out", os.path.join(OUT_DIR, "dryrun")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def lowering_count(dev, cfg, model, smi: str) -> dict:
+    """(b) one decode step of phase 4's model over phase 4's 8-lane cache
+    (its prompts prefilled) counted by ``cost.count`` at ``fused="auto"``
+    (K1 and K3 on the card) and ``"off"``: the same FLOPs, and the recorded
+    K1/K3 calls equal to the launches. The step's roofline terms beside
+    its device busy time under the profiler (no gate)."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import cost, roofline
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, decode_step, init_cache, prefill
+
+    reqs = make_requests(cfg, 8, seed=0, lengths=MAIN_LENGTHS)
+    tokens = torch.zeros((8, max(MAIN_LENGTHS)), dtype=torch.long, device=dev)
+    for i, r in enumerate(reqs):
+        tokens[i, :len(r.prompt)] = torch.from_numpy(r.prompt).to(dev)
+    lengths = torch.tensor(MAIN_LENGTHS, dtype=torch.int32, device=dev)
+    ctx = {f: Ctx(fused=f) for f in ("auto", "off")}
+    cache = init_cache(cfg, 8, main_serve_config().max_len, torch.bfloat16,
+                       dev)
+    with torch.no_grad():
+        logits, cache = prefill(ctx["auto"], model, tokens, cache,
+                                lengths=lengths)
+        token = logits.argmax(-1)
+        reset_counts()
+        counted = {"auto": cost.count(decode_step, ctx["auto"], model, token,
+                                      cache)}
+        launched = launch_counts()
+        counted["off"] = cost.count(decode_step, ctx["off"], model, token,
+                                    cache)
+        inside = flops_inside(lambda: decode_step(ctx["off"], model, token,
+                                                  cache))
+        dev_ms, wall_ms = device_busy_ms(
+            lambda: decode_step(ctx["auto"], model, token, cache))
+    calls = {k: v["calls"] for k, v in counted["auto"]["by_kernel"].items()}
+    log("lowering", f"(b) one decode step counted: fused=auto {calls}, "
+        f"launches {launched}; flops auto {counted['auto']['flops']:.6e} "
+        f"off {counted['off']['flops']:.6e}, bytes auto "
+        f"{counted['auto']['bytes']:.6e} off {counted['off']['bytes']:.6e}")
+    require(counted["auto"]["flops"] == counted["off"]["flops"],
+            "the decode step's FLOPs differ between the kernels and "
+            "fused='off'")
+    log("lowering", "(b) each kernel function's formula vs flop_counter of "
+        "the fused='off' ops that compute it: " + ", ".join(
+            f"{k} {f:.6e} / {o:.6e}" for k, (f, o) in inside.items()))
+    require(sorted(inside) == sorted(calls) and all(
+        f == o for f, o in inside.values()),
+        f"a kernel function's formula is not the FLOPs its ops run: {inside}")
+    want = {"K1 qlr_fused_matmul": 7 * cfg.n_layers,
+            "K3 flash_decode": cfg.n_layers}
+    require(calls == want and launched["K1"] == want["K1 qlr_fused_matmul"]
+            and launched["K3"] == want["K3 flash_decode"]
+            and sum(launched.values()) == sum(want.values()),
+            f"recorded kernel calls {calls} vs launches {launched}, "
+            f"expected {want}")
+    shape = ShapeConfig("phase4_decode", main_serve_config().max_len, 8,
+                        "decode")
+    r = roofline.analyze(counted["auto"], cfg, shape, "host1x1", 1, cfg.name)
+    log("lowering", f"(b) roofline of the step on one card (H100 SXM data-"
+        f"sheet peaks): t_compute {r.t_compute * 1e3:.4f} ms, t_memory "
+        f"{r.t_memory * 1e3:.4f} ms ({r.bottleneck}-bound; K1 "
+        f"{counted['auto']['by_kernel']['K1 qlr_fused_matmul']['bytes']:.4e}"
+        f" B, K3 {counted['auto']['by_kernel']['K3 flash_decode']['bytes']:.4e}"
+        f" B); measured under torch.profiler: device busy {dev_ms:.3f} ms "
+        f"in a {wall_ms:.3f} ms step; {smi}")
+    return dict(calls=calls, launches=launched,
+                flops=counted["auto"]["flops"], bytes=counted["auto"]["bytes"],
+                bytes_off=counted["off"]["bytes"],
+                by_kernel=counted["auto"]["by_kernel"],
+                t_compute_ms=r.t_compute * 1e3, t_memory_ms=r.t_memory * 1e3,
+                device_ms=dev_ms, wall_ms=wall_ms)
+
+
+def flops_inside(fn) -> dict:
+    """Run ``fn`` once under ``torch.utils.flop_counter`` with a
+    ``kernels.work`` recorder that passes each kernel function's call
+    through: {name: (its formula's FLOPs, flop_counter's FLOPs of the
+    ops that computed it)}, summed over its calls."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import work
+
+    class Inside:
+        def kernel(self, w, call, args, kw):
+            before = counter.get_total_flops()
+            out = call(*args, **kw)
+            f, o = table.get(w.name, (0, 0))
+            table[w.name] = (f + w.flops,
+                             o + counter.get_total_flops() - before)
+            return out
+
+    table = {}
+    with FlopCounterMode(display=False) as counter:
+        work.RECORDER = Inside()
+        try:
+            fn()
+        finally:
+            work.RECORDER = None
+    return table
+
+
+def device_busy_ms(fn, n: int = 3) -> tuple[float, float]:
+    """(device busy ms, wall ms) a call of ``fn`` over ``n`` calls under
+    ``torch.profiler``, synchronized at the end: the device time of its
+    kernels, memcpys and memsets (``profile_decode``'s measure; a decode
+    step waits on the device inside, so CUDA events around back-to-back
+    calls would time the host too)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / n / 1e3, 1e3 * wall / n
+
+
+def lowering_sync(dev, model, smi: str) -> dict:
+    """(c) ``ef_compressed_psum`` over phase 4's model's QPEFT adapter
+    tree (224 ``l``/``r`` pairs), gradients and a residual filled from a
+    seed: an NCCL group of one on the card (a ``FileStore`` under
+    ``build/``) against a gloo group of one on the CPU, bit for bit, and
+    ``synced + ef' = g + ef`` within f32 rounding; one sync's time."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.quantize import split_qpeft
+    from repro_torch.optim import ef_compressed_psum
+    from repro_torch.optim.tree import tree_leaves, tree_map
+
+    adapters, _ = split_qpeft(model)
+    gen = torch.Generator().manual_seed(SYNC_SEED)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen) * 1e-3,
+                     adapters)
+    ef = tree_map(lambda t: torch.randn(t.shape, generator=gen) * 1e-6,
+                  adapters)
+    store = os.path.join(OUT_DIR, "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        g_dev = tree_map(lambda t: t.to(dev), grads)
+        e_dev = tree_map(lambda t: t.to(dev), ef)
+        synced, ef2 = ef_compressed_psum(g_dev, e_dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SYNC_REPS):
+            ef_compressed_psum(g_dev, e_dev)
+        torch.cuda.synchronize()
+        sync_ms = 1e3 * (time.perf_counter() - t0) / SYNC_REPS
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        synced_c, ef2_c = ef_compressed_psum(grads, ef)
+    finally:
+        dist.destroy_process_group()
+    leaves = list(zip(tree_leaves(synced), tree_leaves(ef2),
+                      tree_leaves(synced_c), tree_leaves(ef2_c),
+                      tree_leaves(grads), tree_leaves(ef)))
+    unequal = sum(not (torch.equal(s.cpu(), sc) and torch.equal(e.cpu(), ec))
+                  for s, e, sc, ec, _, _ in leaves)
+    books = max(float(((sc + ec) - (g + e)).abs().max()
+                      / (g + e).abs().max()) for _, _, sc, ec, g, e in leaves)
+    n_el = sum(g.numel() for *_, g, _ in leaves)
+    log("lowering", f"(c) ef_compressed_psum over {len(leaves)} adapter "
+        f"leaves ({n_el} values): NCCL world 1 on the card vs gloo world 1 on "
+        f"the CPU: {len(leaves) - unequal} of {len(leaves)} leaves bit for "
+        f"bit; max |synced + ef' − (g + ef)| / max|g + ef| {books:.3e}; one "
+        f"sync {sync_ms:.3f} ms wall (synchronized, {2 * len(leaves)} "
+        f"all-reduces); {smi}")
+    require(unequal == 0, f"{unequal} leaves differ between the card's "
+            f"NCCL sync and the CPU's gloo one")
+    require(books <= 2 ** -22, f"synced + ef' misses g + ef by {books:.3e}")
+    return dict(leaves=len(leaves), values=n_el, sync_ms=sync_ms,
+                books=books)
+
+
+def lowering_host_mesh(dev, model) -> dict:
+    """(d) phase 4's container distributed over ``make_host_mesh()`` (one
+    card: a 1×1 NCCL mesh) by the rules: every ``to_local()`` equals its
+    tensor."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.rules import distribute, tree_param_specs
+
+    mesh = make_host_mesh()
+    try:
+        specs = tree_param_specs(model, mesh)
+        bad = [name for name, spec in specs.items()
+               if not torch.equal(distribute(name, model.get_buffer(name),
+                                             spec, mesh).to_local(),
+                                  model.get_buffer(name))]
+        shape = tuple(mesh.shape)
+    finally:
+        dist.destroy_process_group()
+    log("lowering", f"(d) {len(specs)} buffers distributed over "
+        f"make_host_mesh() {shape}: {len(specs) - len(bad)} to_local() equal "
+        f"their tensors")
+    require(not bad, f"to_local() differs for {bad[:5]}")
+    return dict(buffers=len(specs), mesh=list(shape))
+
+
+def finish_dryrun(proc) -> dict:
+    """(a) the dry run's exit and its records."""
+    out, err = proc.communicate(timeout=600)
+    for line in out.splitlines():
+        if line.startswith(("[dryrun]", "  per-chip", "  roofline")):
+            log("lowering", f"(a) {line.strip()}")
+    require(proc.returncode == 0 and "2 ok, 0 skip, 0 FAIL" in out,
+            f"the dry run failed (exit {proc.returncode}): {err[-2000:]}")
+    recs = {}
+    for mesh in ("pod16x16", "pod2x16x16"):
+        path = os.path.join(OUT_DIR, "dryrun",
+                            f"phi3-mini-3.8b__decode_32k__{mesh}.json")
+        with open(path) as fh:
+            rec = json.load(fh)
+        recs[mesh] = {k: rec[k] for k in ("flops", "hbm_bytes",
+                                          "peak_mem_bytes", "resident_bytes",
+                                          "t_compute", "t_memory")}
+    return recs
+
+
+def phase_lowering(dev, cfg, model, smi: str, proc) -> dict:
+    """Phase "lowering" on phase 4's model: (b), (c) and (d) here, then
+    (a), the dry run of phi3's decode_32k cells, from ``proc``: the
+    subprocess :func:`start_dryrun` started beside the kernels' build (it
+    needs no kernel and no card)."""
+    try:
+        out = {"count": lowering_count(dev, cfg, model, smi),
+               "sync": lowering_sync(dev, model, smi),
+               "host_mesh": lowering_host_mesh(dev, model)}
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    out["dryrun"] = finish_dryrun(proc)
     return out
 
 
@@ -4709,6 +5012,31 @@ if hasattr(cs, "XLSTM_QLR"):
 # K7 at every shape of the SRR pass, a narrow last strip and N % 4 != 0
 rows += [cs.check_quantize(dev, m, n) for m, n in K7_SHAPES]
 print("ROWS " + json.dumps(rows))
+# phase 4's serving over phi3 with a seeded int8 rank-16 container of
+# phase 4's shapes: the decode step's launches and bytes, without the
+# calibration and the pass
+from repro_torch.configs import get_config
+from repro_torch.models import init_lm
+from repro_torch.models.linear import FpLinear, QLinear
+cfg = get_config("phi3-mini-3.8b")
+model = init_lm(cfg, 0, device=dev)
+gen = torch.Generator(device=dev).manual_seed(5)
+for path, p in list(model.named_modules()):
+    if not isinstance(p, FpLinear) or path == "lm_head":
+        continue
+    m, n = p.w.shape
+    owner, _, leaf = path.rpartition(".")
+    setattr(model.get_submodule(owner), leaf, QLinear(
+        torch.full((m // 32, n), 2.0 ** -6, device=dev),
+        torch.randn((m, 16), generator=gen, device=dev) * 0.01,
+        torch.randn((16, n), generator=gen, device=dev) * 0.01,
+        codes=torch.randint(-4, 4, (m, n), generator=gen, device=dev,
+                            dtype=torch.int8),
+        gscale=torch.ones(16, device=dev), b=p.b))
+torch.cuda.empty_cache()
+run = cs.phase_main_path(dev, cfg, model)
+print("STEP " + json.dumps(dict(step_ms=run["step_ms"], tok_s=run["tok_s"],
+      busy_ms=run["profile"]["device_ms"])))
 """
 
 
@@ -4720,12 +5048,13 @@ def compare_kernels(parent: str) -> int:
     serving occupancy), its K3, K4 and K5 cases and K7's, from the tree at
     ``parent`` and from this one, in the order parent, change, change,
     parent, each turn in a process of its own (each tree builds its
-    kernels into its own ``build/``). Prints one line per case, with the
-    library yardstick's fastest and slowest turn, and writes
-    ``build/compare_kernels.json``."""
+    kernels into its own ``build/``), each turn ending with phase 4's
+    serving (its decode step ms, tok/s and device busy ms). Prints one
+    line per case, with the library yardstick's fastest and slowest turn,
+    and writes ``build/compare_kernels.json``."""
     turns = [("parent", os.path.abspath(parent)), ("change", ROOT),
              ("change", ROOT), ("parent", os.path.abspath(parent))]
-    runs = []
+    runs, steps = [], []
     for who, root in turns:
         script = _COMPARE_ROWS.replace(
             "K7_SHAPES", repr(K7_SHAPES + MLA_K7 + XLSTM_K7)).replace(
@@ -4733,13 +5062,16 @@ def compare_kernels(parent: str) -> int:
         proc = subprocess.run([sys.executable, "-c", script, root],
                               capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines()
-                 if ln.startswith("ROWS ")]
-        if proc.returncode or not lines:
+                 if ln.startswith(("ROWS ", "STEP "))]
+        if proc.returncode or len(lines) < 2:
             print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
             return 1
         runs.append((who, {(r["name"], r["shape"]): r
-                           for r in json.loads(lines[-1][5:])}))
-        log("compare", f"{who} turn done ({root})")
+                           for r in json.loads(lines[0][5:])}))
+        steps.append(dict(turn=who, **json.loads(lines[1][5:])))
+        log("compare", f"{who} turn done ({root}): phase 4's decode step "
+            f"{steps[-1]['step_ms']:.2f} ms, {steps[-1]['tok_s']:.1f} tok/s, "
+            f"device busy {steps[-1]['busy_ms']:.3f} ms a profiled step")
     for key, row in runs[1][1].items():
         ms = [run.get(key, {}).get("ms") for _, run in runs]
         parent_ms = [m for m in (ms[0], ms[3]) if m is not None]
@@ -4760,8 +5092,8 @@ def compare_kernels(parent: str) -> int:
             f"{verdict}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "compare_kernels.json"), "w") as fh:
-        json.dump([{"turn": who, "rows": list(run.values())}
-                   for who, run in runs], fh, indent=1)
+        json.dump([{"turn": who, "rows": list(run.values()), "step": step}
+                   for (who, run), step in zip(runs, steps)], fh, indent=1)
     bad = [k for _, run in runs[1:3] for k, r in run.items()
            if not r["max_abs_err"] <= r["tol"]]
     return 1 if bad else 0
@@ -4793,6 +5125,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--compare":
         return compare_kernels(sys.argv[2])
 
+    # (a) of phase "lowering" needs no card: it runs beside the build
+    dryrun = start_dryrun()
+    atexit.register(lambda: dryrun.poll() is None and dryrun.kill())
     t0 = time.perf_counter()
     took = _build.build()
     log("build", f"nvcc sm_90a, {len(took)} sources in parallel: "
@@ -4820,6 +5155,9 @@ def main() -> int:
     t0 = time.perf_counter()
     frontend_run = phase_frontend(dev, cfg, model, main_run, paged_run)
     log("frontend", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lowering_run = phase_lowering(dev, cfg, model, smi, dryrun)
+    log("lowering", f"phase took {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
     main_run["srr_profile"] = profile_srr(dev, cfg, "main", t_quant, reports,
@@ -4865,6 +5203,7 @@ def main() -> int:
         json.dump({"device": name, "nvidia_smi": smi, "cases": rows,
                    "main_path": main_run, "paged_path": paged_run,
                    "surface": surface_run, "frontend": frontend_run,
+                   "lowering": lowering_run,
                    "ptq": ptq_run,
                    "moe_path": moe_run, "dense": dense_run,
                    "depth": depth_run,

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
 The ten architectures of the JAX package's ``repro.configs``, each a
-field-for-field copy.
+field-for-field copy, and its dry-run shapes (``SHAPES``).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      shape_applicable)
 from repro_torch.configs.chatglm3_6b import CONFIG as _chatglm3
 from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek_moe
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek_v2
@@ -27,4 +28,5 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config"]
+__all__ = ["ARCHS", "ModelConfig", "get_config", "SHAPES", "ShapeConfig",
+           "shape_applicable"]

@@ -192,3 +192,29 @@ class ModelConfig:
             d_frontend=64 if self.d_frontend else 0,
             n_vision_tokens=4 if self.n_vision_tokens else 0,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One dry-run cell: what to run and at which sizes (the JAX
+    package's ``repro.configs.base.ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runnable?, reason-if-skipped) for an (arch, shape) cell."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch: 500k context needs sub-quadratic mixing"
+    return True, ""

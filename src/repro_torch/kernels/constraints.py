@@ -12,6 +12,7 @@ any even page size runs.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 # MXINT shared-exponent block: one scale per 32 codes along K. The
 # quantizer and the matmul kernels' scale indexing both assume it.
@@ -178,6 +179,13 @@ def check_decode_head_dim(hd: int) -> None:
         raise ValueError(
             f"head_dim={hd} unsupported: K3 takes at most "
             f"{DECODE_MAX_HEAD_DIM} and a multiple of {ATTN_HEAD_DIM_ALIGN}")
+
+
+def runs_plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` runs its plain version: a CPU tensor,
+    and a meta or fake tensor (an abstract count, ``launch.cost``), which
+    computes nothing there. A CUDA tensor goes to the kernel."""
+    return t.device.type != "cuda" or isinstance(t, FakeTensor)
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

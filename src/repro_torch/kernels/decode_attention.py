@@ -64,7 +64,7 @@ from repro_torch.kernels.constraints import (ATTN_HEAD_DIM_ALIGN,
                                              KV_PTR_ALIGN,
                                              PACKED4_ALIGN, check_head_dim,
                                              check_decode_head_dim,
-                                             refuse_grad,
+                                             refuse_grad, runs_plain,
                                              validate_page_size)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
@@ -400,13 +400,13 @@ def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     requires grad (``constraints.refuse_grad``)."""
     refuse_grad("K3/K5 (decode_attention_op)", q, k, v, k_scale, v_scale)
     if block_table is not None:
-        if q.device.type == "cpu":
+        if runs_plain(q):
             return decode_attention_paged_plain(q, k, v, q_pos, k_pos,
                                                 block_table, k_scale, v_scale,
                                                 window, scale)
         return flash_decode_paged(q, k, v, q_pos, k_pos, block_table, k_scale,
                                   v_scale, window, scale)
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return decode_attention_plain(q, k, v, q_pos, k_pos, k_scale,
                                       v_scale, window, scale)
     return flash_decode(q, k, v, q_pos, k_pos, k_scale, v_scale, window,

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.constraints import (ATTN_WIDE_HEAD_DIM, KV_PTR_ALIGN,
-                                             check_head_dim, refuse_grad)
+                                             check_head_dim, refuse_grad,
+                                             runs_plain)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -88,6 +89,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors. Raises for an operand that requires grad
     (``constraints.refuse_grad``)."""
     refuse_grad("K4 (flash_attention)", q, k, v)
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return flash_attention_plain(q, k, v, q_pos, k_pos, causal, window)
     return flash_attention_cuda(q, k, v, q_pos, k_pos, causal, window)

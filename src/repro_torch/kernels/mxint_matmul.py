@@ -44,7 +44,8 @@ from repro_torch.kernels.constraints import (
     QLR_MAX_SPLITS, QLR_PREFILL_TARGET_BLOCKS, QLR_ROUTER_COLS,
     QLR_STACK_TARGET_BLOCKS, QLR_TILE_DECODE, QLR_TILE_PREFILL,
     QLR_TILE_ROUTER, QLR_TILE_STACK_DECODE, QLR_TILE_STACK_PREFILL,
-    QLR_TILE_WIDE, QLR_TILES, QLR_WIDE_MAX_COLS, QLR_X_ALIGN, refuse_grad)
+    QLR_TILE_WIDE, QLR_TILES, QLR_WIDE_MAX_COLS, QLR_X_ALIGN, refuse_grad,
+    runs_plain)
 from repro_torch.quant.mxint import unpack_codes_4bit
 
 # launches of each kernel since the last reset; a plain count per wrapper
@@ -231,7 +232,7 @@ def qlr_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     k = x.shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
-    if x.device.type == "cpu":
+    if runs_plain(x):
         y = qlr_matmul_plain(x2, codes, scale, l, r)
     else:
         x2 = x2.contiguous()
@@ -354,7 +355,7 @@ def qlr_matmul_batched(x: torch.Tensor, codes: torch.Tensor,
     Returns ``x.dtype``. CPU tensors take the plain version; CUDA tensors
     take K6. Raises for an operand that requires grad."""
     refuse_grad("K6 (qlr_matmul_batched)", x, codes, scale, l, r)
-    if x.device.type == "cpu":
+    if runs_plain(x):
         y = qlr_matmul_batched_plain(x, codes, scale, l, r, counts)
     else:
         x = x.contiguous()

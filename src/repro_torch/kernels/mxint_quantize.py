@@ -31,7 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.constraints import (
     MXINT_ALIGN, MXINT_BLOCK, MXINT_BLOCKS_PER_SM, MXINT_MAX_BITS,
     MXINT_MAX_ITEMS, MXINT_MIN_BITS, MXINT_PATH_REGISTERS, MXINT_PATH_SCALAR,
-    MXINT_THREADS, MXINT_VEC)
+    MXINT_THREADS, MXINT_VEC, runs_plain)
 
 # launches since the last reset; a plain count per wrapper, and K7's by
 # the (M, N) it quantized
@@ -158,7 +158,7 @@ def mxint_quantize(w: torch.Tensor, bits: int, block: int = MXINT_BLOCK
     if w.shape[0] % block:
         raise ValueError(f"{w.shape[0]} rows are not a multiple of the "
                          f"block {block}: pad them first")
-    if w.device.type == "cpu":
+    if runs_plain(w):
         return mxint_quantize_plain(w, bits, block)
     if block != MXINT_BLOCK:
         raise ValueError(f"K7 quantizes {MXINT_BLOCK}-row blocks, not {block}")

@@ -53,6 +53,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import work
 from repro_torch.kernels.constraints import validate_page_size
 from repro_torch.kernels.decode_attention import (NEG_INF, decode_attention_op,
                                                   gather_pages)
@@ -232,13 +233,8 @@ def attention_seq(ctx: Ctx, p: Attention, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(ctx, p, x, cfg, positions)
-    window = cfg.window if local else 0
-    if fused_mode(ctx) == "off":
-        out = flash_attention_plain(q, k, v, positions, positions,
-                                    causal=causal, window=window)
-    else:
-        out = flash_attention(q, k, v, positions, positions, causal=causal,
-                              window=window)
+    out = prefill_attention(ctx, q, k, v, positions, positions,
+                            causal=causal, window=cfg.window if local else 0)
     y = linear(ctx, p.wo, out.reshape(b, s, cfg.n_heads * cfg.head_dim_),
                "attn.wo")
     if cache is not None:
@@ -289,19 +285,54 @@ def cross_attention(ctx: Ctx, p: Attention, x: torch.Tensor,
     if head_major:
         q_pos = torch.full((b,), sm - 1, dtype=torch.int32, device=x.device)
         k_pos = k_pos.expand(b, sm)
-        if fused_mode(ctx) == "off":
-            out = decode_attention(q, mem_k.to(x.dtype), mem_v.to(x.dtype),
-                                   q_pos, k_pos)
-        else:
-            out = decode_attention_op(q[:, 0], mem_k, mem_v, q_pos,
-                                      k_pos.contiguous())[:, None]
+        out = work.kernel(lambda: work.decode_attention_work(
+            b, cfg.n_kv_heads, g, hd, sm, kv_itemsize=mem_k.element_size(),
+            q_itemsize=q.element_size()), _cross_decode, ctx, q, mem_k, mem_v,
+            q_pos, k_pos)
     else:
         q_pos = torch.arange(s, dtype=torch.int32, device=x.device)
-        attend = flash_attention_plain if fused_mode(ctx) == "off" \
-            else flash_attention
-        out = attend(q, mem_k, mem_v, q_pos, k_pos, causal=False)
+        out = prefill_attention(ctx, q, mem_k, mem_v, q_pos, k_pos,
+                                causal=False)
     out = out.to(x.dtype).reshape(b, s, cfg.n_heads * hd)
     return linear(ctx, p.wo, out, "xattn.wo")
+
+
+def _cross_decode(ctx: Ctx, q: torch.Tensor, mem_k: torch.Tensor,
+                  mem_v: torch.Tensor, q_pos: torch.Tensor,
+                  k_pos: torch.Tensor) -> torch.Tensor:
+    """K3's function over the cross memory by the route ``ctx.fused``
+    picks."""
+    if fused_mode(ctx) == "off":
+        return decode_attention(q, mem_k.to(q.dtype), mem_v.to(q.dtype),
+                                q_pos, k_pos)
+    return decode_attention_op(q[:, 0], mem_k, mem_v, q_pos,
+                               k_pos.contiguous())[:, None]
+
+
+def prefill_attention(ctx: Ctx, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, q_pos: torch.Tensor,
+                      k_pos: torch.Tensor, *, causal: bool = True,
+                      window: int = 0, start: Optional[int] = None
+                      ) -> torch.Tensor:
+    """K4's function — q (B, Sq, KV, G, hd) over k, v (B, Sk, KV, hd) —
+    by the route ``ctx.fused`` picks (the wrapper, or its plain version
+    for ``fused="off"``), recorded for :mod:`repro_torch.launch.cost`.
+    ``start``: a chunk at positions ``start…`` over [stored context ‖
+    chunk], whose valid keys are the ``start`` stored ones and the chunk
+    (the rest of the context is masked)."""
+    def prefill_work() -> work.Work:
+        b, sq, kvh, g, hd = q.shape
+        sk = k.shape[1]
+        return work.flash_attention_work(
+            sq, kvh * g, kvh, hd, pairs=work.attention_pairs(
+                sq, sk, causal=causal, window=window, start=start or 0),
+            kv_rows=sk if start is None else start + sq, positions=sq + sk,
+            itemsize=q.element_size(), b=b)
+
+    attend = flash_attention_plain if fused_mode(ctx) == "off" \
+        else flash_attention
+    return work.kernel(prefill_work, attend, q, k, v, q_pos, k_pos,
+                       causal=causal, window=window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -455,21 +486,39 @@ def attention_step(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
         block_table = None
     cache["pos"] = pos + 1
 
-    if fused_mode(ctx) == "off":
+    def step_work() -> work.Work:
+        g = cfg.n_heads // cfg.n_kv_heads
+        kw = dict(kv_itemsize=0.5 if packed4 else cache["k"].element_size(),
+                  scaled="k_scale" in cache, q_itemsize=q.element_size())
         if paged:
-            flat = {key: gather_pages(cache[key], bt)
-                    for key in ("k", "v", "k_scale", "v_scale") if key in cache}
-            kd, vd = _cache_kv(flat, x.dtype)
-        else:
-            kd, vd = _cache_kv(cache, x.dtype)
-        out = decode_attention(q, kd, vd, pos, spos, window)
-    else:
-        out = decode_attention_op(
-            q[:, 0], cache["k"], cache["v"], pos, spos.contiguous(),
-            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-            window=window, block_table=block_table)[:, None].to(x.dtype)
+            return work.paged_decode_work(b, cfg.n_kv_heads, g, hd,
+                                          spos.shape[1], bt.numel(), **kw)
+        return work.decode_attention_work(b, cfg.n_kv_heads, g, hd,
+                                          spos.shape[1], **kw)
+
+    out = work.kernel(step_work, _step_attention, ctx, q, cache, pos, spos,
+                      window, block_table)
     y = linear(ctx, p.wo, out.reshape(b, 1, cfg.n_heads * hd))
     return y, cache
+
+
+def _step_attention(ctx: Ctx, q: torch.Tensor, cache: Dict, pos: torch.Tensor,
+                    spos: torch.Tensor, window: int,
+                    block_table: Optional[torch.Tensor]) -> torch.Tensor:
+    """K3's (K5's, through ``block_table``) function for a decode step by
+    the route ``ctx.fused`` picks: (B, 1, KV, G, hd) in q's dtype."""
+    if fused_mode(ctx) == "off":
+        if block_table is not None:
+            flat = {key: gather_pages(cache[key], block_table)
+                    for key in ("k", "v", "k_scale", "v_scale") if key in cache}
+            kd, vd = _cache_kv(flat, q.dtype)
+        else:
+            kd, vd = _cache_kv(cache, q.dtype)
+        return decode_attention(q, kd, vd, pos, spos, window)
+    return decode_attention_op(
+        q[:, 0], cache["k"], cache["v"], pos, spos.contiguous(),
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+        window=window, block_table=block_table)[:, None].to(q.dtype)
 
 
 def _chunk_nibble_rmw(plane: torch.Tensor, row: int,
@@ -595,10 +644,7 @@ def attention_chunk(ctx: Ctx, p: Attention, x: torch.Tensor, cache: Dict,
         cache["pos"][row] = start + length
 
     # ---- attention: [stored context ‖ chunk], causal -----------------
-    if fused_mode(ctx) == "off":
-        out = flash_attention_plain(q, kk, vv, positions, k_pos)
-    else:
-        out = flash_attention(q, kk, vv, positions, k_pos)
+    out = prefill_attention(ctx, q, kk, vv, positions, k_pos, start=start)
     y = linear(ctx, p.wo, out.reshape(1, c, cfg.n_heads * hd))
     return y, cache
 
@@ -728,6 +774,27 @@ def _latent_write_index(cache: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         torch.int64)
 
 
+def _latent_attention(ctx: Ctx, q_lat: torch.Tensor, q_pe: torch.Tensor,
+                      lat: torch.Tensor, pos: torch.Tensor, r: int,
+                      scale: float) -> torch.Tensor:
+    """K3's latent function (B, 1, H, r) by the route ``ctx.fused``
+    picks: one K3 call (the wrapper), or JAX's two-einsum form."""
+    b, smax = lat.shape[:2]
+    if fused_mode(ctx) == "kernel":
+        q_cat = torch.cat([q_lat, q_pe.float()], dim=-1)     # (B, 1, H, r+pe)
+        k_pos = torch.arange(smax, dtype=torch.int32,
+                             device=lat.device).expand(b, smax)
+        return decode_attention_op(q_cat, lat[:, None], lat[:, None, :, :r],
+                                   pos, k_pos, scale=scale, latent=True)
+    ckv, kpe = lat[..., :r].float(), lat[..., r:].float()
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+              + torch.einsum("bqhp,bsp->bhqs", q_pe.float(), kpe))
+    scores = scores * scale
+    mask = torch.arange(smax, device=lat.device)[None, :] <= pos[:, None]
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    return torch.einsum("bhqs,bsr->bqhr", torch.softmax(scores, dim=-1), ckv)
+
+
 def mla_step(ctx: Ctx, p: MLA, x: torch.Tensor, cache: Dict,
              cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One absorbed MLA decode step, x (B, 1, D): scores and values in the
@@ -761,23 +828,9 @@ def mla_step(ctx: Ctx, p: MLA, x: torch.Tensor, cache: Dict,
     w_uk, w_uv = absorbed if absorbed is not None else absorb_mla_weights(p)
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(),
                          w_uk.float().reshape(r, h, hd))     # (B, 1, H, r)
-    scale = 1.0 / ((hd + pe) ** 0.5)
-    if fused_mode(ctx) == "kernel":
-        q_cat = torch.cat([q_lat, q_pe.float()], dim=-1)     # (B, 1, H, r+pe)
-        k_pos = torch.arange(smax, dtype=torch.int32,
-                             device=x.device).expand(b, smax)
-        out_lat = decode_attention_op(q_cat, lat[:, None],
-                                      lat[:, None, :, :r], pos, k_pos,
-                                      scale=scale, latent=True)  # (B,1,H,r)
-    else:
-        ckv, kpe = lat[..., :r].float(), lat[..., r:].float()
-        scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
-                  + torch.einsum("bqhp,bsp->bhqs", q_pe.float(), kpe))
-        scores = scores * scale
-        mask = torch.arange(smax, device=x.device)[None, :] <= pos[:, None]
-        scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
-        out_lat = torch.einsum("bhqs,bsr->bqhr",
-                               torch.softmax(scores, dim=-1), ckv)
+    out_lat = work.kernel(lambda: work.latent_decode_work(
+        b, h, smax, r, pe, lat_itemsize=lat.element_size()), _latent_attention,
+        ctx, q_lat, q_pe, lat, pos, r, 1.0 / ((hd + pe) ** 0.5))
     out = torch.einsum("bqhr,rhd->bqhd", out_lat.float(),
                        w_uv.float().reshape(r, h, hd))
     y = linear(ctx, p.wo, out.reshape(b, 1, h * hd).to(x.dtype), "attn.wo")

@@ -27,7 +27,8 @@ through :func:`repro_torch.kernels.mxint_matmul.qlr_matmul`, which
 launches K1/K2 on a CUDA tensor and runs their plain version on a CPU
 tensor (an int8 expert stack: :func:`~repro_torch.kernels.mxint_matmul.
 qlr_matmul_batched`, K6); ``"off"`` keeps the dequantize-then-matmul
-baseline.
+baseline. Either way the call is one K1/K2 (K6) function to
+:func:`repro_torch.launch.cost.count`, recorded around both routes.
 
 ``Ctx.draft`` is self-speculative decoding's Q-only draft: :func:`linear`
 slices a ``QLinear``'s ``l``/``r`` to rank 0, so the draft runs the same
@@ -46,6 +47,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.api import CalibStats
+from repro_torch.kernels import work
 from repro_torch.kernels.mxint_matmul import (dequant_blockwise, qlr_matmul,
                                               qlr_matmul_batched)
 from repro_torch.quant.mxint import unpack_codes_4bit
@@ -187,15 +189,32 @@ def linear(ctx: Ctx, p: nn.Module, x: torch.Tensor,
         y = x.to(dt) @ p.w.to(dt)
     else:
         l, r = (p.l[:, :0], p.r[:0]) if ctx.draft else (p.l, p.r)
-        if fused_mode(ctx) != "off":
-            y = _fused_qlr(p, x.to(dt), l, r)
-        else:
-            y = x.to(dt) @ dequant_weight(p, dt)
-            if l.shape[1] > 0:
-                y = y + (x.to(dt) @ l.to(dt)) @ r.to(dt)
+        y = work.kernel(lambda: _qlr_work(p, x, r.shape[0], dt), _qlr, ctx,
+                        p, x, l, r)
     if p.b is not None:
         y = y + p.b.to(dt)
     return y
+
+
+def _qlr(ctx: Ctx, p: QLinear, x: torch.Tensor, l: torch.Tensor,
+         r: torch.Tensor) -> torch.Tensor:
+    """K1/K2's function by the route ``ctx.fused`` picks: the kernel
+    wrapper, or dequantize-then-matmul."""
+    dt = ctx.compute_dtype
+    if fused_mode(ctx) != "off":
+        return _fused_qlr(p, x.to(dt), l, r)
+    y = x.to(dt) @ dequant_weight(p, dt)
+    if l.shape[1] > 0:
+        y = y + (x.to(dt) @ l.to(dt)) @ r.to(dt)
+    return y
+
+
+def _qlr_work(p: QLinear, x: torch.Tensor, rank: int, dt) -> work.Work:
+    """K1/K2's work for ``x`` through ``p`` (the MXINT-padded rows)."""
+    packed = p.packed is not None
+    rows = p.packed.shape[-2] * 2 if packed else p.codes.shape[-2]
+    return work.qlr_work(x.numel() // x.shape[-1], rows, p.scale.shape[-1],
+                         rank, x_itemsize=dt.itemsize, packed=packed)
 
 
 def _fused_qlr_stack(p: QLinear, x: torch.Tensor,
@@ -225,12 +244,28 @@ def linear_stack(ctx: Ctx, p: nn.Module, x: torch.Tensor,
     xd = x.to(dt)
     if isinstance(p, FpLinear):
         y = torch.bmm(xd, p.w.to(dt))
-    elif fused_mode(ctx) != "off" and p.codes is not None:
-        y = _fused_qlr_stack(p, xd, counts)
+    elif p.codes is not None:
+        y = work.kernel(lambda: work.qlr_batched_work(
+            *xd.shape[:2], p.codes.shape[-2], p.codes.shape[-1],
+            p.r.shape[-2], x_itemsize=dt.itemsize,
+            counts=counts is not None), _int8_stack, ctx, p, xd, counts)
     else:
-        y = torch.bmm(xd, dequant_weight(p, dt))
-        if p.l.shape[-1] > 0:
-            y = y + torch.bmm(torch.bmm(xd, p.l.to(dt)), p.r.to(dt))
+        y = _dequant_stack(p, xd, dt)
     if p.b is not None:
         y = y + p.b.to(dt)[:, None, :]
+    return y
+
+
+def _int8_stack(ctx: Ctx, p: QLinear, xd: torch.Tensor,
+                counts: Optional[torch.Tensor]) -> torch.Tensor:
+    """K6's function by the route ``ctx.fused`` picks."""
+    if fused_mode(ctx) != "off":
+        return _fused_qlr_stack(p, xd, counts)
+    return _dequant_stack(p, xd, ctx.compute_dtype)
+
+
+def _dequant_stack(p: QLinear, xd: torch.Tensor, dt) -> torch.Tensor:
+    y = torch.bmm(xd, dequant_weight(p, dt))
+    if p.l.shape[-1] > 0:
+        y = y + torch.bmm(torch.bmm(xd, p.l.to(dt)), p.r.to(dt))
     return y

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
+from repro_torch.kernels import work
 from repro_torch.kernels.mxint_quantize import mxint_quantize
 
 
@@ -61,7 +62,9 @@ class MXIntQuantizer:
         b = self.block_size
         with record_function("mxint.quantize"):
             wp = torch.nn.functional.pad(w.float(), (0, 0, 0, (-m) % b))
-            codes, exps = mxint_quantize(wp.contiguous(), self.bits, b)
+            codes, exps = work.kernel(
+                lambda: work.mxint_quantize_work(*wp.shape), mxint_quantize,
+                wp.contiguous(), self.bits, b)
         return MXIntPacked(codes=codes, exponents=exps, block_size=b,
                            bits=self.bits, orig_rows=m)
 

@@ -18,6 +18,11 @@ gradient and stays bit for bit as it was.
 
 The decay mask is JAX's leaf for leaf: a scanned layer's leaves count
 the stacked axis (``models.transformer.reference_lead``).
+
+Cross-pod int8 error-feedback gradient compression is
+:func:`make_compressed_sync`: each process holds its pod's mean gradient,
+synced across pods with an int8 all-reduce over the mesh's ``pod`` group
+(``optim.compress``).
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from repro_torch.models.quantize import merge_qpeft, qpeft_grad_scales
 from repro_torch.models.transformer import LM, lm_loss, reference_lead
 from repro_torch.optim import (AdamState, AdamW, apply_updates,
                                clip_by_global_norm, decay_mask,
-                               scale_lr_grads_by_key)
+                               ef_compressed_psum, scale_lr_grads_by_key)
 from repro_torch.optim.tree import tree_leaves, tree_map
 
 
@@ -72,18 +77,17 @@ def init_qpeft_state(trainable: Any, frozen: LM, opt: AdamW) -> QPEFTState:
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
+    """``compress_pods`` and ``mesh`` are accepted as JAX's are, and
+    change no number: JAX's step bodies read ``compress_pods`` nowhere
+    (the compressed sync is :func:`make_compressed_sync`, called apart),
+    and read ``mesh`` only for GSPMD's activation-sharding hints, which
+    have no counterpart without a partitioner."""
     remat: str = "none"                  # none | full
     grad_clip: float = 1.0
     compute_dtype: Any = torch.bfloat16
     microbatch: int = 0                  # 0 = no microbatching
-    compress_pods: bool = False          # cross-pod int8 EF all-reduce
-    mesh: Any = None                     # activation sharding hints
-
-    def __post_init__(self):
-        if self.compress_pods or self.mesh is not None:
-            raise NotImplementedError(
-                "compress_pods and mesh need the sharding rules, which the "
-                "port does not have yet (ROADMAP M11)")
+    compress_pods: bool = False          # int8 EF all-reduce on the 'pod' axis
+    mesh: Any = None                     # the run's DeviceMesh
 
 
 @contextlib.contextmanager
@@ -192,3 +196,19 @@ def make_qpeft_step(cfg: ModelConfig, opt: AdamW,
             metrics
 
     return step
+
+
+# ==========================================================================
+# Cross-pod compressed gradient sync (opt-in, over the mesh's 'pod' group)
+# ==========================================================================
+def make_compressed_sync(mesh) -> Callable:
+    """Returns ``sync(grads, ef) -> (synced, ef')``: the int8 EF mean over
+    ``mesh``'s ``"pod"`` dim group, each process holding its pod's
+    gradients as plain tensors (JAX's ``shard_map`` over ``specs`` has no
+    counterpart: the gradients are already each process's own)."""
+    group = mesh.get_group("pod")
+
+    def sync(grads, ef):
+        return ef_compressed_psum(grads, ef, group)
+
+    return sync

@@ -85,6 +85,7 @@ from repro_torch.kernels.decode_attention import decode_attention_op
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mxint_matmul import qlr_matmul, qlr_matmul_batched
 from repro_torch.launch import train as port_train
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import Ctx, forward, init_lm, linear, lm_loss
 from repro_torch.models.linear import QLinear
 from repro_torch.models.quantize import (merge_qpeft, qlinears,
@@ -706,10 +707,35 @@ def test_qpeft_microbatch_matches_plain_and_jax(phi3, jax_qparams, jopt, opt,
         _grads_of(lm, tr, b, 3)
 
 
-@pytest.mark.parametrize("kw", [dict(compress_pods=True), dict(mesh=object())])
-def test_step_config_refuses_what_needs_the_sharding_rules(kw):
-    with pytest.raises(NotImplementedError, match="M11"):
-        StepConfig(**kw)
+@pytest.mark.parametrize("kw", ["compress_pods", "mesh"])
+def test_step_config_refuses_what_needs_the_sharding_rules(kw, opt):
+    """Once refused (they waited for the sharding rules), ``compress_pods``
+    and ``mesh`` are now accepted as JAX's ``StepConfig`` takes them, and
+    change no number: a full step with ``StepConfig(compress_pods=True)``
+    or ``StepConfig(mesh=make_host_mesh())`` (a world of one, gloo) gives
+    the defaults' loss, grad norm and parameters bit for bit."""
+    cfg = get_config(ARCH).reduced()
+    b = batches_of(cfg, 1)[0]
+    out = {}
+    for case in ("default", kw):
+        extra = {}
+        if case == "compress_pods":
+            extra["compress_pods"] = True
+        elif case == "mesh":
+            extra["mesh"] = make_host_mesh(device_type="cpu")
+        try:
+            sc = StepConfig(compute_dtype=torch.float32, **extra)
+            state = init_train_state(init_lm(cfg, 0, device="cpu"), opt)
+            state, m = make_train_step(cfg, opt, sc)(state, b)
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+        out[case] = (m, trainable_params(state.params))
+    (m0, p0), (m1, p1) = out["default"], out[kw]
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    for name, p in p0.items():
+        assert torch.equal(p, p1[name]), name
 
 
 @pytest.mark.parametrize("arch", [ARCH, "recurrentgemma-9b"])
