@@ -28,5 +28,9 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "SHAPES", "ShapeConfig",
-           "shape_applicable"]
+def list_archs() -> list[str]:
+    return sorted(ARCHS)
+
+
+__all__ = ["ARCHS", "ModelConfig", "get_config", "list_archs", "SHAPES",
+           "ShapeConfig", "shape_applicable"]

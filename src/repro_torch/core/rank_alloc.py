@@ -9,7 +9,7 @@ even with a truncated spectrum.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +34,16 @@ def rho_prefix(top_sv: torch.Tensor, frob_sq: torch.Tensor,
     return torch.clamp(1.0 - energy / torch.clamp(frob_sq, min=1e-30), 0.0, 1.0)
 
 
+def sample_probe(gen: Optional[torch.Generator], shape: Tuple[int, int],
+                 device=None) -> torch.Tensor:
+    """E_ij ~ U[−1, 1) in f32 on ``device`` — Algorithm 1 line 1. It is
+    drawn where ``gen`` lives and moved, so a CPU generator gives the
+    card the CPU's probe."""
+    where = gen.device if gen is not None else device
+    return (torch.rand(shape, generator=gen, device=where) * 2.0
+            - 1.0).to(device)
+
+
 def select_rank(w: torch.Tensor, r: int, gen: Optional[torch.Generator],
                 exact: bool = False, n_iter: int = 4, *,
                 scaling: Scaling = IDENTITY) -> RankSelection:
@@ -41,7 +51,7 @@ def select_rank(w: torch.Tensor, r: int, gen: Optional[torch.Generator],
     ``exact``, the randomized top-r sketches (App. A.4) draw from
     ``gen``."""
     w = w.float()
-    probe = torch.rand(w.shape, generator=gen, device=w.device) * 2.0 - 1.0
+    probe = sample_probe(gen, w.shape, w.device)
     sw, se = scaling.apply(w), scaling.apply(probe)
     if exact:
         sv_w, sv_e = singular_values(sw), singular_values(se)
@@ -53,3 +63,20 @@ def select_rank(w: torch.Tensor, r: int, gen: Optional[torch.Generator],
     objective = rho_w * rho_e.flip(0)
     return RankSelection(int(torch.argmin(objective)), objective, rho_w,
                          rho_e)
+
+
+def true_reconstruction_error(w: torch.Tensor, quantizer, r: int, k: int, *,
+                              scaling: Scaling = IDENTITY) -> torch.Tensor:
+    """Brute-force L(k) = ‖SE_k − SVD_{r−k}(SE_k)‖_F (Eq. 3, the oracle):
+    preserve the exact top-k of SW, quantize the residual, and take the
+    energy of SE_k's spectrum past its top r − k. One full SVD and one
+    quantization per k, the cost the surrogate avoids (Fig. 2)."""
+    w = w.float()
+    if k > 0:
+        u, s, vt = torch.linalg.svd(scaling.apply(w), full_matrices=False)
+        preserved = scaling.apply_inv((u[:, :k] * s[:k]) @ vt[:k])
+    else:
+        preserved = torch.zeros_like(w)
+    e_k = w - preserved - quantizer.fake_quant(w - preserved)
+    sv = singular_values(scaling.apply(e_k))
+    return torch.sqrt((sv[r - k:] ** 2).sum())

@@ -74,6 +74,11 @@ def qera_approx_scaling(x: torch.Tensor, eps: float = 1e-6) -> Scaling:
 # s and raised CUSOLVER_STATUS_INVALID_VALUE at 27,392 (qwen1.5-32b's
 # d_ff), in f32 and f64 alike.
 EIGH_MAX_WIDTH = 24_576
+# PyTorch's CUDA eigh hands an f32 matrix 32 to 512 wide to cuSOLVER's
+# Jacobi solver (syevj), whose S came out ~3e-4 off the CPU's at 512
+# wide (phase "examples" of chip_smoke.py); such widths decompose in f64,
+# which takes syevd
+SYEVJ_MAX_WIDTH = 512
 # columns past the rank bound in the range route's sketch
 RANGE_OVERSAMPLE = 16
 
@@ -96,11 +101,12 @@ def autocorr_scaling_from_moments(r: torch.Tensor, eps: float = 1e-4,
                 f"card's eigh takes at most {EIGH_MAX_WIDTH}, and the range "
                 f"route needs fewer samples than that ({rows})")
         return range_autocorr_scaling(r, rows, eps)
-    evals, evecs = torch.linalg.eigh(r.float())
+    narrow = r.is_cuda and r.shape[0] <= SYEVJ_MAX_WIDTH
+    evals, evecs = torch.linalg.eigh(r.double() if narrow else r.float())
     floor = eps * evals[-1].clamp_min(1e-12)
     half = torch.maximum(evals, floor).sqrt()
-    return Scaling(dense=(evecs * half) @ evecs.T,
-                   dense_inv=(evecs / half) @ evecs.T)
+    return Scaling(dense=((evecs * half) @ evecs.T).float(),
+                   dense_inv=((evecs / half) @ evecs.T).float())
 
 
 def range_autocorr_scaling(r: torch.Tensor, rows: int,
